@@ -1,0 +1,57 @@
+"""Carry wide-field PSF parameters and configuration between the packages.
+
+The JAX package's ``WideFieldParams`` and ``WideFieldConfig`` cross over as
+NumPy arrays and plain fields, so both packages compute from the same state
+without this module importing jax: anything with ``defocus``/``phase``/
+``modulus`` attributes that ``np.asarray`` accepts (a JAX params tuple, a
+dict wrapped in a namespace, the port's own params) converts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldParams
+
+__all__ = ["config_fields", "config_from_fields", "params_to_numpy", "params_to_torch"]
+
+_CONFIG_FIELDS = ("shape", "na", "wavelength", "ni", "dxy", "dz", "n_phase", "n_modulus", "radial")
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
+
+
+def params_to_torch(params, device=None, dtype: torch.dtype = torch.float64) -> WideFieldParams:
+    """The port's params from any object with ``defocus``/``phase``/``modulus``."""
+    return WideFieldParams(*(
+        torch.as_tensor(np.array(getattr(params, name)), dtype=dtype, device=device)
+        for name in WideFieldParams._fields
+    ))
+
+
+def params_to_numpy(params) -> dict[str, np.ndarray]:
+    """``{"defocus": ..., "phase": ..., "modulus": ...}`` as NumPy arrays; a
+    JAX ``WideFieldParams(**result)`` takes them back."""
+    def arr(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    return {name: arr(getattr(params, name)) for name in WideFieldParams._fields}
+
+
+def config_from_fields(cfg, dtype: torch.dtype | None = None) -> WideFieldConfig:
+    """The port's config from a config with the JAX ``WideFieldConfig``'s
+    fields; ``dtype`` None maps the source's float dtype."""
+    fields = {name: getattr(cfg, name) for name in _CONFIG_FIELDS}
+    fields["shape"] = tuple(int(s) for s in fields["shape"])
+    if dtype is None:
+        dtype = _TORCH_DTYPES[np.dtype(getattr(cfg, "dtype", np.float32))]
+    return WideFieldConfig(**fields, dtype=dtype)
+
+
+def config_fields(cfg: WideFieldConfig) -> dict:
+    """The port config's fields with a NumPy dtype, e.g. for
+    ``microtipi_tpu.models.widefield.WideFieldConfig(**config_fields(cfg))``."""
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    out["dtype"] = np.float64 if cfg.dtype == torch.float64 else np.float32
+    return out

@@ -1,0 +1,211 @@
+"""Blind deconvolution: alternate object updates and PSF-parameter fits.
+
+Port of the slice's part of ``microtipi_tpu/jobs/blind.py`` (reference:
+``microUtils/BlindDeconvJob.java``, ``blindDeconv`` :97-138):
+
+  for each of ``loops`` rounds:
+    1. synthesize the PSF from the current parameters and run the object
+       update (``:100-108``);
+    2. optionally re-estimate data weights from the current model for the
+       PSF step (``:109-111``);
+    3. unless this is the last round (``:116``), fit each configured family
+       in order with its own budget and ``grtol = 0`` (``:118-133``),
+       skipping zero-budget families (``:126``) — or all of them jointly.
+
+The JAX ``fori_loop`` and unrolled paths become one Python loop. Not ported
+yet (they raise ``NotImplementedError``): the ADMM engine (ROADMAP.md queue
+1 item 10), bead anchors and the calibration prior (item 15).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+from microtipi_tpu_torch.jobs.wiener import wiener
+from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig, fit_psf, fit_psf_joint
+from microtipi_tpu_torch.models.microscope import DEFOCUS, MODULUS, PHASE
+from microtipi_tpu_torch.ops.convolution import WeightedConvolutionCost
+
+__all__ = ["BlindDeconvConfig", "BlindDeconvResult", "blind_deconvolve", "run_blind_loop"]
+
+
+@dataclasses.dataclass(frozen=True)
+class BlindDeconvConfig:
+    """Schedule of the alternating loop, the slice's fields of the JAX
+    config (``jobs/blind.py:49-153``): ``families``/``psf_max_iter`` pair up
+    like the reference's ``parametersFlags``/``maxIter``
+    (``BlindDeconvJob.java:80-88``); ``phase_schedule`` and ``mu_schedule``
+    give per-round active phase modes and TV weights; ``joint_fit`` fits the
+    families in one VMLMB run; ``phase_freeze_head`` freezes the first phase
+    coefficients; ``init`` is the round-1 warm start. The last round never
+    refits (``BlindDeconvJob.java:116``); the JAX ``skip_last_fit`` switch
+    serves checkpointed per-round runs, which come with ROADMAP.md item 19."""
+
+    loops: int = 5
+    families: tuple[int, ...] = (DEFOCUS, PHASE, MODULUS)
+    psf_max_iter: tuple[int, ...] = (20, 20, 20)
+    deconv: DeconvolutionConfig = dataclasses.field(default_factory=DeconvolutionConfig)
+    fit: PsfFitConfig = dataclasses.field(default_factory=PsfFitConfig)
+    phase_schedule: tuple[int, ...] | None = None
+    joint_fit: bool = False
+    phase_freeze_head: int = 0
+    init: str = "data"
+    phase_prior_weight: float = 0.0
+    mu_schedule: tuple[float, ...] | None = None
+    deconv_engine: str = "vmlmb"
+
+    def __post_init__(self):
+        if len(self.families) != len(self.psf_max_iter):
+            raise ValueError("families and psf_max_iter must have the same length")
+        if self.phase_schedule is not None and len(self.phase_schedule) != self.loops:
+            raise ValueError("phase_schedule must have one entry per loop")
+        if self.mu_schedule is not None and len(self.mu_schedule) != self.loops:
+            raise ValueError("mu_schedule must have one entry per loop")
+        if self.joint_fit and self.phase_schedule is not None:
+            raise ValueError("phase_schedule is not supported with joint_fit")
+        if self.init not in ("data", "wiener"):
+            raise ValueError(f"unknown init {self.init!r}")
+        if self.deconv_engine == "admm":
+            raise NotImplementedError(
+                "deconv_engine='admm' is not ported yet (ROADMAP.md queue 1, item 10)")
+        if self.deconv_engine != "vmlmb":
+            raise ValueError(f"unknown deconv_engine {self.deconv_engine!r}")
+        if self.phase_prior_weight > 0:
+            raise NotImplementedError(
+                "phase_prior_weight is not ported yet (ROADMAP.md queue 1, item 15)")
+
+    @classmethod
+    def recommended(cls, pin_z4: bool = False, **overrides) -> "BlindDeconvConfig":
+        """The quality recipe of ``jobs/blind.py:155-177``: joint fit, the
+        wiener warm start, and a TV weight annealed from 64x the base ``mu``
+        by 4x per round; ``pin_z4`` freezes the first phase mode."""
+        base = dict(joint_fit=True, init="wiener", phase_freeze_head=1 if pin_z4 else 0)
+        base.update(overrides)
+        cfg = cls(**base)
+        if cfg.mu_schedule is None and cfg.deconv.mu > 0:
+            sched = tuple(cfg.deconv.mu * max(1.0, 64.0 / 4.0**i) for i in range(cfg.loops))
+            cfg = dataclasses.replace(cfg, mu_schedule=sched)
+        return cfg
+
+
+class BlindDeconvResult(NamedTuple):
+    obj: torch.Tensor  # restored object
+    params: object  # fitted PSF parameters
+    psf: torch.Tensor  # final synthesized PSF (corner-origin)
+    deconv_f: np.ndarray  # per-round final object-step cost, (loops,)
+    fit_f: np.ndarray  # per-round per-family final PSF-step cost, (loops, nfam)
+    deconv_iters: np.ndarray  # per-round object-step VMLMB iterations, (loops,)
+
+
+def run_blind_loop(config, f_dtype, x0, params0, object_step, fit_weights, fit_one, fit_joint):
+    """Driver of the alternating loop (``jobs/blind.py:189-266``): round
+    order, skip-refit on the last round (``BlindDeconvJob.java:116``), the
+    zero-budget family skip (``:126``), per-round schedules and the joint
+    dispatch. The callables are those of the JAX loop:
+    ``object_step(x, params, mu) -> (x, f, iterations, psf)``,
+    ``fit_weights(x, psf)``, ``fit_one(params, x, w, j, phase_active)`` and
+    ``fit_joint(params, x, w, flags)``, each fit returning ``(params, f)``."""
+    nfam = len(config.families)
+    deconv_f = np.full((config.loops,), np.nan, f_dtype)
+    fit_f = np.full((config.loops, nfam), np.nan, f_dtype)
+    deconv_iters = np.zeros((config.loops,), np.int32)
+    x, params = x0, params0
+    for i in range(config.loops):
+        mu = config.mu_schedule[i] if config.mu_schedule else None
+        x, deconv_f[i], deconv_iters[i], psf = object_step(x, params, mu)
+        w_fit = fit_weights(x, psf)
+        if i == config.loops - 1:
+            continue  # fit_f row stays NaN
+        if config.joint_fit:
+            # Zero-budget families are left out of the joint variable; the
+            # shared cost is reported in every participating slot.
+            jfams = tuple(f for f, it in zip(config.families, config.psf_max_iter) if it > 0)
+            params, jf = fit_joint(params, x, w_fit, jfams)
+            for j, it in enumerate(config.psf_max_iter):
+                if it > 0:
+                    fit_f[i, j] = jf
+            continue
+        fit_f[i] = 0.0
+        for j, flag in enumerate(config.families):
+            if config.psf_max_iter[j] <= 0:  # BlindDeconvJob.java:126
+                continue
+            phase_active = config.phase_schedule[i] if (config.phase_schedule and flag == PHASE) else None
+            params, fit_f[i, j] = fit_one(params, x, w_fit, j, phase_active)
+    return x, params, deconv_f, fit_f, deconv_iters
+
+
+def blind_deconvolve(
+    data: torch.Tensor,
+    model,
+    params0=None,
+    x0: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
+    weight_updater: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
+    config: BlindDeconvConfig = BlindDeconvConfig(),
+    bead_data: torch.Tensor | None = None,
+) -> BlindDeconvResult:
+    """Run the alternating blind-deconvolution loop (``jobs/blind.py:269-434``).
+
+    ``model`` is a ``WideFieldModel``; ``weight_updater`` maps
+    (model prediction, data) -> weights for the PSF step of each round.
+    """
+    if bead_data is not None:
+        raise NotImplementedError("bead anchors are not ported yet (ROADMAP.md queue 1, item 15)")
+    if params0 is None:
+        params0 = model.init_params()
+    if x0 is None:
+        if config.init == "wiener":
+            x0 = wiener(data, model.compute_psf(params0))
+        else:
+            x0 = data
+        x0 = torch.clamp_min(x0, 0.0)
+
+    fit_cfg = dataclasses.replace(config.fit, grtol=0.0)  # BlindDeconvJob.java:124
+
+    def object_step(x, params, mu):
+        with torch.no_grad():
+            psf = model.compute_psf(params)
+        dcfg = config.deconv if mu is None else dataclasses.replace(config.deconv, mu=mu)
+        # The object step always sees the user's weights: the reference
+        # disables the pre-deconv weight update (BlindDeconvJob.java:105-107).
+        dres = deconvolve(data, psf, weights=weights, x0=x, config=dcfg)
+        return dres.x, dres.f, dres.iterations, psf
+
+    def fit_weights(x, psf):
+        if weight_updater is None:
+            return weights
+        # Model prediction H*x from the updated object; the weights feed only
+        # this round's PSF step (BlindDeconvJob.java:109-111).
+        full_cost = WeightedConvolutionCost.build(psf, data)
+        return weight_updater(full_cost.model(x), data)
+
+    def fit_one(params, x, w_fit, j, phase_active):
+        flag = config.families[j]
+        fres = fit_psf(
+            model, params, flag, data, x, weights=w_fit,
+            config=dataclasses.replace(fit_cfg, max_iter=config.psf_max_iter[j]),
+            active=phase_active,
+            freeze_head=config.phase_freeze_head if flag == PHASE else 0,
+        )
+        return fres.params, fres.f
+
+    def fit_joint(params, x, w_fit, jfams):
+        fres = fit_psf_joint(
+            model, params, jfams, data, x, weights=w_fit,
+            config=dataclasses.replace(fit_cfg, max_iter=max(config.psf_max_iter)),
+            phase_freeze_head=config.phase_freeze_head,
+        )
+        return fres.params, fres.f
+
+    f_dtype = np.float64 if data.dtype == torch.float64 else np.float32
+    x, params, deconv_f, fit_f, deconv_iters = run_blind_loop(
+        config, f_dtype, x0, params0, object_step, fit_weights, fit_one, fit_joint
+    )
+    with torch.no_grad():
+        psf = model.compute_psf(params)
+    return BlindDeconvResult(x, params, psf, deconv_f, fit_f, deconv_iters)

@@ -1,0 +1,211 @@
+"""Object-update solver: hyperbolic-TV regularised deconvolution.
+
+Port of ``microtipi_tpu/jobs/deconv.py`` (the TiPi ``DeconvolutionJob``
+capability the reference drives at ``microUtils/BlindDeconvJob.java:103-108``):
+minimize over the object x
+
+    f(x) = 0.5 * sum w * ((psf (*) x) - d)^2  +  mu * TV_eps(x),   x >= 0
+
+with VMLMB. The TV term goes through the fused wrapper
+(``ops/kernels/hyperbolic_tv.py``): the CUDA kernel for a CUDA tensor (float32,
+3D; anything else raises), its plain version for a CPU tensor.
+
+Not ported yet (they raise ``NotImplementedError``): the Poisson data term,
+the padded variable grid (``var_shape``) and the ``sparsity``/``hessian``
+priors — ROADMAP.md queue 1 item 12.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from microtipi_tpu_torch.jobs.wiener import wiener
+from microtipi_tpu_torch.ops.convolution import (
+    QuadraticConvCost,
+    UniformConvCost,
+    WeightedConvolutionCost,
+)
+from microtipi_tpu_torch.ops.kernels.hyperbolic_tv import hyperbolic_tv_value
+from microtipi_tpu_torch.optim.treeutil import value_and_grad
+from microtipi_tpu_torch.optim.vmlmb import VMLMBResult, VMLMBStatus, minimize_vmlmb
+from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
+
+__all__ = [
+    "DeconvolutionConfig",
+    "DeconvolutionResult",
+    "deconvolve",
+    "make_objective",
+    "make_regularizer",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeconvolutionConfig:
+    """Knobs of the object step, the slice's fields of the JAX config
+    (``jobs/deconv.py:45-134``): VMLMB memory 5 (``PSF_Estimation.java:188``),
+    ``maxeval = 2*maxiter`` (``:272``), ``mu``/``epsilon`` weigh the
+    hyperbolic TV, ``scales`` are per-axis voxel sizes. The JAX ``fused_tv``
+    switch is gone: the TV wrapper chooses by the tensor's device."""
+
+    mu: float = 0.01
+    epsilon: float = 0.01
+    scales: tuple[float, ...] | None = None
+    sparsity: float = 0.0
+    hessian: float = 0.0
+    positivity: bool = True
+    data_term: str = "gaussian"
+    max_iter: int = 50
+    max_eval: int | None = None
+    gatol: float = 0.0
+    grtol: float = 1e-3
+    mem: int = 5
+    var_shape: tuple[int, ...] | None = None
+
+    def check_ported(self) -> None:
+        """Raise for options whose code is not ported yet."""
+        item12 = "is not ported yet (ROADMAP.md queue 1, item 12: the rest of the 3D object step)"
+        if self.data_term == "poisson":
+            raise NotImplementedError(f"data_term='poisson' {item12}")
+        if self.data_term != "gaussian":
+            raise ValueError(f"unknown data_term {self.data_term!r}")
+        for name in ("sparsity", "hessian"):
+            if getattr(self, name) > 0:
+                raise NotImplementedError(f"the {name} prior {item12}")
+        if self.var_shape is not None:
+            raise NotImplementedError(f"the padded variable grid (var_shape) {item12}")
+
+
+class DeconvolutionResult(NamedTuple):
+    x: torch.Tensor
+    f: np.floating
+    iterations: int
+    evaluations: int
+    status: int
+    f_history: np.ndarray
+    pg_history: np.ndarray
+
+
+def make_regularizer(config: DeconvolutionConfig):
+    """``x -> mu * TV_eps(x)`` (0 if mu == 0) through the fused TV wrapper
+    (``jobs/deconv.py:170-192``); raises for the options not ported yet."""
+    config.check_ported()
+
+    def reg(x):
+        if config.mu <= 0:
+            return x.new_zeros(())
+        return config.mu * hyperbolic_tv_value(x, config.epsilon, config.scales)
+
+    return reg
+
+
+def make_objective(psf, data, weights, config: DeconvolutionConfig, accurate: bool = False):
+    """The ``x -> (f, grad f)`` closure of the object step
+    (``jobs/deconv.py:229-298``): uniform weights take the 2-FFT quadratic
+    form (``accurate=True``: the 3-FFT residual form), weights the weighted
+    cost; the kernel spectrum is computed once per call."""
+    shape = tuple(data.shape)
+    kernel = pad_fft_kernel(psf, shape)
+    if weights is None:
+        cost = (UniformConvCost if accurate else QuadraticConvCost).build(kernel, data)
+    else:
+        cost = WeightedConvolutionCost.build(kernel, data, weights, shape)
+    reg = make_regularizer(config)
+
+    def objective(x):
+        f = cost.cost(x)
+        if config.mu > 0:
+            f = f + reg(x)
+        return f
+
+    return value_and_grad(objective)
+
+
+def _f32_stall_continue(res: VMLMBResult, psf, data, config: DeconvolutionConfig) -> VMLMBResult:
+    """Continue a LINESEARCH_FAIL-terminated float32 quadratic-path solve on
+    the cancellation-free residual objective (``jobs/deconv.py:301-370``).
+
+    The quadratic identity ``0.5<x,Ax> - <x,b> + c`` resolves cost
+    differences only to ``eps*c``, which stalls float32 line searches near
+    the optimum; the remaining iteration and evaluation budget restarts on
+    ``UniformConvCost``, whose resolution is ``eps*f``. The histories are
+    spliced after the stall, clipped at ``max_iter``.
+    """
+    maxiter = int(config.max_iter)
+    maxeval = int(config.max_eval) if config.max_eval is not None else 2 * maxiter
+    need = (
+        res.status == VMLMBStatus.LINESEARCH_FAIL
+        and res.iterations < maxiter
+        and res.evaluations < maxeval
+    )
+    if not need:
+        return res
+    fun2 = make_objective(psf, data, None, config, accurate=True)
+    res_b = minimize_vmlmb(
+        fun2,
+        res.x,
+        lower=0.0 if config.positivity else None,
+        mem=config.mem,
+        maxiter=maxiter,
+        maxiter_cap=maxiter - res.iterations,
+        maxeval=maxeval - res.evaluations,
+        gatol=config.gatol,
+        grtol=config.grtol,
+    )
+    hist_f, hist_pg = res.f_history.copy(), res.pg_history.copy()
+    n = maxiter - res.iterations  # slots left after the stall
+    hist_f[res.iterations + 1:] = res_b.f_history[1:1 + n]
+    hist_pg[res.iterations + 1:] = res_b.pg_history[1:1 + n]
+    return VMLMBResult(
+        x=res_b.x, f=res_b.f, g=res_b.g,
+        iterations=res.iterations + res_b.iterations,
+        evaluations=res.evaluations + res_b.evaluations,
+        status=res_b.status, f_history=hist_f, pg_history=hist_pg,
+    )
+
+
+def deconvolve(
+    data: torch.Tensor,
+    psf: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    x0: torch.Tensor | None = None,
+    config: DeconvolutionConfig = DeconvolutionConfig(),
+    init: str = "data",
+) -> DeconvolutionResult:
+    """Solve the object sub-problem (``jobs/deconv.py:373-426``).
+
+    ``init`` picks the warm start when ``x0`` is None: ``"data"`` or
+    ``"wiener"``. Float32 uniform-Gaussian solves that stall on the quadratic
+    form's value resolution continue on the residual form
+    (:func:`_f32_stall_continue`).
+    """
+    if x0 is None:
+        if init == "wiener":
+            x0 = wiener(data, psf)
+        elif init == "data":
+            x0 = data
+        else:
+            raise ValueError(f"unknown init {init!r}")
+        if config.positivity:
+            x0 = torch.clamp_min(x0, 0.0)
+    fun = make_objective(psf, data, weights, config)
+    res = minimize_vmlmb(
+        fun,
+        x0,
+        lower=0.0 if config.positivity else None,
+        mem=config.mem,
+        maxiter=config.max_iter,
+        maxeval=config.max_eval,
+        gatol=config.gatol,
+        grtol=config.grtol,
+    )
+    if weights is None and data.dtype == torch.float32:
+        # Exactly the gate under which make_objective took the quadratic
+        # form AND its eps*c value floor can stall a float32 search.
+        res = _f32_stall_continue(res, psf, data, config)
+    return DeconvolutionResult(
+        res.x, res.f, res.iterations, res.evaluations, res.status, res.f_history, res.pg_history
+    )

@@ -1,0 +1,170 @@
+"""Wide-field fluorescence microscope PSF model (scalar, monochromatic).
+
+Port of ``microtipi_tpu/models/widefield.py`` (reference:
+``epifluorescence/WideFieldModel.java``): the pupil function
+``A(z) = rho * exp(i (phi + 2*pi*z*dz * psi))`` is built for all z planes at
+once and pushed through one batched 2D FFT (cuFFT on the card); the PSF is
+``|FFT2(A(z))|^2 / (Nx*Ny*Nz)`` (``WideFieldModel.java:60-78,202-203,241-255``).
+Gradients with respect to defocus, phase and modulus come from autograd
+through this synthesis, complex tensors included.
+
+``WideFieldConfig`` holds the static geometry; ``WideFieldModel`` is the
+``nn.Module`` whose Zernike stack, pupil mask and wrapped-z grid are
+registered buffers, so ``.to(device)`` moves them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from microtipi_tpu_torch.ops.pupil import (
+    defocus_psi,
+    geometric_mask,
+    synthesize_modulus,
+    synthesize_phase,
+)
+from microtipi_tpu_torch.ops.zernike import orthonormalize, zernike_basis
+from microtipi_tpu_torch.utils.grids import wrapped_z
+
+__all__ = ["WideFieldParams", "WideFieldConfig", "WideFieldModel"]
+
+
+class WideFieldParams(NamedTuple):
+    """Optimizable PSF parameters, one field per family
+    (``WideFieldModel.java:1516-1531``): ``defocus = (ni/lambda, delta_x,
+    delta_y)``, ``phase`` the Zernike phase coefficients, ``modulus`` the
+    Zernike modulus coefficients."""
+
+    defocus: torch.Tensor
+    phase: torch.Tensor
+    modulus: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class WideFieldConfig:
+    """Static geometry/physics of the wide-field PSF model, with the fields
+    of ``microtipi_tpu.models.widefield.WideFieldConfig``
+    (``WideFieldModel.java:154-188``): ``shape = (Nz, Ny, Nx)`` with
+    ``Nx == Ny``, ``radius = NA/lambda``, ``max(n_phase + offset, n_modulus)``
+    Zernike modes, L2-normalised then Gram-Schmidt orthonormalised."""
+
+    shape: tuple[int, int, int]  # (Nz, Ny, Nx)
+    na: float
+    wavelength: float  # emission wavelength in m
+    ni: float  # refractive index of the immersion medium
+    dxy: float  # lateral pixel size in m
+    dz: float  # axial step in m
+    n_phase: int = 0
+    n_modulus: int = 1
+    radial: bool = False
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        nz, ny, nx = self.shape
+        if nx != ny:
+            raise ValueError("Nx should equal Ny")  # WideFieldModel.java:158-160
+        if self.n_modulus < 1:
+            object.__setattr__(self, "n_modulus", 1)  # WideFieldModel.java:177-179
+
+    @property
+    def radius(self) -> float:
+        """Pupil radius NA/lambda in 1/m (``WideFieldModel.java:165``)."""
+        return self.na / self.wavelength
+
+    @property
+    def phase_offset(self) -> int:
+        return 1 if self.radial else 3
+
+    @property
+    def n_zern(self) -> int:
+        """``max(nPhase + offset, nModulus)`` (``WideFieldModel.java:1902-1906``)."""
+        n = self.n_modulus
+        if self.n_phase > 0:
+            n = max(self.n_phase + self.phase_offset, self.n_modulus)
+        return n
+
+    def static_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(Zernike stack, geometric mask, wrapped z) in NumPy float64
+        (``microtipi_tpu/models/widefield.py:116-135``)."""
+        nz, ny, nx = self.shape
+        radius_px = self.radius * self.dxy * nx  # WideFieldModel.java:195
+        z = zernike_basis(self.n_zern, ny, nx, radius_px, normalize=True, radial=self.radial)
+        return orthonormalize(z), geometric_mask(ny, nx, self.radius, self.dxy), wrapped_z(nz)
+
+
+class WideFieldModel(nn.Module):
+    """The wide-field PSF model on a device: ``compute_psf(params)``.
+
+    The static Zernike stack, pupil mask and wrapped-z grid are computed in
+    float64 and registered as buffers cast to ``config.dtype`` — the JAX
+    package's per-dtype static cache (``widefield.py:116-135``).
+    """
+
+    def __init__(self, config: WideFieldConfig, device: torch.device | str | None = None):
+        super().__init__()
+        self.config = config
+        zern, mask, zw = config.static_numpy()
+        for name, arr in (("zernike", zern), ("geom_mask", mask), ("z_wrapped", zw)):
+            self.register_buffer(name, torch.as_tensor(arr, dtype=config.dtype, device=device))
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return tuple(self.config.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.zernike.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.zernike.device
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return torch.complex128 if self.dtype == torch.float64 else torch.complex64
+
+    def init_params(self) -> WideFieldParams:
+        """In-focus unaberrated pupil: defocus = (ni/lambda, 0, 0)
+        (``WideFieldModel.java:1562-1564``), phase = 0 (``:1908``), modulus =
+        [1, 0, ..., 0] (``:1957-1958``)."""
+        c, kw = self.config, dict(dtype=self.dtype, device=self.device)
+        defocus = torch.tensor([c.ni / c.wavelength, 0.0, 0.0], **kw)
+        phase = torch.zeros((c.n_phase,), **kw)
+        modulus = torch.zeros((c.n_modulus,), **kw)
+        modulus[0] = 1.0
+        return WideFieldParams(defocus, phase, modulus)
+
+    def compute_pupil(self, params: WideFieldParams):
+        """(rho, phi, psi, mask) on the wrapped pupil grid."""
+        nz, ny, nx = self.shape
+        psi, mask = defocus_psi(params.defocus, ny, nx, self.config.dxy, self.geom_mask)
+        rho = synthesize_modulus(params.modulus, self.zernike, mask)
+        phi = synthesize_phase(params.phase, self.zernike, mask, self.config.radial)
+        return rho, phi, psi, mask
+
+    def compute_pupil_field(self, params: WideFieldParams) -> torch.Tensor:
+        """Complex pupil field ``A(z) = rho * exp(i (phi + 2*pi*z_w*dz*psi))``
+        with the negative-frequency z fold (``WideFieldModel.java:232-246``)."""
+        rho, phi, psi, _ = self.compute_pupil(params)
+        defoc_scale = (2.0 * math.pi * self.config.dz) * self.z_wrapped
+        phase = phi[None] + defoc_scale[:, None, None] * psi[None]
+        return rho[None] * torch.exp(1j * phase.to(self.cdtype))
+
+    def compute_psf_and_field(self, params: WideFieldParams):
+        """(psf, FFT2(A)) — the unnormalised batched 2D FFT over the last two
+        axes, then the 1/(Nx*Ny*Nz) norm (``WideFieldModel.java:251-255``)."""
+        nz, ny, nx = self.shape
+        a_hat = torch.fft.fft2(self.compute_pupil_field(params))
+        psf = (a_hat.real ** 2 + a_hat.imag ** 2) * (1.0 / (nx * ny * nz))
+        return psf, a_hat
+
+    def compute_psf(self, params: WideFieldParams) -> torch.Tensor:
+        """3D PSF, corner-origin (FFT layout), shape (Nz, Ny, Nx)
+        (``WideFieldModel.java:202-203,213,251-255``)."""
+        return self.compute_psf_and_field(params)[0]

@@ -1,0 +1,180 @@
+"""FFT-domain convolution data terms.
+
+Port of ``microtipi_tpu/ops/convolution.py`` (TiPi's
+``WeightedConvolutionCost`` as the reference uses it,
+``microscopy/PSF_Estimation.java:147-157,206``):
+
+    f(x) = 0.5 * alpha * sum_i  w_i * ((K (*) x)_i - d_i)^2
+
+with circular convolution by a corner-origin kernel ``K`` computed with real
+FFTs (``torch.fft``: cuFFT on the card, pocketfft on the CPU). The same
+object serves both sub-problems: in the object step the variable is the
+object and the kernel the PSF; in the PSF fit the variable is the PSF and the
+kernel the object (``PSF_Estimation.java:148,157``).
+
+The two uniform-weight fast paths are ``torch.autograd.Function``s — the
+counterparts of the JAX package's ``custom_vjp``s — whose forward yields the
+cost and keeps the exact gradient, and whose backward is ``g * grad`` for the
+first input only. Autograd carries on from that gradient, e.g. through
+``compute_psf`` to the PSF parameters in a fit.
+
+The TPU-only exact matmul-DFT switch (``exact``/``auto_exact_fft``,
+``ops/exactfft.py``) is not ported: cuFFT is float32-exact (measured by
+``chip_smoke.py`` phase 5).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from microtipi_tpu_torch.utils.arrays import crop_to_shape
+
+__all__ = [
+    "QuadraticConvCost",
+    "UniformConvCost",
+    "WeightedConvolutionCost",
+    "convolve",
+    "convolve_spectrum",
+]
+
+
+def convolve_spectrum(kernel: torch.Tensor) -> torch.Tensor:
+    """The rfftn spectrum of a corner-origin kernel."""
+    return torch.fft.rfftn(kernel)
+
+
+def convolve(x: torch.Tensor, kernel_hat: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """Circular convolution of ``x`` with a precomputed kernel spectrum;
+    ``s=shape`` makes ``irfftn`` round-trip odd last axes."""
+    return torch.fft.irfftn(torch.fft.rfftn(x) * kernel_hat, s=tuple(shape))
+
+
+def _abs2(z: torch.Tensor) -> torch.Tensor:
+    return z.real ** 2 + z.imag ** 2
+
+
+class WeightedConvolutionCost(NamedTuple):
+    """Weighted FFT-convolution data term (``convolution.py:101-170``).
+
+    ``weights`` None means uniform 1 (TiPi ``setWeights(null)``). Zero-weight
+    voxels are excluded whatever their data value: a NaN voxel under weight
+    0 would otherwise poison the cost through ``0 * NaN``. The gradient is
+    plain autograd through the FFTs.
+    """
+
+    kernel_hat: torch.Tensor
+    data: torch.Tensor
+    weights: torch.Tensor | None
+    var_shape: tuple[int, ...]
+
+    @classmethod
+    def build(cls, kernel, data, weights=None, var_shape=None) -> "WeightedConvolutionCost":
+        if var_shape is None:
+            var_shape = tuple(data.shape)
+        if tuple(kernel.shape) != tuple(var_shape):
+            raise ValueError(
+                f"kernel shape {tuple(kernel.shape)} != variable shape {tuple(var_shape)}; "
+                "use utils.arrays.pad_fft_kernel to embed it"
+            )
+        if weights is not None and weights.shape != data.shape:
+            raise ValueError("weights must match the data shape")
+        if weights is not None:
+            data = torch.where(weights > 0, data, torch.zeros_like(data))
+        return cls(convolve_spectrum(kernel), data, weights, tuple(var_shape))
+
+    def model(self, x: torch.Tensor) -> torch.Tensor:
+        """Forward model H x = crop(K (*) x) at the data window."""
+        hx = convolve(x, self.kernel_hat, self.var_shape)
+        if hx.shape != self.data.shape:
+            hx = crop_to_shape(hx, tuple(self.data.shape))
+        return hx
+
+    def cost(self, x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+        """0.5 * alpha * sum w * (H x - d)^2 (``PSF_Estimation.java:157,206``)."""
+        r = self.model(x) - self.data
+        wr2 = r * r if self.weights is None else self.weights * r * r
+        return 0.5 * alpha * torch.sum(wr2)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+class _QuadraticCost(torch.autograd.Function):
+    """0.5<x, A x> - <x, b> + c from one rfftn/irfftn pair; the gradient
+    ``A x - b`` is the forward's by-product (``convolution.py:283-304``)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_sq, b, c, shape):
+        ax = torch.fft.irfftn(kernel_sq * torch.fft.rfftn(x), s=shape)
+        f = 0.5 * _dot(x, ax) - _dot(x, b) + c
+        ctx.save_for_backward(ax - b)
+        return f
+
+    @staticmethod
+    def backward(ctx, g):
+        (grad,) = ctx.saved_tensors
+        return g * grad, None, None, None, None
+
+
+class QuadraticConvCost(NamedTuple):
+    """Uniform-weight data term with the 2-FFT fused cost and gradient
+    (``convolution.py:244-280``); variable grid == data grid only."""
+
+    kernel_sq: torch.Tensor  # |K_hat|^2, rfftn layout
+    b: torch.Tensor  # H^T d
+    c: torch.Tensor  # 0.5 * sum(d^2)
+    shape: tuple[int, ...]
+
+    @classmethod
+    def build(cls, kernel, data) -> "QuadraticConvCost":
+        if kernel.shape != data.shape:
+            raise ValueError("quadratic fast path requires kernel shape == data shape")
+        k_hat = torch.fft.rfftn(kernel)
+        b = torch.fft.irfftn(torch.conj(k_hat) * torch.fft.rfftn(data), s=tuple(data.shape))
+        return cls(_abs2(k_hat), b, 0.5 * torch.sum(data * data), tuple(data.shape))
+
+    def cost(self, x: torch.Tensor) -> torch.Tensor:
+        return _QuadraticCost.apply(x, self.kernel_sq, self.b, self.c, self.shape)
+
+
+class _UniformCost(torch.autograd.Function):
+    """0.5||K(*)x - d||^2 from the residual (no cancellation), gradient
+    ``irfftn(|K|^2 X) - b`` from the same forward spectrum
+    (``convolution.py:344-364``)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_hat, kernel_sq, b, data, shape):
+        x_hat = torch.fft.rfftn(x)
+        r = torch.fft.irfftn(kernel_hat * x_hat, s=shape) - data
+        ctx.save_for_backward(torch.fft.irfftn(kernel_sq * x_hat, s=shape) - b)
+        return 0.5 * torch.sum(r * r)
+
+    @staticmethod
+    def backward(ctx, g):
+        (grad,) = ctx.saved_tensors
+        return g * grad, None, None, None, None, None
+
+
+class UniformConvCost(NamedTuple):
+    """Residual-accurate uniform-weight data term, 3 FFTs per evaluation
+    (``convolution.py:318-341``)."""
+
+    kernel_hat: torch.Tensor
+    kernel_sq: torch.Tensor
+    b: torch.Tensor
+    data: torch.Tensor
+    shape: tuple[int, ...]
+
+    @classmethod
+    def build(cls, kernel, data) -> "UniformConvCost":
+        if kernel.shape != data.shape:
+            raise ValueError("uniform fast path requires kernel shape == data shape")
+        k_hat = torch.fft.rfftn(kernel)
+        b = torch.fft.irfftn(torch.conj(k_hat) * torch.fft.rfftn(data), s=tuple(data.shape))
+        return cls(k_hat, _abs2(k_hat), b, data, tuple(data.shape))
+
+    def cost(self, x: torch.Tensor) -> torch.Tensor:
+        return _UniformCost.apply(x, self.kernel_hat, self.kernel_sq, self.b, self.data, self.shape)

@@ -1,0 +1,74 @@
+"""Linear-algebra helpers over a tensor or a ``dict[str, Tensor]``.
+
+Port of ``microtipi_tpu/optim/treeutil.py``: the optimizer's vocabulary
+(dot, norm, axpy, select) over its variable, which is one tensor for the
+object step and a dict of families for the joint PSF fit. Dict leaves are
+visited in sorted-key order, as ``jax.tree`` does, so sums accumulate in the
+same order as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Union
+
+import torch
+
+Tree = Union[torch.Tensor, dict]
+
+__all__ = ["Tree", "leaves", "tmap", "tdot", "tnorm", "taxpy", "tscale", "tsub", "twhere",
+           "value_and_grad"]
+
+
+def leaves(a: Tree) -> list[torch.Tensor]:
+    return [a[k] for k in sorted(a)] if isinstance(a, dict) else [a]
+
+
+def tmap(fn: Callable, a: Tree, *rest: Tree) -> Tree:
+    """Apply ``fn`` leaf-wise across trees of the same structure."""
+    if isinstance(a, dict):
+        return {k: fn(a[k], *(r[k] for r in rest)) for k in sorted(a)}
+    return fn(a, *rest)
+
+
+def tdot(a: Tree, b: Tree) -> torch.Tensor:
+    """Sum of elementwise products over all leaves, a 0-dim tensor."""
+    parts = [torch.dot(x.reshape(-1), y.reshape(-1)) for x, y in zip(leaves(a), leaves(b))]
+    return sum(parts[1:], parts[0])
+
+
+def tnorm(a: Tree) -> torch.Tensor:
+    return torch.sqrt(tdot(a, a))
+
+
+def taxpy(alpha, x: Tree, y: Tree) -> Tree:
+    """alpha * x + y."""
+    return tmap(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def tscale(alpha, x: Tree) -> Tree:
+    return tmap(lambda xi: alpha * xi, x)
+
+
+def tsub(a: Tree, b: Tree) -> Tree:
+    return tmap(torch.subtract, a, b)
+
+
+def twhere(pred: Tree, a: Tree, b: Tree) -> Tree:
+    """Elementwise select between two same-structure trees."""
+    return tmap(torch.where, pred, a, b)
+
+
+def value_and_grad(objective: Callable[[Tree], torch.Tensor]) -> Callable:
+    """``x -> (f, grad f)`` by autograd, the counterpart of
+    ``jax.value_and_grad``; ``f`` and the gradient come back detached."""
+
+    def fun(x: Tree):
+        with torch.enable_grad():
+            xv = tmap(lambda t: t.detach().requires_grad_(True), x)
+            f = objective(xv)
+            grads = torch.autograd.grad(f, leaves(xv))
+        if isinstance(xv, dict):
+            return f.detach(), dict(zip(sorted(xv), grads))
+        return f.detach(), grads[0]
+
+    return fun

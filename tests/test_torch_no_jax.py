@@ -1,0 +1,29 @@
+"""The PyTorch port and chip_smoke.py import neither jax nor the JAX package."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "microtipi_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_imports_no_jax(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "microtipi_tpu"}
+
+
+def test_scan_covers_the_package():
+    names = {p.name for p in FILES}
+    assert {"hyperbolic_tv.py", "vmlmb.py", "blind.py", "chip_smoke.py"} <= names
