@@ -16,13 +16,24 @@ raises and the script exits non-zero:
 3. the slice at full size on the bench scene of ``bench.py`` (256^3):
    ``deconvolve`` (20 VMLMB iterations) and ``blind_deconvolve`` (5 rounds,
    joint defocus+phase fit), with the kernel's launch count;
-4. card (float32, kernel) against CPU (float64, plain version) parity;
-5. cuFFT float32 precision against float64 NumPy at 256^3.
+4. card (float32, kernel) against CPU (float64, plain version) parity, of
+   ``deconvolve`` and of ``batched_deconvolve`` at 3 lanes;
+5. cuFFT float32 precision against float64 NumPy at 256^3;
+6. the batched hyperbolic-TV kernel against its plain version, each lane
+   against the single-volume kernel, then its time at 4x64x256x256 beside
+   the plain version and 4 single-volume launches;
+7. ``batched_deconvolve`` at full width: 4 bench scenes of 64x256x256, each
+   lane against ``deconvolve`` of that scene, with both launch counts;
+8. ``tiled_deconvolve`` at design scale: a 512x1024x1024 volume in 75 tiles
+   of 256^3 (overlap 24) streamed 4 at a time; and one tile covering a
+   64x256x256 volume against ``deconvolve``.
 
-The line before the last is ``{"kernels": [...]}`` with each kernel's launch
-count in phase 3, error and times; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 and prints
-no result.
+The main paths are phase 3 (the single-volume kernel) and phases 7-8 (the
+batched kernel): each is driven with both launch counts set to 0 just before
+and read just after. The line before the last is ``{"kernels": [...]}`` with
+each kernel's launches on its paths, error, times and bound; the last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 and
+prints no result.
 """
 
 from __future__ import annotations
@@ -39,10 +50,27 @@ import torch
 SHAPE = (256, 256, 256)
 PARITY_SHAPE = (16, 64, 64)
 KERNEL_SHAPES = (SHAPE, (37, 64, 96), (256, 8, 128))
+BATCH_SHAPES = ((4, 64, 256, 256), (3, 37, 64, 96), (2, 256, 8, 128))
+LANE_SHAPE = (64, 256, 256)  # one lane of the batched object step
+VOLUME, TILE, OVERLAP, MAX_BATCH = (512, 1024, 1024), (256, 256, 256), 24, 4  # BASELINE.md:1241-1251
+PSF_SHAPE = (64, 64, 64)
 # The fused-TV tolerances of tests/test_pallas_tv.py:25-26 (float32 kernel
 # against the float32 plain version: sums in another order), and its 256-plane
 # accumulation bound against float64 (:50-57).
 TV_COST_RTOL, TV_GRAD_RTOL, TV_GRAD_ATOL, TV_F64_RTOL = 1e-5, 1e-4, 1e-5, 5e-7
+# The card's peaks (H100 SXM data sheet): HBM bytes/s and float32 (non-tensor)
+# operations/s. The TV per voxel: 3 differences and 3 scalings, 3 squares and
+# 3 adds, a square root and a reciprocal, 6 multiplies for the weights, 5
+# adds for the gradient and 2 for the cost.
+HBM_BYTES_PER_S, F32_OPS_PER_S, TV_OPS_PER_VOXEL = 3.35e12, 67e12, 27
+
+
+def tv_bound(x: torch.Tensor) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for one TV evaluation of ``x``:
+    x read once and the gradient written once, against the operations."""
+    t_bytes = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S
+    t_ops = TV_OPS_PER_VOXEL * x.numel() / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def log(phase: int, msg: str) -> None:
@@ -124,22 +152,25 @@ def phase2_kernel(card: str) -> dict:
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(SHAPE, dtype=np.float32), device=dev)
     ms = _median_ms(lambda: hv.hyperbolic_tv_fused(x, 1.0))
     plain_ms = _median_ms(lambda: hv.hyperbolic_tv_plain(x, 1.0))
+    bound_ms, bound_by = tv_bound(x)
     moved = 2 * x.numel() * x.element_size()
     log(2, f"[{card}] TV at {SHAPE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per evaluation "
            f"(median of 20, CUDA events); kernel {moved / (ms * 1e-3) / 1e9:.1f} GB/s "
-           f"against its floor of {moved / 2**20:.0f} MiB moved")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+           f"against its floor of {moved / 2**20:.0f} MiB moved; bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
-def bench_scene(shape, device, dtype, phase=None):
+def bench_scene(shape, device, dtype, phase=None, seed=0):
     """The bench's widefield model and data (``bench.py:79-92,182-189``):
-    sparse random beads blurred by the PSF, plus 1% Gaussian noise."""
+    sparse random beads blurred by the PSF, plus 1% Gaussian noise; ``seed``
+    draws another scene."""
     from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
     from microtipi_tpu_torch.ops.convolution import convolve, convolve_spectrum
 
     model = WideFieldModel(WideFieldConfig(shape=shape, na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9,
                                            dz=200e-9, n_phase=6, n_modulus=1, dtype=dtype), device=device)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     obj = rng.random(shape, dtype=np.float32) * (rng.random(shape) > 0.999) * 300
     noise = rng.standard_normal(shape).astype(np.float32)
     obj = torch.as_tensor(obj, dtype=dtype, device=device)
@@ -168,7 +199,7 @@ def phase3_slice(card: str) -> int:
     _, data, psf = bench_scene(SHAPE, dev, torch.float32)
     cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
     torch.cuda.reset_peak_memory_stats()
-    hv.launches = 0
+    hv.launches = hv.batched_launches = 0
     deconvolve(data, psf, config=cfg)  # warm-up (cuFFT plans, the kernel's first load)
     walls = []
     for _ in range(3):
@@ -212,6 +243,8 @@ def phase3_slice(card: str) -> int:
            f"{bres.deconv_iters.tolist()}, deconv_f {df.tolist()}, wall {bwall:.3f} s (1 run), "
            f"{nvox * iters / bwall / 1e6:.1f} Mvox*obj_iter/s, TV kernel launches {blind_launches}")
     log(3, f"[{card}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if hv.batched_launches != 0:
+        raise AssertionError(f"the single-volume path launched the batched kernel {hv.batched_launches} times")
     return hv.launches
 
 
@@ -244,6 +277,25 @@ def phase4_parity() -> None:
            f"f_history[:4] {f4:.3g} rel (< 1e-4), final f {ff:.3g} rel (< 1e-3); "
            f"iterations {r32.iterations}/{r64.iterations}")
 
+    # The batched path, 3 lanes of PARITY_SHAPE, with the same bounds per lane.
+    from microtipi_tpu_torch.jobs.batch import batched_deconvolve
+
+    out = {}
+    for dev, dtype in ((torch.device("cuda"), torch.float32), (torch.device("cpu"), torch.float64)):
+        scenes = [bench_scene(PARITY_SHAPE, dev, dtype, seed=s) for s in range(3)]
+        before = hv.batched_launches
+        res = batched_deconvolve(torch.stack([d for _, d, _ in scenes]), scenes[0][2], config=cfg)
+        out[dev.type] = (res, hv.batched_launches - before)
+    (r32, n32), (r64, n64) = out["cuda"], out["cpu"]
+    f4 = np.max(np.abs(r32.f_history[:, :4] - r64.f_history[:, :4]) / np.abs(r64.f_history[:, :4]))
+    ff = np.max(np.abs(r32.f - r64.f) / np.abs(r64.f))
+    if f4 > 1e-4 or ff > 1e-3 or n32 == 0 or n64 != 0:
+        raise AssertionError(f"batched card/CPU parity: f_history[:4] {f4:.3g}, final f {ff:.3g}, "
+                             f"batched kernel launches cuda {n32} cpu {n64}")
+    log(4, f"batched card float32 vs CPU float64 at 3 x {PARITY_SHAPE}: f_history[:4] {f4:.3g} rel "
+           f"(< 1e-4), final f {ff:.3g} rel (< 1e-3); iterations {r32.iterations.tolist()}/"
+           f"{r64.iterations.tolist()}")
+
 
 def phase5_cufft(card: str) -> None:
     """cuFFT float32 against NumPy float64 at SHAPE: a white-noise rfftn ->
@@ -267,6 +319,213 @@ def phase5_cufft(card: str) -> None:
            f"{e_rt:.3g}, white-noise convolution {e_conv:.3g} (< 1e-5)")
 
 
+def phase6_batched_kernel(card: str) -> dict:
+    """The batched kernel against its plain version at BATCH_SHAPES over the
+    eps/scales grid of phase 2; each lane's gradient bitwise equal to the
+    single-volume kernel's and its cost within 1 float32 ulp (the same
+    partials, summed per volume); then its time at BATCH_SHAPES[0]."""
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    dev = torch.device("cuda")
+    max_err = 0.0
+    for shape in BATCH_SHAPES:
+        x = torch.as_tensor(np.random.default_rng(8).standard_normal(shape, dtype=np.float32), device=dev)
+        for eps in (0.1, 1.0):
+            for scales in (None, (2.0, 1.0, 1.0)):
+                f, g = hv.hyperbolic_tv_batched_fused(x, eps, scales)
+                f_ref, g_ref = hv.hyperbolic_tv_batched_plain(x, eps, scales)
+                rel = float(((f - f_ref).abs() / f_ref.abs()).max())
+                err = (g - g_ref).abs().max().item()
+                max_err = max(max_err, err)
+                if rel > TV_COST_RTOL or not torch.allclose(g, g_ref, rtol=TV_GRAD_RTOL, atol=TV_GRAD_ATOL):
+                    raise AssertionError(f"batched kernel != plain at {shape} eps={eps} scales={scales}: "
+                                         f"cost rel {rel:.3g}, grad max abs {err:.3g}")
+                if shape[1] == 256:
+                    f64 = hv.hyperbolic_tv_batched_plain(x.double(), eps, scales)[0]
+                    rel64 = float(((f.double() - f64).abs() / f64.abs()).max())
+                    if rel64 > TV_F64_RTOL:
+                        raise AssertionError(f"256-plane batched cost off float64 by {rel64:.3g}")
+                for b in range(shape[0]):
+                    fb, gb = hv.hyperbolic_tv_fused(x[b], eps, scales)
+                    ulp = float(np.spacing(np.float32(abs(fb.item()))))
+                    if not torch.equal(g[b], gb) or abs(f[b].item() - fb.item()) > ulp:
+                        raise AssertionError(f"lane {b} != single-volume kernel at {shape} eps={eps} "
+                                             f"scales={scales}: cost {f[b].item()} vs {fb.item()}")
+                f2, g2 = hv.hyperbolic_tv_batched_fused(x, eps, scales)
+                if not (torch.equal(f, f2) and torch.equal(g, g2)):
+                    raise AssertionError(f"two batched launches differ at {shape} eps={eps} scales={scales}")
+        f, g = hv.hyperbolic_tv_batched_fused(torch.full(shape, 2.5, device=dev), 0.1)
+        if f.abs().max().item() > 1e-5 or g.abs().max().item() != 0.0:
+            raise AssertionError(f"constant batch gives costs {f.tolist()}, grad {g.abs().max().item()}")
+    torch.cuda.synchronize()
+    log(6, f"batched kernel == plain at {list(BATCH_SHAPES)}, eps (0.1, 1.0), scales (None, (2,1,1)): "
+           f"cost rtol {TV_COST_RTOL}, grad rtol {TV_GRAD_RTOL} atol {TV_GRAD_ATOL} (max grad abs err "
+           f"{max_err:.3g}); 256-plane costs within {TV_F64_RTOL} of float64; every lane's gradient "
+           "bitwise equal to the single-volume kernel's, cost within 1 float32 ulp; constant batch 0; "
+           "two launches bitwise equal")
+
+    shape = BATCH_SHAPES[0]
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(shape, dtype=np.float32), device=dev)
+    ms = _median_ms(lambda: hv.hyperbolic_tv_batched_fused(x, 1.0))
+    plain_ms = _median_ms(lambda: hv.hyperbolic_tv_batched_plain(x, 1.0))
+    singles_ms = _median_ms(lambda: [hv.hyperbolic_tv_fused(x[b], 1.0) for b in range(shape[0])])
+    bound_ms, bound_by = tv_bound(x)
+    moved = 2 * x.numel() * x.element_size()
+    log(6, f"[{card}] batched TV at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+           f"{shape[0]} single-volume launches {singles_ms:.4f} ms per evaluation (median of 20, CUDA "
+           f"events); kernel {moved / (ms * 1e-3) / 1e9:.1f} GB/s; bound {bound_ms:.4f} ms ({bound_by}: "
+           f"{moved / 2**20:.0f} MiB at {HBM_BYTES_PER_S / 1e12} TB/s)")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "singles_ms": singles_ms}
+
+
+def phase7_batched(card: str) -> int:
+    """``batched_deconvolve`` of 4 bench scenes at LANE_SHAPE, phase 3's
+    config: wall, throughput and the launch counts; then each lane against
+    ``deconvolve`` of its scene, with phase 4's float32 bounds (f over the
+    first iterations to 1e-4, the final f to 1e-3 relative)."""
+    from microtipi_tpu_torch.jobs.batch import batched_deconvolve
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    dev, nvox = torch.device("cuda"), float(np.prod(LANE_SHAPE))
+    scenes = [bench_scene(LANE_SHAPE, dev, torch.float32, seed=s) for s in range(4)]
+    data, psf = torch.stack([d for _, d, _ in scenes]), scenes[0][2]
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
+    batched_deconvolve(data, psf, config=cfg)  # warm-up (cuFFT plans for the batch)
+    torch.cuda.reset_peak_memory_stats()
+    hv.launches = hv.batched_launches = 0
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = batched_deconvolve(data, psf, config=cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    single, batched = hv.launches, hv.batched_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall = float(np.median(walls))
+    _check_object("batched_deconvolve", res.x)
+    if batched == 0 or single != 0 or not np.isfinite(res.f).all():
+        raise AssertionError(f"batched_deconvolve: f={res.f}, batched kernel launches {batched}, "
+                             f"single-volume launches {single} (must be 0)")
+    log(7, f"[{card}] batched_deconvolve 4 x {LANE_SHAPE}: iterations {res.iterations.tolist()}, "
+           f"evaluations {res.evaluations.tolist()}, status {res.status.tolist()}, wall {wall:.4f} s "
+           f"(median of 3 after 1 warm-up), {nvox * res.iterations.sum() / wall / 1e6:.1f} Mvox*iter/s, "
+           f"batched kernel launches {batched} (3 runs; single-volume launches {single}), "
+           f"peak device memory {peak:.3f} GiB")
+    worst4 = worstf = worstx = 0.0
+    for b in range(4):
+        r = deconvolve(data[b], psf, config=cfg)
+        worst4 = max(worst4, np.max(np.abs(res.f_history[b, :4] - r.f_history[:4]) / np.abs(r.f_history[:4])))
+        worstf = max(worstf, abs(float(res.f[b]) - float(r.f)) / abs(float(r.f)))
+        worstx = max(worstx, float(torch.linalg.norm(res.x[b] - r.x) / torch.linalg.norm(r.x)))
+    if worst4 > 1e-4 or worstf > 1e-3:
+        raise AssertionError(f"batched lanes != deconvolve: f_history[:4] {worst4:.3g}, final f {worstf:.3g}")
+    log(7, f"each lane against deconvolve of its scene: f_history[:4] {worst4:.3g} rel (< 1e-4), "
+           f"final f {worstf:.3g} rel (< 1e-3); x {worstx:.3g} relative L2")
+    return batched
+
+
+def design_volume(psf: torch.Tensor, shape=None) -> np.ndarray:
+    """A float32 scene of ``shape`` (default VOLUME) on the host from a
+    fixed seed: 0.1% random beads x 300, blurred on the card by ``psf`` (one
+    circular FFT convolution of the whole volume), plus 1% Gaussian noise."""
+    from microtipi_tpu_torch.ops.convolution import convolve, convolve_spectrum
+    from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
+
+    shape = tuple(shape or VOLUME)
+    rng = np.random.default_rng(11)
+    n = int(np.prod(shape))
+    obj = np.zeros(n, np.float32)
+    obj[rng.integers(0, n, n // 1000)] = rng.random(n // 1000, dtype=np.float32) * 300
+    noise = rng.standard_normal(shape, dtype=np.float32)
+    with torch.no_grad():
+        d = convolve(torch.as_tensor(obj.reshape(shape), device="cuda"),
+                     convolve_spectrum(pad_fft_kernel(psf, shape)), shape)
+        d += 0.01 * d.max() * torch.as_tensor(noise, device="cuda")
+        out = d.cpu().numpy()
+    del d
+    torch.cuda.empty_cache()
+    return out
+
+
+def design_psf() -> torch.Tensor:
+    """The design-scale run's PSF_SHAPE widefield PSF (NA 1.4, 561 nm,
+    80/200 nm sampling, in focus) on the card."""
+    from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
+
+    model = WideFieldModel(WideFieldConfig(shape=PSF_SHAPE, na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9,
+                                           dz=200e-9, n_phase=6, dtype=torch.float32))
+    with torch.no_grad():
+        return model.compute_psf(model.init_params())
+
+
+def phase8_tiled(card: str) -> int:
+    """``tiled_deconvolve`` at design scale (BASELINE.md:1241-1251): the
+    VOLUME scene, the PSF of :func:`design_psf`, tiles of TILE with
+    OVERLAP, MAX_BATCH lanes a batch, 10 VMLMB iterations; then
+    one tile covering a LANE_SHAPE volume against ``deconvolve``."""
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+    from microtipi_tpu_torch.jobs.tiled import tile_plan, tiled_deconvolve
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    psf = design_psf()
+    t0 = time.perf_counter()
+    data = design_volume(psf)
+    setup = time.perf_counter() - t0
+    plan = tile_plan(VOLUME, TILE, (OVERLAP,) * 3)
+    n_tiles = int(np.prod([len(starts) for starts, _ in plan]))
+    n_batches = -(-n_tiles // MAX_BATCH)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=10, grtol=0.0, gatol=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    hv.launches = hv.batched_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tiled_deconvolve(data, psf, tile=TILE, overlap=OVERLAP, config=cfg, max_batch=MAX_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    single, batched = hv.launches, hv.batched_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if out.shape != VOLUME or not np.isfinite(out).all() or out.min() < 0:
+        raise AssertionError(f"tiled_deconvolve: output shape {out.shape}, finite {np.isfinite(out).all()}, "
+                             f"min {out.min()}")
+    if batched == 0 or single != 0:
+        raise AssertionError(f"tiled_deconvolve: batched kernel launches {batched}, single-volume {single}")
+    vox, halo_vox = float(np.prod(VOLUME)), float(n_tiles * np.prod(TILE))
+    log(8, f"[{card}] tiled_deconvolve {VOLUME} float32 (made in {setup:.1f} s), tile {TILE}, overlap "
+           f"{OVERLAP}, max_batch {MAX_BATCH}: {n_tiles} tiles in {n_batches} batches, wall {wall:.3f} s "
+           f"(1 run), at max_iter {cfg.max_iter}: {vox * cfg.max_iter / wall / 1e6:.1f} Mvox*iter/s of "
+           f"output, {halo_vox * cfg.max_iter / wall / 1e6:.1f} including halos; batched kernel launches "
+           f"{batched} (single-volume {single}); peak device memory {peak:.3f} GiB")
+    del data, out
+
+    # One tile covering the volume: the tiling itself is exact, so the output
+    # is bitwise the batched solve of that one volume. Against deconvolve the
+    # card differs: cuFFT rounds a batch of one otherwise than one volume,
+    # and this sparse scene's float32 trajectory turns that into a different
+    # x of the same cost. So the two are held to the same objective value
+    # (the residual form, free of the quadratic form's c/f amplification).
+    from microtipi_tpu_torch.jobs.batch import batched_deconvolve
+    from microtipi_tpu_torch.jobs.deconv import make_objective
+
+    _, vol, lane_psf = bench_scene(LANE_SHAPE, torch.device("cuda"), torch.float32, seed=5)
+    got = tiled_deconvolve(vol.cpu().numpy(), lane_psf, tile=LANE_SHAPE, overlap=4, config=cfg)
+    lane = batched_deconvolve(vol[None], lane_psf, config=cfg).x[0].cpu().numpy()
+    want = deconvolve(vol, lane_psf, config=cfg).x
+    f_of = make_objective(lane_psf, vol, None, cfg, accurate=True)
+    f_got, f_want = (float(f_of(torch.as_tensor(v, device="cuda"))[0]) for v in (got, want))
+    f_rel = abs(f_got - f_want) / abs(f_want)
+    x_rel = float(torch.linalg.norm(torch.as_tensor(got, device="cuda") - want) / torch.linalg.norm(want))
+    if not np.array_equal(got, lane) or f_rel > 1e-3:
+        raise AssertionError(f"single-tile tiled_deconvolve: bitwise the batched solve "
+                             f"{np.array_equal(got, lane)}, objective {f_rel:.3g} off deconvolve's")
+    log(8, f"one tile covering {LANE_SHAPE}: bitwise equal to batched_deconvolve of the volume; against "
+           f"deconvolve on the card, objective {f_rel:.3g} rel (< 1e-3, phase 4's bound for a float32 "
+           f"trajectory), x {x_rel:.3g} relative L2")
+    return batched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -282,10 +541,16 @@ def main() -> int:
         raise AssertionError("the main path never launched the TV kernel")
     phase4_parity()
     phase5_cufft(card)
-    print(json.dumps({"kernels": [{
-        "name": "hyperbolic_tv", "route": "cuda", "source": "microtipi_tpu_torch/csrc/hyperbolic_tv.cu",
-        "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:111", "launches": launches, **kern,
-    }]}))
+    bkern = phase6_batched_kernel(card)
+    bkern.pop("singles_ms")
+    batched_launches = phase7_batched(card) + phase8_tiled(card)
+    source = "microtipi_tpu_torch/csrc/hyperbolic_tv.cu"
+    print(json.dumps({"kernels": [
+        {"name": "hyperbolic_tv", "route": "cuda", "source": source,
+         "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:111", "launches": launches, **kern},
+        {"name": "hyperbolic_tv_batched", "route": "cuda", "source": source,
+         "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:203", "launches": batched_launches, **bkern},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

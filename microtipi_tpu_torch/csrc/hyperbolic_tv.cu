@@ -2,8 +2,14 @@
 //
 // Replaces the Pallas TPU kernels `_tv_kernel_blocked` and `_tv_kernel`
 // (microtipi_tpu/ops/pallas/hyperbolic_tv.py, reached through
-// `_tv_pallas_impl` by `hyperbolic_tv_value` / `hyperbolic_tv_fused`). One
-// kernel covers any nz, so the TPU's K-plane / one-plane split is not needed.
+// `_tv_pallas_impl` by `hyperbolic_tv_value` / `hyperbolic_tv_fused`) and the
+// batched `_tv_kernel_flat` (reached through `_tv_pallas_batched`, the
+// `custom_vmap` rule of the batched and tiled object steps). One kernel covers
+// any nz, so the TPU's K-plane / one-plane split is not needed, and a batch
+// (B, nz, ny, nx) is one more grid axis: blockIdx.z runs over B x ceil(nz/16)
+// chunks, each chunk's z walk stays inside its volume, so no difference
+// crosses a volume boundary. A single volume is the B = 1 launch, with the
+// same blocks and the same bitwise outputs as before the batch axis existed.
 //
 // Math per voxel u, per axis a in (z, y, x) with scale s_a:
 //   d_a(u)  = (x(u + e_a) - x(u)) / s_a, 0 at the trailing face (replicate boundary)
@@ -28,7 +34,8 @@
 //     incoming w_z is recomputed from the plane before it.
 //   - Cost: each thread sums its D - eps in double, the block reduces in
 //     double in a fixed order, and each block writes one partial to a buffer
-//     the caller allocated and sums (torch.sum). No atomics, so two launches
+//     the caller allocated and sums (torch.sum; per volume for a batch, the
+//     partials being laid out volume-major). No atomics, so two launches
 //     on the same input give bitwise-equal outputs, and 256 planes stay at
 //     float32 round-off (a sequential float32 accumulator would not).
 // A plain C interface, loaded with ctypes; the launch goes on the caller's
@@ -67,8 +74,8 @@ __device__ __forceinline__ TvWeights tv_weights(const float* __restrict__ x, int
 
 __global__ void __launch_bounds__(TV_THREADS)
 hyperbolic_tv_kernel(const float* __restrict__ x, float* __restrict__ grad,
-                     double* __restrict__ partials, int nz, int ny, int nx, float eps,
-                     float inv_sz, float inv_sy, float inv_sx) {
+                     double* __restrict__ partials, int nz, int ny, int nx, int nchunks,
+                     float eps, float inv_sz, float inv_sy, float inv_sx) {
     // s_wy[r][c]: w_y at (y0 - 1 + r, x0 + c - 1); s_wx the same for w_x.
     __shared__ float s_wy[TV_TY + 1][TV_TX + 1];
     __shared__ float s_wx[TV_TY + 1][TV_TX + 1];
@@ -77,11 +84,15 @@ hyperbolic_tv_kernel(const float* __restrict__ x, float* __restrict__ grad,
     const int tx = threadIdx.x, ty = threadIdx.y;
     const int x0 = blockIdx.x * TV_TX, y0 = blockIdx.y * TV_TY;
     const int xi = x0 + tx, y = y0 + ty;
-    const int z0 = blockIdx.z * TV_ZCHUNK;
+    // blockIdx.z = volume * nchunks + chunk: the block sees only its volume.
+    const int vol = blockIdx.z / nchunks;
+    const int z0 = (blockIdx.z - vol * nchunks) * TV_ZCHUNK;
     const int z1 = min(z0 + TV_ZCHUNK, nz);
     const bool inside = (xi < nx) && (y < ny);
     const float eps2 = eps * eps;
     const size_t plane = (size_t)ny * nx;
+    x += (size_t)vol * nz * plane;
+    grad += (size_t)vol * nz * plane;
 
     // Incoming w_z of the chunk's first plane: recomputed from plane z0 - 1.
     float wz_prev = 0.0f;
@@ -133,24 +144,41 @@ hyperbolic_tv_kernel(const float* __restrict__ x, float* __restrict__ grad,
     }
 }
 
-static dim3 tv_grid(int nz, int ny, int nx) {
-    return dim3((nx + TV_TX - 1) / TV_TX, (ny + TV_TY - 1) / TV_TY, (nz + TV_ZCHUNK - 1) / TV_ZCHUNK);
+// Blocks per volume in z; gridDim.z = nb * tv_chunks(nz) must stay <= 65535.
+static int tv_chunks(int nz) { return (nz + TV_ZCHUNK - 1) / TV_ZCHUNK; }
+
+static bool tv_grid(int nb, int nz, int ny, int nx, dim3* g) {
+    const int64_t gz = (int64_t)nb * tv_chunks(nz);
+    const int64_t gy = (ny + TV_TY - 1) / TV_TY;
+    if (nb < 1 || nz < 1 || ny < 1 || nx < 1 || gz > 65535 || gy > 65535) return false;
+    *g = dim3((nx + TV_TX - 1) / TV_TX, (unsigned)gy, (unsigned)gz);
+    return true;
 }
 
 extern "C" {
 
-// Number of float64 cost partials (one per block) the caller must allocate.
-int64_t hyperbolic_tv_num_partials(int nz, int ny, int nx) {
-    const dim3 g = tv_grid(nz, ny, nx);
+// Number of float64 cost partials (one per block) the caller must allocate
+// for a batch of nb volumes, volume-major (nb rows of equal length); -1 if
+// the grid does not fit (gridDim.z = nb * ceil(nz / 16) above 65535). A
+// single volume is nb = 1.
+int64_t hyperbolic_tv_num_partials(int nb, int nz, int ny, int nx) {
+    dim3 g;
+    if (!tv_grid(nb, nz, ny, nx, &g)) return -1;
     return (int64_t)g.x * g.y * g.z;
 }
 
-// x, grad: contiguous float32 (nz, ny, nx) on the device; partials: float64
-// of hyperbolic_tv_num_partials(nz, ny, nx). Returns cudaGetLastError().
-int hyperbolic_tv_f32(const void* x, void* grad, void* partials, int nz, int ny, int nx,
-                      float eps, float inv_sz, float inv_sy, float inv_sx, void* stream) {
-    hyperbolic_tv_kernel<<<tv_grid(nz, ny, nx), dim3(TV_TX, TV_TY), 0, (cudaStream_t)stream>>>(
-        (const float*)x, (float*)grad, (double*)partials, nz, ny, nx, eps, inv_sz, inv_sy, inv_sx);
+// x, grad: contiguous float32 (nb, nz, ny, nx) on the device; partials:
+// float64 of hyperbolic_tv_num_partials(nb, nz, ny, nx). Returns
+// cudaErrorInvalidConfiguration without launching if the grid does not fit,
+// else cudaGetLastError().
+int hyperbolic_tv_f32(const void* x, void* grad, void* partials, int nb, int nz, int ny,
+                              int nx, float eps, float inv_sz, float inv_sy, float inv_sx,
+                              void* stream) {
+    dim3 g;
+    if (!tv_grid(nb, nz, ny, nx, &g)) return (int)cudaErrorInvalidConfiguration;
+    hyperbolic_tv_kernel<<<g, dim3(TV_TX, TV_TY), 0, (cudaStream_t)stream>>>(
+        (const float*)x, (float*)grad, (double*)partials, nz, ny, nx, tv_chunks(nz), eps, inv_sz,
+        inv_sy, inv_sx);
     return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,89 @@
+"""Batched object steps: many volumes solved together on one card.
+
+Port of ``microtipi_tpu/jobs/batch.py``. The JAX package batches by
+``jax.vmap`` over ``deconvolve``; here a batch is a leading axis written out.
+:func:`batched_deconvolve` runs one VMLMB solve per lane in lockstep
+(``optim/vmlmb.minimize_vmlmb_batched``): every step makes one call of the
+batched objective (``jobs/deconv.make_batched_objective``) over the lanes
+still running, which is one batched FFT pair and one launch of the batched
+hyperbolic-TV kernel. Each lane keeps its own iterate, line search, memory
+and stopping, so lane b gives what ``deconvolve`` gives on volume b.
+
+The other batched solvers of the JAX module raise ``NotImplementedError``
+naming the ROADMAP.md item that ports them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from microtipi_tpu_torch.jobs.deconv import (
+    DeconvolutionConfig,
+    DeconvolutionResult,
+    _f32_stall_continue_batched,
+    _vmlmb_options,
+    make_batched_objective,
+)
+from microtipi_tpu_torch.optim.vmlmb import minimize_vmlmb_batched
+
+__all__ = ["batched_deconvolve", "batched_blind_deconvolve",
+           "batched_deconvolve_auto_mu", "batched_deconvolve_depthvar"]
+
+
+def batched_deconvolve(
+    data: torch.Tensor,
+    psf: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    x0: torch.Tensor | None = None,
+    config: DeconvolutionConfig = DeconvolutionConfig(),
+    engine: str = "vmlmb",
+) -> DeconvolutionResult:
+    """Object update over a (B, Nz, Ny, Nx) stack (``jobs/batch.py:25-59``).
+
+    ``psf`` is one corner-origin PSF shared by every lane (3D) or one per
+    lane (4D, the tiled solver's field-varying path); ``weights``/``x0`` are
+    batched or None (``x0`` None: the data, clamped at 0 under positivity).
+    Runs on the device of its tensors. Returns a ``DeconvolutionResult`` with
+    a leading batch axis on every field. Float32 uniform-weight lanes that
+    stall on the quadratic form's value resolution continue on the residual
+    form, each on its own budget, as ``deconvolve`` does.
+    """
+    if engine == "admm":
+        raise NotImplementedError("engine='admm' is not ported yet (ROADMAP.md queue 1, item 10: "
+                                  "the ADMM engine)")
+    if engine != "vmlmb":
+        raise ValueError(f"unknown engine {engine!r}")
+    if x0 is None:
+        x0 = torch.clamp_min(data, 0.0) if config.positivity else data
+    fun = make_batched_objective(psf, data, weights, config)
+    results = minimize_vmlmb_batched(fun, x0, **_vmlmb_options(config), maxeval=config.max_eval)
+    if weights is None and data.dtype == torch.float32:
+        results = _f32_stall_continue_batched(results, psf, data, config)
+    return DeconvolutionResult(
+        torch.stack([r.x for r in results]),
+        np.array([r.f for r in results]),
+        np.array([r.iterations for r in results]),
+        np.array([r.evaluations for r in results]),
+        np.array([r.status for r in results]),
+        np.stack([r.f_history for r in results]),
+        np.stack([r.pg_history for r in results]),
+    )
+
+
+def batched_deconvolve_depthvar(*args, **kw):
+    """Depth-varying object update over a batch (``jobs/batch.py:62-79``)."""
+    raise NotImplementedError("batched_deconvolve_depthvar is not ported yet (ROADMAP.md queue 1, "
+                              "item 14: jobs/depthvar.py with ops/depthconv.py)")
+
+
+def batched_blind_deconvolve(*args, **kw):
+    """Blind deconvolution over a batch (``jobs/batch.py:82-121``)."""
+    raise NotImplementedError("batched_blind_deconvolve is not ported yet (ROADMAP.md queue 1, "
+                              "item 17: the rest of the out-of-core and batched solvers)")
+
+
+def batched_deconvolve_auto_mu(*args, **kw):
+    """Per-frame discrepancy-principle mu over a batch (``jobs/batch.py:124-151``)."""
+    raise NotImplementedError("batched_deconvolve_auto_mu is not ported yet (ROADMAP.md queue 1, "
+                              "item 12: jobs/autotune.py)")

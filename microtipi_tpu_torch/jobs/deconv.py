@@ -10,6 +10,10 @@ with VMLMB. The TV term goes through the fused wrapper
 (``ops/kernels/hyperbolic_tv.py``): the CUDA kernel for a CUDA tensor (float32,
 3D; anything else raises), its plain version for a CPU tensor.
 
+A batch of volumes (B, Nz, Ny, Nx) has its own objective,
+:func:`make_batched_objective`: per-lane costs from one batched FFT pair and
+one batched TV launch, for the lockstep solver of ``jobs/batch.py``.
+
 Not ported yet (they raise ``NotImplementedError``): the Poisson data term,
 the padded variable grid (``var_shape``) and the ``sparsity``/``hessian``
 priors — ROADMAP.md queue 1 item 12.
@@ -28,16 +32,23 @@ from microtipi_tpu_torch.ops.convolution import (
     QuadraticConvCost,
     UniformConvCost,
     WeightedConvolutionCost,
+    select_lanes,
 )
-from microtipi_tpu_torch.ops.kernels.hyperbolic_tv import hyperbolic_tv_value
+from microtipi_tpu_torch.ops.kernels.hyperbolic_tv import hyperbolic_tv_batched_value, hyperbolic_tv_value
 from microtipi_tpu_torch.optim.treeutil import value_and_grad
-from microtipi_tpu_torch.optim.vmlmb import VMLMBResult, VMLMBStatus, minimize_vmlmb
+from microtipi_tpu_torch.optim.vmlmb import (
+    VMLMBResult,
+    VMLMBStatus,
+    minimize_vmlmb,
+    minimize_vmlmb_batched,
+)
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
 __all__ = [
     "DeconvolutionConfig",
     "DeconvolutionResult",
     "deconvolve",
+    "make_batched_objective",
     "make_objective",
     "make_regularizer",
 ]
@@ -80,6 +91,10 @@ class DeconvolutionConfig:
 
 
 class DeconvolutionResult(NamedTuple):
+    """One solve's result; from a batched solve, every field has a leading
+    batch axis (``f``, ``iterations``, ``evaluations``, ``status`` are then
+    NumPy arrays of B)."""
+
     x: torch.Tensor
     f: np.floating
     iterations: int
@@ -91,28 +106,31 @@ class DeconvolutionResult(NamedTuple):
 
 def make_regularizer(config: DeconvolutionConfig):
     """``x -> mu * TV_eps(x)`` (0 if mu == 0) through the fused TV wrapper
-    (``jobs/deconv.py:170-192``); raises for the options not ported yet."""
+    (``jobs/deconv.py:170-192``), per lane (B,) for a 4D batch; raises for the
+    options not ported yet."""
     config.check_ported()
 
     def reg(x):
         if config.mu <= 0:
-            return x.new_zeros(())
-        return config.mu * hyperbolic_tv_value(x, config.epsilon, config.scales)
+            return x.new_zeros(x.shape[:1] if x.ndim == 4 else ())
+        tv = hyperbolic_tv_batched_value if x.ndim == 4 else hyperbolic_tv_value
+        return config.mu * tv(x, config.epsilon, config.scales)
 
     return reg
 
 
-def make_objective(psf, data, weights, config: DeconvolutionConfig, accurate: bool = False):
-    """The ``x -> (f, grad f)`` closure of the object step
-    (``jobs/deconv.py:229-298``): uniform weights take the 2-FFT quadratic
-    form (``accurate=True``: the 3-FFT residual form), weights the weighted
-    cost; the kernel spectrum is computed once per call."""
-    shape = tuple(data.shape)
+def _data_cost(psf, data, weights, accurate: bool):
+    """The data term: uniform weights take the 2-FFT quadratic form
+    (``accurate=True``: the 3-FFT residual form), weights the weighted cost.
+    A batch (B, Nz, Ny, Nx) takes a shared 3D PSF or one per lane."""
+    shape = tuple(data.shape[-3:])
     kernel = pad_fft_kernel(psf, shape)
     if weights is None:
-        cost = (UniformConvCost if accurate else QuadraticConvCost).build(kernel, data)
-    else:
-        cost = WeightedConvolutionCost.build(kernel, data, weights, shape)
+        return (UniformConvCost if accurate else QuadraticConvCost).build(kernel, data)
+    return WeightedConvolutionCost.build(kernel, data, weights, shape)
+
+
+def _objective(cost, config: DeconvolutionConfig):
     reg = make_regularizer(config)
 
     def objective(x):
@@ -122,6 +140,71 @@ def make_objective(psf, data, weights, config: DeconvolutionConfig, accurate: bo
         return f
 
     return value_and_grad(objective)
+
+
+def make_objective(psf, data, weights, config: DeconvolutionConfig, accurate: bool = False):
+    """The ``x -> (f, grad f)`` closure of the object step
+    (``jobs/deconv.py:229-298``); the kernel spectrum is computed once per
+    call."""
+    return _objective(_data_cost(psf, data, weights, accurate), config)
+
+
+def make_batched_objective(psf, data, weights, config: DeconvolutionConfig, accurate: bool = False):
+    """The object step of a batch ``data`` (B, Nz, Ny, Nx) as the lockstep
+    solver calls it: ``(x, lanes) -> (f (n,), g (n, Nz, Ny, Nx))`` for the
+    lanes ``lanes`` stacked in ``x``. ``psf`` is shared (3D) or per lane
+    (4D), ``weights`` None or per lane. One call is one batched FFT pair (or
+    three FFTs) and one batched TV launch; each lane's gradient is the
+    gradient of its own cost. The kernel spectra are computed once, for every
+    lane; a call on fewer lanes indexes them (``select_lanes``)."""
+    if data.ndim != 4:
+        raise ValueError(f"a batch of volumes is 4D, got shape {tuple(data.shape)}")
+    full = _data_cost(psf, data, weights, accurate)
+    every = tuple(range(data.shape[0]))
+    cache: dict = {}
+
+    def fun(x, lanes):
+        lanes = tuple(lanes)
+        if lanes not in cache:  # the live lanes change only when one finishes
+            cache.clear()
+            idx = torch.as_tensor(lanes, device=data.device)
+            cache[lanes] = _objective(full if lanes == every else select_lanes(full, idx), config)
+        return cache[lanes](x)
+
+    return fun
+
+
+def _stalled(res: VMLMBResult, maxiter: int, maxeval: int) -> bool:
+    return (
+        res.status == VMLMBStatus.LINESEARCH_FAIL
+        and res.iterations < maxiter
+        and res.evaluations < maxeval
+    )
+
+
+def _budget(config: DeconvolutionConfig) -> tuple[int, int]:
+    maxiter = int(config.max_iter)
+    return maxiter, int(config.max_eval) if config.max_eval is not None else 2 * maxiter
+
+
+def _splice(res: VMLMBResult, res_b: VMLMBResult, maxiter: int) -> VMLMBResult:
+    """``res`` continued by ``res_b``: the histories spliced after the
+    stall, clipped at ``maxiter``."""
+    hist_f, hist_pg = res.f_history.copy(), res.pg_history.copy()
+    n = maxiter - res.iterations  # slots left after the stall
+    hist_f[res.iterations + 1:] = res_b.f_history[1:1 + n]
+    hist_pg[res.iterations + 1:] = res_b.pg_history[1:1 + n]
+    return VMLMBResult(
+        x=res_b.x, f=res_b.f, g=res_b.g,
+        iterations=res.iterations + res_b.iterations,
+        evaluations=res.evaluations + res_b.evaluations,
+        status=res_b.status, f_history=hist_f, pg_history=hist_pg,
+    )
+
+
+def _vmlmb_options(config: DeconvolutionConfig) -> dict:
+    return dict(lower=0.0 if config.positivity else None, mem=config.mem, maxiter=config.max_iter,
+                gatol=config.gatol, grtol=config.grtol)
 
 
 def _f32_stall_continue(res: VMLMBResult, psf, data, config: DeconvolutionConfig) -> VMLMBResult:
@@ -134,37 +217,36 @@ def _f32_stall_continue(res: VMLMBResult, psf, data, config: DeconvolutionConfig
     ``UniformConvCost``, whose resolution is ``eps*f``. The histories are
     spliced after the stall, clipped at ``max_iter``.
     """
-    maxiter = int(config.max_iter)
-    maxeval = int(config.max_eval) if config.max_eval is not None else 2 * maxiter
-    need = (
-        res.status == VMLMBStatus.LINESEARCH_FAIL
-        and res.iterations < maxiter
-        and res.evaluations < maxeval
-    )
-    if not need:
+    maxiter, maxeval = _budget(config)
+    if not _stalled(res, maxiter, maxeval):
         return res
-    fun2 = make_objective(psf, data, None, config, accurate=True)
     res_b = minimize_vmlmb(
-        fun2,
-        res.x,
-        lower=0.0 if config.positivity else None,
-        mem=config.mem,
-        maxiter=maxiter,
-        maxiter_cap=maxiter - res.iterations,
-        maxeval=maxeval - res.evaluations,
-        gatol=config.gatol,
-        grtol=config.grtol,
+        make_objective(psf, data, None, config, accurate=True), res.x, **_vmlmb_options(config),
+        maxiter_cap=maxiter - res.iterations, maxeval=maxeval - res.evaluations,
     )
-    hist_f, hist_pg = res.f_history.copy(), res.pg_history.copy()
-    n = maxiter - res.iterations  # slots left after the stall
-    hist_f[res.iterations + 1:] = res_b.f_history[1:1 + n]
-    hist_pg[res.iterations + 1:] = res_b.pg_history[1:1 + n]
-    return VMLMBResult(
-        x=res_b.x, f=res_b.f, g=res_b.g,
-        iterations=res.iterations + res_b.iterations,
-        evaluations=res.evaluations + res_b.evaluations,
-        status=res_b.status, f_history=hist_f, pg_history=hist_pg,
+    return _splice(res, res_b, maxiter)
+
+
+def _f32_stall_continue_batched(results: list, psf, data, config: DeconvolutionConfig) -> list:
+    """:func:`_f32_stall_continue` for the lanes of a batched solve: the
+    JAX package's per-lane ``lax.cond`` becomes a second lockstep solve over
+    the lanes that stalled, each with its own iteration and evaluation budget
+    left."""
+    maxiter, maxeval = _budget(config)
+    stalled = [b for b, r in enumerate(results) if _stalled(r, maxiter, maxeval)]
+    if not stalled:
+        return results
+    idx = torch.as_tensor(stalled, device=data.device)
+    fun = make_batched_objective(psf[idx] if psf.ndim == 4 else psf, data[idx], None, config, accurate=True)
+    cont = minimize_vmlmb_batched(
+        fun, torch.stack([results[b].x for b in stalled]), **_vmlmb_options(config),
+        maxiter_cap=[maxiter - results[b].iterations for b in stalled],
+        maxeval=[maxeval - results[b].evaluations for b in stalled],
     )
+    results = list(results)
+    for b, res_b in zip(stalled, cont):
+        results[b] = _splice(results[b], res_b, maxiter)
+    return results
 
 
 def deconvolve(
@@ -192,16 +274,7 @@ def deconvolve(
         if config.positivity:
             x0 = torch.clamp_min(x0, 0.0)
     fun = make_objective(psf, data, weights, config)
-    res = minimize_vmlmb(
-        fun,
-        x0,
-        lower=0.0 if config.positivity else None,
-        mem=config.mem,
-        maxiter=config.max_iter,
-        maxeval=config.max_eval,
-        gatol=config.gatol,
-        grtol=config.grtol,
-    )
+    res = minimize_vmlmb(fun, x0, **_vmlmb_options(config), maxeval=config.max_eval)
     if weights is None and data.dtype == torch.float32:
         # Exactly the gate under which make_objective took the quadratic
         # form AND its eps*c value floor can stall a float32 search.

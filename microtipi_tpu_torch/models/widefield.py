@@ -103,11 +103,16 @@ class WideFieldModel(nn.Module):
 
     The static Zernike stack, pupil mask and wrapped-z grid are computed in
     float64 and registered as buffers cast to ``config.dtype`` — the JAX
-    package's per-dtype static cache (``widefield.py:116-135``).
+    package's per-dtype static cache (``widefield.py:116-135``). They live
+    on the card unless the caller names another ``device`` (``"cpu"``).
     """
 
-    def __init__(self, config: WideFieldConfig, device: torch.device | str | None = None):
+    def __init__(self, config: WideFieldConfig, device: torch.device | str = "cuda"):
         super().__init__()
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("WideFieldModel runs on the CUDA card by default and none is available; "
+                               "pass device='cpu' to run it on the CPU")
         self.config = config
         zern, mask, zw = config.static_numpy()
         for name, arr in (("zernike", zern), ("geom_mask", mask), ("z_wrapped", zw)):

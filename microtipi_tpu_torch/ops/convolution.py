@@ -18,6 +18,12 @@ cost and keeps the exact gradient, and whose backward is ``g * grad`` for the
 first input only. Autograd carries on from that gradient, e.g. through
 ``compute_psf`` to the PSF parameters in a fit.
 
+Batches: a 4D tensor is a stack of 3D volumes (lanes). The FFTs transform
+the last three axes only, every cost comes back per lane, shape (B,), and the
+kernel is shared (3D) or one per lane (4D). The batched object steps
+(``jobs/batch.py``, ``jobs/tiled.py``) use this form; on 3D volumes nothing
+changes. The JAX package gets the batch from ``jax.vmap``.
+
 The TPU-only exact matmul-DFT switch (``exact``/``auto_exact_fft``,
 ``ops/exactfft.py``) is not ported: cuFFT is float32-exact (measured by
 ``chip_smoke.py`` phase 5).
@@ -37,22 +43,71 @@ __all__ = [
     "WeightedConvolutionCost",
     "convolve",
     "convolve_spectrum",
+    "select_lanes",
 ]
 
 
+def _vdims(t: torch.Tensor) -> tuple[int, ...]:
+    """The volume axes of ``t``: all of a 2D or 3D volume, the last three of
+    a 4D batch."""
+    return tuple(range(-min(t.ndim, 3), 0))
+
+
+def _rfftn(x: torch.Tensor) -> torch.Tensor:
+    return torch.fft.rfftn(x, dim=_vdims(x))
+
+
+def _irfftn(x_hat: torch.Tensor, shape) -> torch.Tensor:
+    shape = tuple(shape)
+    return torch.fft.irfftn(x_hat, s=shape, dim=tuple(range(-len(shape), 0)))
+
+
+def _lane_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over each volume: a 0-dim tensor, or (B,) for a batch. Each lane
+    is reduced as one volume is, so its cost is the single volume's, bit for
+    bit (a float32 solve parts from another summation order within a few
+    iterations)."""
+    if t.ndim <= 3:
+        return torch.sum(t)
+    return torch.stack([torch.sum(v) for v in t])
+
+
+def _lane_scaled(g: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``g * t`` with one ``g`` per lane: the backward of a per-lane cost."""
+    return g.reshape(g.shape + (1,) * (t.ndim - g.ndim)) * t
+
+
 def convolve_spectrum(kernel: torch.Tensor) -> torch.Tensor:
-    """The rfftn spectrum of a corner-origin kernel."""
-    return torch.fft.rfftn(kernel)
+    """The rfftn spectrum of a corner-origin kernel (of each, for a batch)."""
+    return _rfftn(kernel)
 
 
 def convolve(x: torch.Tensor, kernel_hat: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """Circular convolution of ``x`` with a precomputed kernel spectrum;
-    ``s=shape`` makes ``irfftn`` round-trip odd last axes."""
-    return torch.fft.irfftn(torch.fft.rfftn(x) * kernel_hat, s=tuple(shape))
+    ``s=shape`` (one volume's shape) makes ``irfftn`` round-trip odd last
+    axes."""
+    return _irfftn(_rfftn(x) * kernel_hat, shape)
 
 
 def _abs2(z: torch.Tensor) -> torch.Tensor:
     return z.real ** 2 + z.imag ** 2
+
+
+def select_lanes(cost, idx: torch.Tensor):
+    """The same cost over the lanes ``idx`` of a batch: its per-lane fields
+    (a (B,) sum or a (B, ...) stack of volumes) are indexed, the shared ones
+    (a 3D kernel spectrum) kept. Nothing is recomputed, so a lane's cost is
+    the same whichever lanes are evaluated with it."""
+    return cost._replace(**{
+        k: v[idx] for k, v in cost._asdict().items() if isinstance(v, torch.Tensor) and v.ndim in (1, 4)
+    })
+
+
+def _check_kernel(kernel: torch.Tensor, data: torch.Tensor, what: str) -> None:
+    """A kernel of the data's shape, or one 3D kernel shared by a batch."""
+    if kernel.shape != data.shape and not (data.ndim == 4 and kernel.shape == data.shape[1:]):
+        raise ValueError(f"{what} requires kernel shape == data shape (or one volume's shape for "
+                         f"a batch), got {tuple(kernel.shape)} and {tuple(data.shape)}")
 
 
 class WeightedConvolutionCost(NamedTuple):
@@ -61,7 +116,8 @@ class WeightedConvolutionCost(NamedTuple):
     ``weights`` None means uniform 1 (TiPi ``setWeights(null)``). Zero-weight
     voxels are excluded whatever their data value: a NaN voxel under weight
     0 would otherwise poison the cost through ``0 * NaN``. The gradient is
-    plain autograd through the FFTs.
+    plain autograd through the FFTs. ``var_shape`` is one volume's shape; for
+    a batch it defaults to the data's trailing three axes.
     """
 
     kernel_hat: torch.Tensor
@@ -72,8 +128,8 @@ class WeightedConvolutionCost(NamedTuple):
     @classmethod
     def build(cls, kernel, data, weights=None, var_shape=None) -> "WeightedConvolutionCost":
         if var_shape is None:
-            var_shape = tuple(data.shape)
-        if tuple(kernel.shape) != tuple(var_shape):
+            var_shape = tuple(data.shape[-3:])
+        if tuple(kernel.shape[-len(var_shape):]) != tuple(var_shape):
             raise ValueError(
                 f"kernel shape {tuple(kernel.shape)} != variable shape {tuple(var_shape)}; "
                 "use utils.arrays.pad_fft_kernel to embed it"
@@ -88,18 +144,23 @@ class WeightedConvolutionCost(NamedTuple):
         """Forward model H x = crop(K (*) x) at the data window."""
         hx = convolve(x, self.kernel_hat, self.var_shape)
         if hx.shape != self.data.shape:
-            hx = crop_to_shape(hx, tuple(self.data.shape))
+            hx = crop_to_shape(hx, tuple(self.data.shape[-len(self.var_shape):]))
         return hx
 
     def cost(self, x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
-        """0.5 * alpha * sum w * (H x - d)^2 (``PSF_Estimation.java:157,206``)."""
+        """0.5 * alpha * sum w * (H x - d)^2 (``PSF_Estimation.java:157,206``),
+        per lane for a batch."""
         r = self.model(x) - self.data
         wr2 = r * r if self.weights is None else self.weights * r * r
-        return 0.5 * alpha * torch.sum(wr2)
+        return 0.5 * alpha * _lane_sum(wr2)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+    """<a, b> per volume: one BLAS dot for a volume, one per lane (B,) for a
+    batch, in the same order as :func:`_lane_sum`."""
+    if a.ndim <= 3:
+        return torch.dot(a.reshape(-1), b.reshape(-1))
+    return torch.stack([torch.dot(u.reshape(-1), v.reshape(-1)) for u, v in zip(a, b)])
 
 
 class _QuadraticCost(torch.autograd.Function):
@@ -108,7 +169,7 @@ class _QuadraticCost(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, kernel_sq, b, c, shape):
-        ax = torch.fft.irfftn(kernel_sq * torch.fft.rfftn(x), s=shape)
+        ax = _irfftn(kernel_sq * _rfftn(x), shape)
         f = 0.5 * _dot(x, ax) - _dot(x, b) + c
         ctx.save_for_backward(ax - b)
         return f
@@ -116,7 +177,7 @@ class _QuadraticCost(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (grad,) = ctx.saved_tensors
-        return g * grad, None, None, None, None
+        return _lane_scaled(g, grad), None, None, None, None
 
 
 class QuadraticConvCost(NamedTuple):
@@ -125,16 +186,16 @@ class QuadraticConvCost(NamedTuple):
 
     kernel_sq: torch.Tensor  # |K_hat|^2, rfftn layout
     b: torch.Tensor  # H^T d
-    c: torch.Tensor  # 0.5 * sum(d^2)
-    shape: tuple[int, ...]
+    c: torch.Tensor  # 0.5 * sum(d^2), per lane for a batch
+    shape: tuple[int, ...]  # one volume's
 
     @classmethod
     def build(cls, kernel, data) -> "QuadraticConvCost":
-        if kernel.shape != data.shape:
-            raise ValueError("quadratic fast path requires kernel shape == data shape")
-        k_hat = torch.fft.rfftn(kernel)
-        b = torch.fft.irfftn(torch.conj(k_hat) * torch.fft.rfftn(data), s=tuple(data.shape))
-        return cls(_abs2(k_hat), b, 0.5 * torch.sum(data * data), tuple(data.shape))
+        _check_kernel(kernel, data, "quadratic fast path")
+        shape = tuple(data.shape[-3:])
+        k_hat = _rfftn(kernel)
+        b = _irfftn(torch.conj(k_hat) * _rfftn(data), shape)
+        return cls(_abs2(k_hat), b, 0.5 * _lane_sum(data * data), shape)
 
     def cost(self, x: torch.Tensor) -> torch.Tensor:
         return _QuadraticCost.apply(x, self.kernel_sq, self.b, self.c, self.shape)
@@ -147,15 +208,15 @@ class _UniformCost(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, kernel_hat, kernel_sq, b, data, shape):
-        x_hat = torch.fft.rfftn(x)
-        r = torch.fft.irfftn(kernel_hat * x_hat, s=shape) - data
-        ctx.save_for_backward(torch.fft.irfftn(kernel_sq * x_hat, s=shape) - b)
-        return 0.5 * torch.sum(r * r)
+        x_hat = _rfftn(x)
+        r = _irfftn(kernel_hat * x_hat, shape) - data
+        ctx.save_for_backward(_irfftn(kernel_sq * x_hat, shape) - b)
+        return 0.5 * _lane_sum(r * r)
 
     @staticmethod
     def backward(ctx, g):
         (grad,) = ctx.saved_tensors
-        return g * grad, None, None, None, None, None
+        return _lane_scaled(g, grad), None, None, None, None, None
 
 
 class UniformConvCost(NamedTuple):
@@ -170,11 +231,11 @@ class UniformConvCost(NamedTuple):
 
     @classmethod
     def build(cls, kernel, data) -> "UniformConvCost":
-        if kernel.shape != data.shape:
-            raise ValueError("uniform fast path requires kernel shape == data shape")
-        k_hat = torch.fft.rfftn(kernel)
-        b = torch.fft.irfftn(torch.conj(k_hat) * torch.fft.rfftn(data), s=tuple(data.shape))
-        return cls(k_hat, _abs2(k_hat), b, data, tuple(data.shape))
+        _check_kernel(kernel, data, "uniform fast path")
+        shape = tuple(data.shape[-3:])
+        k_hat = _rfftn(kernel)
+        b = _irfftn(torch.conj(k_hat) * _rfftn(data), shape)
+        return cls(k_hat, _abs2(k_hat), b, data, shape)
 
     def cost(self, x: torch.Tensor) -> torch.Tensor:
         return _UniformCost.apply(x, self.kernel_hat, self.kernel_sq, self.b, self.data, self.shape)

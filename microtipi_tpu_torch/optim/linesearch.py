@@ -8,8 +8,12 @@ More & Thuente 1994, as TiPi's ``MoreThuenteLineSearch``; the reference uses
 loop that takes the same branches. Scalars are NumPy scalars of the
 objective's dtype, so float32 searches round as the JAX ones do.
 
-``phi(alpha) -> (f, df, aux)``: ``f`` and the directional derivative ``df``
-as NumPy scalars, ``aux`` anything to carry (the full gradient).
+The search is a generator, :func:`more_thuente_steps`, and so is its
+``phi(alpha)``: it yields the point to evaluate and returns ``(f, df, aux)``,
+``f`` and the directional derivative ``df`` as NumPy scalars, ``aux``
+anything to carry (the full gradient). Whoever drives the generator runs the
+objective (``optim/vmlmb.py``: one call per point, or one call for every
+lane of a batch in lockstep); :func:`drive` runs it with a plain function.
 
 Status codes: 0 = converged (strong Wolfe), 1 = xtol/interval warning
 (best point returned), 2 = evaluation budget exhausted.
@@ -21,7 +25,7 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 
-__all__ = ["more_thuente", "LineSearchResult"]
+__all__ = ["more_thuente_steps", "LineSearchResult", "drive"]
 
 _XTRAPL = 1.1
 _XTRAPU = 4.0
@@ -111,8 +115,19 @@ class LineSearchResult(NamedTuple):
     best_f: Any
 
 
-def more_thuente(
-    phi: Callable[[Any], tuple[Any, Any, Any]],
+def drive(gen, fun: Callable):
+    """Run a generator that yields evaluation requests: send back
+    ``fun(request)`` for each, and return what the generator returns."""
+    try:
+        request = next(gen)
+        while True:
+            request = gen.send(fun(request))
+    except StopIteration as stop:
+        return stop.value
+
+
+def more_thuente_steps(
+    phi,
     step0,
     f0,
     df0,
@@ -123,10 +138,12 @@ def more_thuente(
     step_min: float = 1e-20,
     step_max: float = 1e20,
     max_evals: int = 20,
-) -> LineSearchResult:
+):
     """Find a step satisfying ``f(a) <= f0 + ftol*a*df0`` and
     ``|f'(a)| <= gtol*|df0|`` along a descent direction (``df0 < 0``);
-    ``linesearch.py:141-257`` step for step."""
+    ``linesearch.py:141-257`` step for step. ``phi(alpha)`` is a generator
+    function returning ``(f, df, aux)``; every request it yields passes
+    through, and the search returns a :class:`LineSearchResult`."""
     dt = np.asarray(f0).dtype.type
     stp = dt(step0)
     stpmin, stpmax = dt(step_min), dt(step_max)
@@ -134,7 +151,7 @@ def more_thuente(
     width = stpmax - stpmin
     width1 = dt(2.0) * width
 
-    f, df, aux = phi(stp)
+    f, df, aux = yield from phi(stp)
     stx, fx, dx = dt(0.0), f0, df0
     sty, fy, dy = dt(0.0), f0, df0
     brackt, stage1 = False, True
@@ -187,7 +204,7 @@ def more_thuente(
             stp_n = stx
 
         stp = dt(stp_n)
-        f, df, aux = phi(stp)
+        f, df, aux = yield from phi(stp)
         evals += 1
         if f < best_f:
             best_step, best_f = stp, f

@@ -60,13 +60,15 @@ def twhere(pred: Tree, a: Tree, b: Tree) -> Tree:
 
 def value_and_grad(objective: Callable[[Tree], torch.Tensor]) -> Callable:
     """``x -> (f, grad f)`` by autograd, the counterpart of
-    ``jax.value_and_grad``; ``f`` and the gradient come back detached."""
+    ``jax.value_and_grad``; ``f`` and the gradient come back detached. A
+    per-lane ``f`` of a batch (B,) gives the gradient of its sum, which is
+    each lane's own gradient."""
 
     def fun(x: Tree):
         with torch.enable_grad():
             xv = tmap(lambda t: t.detach().requires_grad_(True), x)
             f = objective(xv)
-            grads = torch.autograd.grad(f, leaves(xv))
+            grads = torch.autograd.grad(f.sum(), leaves(xv))
         if isinstance(xv, dict):
             return f.detach(), dict(zip(sorted(xv), grads))
         return f.detach(), grads[0]

@@ -14,6 +14,13 @@ derivatives, norms, the curvature test) come to the host as NumPy scalars of
 the objective's dtype. The L-BFGS history is a circular buffer whose empty
 slots (``rho = 0``) are exact no-ops of the two-loop and are skipped. It is
 kept in the iterate's dtype.
+
+The loop is a generator (:func:`vmlmb_steps`) that yields each point to
+evaluate, through both line searches. :func:`minimize_vmlmb` drives one with
+the objective; :func:`minimize_vmlmb_batched` drives one per lane of a batch
+in lockstep, with one batched objective call per step: the port's
+counterpart of ``jax.vmap`` over the JAX while-loop, where each lane keeps
+its own iterate, memory and stopping and a finished lane freezes.
 """
 
 from __future__ import annotations
@@ -23,10 +30,10 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from microtipi_tpu_torch.optim.linesearch import more_thuente
+from microtipi_tpu_torch.optim.linesearch import drive, more_thuente_steps
 from microtipi_tpu_torch.optim.treeutil import taxpy, tdot, tmap, tnorm, tscale, tsub, twhere
 
-__all__ = ["minimize_vmlmb", "VMLMBResult", "VMLMBStatus"]
+__all__ = ["minimize_vmlmb", "minimize_vmlmb_batched", "vmlmb_steps", "VMLMBResult", "VMLMBStatus"]
 
 
 class VMLMBStatus:
@@ -63,8 +70,59 @@ def _scalar_bound(bound) -> float | None:
     raise TypeError(f"lower/upper must be scalars or None, got {type(bound).__name__}")
 
 
-def minimize_vmlmb(
-    fun: Callable[[Any], tuple[torch.Tensor, Any]],
+def minimize_vmlmb(fun: Callable[[Any], tuple[torch.Tensor, Any]], x0: Any, **options) -> VMLMBResult:
+    """Minimize ``fun(x) -> (f, g)`` from ``x0`` (a tensor or a dict of
+    tensors); ``vmlmb.py:123-347`` step for step. ``options``: those of
+    :func:`vmlmb_steps`."""
+    return drive(vmlmb_steps(x0, **options), fun)
+
+
+def minimize_vmlmb_batched(
+    fun: Callable[[torch.Tensor, tuple[int, ...]], tuple[torch.Tensor, torch.Tensor]],
+    x0: torch.Tensor,
+    *,
+    maxeval=None,
+    maxiter_cap=None,
+    **kw,
+) -> list[VMLMBResult]:
+    """B independent minimizations in lockstep, one per lane of ``x0``
+    (B, ...): lane b's result is :func:`minimize_vmlmb` from ``x0[b]``.
+
+    Each lane runs :func:`vmlmb_steps` with its own iterate, line search,
+    L-BFGS memory and stopping. Every step stacks the trial points of the
+    lanes still running and makes ONE call ``fun(x, lanes) -> (f (n,),
+    g (n, ...))`` for those lanes (``lanes``: their indices, ascending); a
+    finished lane is no longer evaluated. ``maxeval`` and ``maxiter_cap`` are
+    one value for every lane or a sequence of B; ``kw`` are the other
+    options of :func:`vmlmb_steps`, shared by all lanes.
+    """
+    nb = x0.shape[0]
+    evals, caps = _per_lane(maxeval, nb), _per_lane(maxiter_cap, nb)
+    steps = [vmlmb_steps(x0[b], maxeval=evals[b], maxiter_cap=caps[b], **kw) for b in range(nb)]
+    requests = {b: next(gen) for b, gen in enumerate(steps)}
+    results: list = [None] * nb
+    while requests:
+        lanes = tuple(requests)
+        f, g = fun(torch.stack([requests[b] for b in lanes]), lanes)
+        f = f.detach().cpu()  # one device sync for every lane's cost
+        for i, b in enumerate(lanes):
+            try:
+                requests[b] = steps[b].send((f[i], g[i]))
+            except StopIteration as stop:
+                results[b] = stop.value
+                del requests[b]
+    return results
+
+
+def _per_lane(value, nb: int) -> list:
+    if value is None or np.ndim(value) == 0:
+        return [value] * nb
+    if len(value) != nb:
+        raise ValueError(f"{len(value)} per-lane values for {nb} lanes")
+    return [int(v) for v in value]
+
+
+def vmlmb_steps(
     x0: Any,
     *,
     lower=None,
@@ -79,9 +137,11 @@ def minimize_vmlmb(
     ls_xtol: float = 1e-17,
     ls_max_evals: int = 20,
     maxiter_cap: int | None = None,
-) -> VMLMBResult:
-    """Minimize ``fun(x) -> (f, g)`` from ``x0`` (a tensor or a dict of
-    tensors); ``vmlmb.py:123-347`` step for step.
+):
+    """VMLMB from ``x0`` as a generator: it yields each point to evaluate,
+    takes ``(f, g)`` back by ``send`` and returns the :class:`VMLMBResult`.
+    Whoever drives it decides how the objective runs (one call per point, or
+    one call for a batch of lanes).
 
     ``maxeval`` defaults to ``2 * maxiter`` (``PSF_Estimation.java:270-273``).
     ``maxiter`` sizes the histories; ``maxiter_cap`` (<= maxiter, default
@@ -118,7 +178,7 @@ def minimize_vmlmb(
         return zero_where(blocked_mask(x, g, 1), g) if bounded else g
 
     x0 = project(x0)
-    f0, g0 = fun(x0)
+    f0, g0 = yield x0
     dt = _host(f0).dtype.type
     f0 = dt(_host(f0))
     eps, tiny = dt(np.finfo(dt).eps), dt(np.finfo(dt).tiny)
@@ -185,20 +245,19 @@ def minimize_vmlmb(
         # ---- line search on what is left of the global eval budget ---------
         ls_budget = min(ls_max_evals, maxeval - evals)
         if bounded:
-            x_new, f_new, g_new, ls_evals, ls_ok, ls_best_a, ls_best_f, ls_alpha = _armijo_projected(
-                fun, project, x, f, g, d, step0, ls_ftol, ls_budget
+            x_new, f_new, g_new, ls_evals, ls_ok, ls_best_a, ls_best_f, ls_alpha = yield from _armijo_projected(
+                project, x, f, g, d, step0, ls_ftol, ls_budget
             )
             best_trial = lambda: project(taxpy(ls_best_a, d, x))  # noqa: E731
             if ls_ok:
                 alpha_prev = ls_alpha
         else:
             def phi(alpha):
-                xt = taxpy(float(alpha), d, x)
-                ft, gt = fun(xt)
+                ft, gt = yield taxpy(float(alpha), d, x)
                 return dt(_host(ft)), dt(_host(tdot(gt, d))), gt
 
-            res = more_thuente(phi, step0, f, dg, g, ftol=ls_ftol, gtol=ls_gtol,
-                               xtol=ls_xtol, max_evals=ls_budget)
+            res = yield from more_thuente_steps(phi, step0, f, dg, g, ftol=ls_ftol, gtol=ls_gtol,
+                                                xtol=ls_xtol, max_evals=ls_budget)
             x_new = taxpy(float(res.step), d, x)
             f_new, g_new, ls_evals = res.f, res.aux, res.evals
             ls_ok = res.status < 2
@@ -244,19 +303,19 @@ def minimize_vmlmb(
     return VMLMBResult(best_x, best_f, g, iters, evals, status, hist_f, hist_pg)
 
 
-def _armijo_projected(fun, project, x, f, g, d, step0, ftol, max_evals):
+def _armijo_projected(project, x, f, g, d, step0, ftol, max_evals):
     """Backtracking Armijo search along the projected path x(a) = P[x + a*d]
     with the path-aware test ``f(x(a)) <= f + ftol * <g, x(a) - x>``
-    (``vmlmb.py:350-407``)."""
+    (``vmlmb.py:350-407``); a generator that yields each trial point."""
     dt = type(f)
 
     def trial(alpha):
         xt = project(taxpy(float(alpha), d, x))
-        ft, gt = fun(xt)
+        ft, gt = yield xt
         return xt, dt(_host(ft)), gt
 
     alpha = dt(step0)
-    xt, ft, gt = trial(alpha)
+    xt, ft, gt = yield from trial(alpha)
     evals, ok = 1, False
     best_alpha, best_f = alpha, ft
     while True:
@@ -267,7 +326,7 @@ def _armijo_projected(fun, project, x, f, g, d, step0, ftol, max_evals):
         if ok or evals >= max_evals:
             return xt, ft, gt, evals, ok, best_alpha, best_f, alpha
         alpha = alpha * dt(0.5)
-        xt, ft, gt = trial(alpha)
+        xt, ft, gt = yield from trial(alpha)
         evals += 1
         if ft < best_f:
             best_alpha, best_f = alpha, ft

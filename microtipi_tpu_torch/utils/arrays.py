@@ -3,6 +3,11 @@
 Port of ``microtipi_tpu/utils/arrays.py`` (TiPi ``ArrayUtils``:
 ``ArrayUtils.roll`` at ``microUtils/BlindDeconvJob.java:100`` and
 ``ArrayUtils.pad`` at ``microscopy/PSF_Estimation.java:323``).
+
+Each helper also takes a batch: ``roll``/``unroll`` shift only ``axes`` when
+given, and a ``shape`` shorter than the tensor's rank applies to its trailing
+axes, leaving the leading (batch) axes alone. Without those arguments they
+work on every axis, as the JAX helpers do.
 """
 
 from __future__ import annotations
@@ -13,15 +18,24 @@ import torch.nn.functional as F
 __all__ = ["roll", "unroll", "pad_to_shape", "crop_to_shape", "pad_fft_kernel"]
 
 
-def roll(x: torch.Tensor) -> torch.Tensor:
-    """Corner-origin (FFT layout) -> centered layout: ``fftshift`` over every
-    axis (TiPi ``ArrayUtils.roll``). Use :func:`unroll` to go back."""
-    return torch.fft.fftshift(x)
+def roll(x: torch.Tensor, axes=None) -> torch.Tensor:
+    """Corner-origin (FFT layout) -> centered layout: ``fftshift`` over
+    ``axes`` (default every axis; TiPi ``ArrayUtils.roll``). Use
+    :func:`unroll` to go back."""
+    return torch.fft.fftshift(x, dim=axes)
 
 
-def unroll(x: torch.Tensor) -> torch.Tensor:
+def unroll(x: torch.Tensor, axes=None) -> torch.Tensor:
     """Centered layout -> corner-origin (FFT layout); inverse of :func:`roll`."""
-    return torch.fft.ifftshift(x)
+    return torch.fft.ifftshift(x, dim=axes)
+
+
+def _trailing(x: torch.Tensor, shape) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """(leading batch shape, trailing shape that ``shape`` applies to)."""
+    n = len(shape)
+    if n > x.ndim:
+        raise ValueError(f"shape {tuple(shape)} has more axes than the tensor's {tuple(x.shape)}")
+    return tuple(x.shape[: x.ndim - n]), tuple(x.shape[x.ndim - n:])
 
 
 def _offsets(small: tuple[int, ...], big: tuple[int, ...]) -> tuple[int, ...]:
@@ -32,26 +46,34 @@ def _offsets(small: tuple[int, ...], big: tuple[int, ...]) -> tuple[int, ...]:
 
 
 def pad_to_shape(x: torch.Tensor, shape: tuple[int, ...], value: float = 0.0) -> torch.Tensor:
-    """Center-pad ``x`` to ``shape`` with ``value`` (TiPi ``ArrayUtils.pad``)."""
+    """Center-pad the trailing ``len(shape)`` axes of ``x`` to ``shape`` with
+    ``value`` (TiPi ``ArrayUtils.pad``)."""
     shape = tuple(shape)
-    if tuple(x.shape) == shape:
+    _, inner = _trailing(x, shape)
+    if inner == shape:
         return x
-    offs = _offsets(tuple(x.shape), shape)
+    offs = _offsets(inner, shape)
     pads = []
-    for o, s, b in reversed(list(zip(offs, x.shape, shape))):  # last axis first
+    for o, s, b in reversed(list(zip(offs, inner, shape))):  # last axis first
         pads += [o, b - s - o]
     return F.pad(x, pads, value=value)
 
 
 def crop_to_shape(x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """Extract the centered region of ``shape`` from ``x`` (inverse of pad)."""
-    offs = _offsets(tuple(shape), tuple(x.shape))
-    return x[tuple(slice(o, o + s) for o, s in zip(offs, shape))]
+    """Extract the centered region of ``shape`` from the trailing axes of
+    ``x`` (inverse of pad)."""
+    lead, inner = _trailing(x, tuple(shape))
+    offs = _offsets(tuple(shape), inner)
+    return x[(slice(None),) * len(lead) + tuple(slice(o, o + s) for o, s in zip(offs, shape))]
 
 
 def pad_fft_kernel(kernel: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """Grow a corner-origin kernel to ``shape`` while keeping it corner-origin
-    (center, zero-pad, shift back)."""
-    if tuple(kernel.shape) == tuple(shape):
+    (center, zero-pad, shift back); a batch of kernels grows on its trailing
+    axes."""
+    shape = tuple(shape)
+    lead, inner = _trailing(kernel, shape)
+    if inner == shape:
         return kernel
-    return unroll(pad_to_shape(roll(kernel), shape))
+    axes = tuple(range(len(lead), kernel.ndim))
+    return unroll(pad_to_shape(roll(kernel, axes), shape), axes)

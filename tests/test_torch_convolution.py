@@ -67,7 +67,7 @@ def test_gradient_psf_variable_through_compute_psf(kind):
     shape = (8, 32, 32)
     jcfg = JaxConfig(shape=shape, na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9, dz=200e-9,
                      n_phase=6, n_modulus=3, dtype=jnp.float64)
-    model = WideFieldModel(config_from_fields(jcfg))
+    model = WideFieldModel(config_from_fields(jcfg), device="cpu")
     rng = np.random.default_rng(3)
     obj = rng.random(shape) * (rng.random(shape) > 0.9) * 100
     true = jcfg.init_params()._replace(phase=jnp.asarray(0.1 * rng.standard_normal(6)))

@@ -46,3 +46,23 @@ def test_tv_kernel_rejects_what_it_does_not_take(cuda_device):
         hv.hyperbolic_tv_fused(x[None], 0.1)
     with pytest.raises(ValueError):
         hv.hyperbolic_tv_fused(x.transpose(1, 2), 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 37, 64, 96), (2, 256, 8, 128)])
+def test_batched_tv_kernel_matches_plain_and_single(shape, cuda_device):
+    """One batched launch: costs and gradient against the plain version,
+    and each lane's gradient bitwise equal to the single-volume kernel's."""
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(shape, dtype=np.float32), device=cuda_device)
+    hv.launches = hv.batched_launches = 0
+    f, g = hv.hyperbolic_tv_batched_fused(x, 0.1, (2.0, 1.0, 1.0))
+    fp, gp = hv.hyperbolic_tv_batched_plain(x, 0.1, (2.0, 1.0, 1.0))
+    torch.cuda.synchronize()
+    assert (hv.launches, hv.batched_launches) == (0, 1)
+    np.testing.assert_allclose(f.cpu().numpy(), fp.cpu().numpy(), rtol=COST_RTOL)
+    torch.testing.assert_close(g, gp, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    for b in range(shape[0]):
+        _, gb = hv.hyperbolic_tv_fused(x[b], 0.1, (2.0, 1.0, 1.0))
+        assert torch.equal(g[b], gb)
+    with pytest.raises(ValueError):
+        hv.hyperbolic_tv_batched_fused(x[0], 0.1)

@@ -72,7 +72,8 @@ def test_blind_matches_jax(joint):
     dk = dict(mu=0.01, epsilon=1.0, max_iter=5, grtol=0.0, gatol=0.0)
     rj = jax_blind(jnp.asarray(data), cfg, config=JaxBlindConfig(
         **kw, deconv=JaxDeconvConfig(**dk), fit=JaxFitConfig(grtol=0.0)))
-    rt = blind_deconvolve(torch.tensor(data), WideFieldModel(config_from_fields(cfg)), config=BlindDeconvConfig(
+    model = WideFieldModel(config_from_fields(cfg), device="cpu")
+    rt = blind_deconvolve(torch.tensor(data), model, config=BlindDeconvConfig(
         **kw, deconv=DeconvolutionConfig(**dk), fit=PsfFitConfig(grtol=0.0)))
     np.testing.assert_allclose(rt.deconv_f, np.asarray(rj.deconv_f), rtol=1e-6)
     assert np.isnan(rt.fit_f[-1]).all() and np.isfinite(rt.fit_f[:-1]).all()

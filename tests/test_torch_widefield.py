@@ -27,7 +27,7 @@ def _pair(shape, n_phase=6, n_modulus=3, seed=0):
         modulus=jnp.asarray(np.r_[1.0, 0.1 * rng.standard_normal(n_modulus - 1)]),
         defocus=jnp.asarray([1.518 / 561e-9, 1e4, -2e4]),
     )
-    return jc, jp, WideFieldModel(config_from_fields(jc)), params_to_torch(jp)
+    return jc, jp, WideFieldModel(config_from_fields(jc), device="cpu"), params_to_torch(jp)
 
 
 def _rel(a, b):
@@ -60,7 +60,7 @@ GOLDEN_CASES = {
 def test_psf_matches_golden(suffix):
     """The tolerances of tests/test_golden.py."""
     geometry, values = GOLDEN_CASES[suffix]
-    model = WideFieldModel(config_from_fields(JaxConfig(dtype=jnp.float64, **geometry)))
+    model = WideFieldModel(config_from_fields(JaxConfig(dtype=jnp.float64, **geometry)), device="cpu")
     p = model.init_params()._replace(**{k: torch.tensor(v, dtype=torch.float64) for k, v in values.items()})
     rho, phi, psi, mask = (a.numpy() for a in model.compute_pupil(p))
     with np.load(GOLDEN) as z:
@@ -103,3 +103,15 @@ def test_convert_round_trip():
     assert [b.dtype for b in model.buffers()] == [torch.float64] * 3
     tp32 = params_to_torch(jp, dtype=torch.float32)
     assert all(t.dtype == torch.float32 for t in tp32)
+
+
+def test_model_defaults_to_the_card():
+    """Without a device the model's buffers go to the CUDA card; on a host
+    without one, construction raises instead of landing on the CPU."""
+    cfg = config_from_fields(JaxConfig(shape=(4, 16, 16), dtype=jnp.float64, **OPTICS))
+    if torch.cuda.is_available():
+        assert WideFieldModel(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            WideFieldModel(cfg)
+    assert WideFieldModel(cfg, device="cpu").device.type == "cpu"
