@@ -63,13 +63,9 @@ def _irfftn(x_hat: torch.Tensor, shape) -> torch.Tensor:
 
 
 def _lane_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum over each volume: a 0-dim tensor, or (B,) for a batch. Each lane
-    is reduced as one volume is, so its cost is the single volume's, bit for
-    bit (a float32 solve parts from another summation order within a few
-    iterations)."""
-    if t.ndim <= 3:
-        return torch.sum(t)
-    return torch.stack([torch.sum(v) for v in t])
+    """Sum over each volume: a 0-dim tensor, or (B,) for a batch, in one
+    reduction."""
+    return t.sum(dim=_vdims(t))
 
 
 def _lane_scaled(g: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -156,11 +152,9 @@ class WeightedConvolutionCost(NamedTuple):
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """<a, b> per volume: one BLAS dot for a volume, one per lane (B,) for a
-    batch, in the same order as :func:`_lane_sum`."""
-    if a.ndim <= 3:
-        return torch.dot(a.reshape(-1), b.reshape(-1))
-    return torch.stack([torch.dot(u.reshape(-1), v.reshape(-1)) for u, v in zip(a, b)])
+    """<a, b> per volume (B,) or of one volume: the product summed by
+    :func:`_lane_sum`, so a volume and a lane reduce alike."""
+    return _lane_sum(a * b)
 
 
 class _QuadraticCost(torch.autograd.Function):

@@ -116,9 +116,7 @@ def _launch(x: torch.Tensor, epsilon: float, scales, batched: bool):
         raise RuntimeError(f"hyperbolic-TV kernel launch failed: cudaError {err}")
     if batched:
         batched_launches += 1
-        # One torch.sum per volume, as for a single volume: a lane's cost is
-        # the single-volume launch's, bit for bit.
-        return torch.stack([torch.sum(p) for p in partials.view(nb, -1)]).to(torch.float32), grad
+        return partials.view(nb, -1).sum(1).to(torch.float32), grad
     launches += 1
     return torch.sum(partials).to(torch.float32), grad
 

@@ -15,6 +15,7 @@ from microtipi_tpu.ops.convolution import convolve, convolve_spectrum
 from microtipi_tpu_torch.jobs import batch as tbatch
 from microtipi_tpu_torch.jobs.batch import batched_deconvolve
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+from microtipi_tpu_torch.ops import convolution as conv
 from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
 from microtipi_tpu_torch.optim.treeutil import value_and_grad
 from microtipi_tpu_torch.optim.vmlmb import minimize_vmlmb, minimize_vmlmb_batched
@@ -53,9 +54,10 @@ def _assert_lane_matches_jax(rt, rj, b):
 
 
 def _assert_lane_matches_single(rt, rs, b):
-    """A lane against deconvolve of its volume: each lane's FFTs, sums and
-    dot products are the single volume's, so the trajectory is the same,
-    bit for bit."""
+    """A lane against deconvolve of its volume: on the CPU each lane's FFTs
+    are the single volume's, and at these sizes (below the parallel grain of
+    a CPU reduction) the batched sums and dot products reduce each lane in
+    the single volume's order, so the trajectory is the same, bit for bit."""
     assert (rt.iterations[b], rt.evaluations[b], rt.status[b]) == (rs.iterations, rs.evaluations, rs.status)
     np.testing.assert_array_equal(rt.f_history[b], rs.f_history)
     np.testing.assert_array_equal(rt.x[b].numpy(), rs.x.numpy())
@@ -85,6 +87,32 @@ def test_lanes_stopping_at_different_iterations():
     for b in range(3):
         _assert_lane_matches_jax(rt, rj, b)
         rs = deconvolve(torch.tensor(datas[b]), torch.tensor(psf), config=DeconvolutionConfig(**kw))
+        _assert_lane_matches_single(rt, rs, b)
+
+
+def test_float32_lanes_part_from_deconvolve_by_the_fft_alone(monkeypatch):
+    """Float32, where VMLMB trajectories are most sensitive to round-off.
+    One batched inverse FFT rounds a lane otherwise than the transform of
+    that volume alone (pocketfft here, cuFFT on the card), and the lanes
+    part from deconvolve after a few iterations at the same cost. With each
+    lane transformed on its own, every lane is deconvolve of its volume, bit
+    for bit, the residual-form continuation included: the lockstep driver,
+    the lane reductions and the TV add no rounding of their own."""
+    psf, datas = _scene()
+    cfg = DeconvolutionConfig(mu=0.002, epsilon=1.0, max_iter=15, grtol=0.0)
+    data, kernel = torch.tensor(datas, dtype=torch.float32), torch.tensor(psf, dtype=torch.float32)
+    singles = [deconvolve(data[b], kernel, config=cfg) for b in range(3)]
+    rt = batched_deconvolve(data, kernel, config=cfg)
+    for b, rs in enumerate(singles):
+        np.testing.assert_allclose(rt.f_history[b, :4], rs.f_history[:4], rtol=1e-4)
+    assert not all(torch.equal(rt.x[b], rs.x) for b, rs in enumerate(singles))
+
+    rfftn, irfftn = conv._rfftn, conv._irfftn
+    monkeypatch.setattr(conv, "_rfftn", lambda x: torch.stack([rfftn(v) for v in x]) if x.ndim == 4 else rfftn(x))
+    monkeypatch.setattr(conv, "_irfftn", lambda z, s: torch.stack([irfftn(v, s) for v in z]) if z.ndim == 4
+                        else irfftn(z, s))
+    rt = batched_deconvolve(data, kernel, config=cfg)
+    for b, rs in enumerate(singles):
         _assert_lane_matches_single(rt, rs, b)
 
 
