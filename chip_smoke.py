@@ -10,9 +10,13 @@ raises and the script exits non-zero:
 
 0. the card: name and power limit (nvidia-smi), torch and CUDA versions, and
    that float32 matmuls run in full float32 (TF32 off);
-1. build the hyperbolic-TV CUDA kernel from ``microtipi_tpu_torch/csrc``;
-2. the kernel against its plain PyTorch version on the card, then its time
-   and the plain version's per evaluation at 256^3;
+1. build the hyperbolic-TV CUDA kernel from ``microtipi_tpu_torch/csrc``,
+   with ptxas's report (registers, shared memory, spills);
+2. the kernel against its plain PyTorch version on the card, its TMA and its
+   4-byte-copy (unaligned) instantiations, then its time at 256^3:
+   ``kernel_ms`` from CUDA events around 50 back-to-back raw launches into
+   preallocated outputs, ``call_ms`` per wrapper call (allocation and host
+   launch latency included), and the plain version's;
 3. the slice at full size on the bench scene of ``bench.py`` (256^3):
    ``deconvolve`` (20 VMLMB iterations) and ``blind_deconvolve`` (5 rounds,
    joint defocus+phase fit), with the kernel's launch count;
@@ -20,8 +24,10 @@ raises and the script exits non-zero:
    ``deconvolve`` and of ``batched_deconvolve`` at 3 lanes;
 5. cuFFT float32 precision against float64 NumPy at 256^3;
 6. the batched hyperbolic-TV kernel against its plain version, each lane
-   against the single-volume kernel, then its time at 4x64x256x256 beside
-   the plain version and 4 single-volume launches;
+   against the single-volume kernel (bitwise), unaligned batches and lane
+   views, then its ``kernel_ms`` and ``call_ms`` at 4x64x256x256 and at the
+   tiled run's 4x256^3 beside the plain version, and 4 single-volume
+   launches at 4x64x256x256;
 7. ``batched_deconvolve`` at full width: 4 bench scenes of 64x256x256, each
    lane against ``deconvolve`` of that scene, with both launch counts;
 8. ``tiled_deconvolve`` at design scale: a 512x1024x1024 volume in 75 tiles
@@ -30,8 +36,8 @@ raises and the script exits non-zero:
    the witnesses of where the two part.
 
 The main paths are phase 3 (the single-volume kernel) and phases 7-8 (the
-batched kernel): each is driven with both launch counts set to 0 just before
-and read just after. The line before the last is ``{"kernels": [...]}`` with
+batched kernel): each is driven with the launch counts set to 0 just before
+and read just after, and none may take the unaligned instantiation. The line before the last is ``{"kernels": [...]}`` with
 each kernel's launches on its paths, error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 and
 prints no result.
@@ -52,8 +58,11 @@ import torch
 SHAPE = (256, 256, 256)
 PARITY_SHAPE = (16, 64, 64)
 KERNEL_SHAPES = (SHAPE, (37, 64, 96), (256, 8, 128))
+# nx % 4 != 0: the kernel's 4-byte-copy instantiation.
+UNALIGNED_SHAPE = (33, 45, 67)
 # The first is timed; the last two are the tiled run's full and ragged batches.
 BATCH_SHAPES = ((4, 64, 256, 256), (3, 37, 64, 96), (2, 256, 8, 128), (4, 256, 256, 256), (3, 256, 256, 256))
+UNALIGNED_BATCH = (3, 33, 45, 67)  # its lanes x[1], x[2] start off 16-byte alignment too
 LANE_SHAPE = (64, 256, 256)  # one lane of the batched object step
 VOLUME, TILE, OVERLAP, MAX_BATCH = (512, 1024, 1024), (256, 256, 256), 24, 4  # BASELINE.md:1241-1251
 # A corner of VOLUME cut into 7 tiles along x (stride 256 - 2*24): one full
@@ -99,15 +108,55 @@ def phase0_card() -> str:
 
 
 def phase1_build() -> None:
-    from microtipi_tpu_torch._build import load_library
+    from microtipi_tpu_torch._build import build_report, load_library
 
     t0 = time.perf_counter()
     load_library("hyperbolic_tv")
     log(1, f"built hyperbolic_tv.cu with nvcc in {time.perf_counter() - t0:.2f} s")
+    for line in build_report("hyperbolic_tv").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(1, line.strip())
+
+
+def raw_ms(launch, n: int = 50, warmup: int = 5) -> float:
+    """The kernel's time: CUDA events around ``n`` back-to-back launches of
+    ``launch`` (a raw launch into preallocated outputs), over ``n``."""
+    for _ in range(warmup):
+        launch()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def kernel_times(x: torch.Tensor, call, plain) -> dict:
+    """``kernel_ms`` (raw launches), ``call_ms`` (one wrapper call, median of
+    20), ``plain_ms``, the bound and the bound's share of ``kernel_ms``."""
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    kernel_ms = raw_ms(hv.prepare_launch(x, 1.0)[0])
+    call_ms = _median_ms(call)
+    plain_ms = _median_ms(plain)
+    bound_ms, bound_by = tv_bound(x)
+    return {"kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / kernel_ms}
+
+
+def times_line(shape, t: dict) -> str:
+    moved = 2 * int(np.prod(shape)) * 4
+    return (f"kernel_ms {t['kernel_ms']:.4f} (50 raw launches, {moved / (t['kernel_ms'] * 1e-3) / 1e9:.1f} GB/s), "
+            f"call_ms {t['call_ms']:.4f} (wrapper call, median of 20), plain {t['plain_ms']:.4f} ms; bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {moved / 2**20:.0f} MiB at {HBM_BYTES_PER_S / 1e12} TB/s), "
+            f"{t['bound_share']:.1%} of it")
 
 
 def _median_ms(fn, n: int = 20, warmup: int = 3) -> float:
-    """Median over ``n`` calls of the CUDA-event time of one call."""
+    """Median over ``n`` calls of the CUDA-event time of one call into an
+    idle queue: host launch latency and allocations included."""
     for _ in range(warmup):
         fn()
     times = []
@@ -126,6 +175,7 @@ def phase2_kernel(card: str) -> dict:
 
     dev = torch.device("cuda")
     max_err = 0.0
+    hv.unaligned_launches = 0
     for shape in KERNEL_SHAPES:
         x = torch.as_tensor(np.random.default_rng(7).standard_normal(shape, dtype=np.float32), device=dev)
         for eps in (0.1, 1.0):
@@ -149,22 +199,50 @@ def phase2_kernel(card: str) -> dict:
         f, g = hv.hyperbolic_tv_fused(const, 0.1)
         if abs(f.item()) > 1e-5 or g.abs().max().item() != 0.0:
             raise AssertionError(f"constant volume gives cost {f.item()}, grad {g.abs().max().item()}")
+    if hv.unaligned_launches != 0:
+        raise AssertionError(f"aligned shapes took the unaligned instantiation {hv.unaligned_launches} times")
+
+    # The 4-byte-copy instantiation: nx % 4 != 0, and nx % 4 == 0 at a base
+    # 4 bytes off 16-byte alignment; the latter bitwise equal to the TMA
+    # instantiation on an aligned copy of the same data.
+    rng = np.random.default_rng(9)
+    odd = torch.as_tensor(rng.standard_normal(UNALIGNED_SHAPE, dtype=np.float32), device=dev)
+    shifted_shape = (33, 44, 68)
+    flat = torch.as_tensor(rng.standard_normal(int(np.prod(shifted_shape)) + 1, dtype=np.float32), device=dev)
+    shifted = flat[1:].view(shifted_shape)
+    for xu in (odd, shifted):
+        for eps, scales in ((0.1, None), (1.0, (2.0, 1.0, 1.0))):
+            before = hv.unaligned_launches
+            f, g = hv.hyperbolic_tv_fused(xu, eps, scales)
+            if hv.unaligned_launches != before + 1:
+                raise AssertionError(f"{tuple(xu.shape)} at {xu.data_ptr() % 16} bytes off alignment did not take "
+                                     "the unaligned instantiation")
+            f_ref, g_ref = hv.hyperbolic_tv_plain(xu, eps, scales)
+            rel = abs(f.item() - f_ref.item()) / abs(f_ref.item())
+            err = (g - g_ref).abs().max().item()
+            max_err = max(max_err, err)
+            if rel > TV_COST_RTOL or not torch.allclose(g, g_ref, rtol=TV_GRAD_RTOL, atol=TV_GRAD_ATOL):
+                raise AssertionError(f"unaligned kernel != plain at {tuple(xu.shape)} eps={eps} scales={scales}: "
+                                     f"cost rel {rel:.3g}, grad max abs {err:.3g}")
+            f2, g2 = hv.hyperbolic_tv_fused(xu, eps, scales)
+            if not (torch.equal(f, f2) and torch.equal(g, g2)):
+                raise AssertionError(f"two unaligned launches differ at {tuple(xu.shape)}")
+    fa, ga = hv.hyperbolic_tv_fused(shifted.clone(), 0.1)
+    fo, go = hv.hyperbolic_tv_fused(shifted, 0.1)
+    if not (torch.equal(fa, fo) and torch.equal(ga, go)):
+        raise AssertionError("the unaligned instantiation differs from the TMA one on the same data")
     torch.cuda.synchronize()
     log(2, f"kernel == plain at {list(KERNEL_SHAPES)}, eps (0.1, 1.0), scales (None, (2,1,1)): "
            f"cost rtol {TV_COST_RTOL}, grad rtol {TV_GRAD_RTOL} atol {TV_GRAD_ATOL} "
            f"(max grad abs err {max_err:.3g}); 256-plane cost within {TV_F64_RTOL} of float64; "
-           "constant volume 0; two launches bitwise equal")
+           "constant volume 0; two launches bitwise equal; unaligned instantiation at "
+           f"{UNALIGNED_SHAPE} and {shifted_shape} 4 bytes off alignment: == plain, launches bitwise equal, "
+           "bitwise the TMA instantiation's on the same data")
 
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(SHAPE, dtype=np.float32), device=dev)
-    ms = _median_ms(lambda: hv.hyperbolic_tv_fused(x, 1.0))
-    plain_ms = _median_ms(lambda: hv.hyperbolic_tv_plain(x, 1.0))
-    bound_ms, bound_by = tv_bound(x)
-    moved = 2 * x.numel() * x.element_size()
-    log(2, f"[{card}] TV at {SHAPE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per evaluation "
-           f"(median of 20, CUDA events); kernel {moved / (ms * 1e-3) / 1e9:.1f} GB/s "
-           f"against its floor of {moved / 2**20:.0f} MiB moved; bound {bound_ms:.4f} ms ({bound_by})")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    t = kernel_times(x, lambda: hv.hyperbolic_tv_fused(x, 1.0), lambda: hv.hyperbolic_tv_plain(x, 1.0))
+    log(2, f"[{card}] TV at {SHAPE}: {times_line(SHAPE, t)}")
+    return {"max_abs_err": max_err, "ms": t["kernel_ms"], **t, "library_ms": None}
 
 
 def bench_scene(shape, device, dtype, phase=None, seed=0):
@@ -205,7 +283,7 @@ def phase3_slice(card: str) -> int:
     _, data, psf = bench_scene(SHAPE, dev, torch.float32)
     cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
     torch.cuda.reset_peak_memory_stats()
-    hv.launches = hv.batched_launches = 0
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
     deconvolve(data, psf, config=cfg)  # warm-up (cuFFT plans, the kernel's first load)
     walls = []
     for _ in range(3):
@@ -249,8 +327,9 @@ def phase3_slice(card: str) -> int:
            f"{bres.deconv_iters.tolist()}, deconv_f {df.tolist()}, wall {bwall:.3f} s (1 run), "
            f"{nvox * iters / bwall / 1e6:.1f} Mvox*obj_iter/s, TV kernel launches {blind_launches}")
     log(3, f"[{card}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    if hv.batched_launches != 0:
-        raise AssertionError(f"the single-volume path launched the batched kernel {hv.batched_launches} times")
+    if hv.batched_launches != 0 or hv.unaligned_launches != 0:
+        raise AssertionError(f"the single-volume path launched the batched kernel {hv.batched_launches} times, "
+                             f"the unaligned instantiation {hv.unaligned_launches} times")
     return hv.launches
 
 
@@ -326,16 +405,18 @@ def phase5_cufft(card: str) -> None:
 
 
 def phase6_batched_kernel(card: str) -> dict:
-    """The batched kernel against its plain version at BATCH_SHAPES over the
-    eps/scales grid of phase 2; each lane's gradient bitwise equal to the
-    single-volume kernel's and its cost within 1 float32 ulp (the same
-    partials, summed per volume in another reduction); then its time at
-    BATCH_SHAPES[0]."""
+    """The batched kernel against its plain version at BATCH_SHAPES and
+    UNALIGNED_BATCH over the eps/scales grid of phase 2; each lane's cost
+    and gradient bitwise equal to the single-volume kernel's (the same
+    partials, summed per volume in the same order inside the kernel), the
+    lane views of UNALIGNED_BATCH taking the unaligned instantiation; then
+    its times at BATCH_SHAPES[0] and at the tiled run's 4x256^3."""
     from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
 
     dev = torch.device("cuda")
     max_err = 0.0
-    for shape in BATCH_SHAPES:
+    hv.unaligned_launches = 0
+    for shape in (*BATCH_SHAPES, UNALIGNED_BATCH):
         x = torch.as_tensor(np.random.default_rng(8).standard_normal(shape, dtype=np.float32), device=dev)
         for eps in (0.1, 1.0):
             for scales in (None, (2.0, 1.0, 1.0)):
@@ -354,8 +435,7 @@ def phase6_batched_kernel(card: str) -> dict:
                         raise AssertionError(f"256-plane batched cost off float64 by {rel64:.3g}")
                 for b in range(shape[0]):
                     fb, gb = hv.hyperbolic_tv_fused(x[b], eps, scales)
-                    ulp = float(np.spacing(np.float32(abs(fb.item()))))
-                    if not torch.equal(g[b], gb) or abs(f[b].item() - fb.item()) > ulp:
+                    if not (torch.equal(g[b], gb) and torch.equal(f[b], fb)):
                         raise AssertionError(f"lane {b} != single-volume kernel at {shape} eps={eps} "
                                              f"scales={scales}: cost {f[b].item()} vs {fb.item()}")
                 f2, g2 = hv.hyperbolic_tv_batched_fused(x, eps, scales)
@@ -364,26 +444,33 @@ def phase6_batched_kernel(card: str) -> dict:
         f, g = hv.hyperbolic_tv_batched_fused(torch.full(shape, 2.5, device=dev), 0.1)
         if f.abs().max().item() > 1e-5 or g.abs().max().item() != 0.0:
             raise AssertionError(f"constant batch gives costs {f.tolist()}, grad {g.abs().max().item()}")
+        # Every launch of the odd-shaped batch and of its lanes is unaligned (nx % 4 != 0).
+        want = 0 if shape != UNALIGNED_BATCH else 4 * (2 + shape[0]) + 1
+        if hv.unaligned_launches != want:
+            raise AssertionError(f"unaligned launches at {shape}: {hv.unaligned_launches}, expected {want}")
+    ptrs = [x[b].data_ptr() % 16 for b in range(UNALIGNED_BATCH[0])]
     torch.cuda.synchronize()
-    log(6, f"batched kernel == plain at {list(BATCH_SHAPES)}, eps (0.1, 1.0), scales (None, (2,1,1)): "
-           f"cost rtol {TV_COST_RTOL}, grad rtol {TV_GRAD_RTOL} atol {TV_GRAD_ATOL} (max grad abs err "
-           f"{max_err:.3g}); 256-plane costs within {TV_F64_RTOL} of float64; every lane's gradient "
-           "bitwise equal to the single-volume kernel's, cost within 1 float32 ulp; constant batch 0; "
-           "two launches bitwise equal")
+    log(6, f"batched kernel == plain at {list(BATCH_SHAPES) + [UNALIGNED_BATCH]}, eps (0.1, 1.0), scales (None, "
+           f"(2,1,1)): cost rtol {TV_COST_RTOL}, grad rtol {TV_GRAD_RTOL} atol {TV_GRAD_ATOL} (max grad abs err "
+           f"{max_err:.3g}); 256-plane costs within {TV_F64_RTOL} of float64; every lane's cost and gradient "
+           f"bitwise equal to the single-volume kernel's (lanes of {UNALIGNED_BATCH} at {ptrs} bytes off "
+           "16-byte alignment, unaligned instantiation); constant batch 0; two launches bitwise equal")
 
-    shape = BATCH_SHAPES[0]
-    x = torch.as_tensor(np.random.default_rng(0).standard_normal(shape, dtype=np.float32), device=dev)
-    ms = _median_ms(lambda: hv.hyperbolic_tv_batched_fused(x, 1.0))
-    plain_ms = _median_ms(lambda: hv.hyperbolic_tv_batched_plain(x, 1.0))
-    singles_ms = _median_ms(lambda: [hv.hyperbolic_tv_fused(x[b], 1.0) for b in range(shape[0])])
-    bound_ms, bound_by = tv_bound(x)
-    moved = 2 * x.numel() * x.element_size()
-    log(6, f"[{card}] batched TV at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-           f"{shape[0]} single-volume launches {singles_ms:.4f} ms per evaluation (median of 20, CUDA "
-           f"events); kernel {moved / (ms * 1e-3) / 1e9:.1f} GB/s; bound {bound_ms:.4f} ms ({bound_by}: "
-           f"{moved / 2**20:.0f} MiB at {HBM_BYTES_PER_S / 1e12} TB/s)")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "singles_ms": singles_ms}
+    out = {}
+    for shape in (BATCH_SHAPES[0], BATCH_SHAPES[3]):
+        x = torch.as_tensor(np.random.default_rng(0).standard_normal(shape, dtype=np.float32), device=dev)
+        t = kernel_times(x, lambda: hv.hyperbolic_tv_batched_fused(x, 1.0),
+                         lambda: hv.hyperbolic_tv_batched_plain(x, 1.0))
+        extra = ""
+        if shape == BATCH_SHAPES[0]:
+            t["singles_ms"] = _median_ms(lambda: [hv.hyperbolic_tv_fused(x[b], 1.0) for b in range(shape[0])])
+            extra = f"; {shape[0]} single-volume wrapper calls {t['singles_ms']:.4f} ms"
+        log(6, f"[{card}] batched TV at {shape}: {times_line(shape, t)}{extra}")
+        out[shape] = t
+        del x
+    lanes, tiled = out[BATCH_SHAPES[0]], out[BATCH_SHAPES[3]]
+    return {"max_abs_err": max_err, "ms": lanes["kernel_ms"], **lanes, "library_ms": None,
+            "tiled_batch": {"shape": list(BATCH_SHAPES[3]), **tiled}}
 
 
 def phase7_batched(card: str) -> int:
@@ -401,7 +488,7 @@ def phase7_batched(card: str) -> int:
     cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
     batched_deconvolve(data, psf, config=cfg)  # warm-up (cuFFT plans for the batch)
     torch.cuda.reset_peak_memory_stats()
-    hv.launches = hv.batched_launches = 0
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -409,17 +496,17 @@ def phase7_batched(card: str) -> int:
         res = batched_deconvolve(data, psf, config=cfg)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    single, batched = hv.launches, hv.batched_launches
+    single, batched, unaligned = hv.launches, hv.batched_launches, hv.unaligned_launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     wall = float(np.median(walls))
     _check_object("batched_deconvolve", res.x)
-    if batched == 0 or single != 0 or not np.isfinite(res.f).all():
+    if batched == 0 or single != 0 or unaligned != 0 or not np.isfinite(res.f).all():
         raise AssertionError(f"batched_deconvolve: f={res.f}, batched kernel launches {batched}, "
-                             f"single-volume launches {single} (must be 0)")
+                             f"single-volume launches {single}, unaligned {unaligned} (both must be 0)")
     log(7, f"[{card}] batched_deconvolve 4 x {LANE_SHAPE}: iterations {res.iterations.tolist()}, "
            f"evaluations {res.evaluations.tolist()}, status {res.status.tolist()}, wall {wall:.4f} s "
            f"(median of 3 after 1 warm-up), {nvox * res.iterations.sum() / wall / 1e6:.1f} Mvox*iter/s, "
-           f"batched kernel launches {batched} (3 runs; single-volume launches {single}), "
+           f"batched kernel launches {batched} (3 runs; single-volume launches {single}, unaligned {unaligned}), "
            f"peak device memory {peak:.3f} GiB")
     worst4 = worstf = worstx = 0.0
     for b in range(4):
@@ -493,26 +580,27 @@ def phase8_tiled(card: str) -> int:
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    hv.launches = hv.batched_launches = 0
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = tiled_deconvolve(data, psf, tile=TILE, overlap=OVERLAP, config=cfg, max_batch=MAX_BATCH)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    single, batched = hv.launches, hv.batched_launches
+    single, batched, unaligned = hv.launches, hv.batched_launches, hv.unaligned_launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     if out.shape != VOLUME or not np.isfinite(out).all() or out.min() < 0:
         raise AssertionError(f"tiled_deconvolve: output shape {out.shape}, finite {np.isfinite(out).all()}, "
                              f"min {out.min()}")
-    if batched == 0 or single != 0:
-        raise AssertionError(f"tiled_deconvolve: batched kernel launches {batched}, single-volume {single}")
+    if batched == 0 or single != 0 or unaligned != 0:
+        raise AssertionError(f"tiled_deconvolve: batched kernel launches {batched}, single-volume {single}, "
+                             f"unaligned {unaligned}")
     vox, halo_vox = float(np.prod(VOLUME)), float(n_tiles * np.prod(TILE))
     log(8, f"[{card}] tiled_deconvolve {VOLUME} float32 (made in {setup:.1f} s), tile {TILE}, overlap "
            f"{OVERLAP}, max_batch {MAX_BATCH}: {n_tiles} tiles in {n_batches} batches, wall {wall:.3f} s "
            f"(1 run after a warm-up of {WARM_VOLUME} in 7 tiles, {warm:.3f} s), at max_iter {cfg.max_iter}: "
            f"{vox * cfg.max_iter / wall / 1e6:.1f} Mvox*iter/s of output, "
            f"{halo_vox * cfg.max_iter / wall / 1e6:.1f} including halos; batched kernel launches "
-           f"{batched} (single-volume {single}); peak device memory {peak:.3f} GiB")
+           f"{batched} (single-volume {single}, unaligned {unaligned}); peak device memory {peak:.3f} GiB")
     del data, out
     phase8_single_tile(cfg)
     return batched
@@ -596,12 +684,11 @@ def main() -> int:
     phase4_parity()
     phase5_cufft(card)
     bkern = phase6_batched_kernel(card)
-    bkern.pop("singles_ms")
     batched_launches = phase7_batched(card) + phase8_tiled(card)
     source = "microtipi_tpu_torch/csrc/hyperbolic_tv.cu"
     print(json.dumps({"kernels": [
         {"name": "hyperbolic_tv", "route": "cuda", "source": source,
-         "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:111", "launches": launches, **kern},
+         "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:80 and :111", "launches": launches, **kern},
         {"name": "hyperbolic_tv_batched", "route": "cuda", "source": source,
          "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:203", "launches": batched_launches, **bkern},
     ]}))

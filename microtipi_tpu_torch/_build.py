@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into a shared library under ``microtipi_tpu_torch/_build/`` (git-ignored),
 keyed on a hash of the source and the flags, then loaded with ``ctypes``.
-Nothing here runs at import time, and nothing includes PyTorch's headers, so
-a build takes seconds. ``nvcc`` is found on ``PATH``, else under
-``$CUDA_HOME/bin`` (default ``/usr/local/cuda``).
+``ptxas`` reports each kernel's registers, shared memory and spills
+(``-Xptxas -v``); the report is kept beside the library and
+:func:`build_report` returns it. Nothing here runs at import time, and
+nothing includes PyTorch's headers, so a build takes seconds. ``nvcc`` is
+found on ``PATH``, else under ``$CUDA_HOME/bin`` (default
+``/usr/local/cuda``).
 """
 
 from __future__ import annotations
@@ -19,15 +22,16 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "load_library", "nvcc_path"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_report", "load_library", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
 
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
@@ -40,12 +44,24 @@ def nvcc_path() -> str:
                        "are built at first use and need the CUDA toolkit")
 
 
+def _library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def build_report(name: str) -> str:
+    """What ``nvcc`` printed when it built ``csrc/<name>.cu`` (the ``ptxas``
+    lines: registers, shared memory, spills); empty if it is not built."""
+    log = _library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its hashed library is missing, and load it."""
     src = CSRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{key}.so"
+    lib = _library_path(name)
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -55,6 +71,7 @@ def load_library(name: str) -> ctypes.CDLL:
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed to build {src.name}:\n{proc.stderr}")
+            lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
             os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
         finally:
             if os.path.exists(tmp):

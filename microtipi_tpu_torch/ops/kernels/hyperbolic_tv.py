@@ -19,7 +19,16 @@ why it is shaped as it is.
   gradient, the backward is ``g * grad`` (per volume for the batch).
 - ``launches`` counts single-volume launches and ``batched_launches`` batched
   ones (CPU calls leave both alone); a run sets them to 0 and reads them to
-  show which kernel its path went through.
+  show which kernel its path went through. ``unaligned_launches`` counts the
+  launches of either kind that took the kernel's 4-byte-copy instantiation
+  (nx % 4 != 0, or data not 16-byte aligned) instead of its TMA one.
+- :func:`tv_launch` is the one place the launch geometry is decided (tile,
+  z range, grid, partials per volume, instantiation); the C launcher refuses
+  a grid that disagrees with its tile. :func:`prepare_launch` allocates the
+  outputs once and returns a launcher for timing back-to-back launches.
+- The kernel sums each volume's cost itself (the last block of the volume),
+  so one evaluation is one launch; its per-volume tickets are allocated once
+  per device and stream.
 
 Importing this module needs no ``nvcc`` and no card: the library is built
 and loaded at the first launch.
@@ -29,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,6 +59,15 @@ __all__ = [
 launches = 0
 #: Batched kernel launches since the last reset (``batched_launches = 0``).
 batched_launches = 0
+#: Launches (of either kind) that took the 4-byte-copy instantiation because
+#: nx % 4 != 0 or the data is not 16-byte aligned.
+unaligned_launches = 0
+
+# The kernel's tile (TV_TX, TV_TY in csrc/hyperbolic_tv.cu, whose launcher
+# refuses a grid built with any other), the planes a block walks, and CUDA's
+# limit on grid y and z.
+TILE_X, TILE_Y, Z_RANGE, GRID_LIMIT = 64, 16, 32, 65535
+_TICKETS: dict = {}
 
 
 def hyperbolic_tv_plain(x: torch.Tensor, epsilon: float, scales=None):
@@ -74,51 +93,113 @@ def hyperbolic_tv_batched_plain(x: torch.Tensor, epsilon: float, scales=None):
     return costs.detach(), grad
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    from microtipi_tpu_torch._build import load_library
-
-    lib = load_library("hyperbolic_tv")
-    lib.hyperbolic_tv_num_partials.argtypes = [ctypes.c_int] * 4
-    lib.hyperbolic_tv_num_partials.restype = ctypes.c_int64
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from csrc/hyperbolic_tv.cu."""
     lib.hyperbolic_tv_f32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
     )
     lib.hyperbolic_tv_f32.restype = ctypes.c_int
     return lib
 
 
-def _launch(x: torch.Tensor, epsilon: float, scales, batched: bool):
-    """One launch over a 3D volume, or over a 4D batch when ``batched``."""
-    global launches, batched_launches
-    ndim = 4 if batched else 3
+@functools.cache
+def _library() -> ctypes.CDLL:
+    from microtipi_tpu_torch._build import load_library
+
+    return bind_library(load_library("hyperbolic_tv"))
+
+
+class TvLaunch(NamedTuple):
+    """One launch's geometry: the grid (x tiles, y tiles, B * z ranges), the
+    planes per z range, the z ranges and the cost partials (one per block)
+    of each volume, and whether the TMA instantiation (16-byte staging and
+    stores) takes it."""
+
+    grid: tuple[int, int, int]
+    z_range: int
+    ranges: int
+    partials: int
+    aligned: bool
+
+
+def tv_launch(shape, data_ptr: int, z_range: int = Z_RANGE) -> TvLaunch:
+    """The launch geometry of a volume (nz, ny, nx) or a batch (B, nz, ny,
+    nx) whose data starts at ``data_ptr``. Raises ``ValueError`` where the
+    grid does not fit (more than 65535 blocks in y or z)."""
+    nb, nz, ny, nx = shape if len(shape) == 4 else (1, *shape)
+    ranges = -(-nz // z_range)
+    grid = (-(-nx // TILE_X), -(-ny // TILE_Y), nb * ranges)
+    if grid[1] > GRID_LIMIT or grid[2] > GRID_LIMIT:
+        raise ValueError(f"shape {tuple(shape)} needs {grid[1]} blocks in grid y and {grid[2]} in grid z "
+                         f"(B * ceil(Nz / {z_range})); the limit is {GRID_LIMIT}")
+    aligned = nx % 4 == 0 and data_ptr % 16 == 0
+    return TvLaunch(grid, z_range, ranges, grid[0] * grid[1] * ranges, aligned)
+
+
+def _tickets(device: torch.device, stream, nb: int) -> torch.Tensor:
+    """The kernel's per-volume tickets on ``stream``: zero, kept zero by
+    every launch, allocated once and grown as batches grow."""
+    key = (device, stream.cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < nb:
+        t = _TICKETS[key] = torch.zeros(max(nb, 64), dtype=torch.int32, device=device)
+    return t
+
+
+def _check(x: torch.Tensor) -> None:
     if x.dtype != torch.float32:
         raise TypeError(f"the CUDA hyperbolic-TV kernel takes float32, got {x.dtype}")
-    if x.ndim != ndim:
-        what = "a 4D batch of volumes" if batched else "a 3D volume"
-        raise ValueError(f"this CUDA hyperbolic-TV wrapper takes {what}, got shape {tuple(x.shape)}")
+    if x.ndim not in (3, 4):
+        raise ValueError(f"the CUDA hyperbolic-TV kernel takes a 3D volume or a 4D batch, got shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("the CUDA hyperbolic-TV kernel takes a contiguous tensor")
-    nb, nz, ny, nx = x.shape if batched else (1, *x.shape)
-    lib = _library()
-    n_partials = lib.hyperbolic_tv_num_partials(nb, nz, ny, nx)
-    if n_partials < 0:
-        raise ValueError(f"shape {tuple(x.shape)} needs more than 65535 blocks in grid z "
-                         f"(B * ceil(Nz / 16) = {nb * -(-nz // 16)})")
+
+
+def prepare_launch(x: torch.Tensor, epsilon: float, scales=None, z_range: int = Z_RANGE, library=None):
+    """``(launch, costs, grad, geometry)``: the outputs allocated once and a
+    callable that launches the kernel into them on ``x``'s device's current
+    stream, for timing back-to-back launches. It counts nothing; ``costs`` is (B,), or
+    (1,) for a 3D volume. ``library`` is another build of the same source
+    (other compile-time settings, for a sweep); default the package's."""
+    _check(x)
+    nb, nz, ny, nx = x.shape if x.ndim == 4 else (1, *x.shape)
+    geo = tv_launch(x.shape, x.data_ptr(), z_range)
     grad = torch.empty_like(x)
-    partials = torch.empty(n_partials, dtype=torch.float64, device=x.device)
+    costs = torch.empty(nb, dtype=torch.float32, device=x.device)
+    partials = torch.empty(nb * geo.partials, dtype=torch.float64, device=x.device)
     inv_sz, inv_sy, inv_sx = (1.0 / float(s) for s in (scales or (1.0, 1.0, 1.0)))
+    fn = (library or _library()).hyperbolic_tv_f32
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.hyperbolic_tv_f32(x.data_ptr(), grad.data_ptr(), partials.data_ptr(), nb, nz,
-                                            ny, nx, float(epsilon), inv_sz, inv_sy, inv_sx, stream)
-    if err != 0:
-        raise RuntimeError(f"hyperbolic-TV kernel launch failed: cudaError {err}")
+        stream = torch.cuda.current_stream()
+        tickets = _tickets(x.device, stream, nb)
+    args = (x.data_ptr(), grad.data_ptr(), partials.data_ptr(), costs.data_ptr(), tickets.data_ptr(), nb, nz, ny,
+            nx, *geo.grid[:2], geo.ranges, geo.z_range, int(geo.aligned), float(epsilon), inv_sz, inv_sy, inv_sx,
+            stream.cuda_stream)
+
+    # The default keeps the buffers alive as long as the launcher: it writes through their pointers.
+    def launch(_buffers=(x, grad, costs, partials, tickets)) -> None:
+        with torch.cuda.device(x.device):  # the stream's device must be current at the launch
+            err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"hyperbolic-TV kernel launch failed: cudaError {err}")
+
+    return launch, costs, grad, geo
+
+
+def _launch(x: torch.Tensor, epsilon: float, scales, batched: bool):
+    """One launch over a 3D volume, or over a 4D batch when ``batched``."""
+    global launches, batched_launches, unaligned_launches
+    if x.ndim != (4 if batched else 3):
+        what = "a 4D batch of volumes" if batched else "a 3D volume"
+        raise ValueError(f"this CUDA hyperbolic-TV wrapper takes {what}, got shape {tuple(x.shape)}")
+    launch, costs, grad, geo = prepare_launch(x, epsilon, scales)
+    launch()
+    unaligned_launches += not geo.aligned
     if batched:
         batched_launches += 1
-        return partials.view(nb, -1).sum(1).to(torch.float32), grad
+        return costs, grad
     launches += 1
-    return torch.sum(partials).to(torch.float32), grad
+    return costs.reshape(()), grad
 
 
 def hyperbolic_tv_fused(x: torch.Tensor, epsilon: float, scales=None):

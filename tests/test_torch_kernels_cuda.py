@@ -66,3 +66,55 @@ def test_batched_tv_kernel_matches_plain_and_single(shape, cuda_device):
         assert torch.equal(g[b], gb)
     with pytest.raises(ValueError):
         hv.hyperbolic_tv_batched_fused(x[0], 0.1)
+
+
+@pytest.mark.cuda
+def test_tv_kernel_unaligned_shapes_and_views(cuda_device):
+    """nx % 4 != 0, and nx % 4 == 0 at a base 4 bytes off 16-byte alignment,
+    take the 4-byte-copy instantiation: against the plain version, and the
+    latter bitwise equal to the TMA instantiation on an aligned copy."""
+    rng = np.random.default_rng(5)
+    odd = torch.as_tensor(rng.standard_normal((33, 45, 67), dtype=np.float32), device=cuda_device)
+    flat = torch.as_tensor(rng.standard_normal(33 * 44 * 68 + 1, dtype=np.float32), device=cuda_device)
+    shifted = flat[1:].view(33, 44, 68)
+    assert shifted.data_ptr() % 16 != 0
+    for x in (odd, shifted):
+        hv.launches = hv.unaligned_launches = 0
+        f, g = hv.hyperbolic_tv_fused(x, 0.1, (2.0, 1.0, 1.0))
+        fp, gp = hv.hyperbolic_tv_plain(x, 0.1, (2.0, 1.0, 1.0))
+        torch.cuda.synchronize()
+        assert (hv.launches, hv.unaligned_launches) == (1, 1)
+        np.testing.assert_allclose(f.item(), fp.item(), rtol=COST_RTOL)
+        torch.testing.assert_close(g, gp, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    hv.unaligned_launches = 0
+    fa, ga = hv.hyperbolic_tv_fused(shifted.clone(), 0.1)
+    assert hv.unaligned_launches == 0
+    fo, go = hv.hyperbolic_tv_fused(shifted, 0.1)
+    assert hv.unaligned_launches == 1
+    assert torch.equal(fa, fo) and torch.equal(ga, go)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 33, 45, 67), (2, 40, 24, 72)])
+def test_batched_lanes_bitwise_the_single_volume_launch(shape, cuda_device):
+    """Each lane's cost and gradient are the single-volume launch's bit for
+    bit (the kernel sums each volume's partials in the same order), for
+    aligned lanes and for the lane views of an odd-shaped batch."""
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(shape, dtype=np.float32), device=cuda_device)
+    hv.unaligned_launches = 0
+    f, g = hv.hyperbolic_tv_batched_fused(x, 0.1, (2.0, 1.0, 1.0))
+    for b in range(shape[0]):
+        fb, gb = hv.hyperbolic_tv_fused(x[b], 0.1, (2.0, 1.0, 1.0))
+        assert torch.equal(f[b], fb) and torch.equal(g[b], gb)
+    unaligned = shape[-1] % 4 != 0
+    assert hv.unaligned_launches == (1 + shape[0] if unaligned else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 128, 128), (2, 33, 45, 67)])
+def test_two_launches_bitwise_equal(shape, cuda_device):
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(shape, dtype=np.float32), device=cuda_device)
+    fused = hv.hyperbolic_tv_batched_fused if len(shape) == 4 else hv.hyperbolic_tv_fused
+    f1, g1 = fused(x, 1.0)
+    f2, g2 = fused(x, 1.0)
+    assert torch.equal(f1, f2) and torch.equal(g1, g2)

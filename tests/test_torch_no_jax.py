@@ -1,5 +1,5 @@
-"""The PyTorch port, chip_smoke.py and chip_profile.py import neither jax
-nor the JAX package."""
+"""The PyTorch port, chip_smoke.py, chip_profile.py and chip_tv_ab.py
+import neither jax nor the JAX package."""
 
 import ast
 import pathlib
@@ -7,7 +7,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "microtipi_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
+FILES = sorted((ROOT / "microtipi_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_tv_ab.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -28,4 +29,4 @@ def test_imports_no_jax(path):
 def test_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {"hyperbolic_tv.py", "vmlmb.py", "blind.py", "batch.py", "tiled.py", "chip_smoke.py",
-            "chip_profile.py"} <= names
+            "chip_profile.py", "chip_tv_ab.py"} <= names
