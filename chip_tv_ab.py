@@ -1,250 +1,163 @@
 #!/usr/bin/env python3
-"""The hyperbolic-TV CUDA kernel against an earlier version of it, on one card.
+"""The hyperbolic-TV CUDA kernel of this checkout against another checkout's, on one card.
 
-    python3 chip_tv_ab.py OLD.cu [--sweep] [--e2e REPS]
+    python3 chip_tv_ab.py OTHER
 
-``OLD.cu`` is an earlier ``microtipi_tpu_torch/csrc/hyperbolic_tv.cu`` with
-the first version's C interface (``hyperbolic_tv_num_partials`` and a
-``hyperbolic_tv_f32`` that leaves the cost partials to the caller), saved in
-a git-ignored directory of the checkout, e.g.
+``OTHER`` is the root of another checkout of the repo, for example an
+earlier commit unpacked into a git-ignored directory:
 
-    git show 7d39a46:microtipi_tpu_torch/csrc/hyperbolic_tv.cu > .chipwork/hyperbolic_tv_pr2.cu
+    mkdir -p .chipwork/parent && git archive <commit> | tar -x -C .chipwork/parent
 
-It is built with the package's nvcc flags beside the current source. At
-256^3, 4x64x256x256 and 4x256^3 (eps 1, unit scales) the script compares the
-two gradients (elements that differ, largest difference in float32 ulp) and
-costs, then times both with CUDA events around 50 back-to-back raw launches
-into preallocated outputs, in turns: old, new, new, old; and at a small
-volume, the host time of one raw launch and of one wrapper call of each. ``--sweep`` also
-times the current source built with other ring depths (TV_STAGES) at other
-z ranges, at 256^3 and 4x256^3. ``--e2e REPS`` times chip_smoke.py's three
-object steps with the wrapper's launch swapped between the two kernels in
-one process, in turns. The card's name and power limit come first,
-one JSON object of every number last.
+Each tree runs in a process of its own, in turns other, this, this, other.
+A process imports its own tree's ``microtipi_tpu_torch`` (which builds its
+kernel from its own sources into its own ``_build/``) and calls the two
+wrappers every version has, ``hyperbolic_tv_fused`` and
+``hyperbolic_tv_batched_fused``. At 256^3, 4x64x256x256 and 4x256^3 (eps 1,
+unit scales) it reports:
+
+- ``kernel_ms``: the device time of the kernels named ``hyperbolic_tv`` per
+  evaluation, from torch.profiler over 50 back-to-back wrapper calls;
+- ``device_ms``: all device time per evaluation in the same trace (the
+  kernel and whatever else the wrapper launches);
+- ``call_ms``: CUDA events around one wrapper call into an idle queue,
+  median of 20;
+
+and the host time of one wrapper call at 8x16x64 (mean of 2000). The first
+process of each tree saves its costs and gradients, and the two trees'
+are compared: elements that differ, largest difference in float32 ulp. The
+card's name and power limit come first, one JSON object of every number
+last. Without a CUDA card it exits 2.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+import chip_smoke as cs  # this checkout's, beside this file: times and bounds measured alike for both trees
+
 SHAPES = ((256, 256, 256), (4, 64, 256, 256), (4, 256, 256, 256))
 HOST_SHAPE = (8, 16, 64)
-STAGES, Z_RANGES = (2, 3, 4, 6), (16, 32, 64, 128)
+CALLS = 50
 
 
-def build(src: str, tag: str, defines=()) -> tuple[str, subprocess.Popen | None]:
-    """Start nvcc on ``src`` into the package's build directory: the
-    library's path and the compiler's process (None if already built)."""
-    from microtipi_tpu_torch._build import BUILD_DIR, NVCC_FLAGS, nvcc_path
+def worker(root: str, save: str | None) -> dict:
+    """The numbers of the tree at ``root``; its costs and gradients go to
+    ``save`` (one ``.npy`` each per shape) if given."""
+    from torch.profiler import ProfilerActivity, profile
 
-    flags = (*NVCC_FLAGS, *defines)
-    key = hashlib.sha256(open(src, "rb").read() + " ".join(flags).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{tag}-{key}.so"
-    if lib.exists():
-        return str(lib), None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    return str(lib), subprocess.Popen([nvcc_path(), *flags, "-o", str(lib), src], stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
+    sys.path.insert(0, root)
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
 
+    if not os.path.abspath(hv.__file__).startswith(os.path.join(root, "")):
+        raise RuntimeError(f"imported {hv.__file__}, not the tree at {root}")
+    out = {"root": root, "shapes": []}
+    for i, shape in enumerate(SHAPES):
+        x = torch.as_tensor(np.random.default_rng(0).standard_normal(shape, dtype=np.float32), device="cuda")
+        fused = hv.hyperbolic_tv_batched_fused if x.ndim == 4 else hv.hyperbolic_tv_fused
+        for _ in range(5):
+            costs, grad = fused(x, 1.0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(CALLS):
+                fused(x, 1.0)
+            torch.cuda.synchronize()
+        tv_us = device_us = 0.0
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                device_us += ev.device_time_total
+                tv_us += ev.device_time_total if "hyperbolic_tv" in ev.name else 0.0
+        if tv_us == 0.0:
+            raise RuntimeError(f"the trace at {shape} holds no hyperbolic_tv kernel")
+        out["shapes"].append({"shape": list(shape), "kernel_ms": tv_us / CALLS / 1e3,
+                              "device_ms": device_us / CALLS / 1e3,
+                              "call_ms": cs._median_ms(lambda: fused(x, 1.0))})
+        if save:
+            os.makedirs(save, exist_ok=True)
+            np.save(os.path.join(save, f"{i}_costs.npy"), costs.reshape(-1).cpu().numpy())
+            np.save(os.path.join(save, f"{i}_grad.npy"), grad.cpu().numpy())
+        del x, costs, grad
 
-def finish(job: tuple[str, subprocess.Popen | None]) -> ctypes.CDLL:
-    lib, proc = job
-    if proc is not None:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {lib}:\n{out}")
-    return ctypes.CDLL(lib)
-
-
-def old_launcher(lib: ctypes.CDLL, x: torch.Tensor):
-    """The first version's launch into preallocated outputs, and its costs
-    (its caller summed the partials)."""
-    lib.hyperbolic_tv_num_partials.argtypes = [ctypes.c_int] * 4
-    lib.hyperbolic_tv_num_partials.restype = ctypes.c_int64
-    lib.hyperbolic_tv_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [
-        ctypes.c_void_p]
-    lib.hyperbolic_tv_f32.restype = ctypes.c_int
-    nb, nz, ny, nx = x.shape if x.ndim == 4 else (1, *x.shape)
-    grad = torch.empty_like(x)
-    partials = torch.empty(lib.hyperbolic_tv_num_partials(nb, nz, ny, nx), dtype=torch.float64, device=x.device)
-    args = (x.data_ptr(), grad.data_ptr(), partials.data_ptr(), nb, nz, ny, nx, 1.0, 1.0, 1.0, 1.0,
-            torch.cuda.current_stream().cuda_stream)
-
-    def launch() -> None:
-        err = lib.hyperbolic_tv_f32(*args)
-        if err != 0:
-            raise RuntimeError(f"old kernel launch failed: cudaError {err}")
-
-    return launch, grad, lambda: partials.view(nb, -1).sum(1).to(torch.float32)
-
-
-def old_wrapper_call(lib: ctypes.CDLL, x: torch.Tensor, epsilon: float = 1.0, scales=None, batched: bool = False):
-    """The first version's wrapper around one launch: the partial count,
-    the allocations, the launch, and the cost summed by two more launches."""
-    nb, nz, ny, nx = x.shape if batched else (1, *x.shape)
-    n = lib.hyperbolic_tv_num_partials(nb, nz, ny, nx)
-    grad = torch.empty_like(x)
-    partials = torch.empty(n, dtype=torch.float64, device=x.device)
-    inv_sz, inv_sy, inv_sx = (1.0 / float(s) for s in (scales or (1.0, 1.0, 1.0)))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.hyperbolic_tv_f32(x.data_ptr(), grad.data_ptr(), partials.data_ptr(), nb, nz, ny, nx,
-                                    float(epsilon), inv_sz, inv_sy, inv_sx, stream)
-    if err != 0:
-        raise RuntimeError(f"old kernel launch failed: cudaError {err}")
-    if batched:
-        return partials.view(nb, -1).sum(1).to(torch.float32), grad
-    return torch.sum(partials).to(torch.float32), grad
-
-
-def end_to_end(cs, hv, old_lib, card: str, reps: int) -> dict:
-    """Wall of chip_smoke.py's three object steps (256^3 deconvolve, 4 x
-    64x256x256 batched, the design-scale tiled run) with the wrapper's
-    launch swapped between the old kernel (and its wrapper) and the current
-    one, in turns old, new, new, old, ``reps`` times, after one warm-up each."""
-    from microtipi_tpu_torch.jobs.batch import batched_deconvolve
-    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
-    from microtipi_tpu_torch.jobs.tiled import tiled_deconvolve
-
-    dev = torch.device("cuda")
-    cfg20 = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
-    cfg10 = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=10, grtol=0.0, gatol=0.0)
-    _, data, psf = cs.bench_scene(cs.SHAPE, dev, torch.float32)
-    scenes = [cs.bench_scene(cs.LANE_SHAPE, dev, torch.float32, seed=s) for s in range(4)]
-    batch, bpsf = torch.stack([d for _, d, _ in scenes]), scenes[0][2]
-    dpsf = cs.design_psf()
-    volume = cs.design_volume(dpsf)
-    warm = volume[tuple(slice(n) for n in cs.WARM_VOLUME)]
-    steps = {
-        "deconvolve 256^3": lambda v: deconvolve(data, psf, config=cfg20),
-        "batched 4x64x256x256": lambda v: batched_deconvolve(batch, bpsf, config=cfg20),
-        "tiled 512x1024x1024": lambda v: tiled_deconvolve(v, dpsf, tile=cs.TILE, overlap=cs.OVERLAP, config=cfg10,
-                                                          max_batch=cs.MAX_BATCH),
-    }
-    launch = {"new": hv._launch,
-              "old": lambda x, eps, scales, batched: old_wrapper_call(old_lib, x, eps, scales, batched)}
-    walls = {name: {"old": [], "new": []} for name in steps}
-    try:
-        for who in ("old", "new"):
-            hv._launch = launch[who]
-            for fn in steps.values():
-                fn(warm)
-        for _ in range(reps):
-            for who in ("old", "new", "new", "old"):
-                hv._launch = launch[who]
-                for name, fn in steps.items():
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    fn(volume)
-                    torch.cuda.synchronize()
-                    walls[name][who].append(time.perf_counter() - t0)
-    finally:
-        hv._launch = launch["new"]
-    for name, w in walls.items():
-        print(f"[e2e] [{card}] {name}: wall old {[round(t, 4) for t in w['old']]} s, new "
-              f"{[round(t, 4) for t in w['new']]} s (in turns old, new, new, old); median old "
-              f"{np.median(w['old']):.4f}, new {np.median(w['new']):.4f}", flush=True)
-    return walls
-
-
-def host_us(fn, n: int = 2000) -> float:
-    """Mean host time of one call of ``fn`` over ``n`` calls (enqueue only;
-    the queue is drained after the clock stops)."""
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(HOST_SHAPE, dtype=np.float32), device="cuda")
     for _ in range(50):
-        fn()
+        hv.hyperbolic_tv_fused(x, 1.0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    t1 = time.perf_counter()
+    for _ in range(2000):
+        hv.hyperbolic_tv_fused(x, 1.0)
+    out["host_us"] = (time.perf_counter() - t0) / 2000 * 1e6
     torch.cuda.synchronize()
-    return (t1 - t0) / n * 1e6
+    return out
+
+
+def compare(a_dir: str, b_dir: str, i: int) -> dict:
+    """Elements of the gradients that differ, the largest difference in
+    float32 ulp, and the largest relative cost difference, at shape ``i``."""
+    ga, gb = (np.load(os.path.join(d, f"{i}_grad.npy")) for d in (a_dir, b_dir))
+    fa, fb = (np.load(os.path.join(d, f"{i}_costs.npy")) for d in (a_dir, b_dir))
+    differ = ga != gb  # +0 and -0 are equal
+    ulp = np.abs(ga.view(np.int32).astype(np.int64) - gb.view(np.int32).astype(np.int64))[differ]
+    return {"grad_elements_differing": int(differ.sum()), "grad_max_ulp": int(ulp.max(initial=0)),
+            "cost_max_rel": float(np.max(np.abs(fa.astype(np.float64) - fb) / np.abs(fb)))}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("old", help="an earlier csrc/hyperbolic_tv.cu (first-version C interface)")
-    ap.add_argument("--sweep", action="store_true", help="also time other ring depths and z ranges")
-    ap.add_argument("--e2e", type=int, default=0, metavar="REPS",
-                    help="also time the three object steps with the old and the new kernel, REPS rounds")
+    ap.add_argument("root", help="the other checkout's root (with --worker: the tree to measure)")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--save", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_tv_ab.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import chip_smoke as cs
-    from microtipi_tpu_torch._build import CSRC_DIR
-    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+    root = os.path.abspath(args.root)
+    if args.worker:
+        print(json.dumps(worker(root, args.save)))
+        return 0
+    if not os.path.isfile(os.path.join(root, "microtipi_tpu_torch", "ops", "kernels", "hyperbolic_tv.py")):
+        print(f"{root} is not a checkout of the repo", file=sys.stderr)
+        return 2
 
-    card = cs.phase0_card()
-    src = str(CSRC_DIR / "hyperbolic_tv.cu")
-    jobs = {"old": build(args.old, "hyperbolic_tv_old")}
-    if args.sweep:
-        jobs.update({s: build(src, f"hyperbolic_tv_s{s}", (f"-DTV_STAGES={s}",)) for s in STAGES})
-    cs.phase1_build()
-    old_lib = finish(jobs.pop("old"))
-    sweep_libs = {s: hv.bind_library(finish(j)) for s, j in jobs.items()}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"other": [], "this": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for who in ("other", "this", "this", "other"):
+            cmd = [sys.executable, os.path.abspath(__file__), root if who == "other" else here, "--worker"]
+            if not runs[who]:
+                cmd += ["--save", os.path.join(tmp, who)]
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the {who} tree's process failed:\n{proc.stderr[-4000:]}")
+            runs[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        diffs = [compare(os.path.join(tmp, "this"), os.path.join(tmp, "other"), i) for i in range(len(SHAPES))]
 
-    result = {"card": card, "shapes": []}
-    for shape in SHAPES:
-        x = torch.as_tensor(np.random.default_rng(0).standard_normal(shape, dtype=np.float32), device="cuda")
-        new, costs, grad, geo = hv.prepare_launch(x, 1.0)
-        old, ograd, ocosts = old_launcher(old_lib, x)
-        new()
-        old()
-        torch.cuda.synchronize()
-        differ = int((grad != ograd).sum())
-        ulp = int((grad.view(torch.int32).long() - ograd.view(torch.int32).long()).abs().max())
-        cost_rel = float(((costs - ocosts()).abs() / ocosts().abs()).max())
-        times = {"old": [], "new": []}
-        for who in ("old", "new", "new", "old"):
-            times[who].append(cs.raw_ms(old if who == "old" else new))
-        bound_ms, _ = cs.tv_bound(x)
-        row = {"shape": list(shape), "grad_elements_differing": differ, "grad_max_ulp": ulp,
-               "cost_max_rel": cost_rel, "old_ms": times["old"], "new_ms": times["new"], "bound_ms": bound_ms,
-               "grid": list(geo.grid), "aligned": geo.aligned}
-        print(f"[ab] [{card}] {shape}: gradient elements differing {differ}, largest {ulp} ulp; cost rel "
-              f"{cost_rel:.3g}; kernel_ms old {times['old'][0]:.4f}, new {times['new'][0]:.4f}, new "
-              f"{times['new'][1]:.4f}, old {times['old'][1]:.4f} (50 raw launches each); bound {bound_ms:.4f} ms, "
-              f"new at {bound_ms / min(times['new']):.1%} of it", flush=True)
+    result = {"card": card, "other": root, "shapes": [],
+              "host_us": {who: [r["host_us"] for r in rs] for who, rs in runs.items()}}
+    for i, shape in enumerate(SHAPES):
+        row = {"shape": list(shape), **diffs[i], "bound_ms": cs.tv_bound(torch.empty(shape, device="meta"))[0]}
+        for key in ("kernel_ms", "device_ms", "call_ms"):
+            row[key] = {who: [r["shapes"][i][key] for r in rs] for who, rs in runs.items()}
         result["shapes"].append(row)
-        del x, grad, ograd
-
-    # Host time per call at a volume small enough that the card never holds
-    # the host back: what each evaluation costs the host-bound object steps.
-    x = torch.as_tensor(np.random.default_rng(1).standard_normal(HOST_SHAPE, dtype=np.float32), device="cuda")
-    new = hv.prepare_launch(x, 1.0)[0]
-    old, _, _ = old_launcher(old_lib, x)
-    host = {"new raw launch": host_us(new), "new wrapper call": host_us(lambda: hv.hyperbolic_tv_fused(x, 1.0)),
-            "old raw launch": host_us(old), "old wrapper call": host_us(lambda: old_wrapper_call(old_lib, x))}
-    result["host_us"] = {"shape": list(HOST_SHAPE), **host}
-    print(f"[host] [{card}] host time per call at {HOST_SHAPE} (mean of 2000): "
-          + ", ".join(f"{k} {v:.2f} us" for k, v in host.items()), flush=True)
-
-    if args.sweep:
-        result["sweep"] = []
-        for shape in (SHAPES[0], SHAPES[2]):
-            x = torch.as_tensor(np.random.default_rng(0).standard_normal(shape, dtype=np.float32), device="cuda")
-            bound_ms, _ = cs.tv_bound(x)
-            for s, lib in sweep_libs.items():
-                for zr in Z_RANGES:
-                    ms = cs.raw_ms(hv.prepare_launch(x, 1.0, z_range=zr, library=lib)[0])
-                    result["sweep"].append({"shape": list(shape), "stages": s, "z_range": zr, "ms": ms})
-                    print(f"[sweep] {shape} stages {s} z_range {zr}: {ms:.4f} ms, {bound_ms / ms:.1%} of the bound",
-                          flush=True)
-            del x
-    if args.e2e:
-        result["e2e_walls"] = end_to_end(cs, hv, old_lib, card, args.e2e)
+        t = {k: ", ".join(f"{who} {row[k][who]}" for who in ("other", "this")) for k in ("kernel_ms", "device_ms",
+                                                                                           "call_ms")}
+        print(f"[ab] [{card}] {shape}: kernel_ms {t['kernel_ms']}; device_ms {t['device_ms']}; call_ms "
+              f"{t['call_ms']} (turns other, this, this, other); gradients: {diffs[i]['grad_elements_differing']} "
+              f"elements differ, largest {diffs[i]['grad_max_ulp']} ulp; costs {diffs[i]['cost_max_rel']:.3g} rel; "
+              f"bound {row['bound_ms']:.4f} ms, this at {row['bound_ms'] / min(row['kernel_ms']['this']):.1%}",
+              flush=True)
+    print(f"[host] [{card}] host us per wrapper call at {HOST_SHAPE} (mean of 2000): "
+          + "; ".join(f"{who} {v}" for who, v in result["host_us"].items()), flush=True)
     print(json.dumps(result))
     return 0
 

@@ -20,10 +20,12 @@
 // the card's arithmetic rate. The design keeps the traffic at that floor and
 // enough of it in flight:
 //   - Tile. A block of 256 threads owns a TV_TY x TV_TX = 16 x 64 (y, x) tile
-//     and walks a range of z planes (the launcher's z_range, 32 on the main
-//     paths) in a loop, the TPU's sequential z grid turned into a loop inside
-//     the block. Each thread owns 4 consecutive x of one row, so its shared
-//     loads and its gradient stores are 16 bytes.
+//     and walks a range of TV_ZR = 32 z planes in a loop, the TPU's
+//     sequential z grid turned into a loop inside the block: long enough
+//     that the two planes it re-reads (below) cost 6%, short enough that 256^3
+//     still gives 512 blocks, all resident at once on 132 SMs. Each thread
+//     owns 4 consecutive x of one row, so its shared loads and its gradient
+//     stores are 16 bytes.
 //   - Staging. Each x plane's footprint of the tile, rows y0-1 .. y0+TY and
 //     columns x0-4 .. x0+TX+3 (18 x 72 floats, rows 16-byte aligned), goes
 //     into a ring of TV_STAGES stages in shared memory. One thread keeps the
@@ -73,9 +75,8 @@
 #define TV_TPR (TV_TX / TV_VEC)        // threads per tile row: 16
 #define TV_THREADS (TV_TPR * TV_TY)    // 256
 #define TV_WARPS (TV_THREADS / 32)
-#ifndef TV_STAGES
-#define TV_STAGES 4
-#endif
+#define TV_ZR 32                       // z planes a block walks
+#define TV_STAGES 4                    // ring depth: 3 planes in flight
 #define TV_SW (TV_TX + 2 * TV_VEC)     // staged columns x0-4 .. x0+TX+3: 72
 #define TV_SH (TV_TY + 2)              // staged rows y0-1 .. y0+TY: 18
 #define TV_STAGE_FLOATS (TV_SH * TV_SW)
@@ -153,7 +154,7 @@ template <bool kTma>
 __global__ void __launch_bounds__(TV_THREADS)
 hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const float* __restrict__ x,
                      float* __restrict__ grad, double* __restrict__ partials, float* __restrict__ costs,
-                     unsigned int* __restrict__ tickets, int nz, int ny, int nx, int z_range, int nranges,
+                     unsigned int* __restrict__ tickets, int nz, int ny, int nx, int nranges,
                      float eps, float inv_sz, float inv_sy, float inv_sx) {
     __shared__ __align__(128) float s_ring[TV_STAGES][TV_STAGE_STRIDE];
     __shared__ __align__(16) float s_wy[2][TV_TY + 1][TV_TX];  // w_y at rows y0-1 .. y0+TY-1
@@ -167,7 +168,7 @@ hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const float* __re
     const int x0 = blockIdx.x * TV_TX, y0 = blockIdx.y * TV_TY;
     const int y = y0 + r, xs = x0 + TV_VEC * c;
     const int vol = blockIdx.z / nranges, range = blockIdx.z - vol * nranges;
-    const int z0 = range * z_range, z1 = min(z0 + z_range, nz);
+    const int z0 = range * TV_ZR, z1 = min(z0 + TV_ZR, nz);
     // Planes staged: the one before the range (to rebuild its incoming w_z),
     // the range, and the one after it (for the last plane's d_z).
     const int pstart = z0 > 0 ? z0 - 1 : 0, pend = min(z1 + 1, nz);
@@ -336,7 +337,7 @@ extern "C" {
 // One evaluation over a batch of nb contiguous float32 volumes (nz, ny, nx);
 // a single volume is nb = 1. The geometry comes from the caller, which
 // computed it with the same tile: grid (gx, gy, nb * nranges) with
-// gx = ceil(nx / 64), gy = ceil(ny / 16), nranges = ceil(nz / z_range);
+// gx = ceil(nx / 64), gy = ceil(ny / 16), nranges = ceil(nz / 32);
 // anything else, or a grid above 65535 in y or z, is refused with
 // cudaErrorInvalidConfiguration before launching. aligned = 1 takes the TMA
 // instantiation, which needs nx % 4 == 0 and x and grad 16-byte aligned
@@ -344,10 +345,10 @@ extern "C" {
 // partials: float64, nb * gx * gy * nranges; costs: float32, nb; tickets:
 // uint32, nb, zero before the first launch (each launch leaves them zero).
 int hyperbolic_tv_f32(const void* x, void* grad, void* partials, void* costs, void* tickets, int nb, int nz,
-                      int ny, int nx, int gx, int gy, int nranges, int z_range, int aligned, float eps,
+                      int ny, int nx, int gx, int gy, int nranges, int aligned, float eps,
                       float inv_sz, float inv_sy, float inv_sx, void* stream) {
-    if (nb < 1 || nz < 1 || ny < 1 || nx < 1 || z_range < 1 || gx != (nx + TV_TX - 1) / TV_TX ||
-        gy != (ny + TV_TY - 1) / TV_TY || nranges != (nz + z_range - 1) / z_range || gy > 65535 ||
+    if (nb < 1 || nz < 1 || ny < 1 || nx < 1 || gx != (nx + TV_TX - 1) / TV_TX ||
+        gy != (ny + TV_TY - 1) / TV_TY || nranges != (nz + TV_ZR - 1) / TV_ZR || gy > 65535 ||
         (int64_t)nb * nranges > 65535)
         return (int)cudaErrorInvalidConfiguration;
     const dim3 grid(gx, gy, nb * nranges);
@@ -366,11 +367,11 @@ int hyperbolic_tv_f32(const void* x, void* grad, void* partials, void* costs, vo
             return (int)cudaErrorInvalidValue;
         hyperbolic_tv_kernel<true><<<grid, TV_THREADS, 0, (cudaStream_t)stream>>>(
             tmap, (const float*)x, (float*)grad, (double*)partials, (float*)costs, (unsigned int*)tickets, nz, ny,
-            nx, z_range, nranges, eps, inv_sz, inv_sy, inv_sx);
+            nx, nranges, eps, inv_sz, inv_sy, inv_sx);
     } else {
         hyperbolic_tv_kernel<false><<<grid, TV_THREADS, 0, (cudaStream_t)stream>>>(
             tmap, (const float*)x, (float*)grad, (double*)partials, (float*)costs, (unsigned int*)tickets, nz, ny,
-            nx, z_range, nranges, eps, inv_sz, inv_sy, inv_sx);
+            nx, nranges, eps, inv_sz, inv_sy, inv_sx);
     }
     return (int)cudaGetLastError();
 }

@@ -63,9 +63,9 @@ batched_launches = 0
 #: nx % 4 != 0 or the data is not 16-byte aligned.
 unaligned_launches = 0
 
-# The kernel's tile (TV_TX, TV_TY in csrc/hyperbolic_tv.cu, whose launcher
-# refuses a grid built with any other), the planes a block walks, and CUDA's
-# limit on grid y and z.
+# The kernel's tile and the planes a block walks (TV_TX, TV_TY, TV_ZR in
+# csrc/hyperbolic_tv.cu, whose launcher refuses a grid built with any
+# others), and CUDA's limit on grid y and z.
 TILE_X, TILE_Y, Z_RANGE, GRID_LIMIT = 64, 16, 32, 65535
 _TICKETS: dict = {}
 
@@ -93,47 +93,41 @@ def hyperbolic_tv_batched_plain(x: torch.Tensor, epsilon: float, scales=None):
     return costs.detach(), grad
 
 
-def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a library built from csrc/hyperbolic_tv.cu."""
+@functools.cache
+def _library() -> ctypes.CDLL:
+    from microtipi_tpu_torch._build import load_library
+
+    lib = load_library("hyperbolic_tv")
     lib.hyperbolic_tv_f32.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
     )
     lib.hyperbolic_tv_f32.restype = ctypes.c_int
     return lib
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    from microtipi_tpu_torch._build import load_library
-
-    return bind_library(load_library("hyperbolic_tv"))
-
-
 class TvLaunch(NamedTuple):
     """One launch's geometry: the grid (x tiles, y tiles, B * z ranges), the
-    planes per z range, the z ranges and the cost partials (one per block)
-    of each volume, and whether the TMA instantiation (16-byte staging and
-    stores) takes it."""
+    z ranges and the cost partials (one per block) of each volume, and
+    whether the TMA instantiation (16-byte staging and stores) takes it."""
 
     grid: tuple[int, int, int]
-    z_range: int
     ranges: int
     partials: int
     aligned: bool
 
 
-def tv_launch(shape, data_ptr: int, z_range: int = Z_RANGE) -> TvLaunch:
+def tv_launch(shape, data_ptr: int) -> TvLaunch:
     """The launch geometry of a volume (nz, ny, nx) or a batch (B, nz, ny,
     nx) whose data starts at ``data_ptr``. Raises ``ValueError`` where the
     grid does not fit (more than 65535 blocks in y or z)."""
     nb, nz, ny, nx = shape if len(shape) == 4 else (1, *shape)
-    ranges = -(-nz // z_range)
+    ranges = -(-nz // Z_RANGE)
     grid = (-(-nx // TILE_X), -(-ny // TILE_Y), nb * ranges)
     if grid[1] > GRID_LIMIT or grid[2] > GRID_LIMIT:
         raise ValueError(f"shape {tuple(shape)} needs {grid[1]} blocks in grid y and {grid[2]} in grid z "
-                         f"(B * ceil(Nz / {z_range})); the limit is {GRID_LIMIT}")
+                         f"(B * ceil(Nz / {Z_RANGE})); the limit is {GRID_LIMIT}")
     aligned = nx % 4 == 0 and data_ptr % 16 == 0
-    return TvLaunch(grid, z_range, ranges, grid[0] * grid[1] * ranges, aligned)
+    return TvLaunch(grid, ranges, grid[0] * grid[1] * ranges, aligned)
 
 
 def _tickets(device: torch.device, stream, nb: int) -> torch.Tensor:
@@ -155,25 +149,24 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError("the CUDA hyperbolic-TV kernel takes a contiguous tensor")
 
 
-def prepare_launch(x: torch.Tensor, epsilon: float, scales=None, z_range: int = Z_RANGE, library=None):
+def prepare_launch(x: torch.Tensor, epsilon: float, scales=None):
     """``(launch, costs, grad, geometry)``: the outputs allocated once and a
     callable that launches the kernel into them on ``x``'s device's current
     stream, for timing back-to-back launches. It counts nothing; ``costs`` is (B,), or
-    (1,) for a 3D volume. ``library`` is another build of the same source
-    (other compile-time settings, for a sweep); default the package's."""
+    (1,) for a 3D volume."""
     _check(x)
     nb, nz, ny, nx = x.shape if x.ndim == 4 else (1, *x.shape)
-    geo = tv_launch(x.shape, x.data_ptr(), z_range)
+    geo = tv_launch(x.shape, x.data_ptr())
     grad = torch.empty_like(x)
     costs = torch.empty(nb, dtype=torch.float32, device=x.device)
     partials = torch.empty(nb * geo.partials, dtype=torch.float64, device=x.device)
     inv_sz, inv_sy, inv_sx = (1.0 / float(s) for s in (scales or (1.0, 1.0, 1.0)))
-    fn = (library or _library()).hyperbolic_tv_f32
+    fn = _library().hyperbolic_tv_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream()
         tickets = _tickets(x.device, stream, nb)
     args = (x.data_ptr(), grad.data_ptr(), partials.data_ptr(), costs.data_ptr(), tickets.data_ptr(), nb, nz, ny,
-            nx, *geo.grid[:2], geo.ranges, geo.z_range, int(geo.aligned), float(epsilon), inv_sz, inv_sy, inv_sx,
+            nx, *geo.grid[:2], geo.ranges, int(geo.aligned), float(epsilon), inv_sz, inv_sy, inv_sx,
             stream.cuda_stream)
 
     # The default keeps the buffers alive as long as the launcher: it writes through their pointers.

@@ -10,7 +10,9 @@ the halo row's w_y and the halo column's w_x from the staged planes, sum
 one cost partial per block and the volume's partials in index order. At
 awkward shapes it must give the plain versions' cost and gradient, which
 tests/test_torch_tv.py and tests/test_torch_batched_tv.py hold to the JAX
-package.
+package. The kernel's z range is a compile-time constant (``hv.Z_RANGE``,
+32 planes); the walk also takes shorter ones, so that volumes this small
+still have z ranges that end mid-volume.
 """
 
 import numpy as np
@@ -35,19 +37,23 @@ def _weights(v0, vz, vy, vx, hz, hy, hx, inv, eps):
 
 def kernel_walk(x: np.ndarray, eps: float, scales=None, z_range: int = hv.Z_RANGE):
     """(costs (B,), grad) of a batch (B, nz, ny, nx) computed block by block
-    as the kernel's geometry cuts it, from staged planes only."""
+    as the kernel's geometry cuts it, from staged planes only, with z ranges
+    of ``z_range`` planes (the kernel's own by default)."""
     nb, nz, ny, nx = x.shape
     inv = [1.0 / s for s in (scales or (1.0, 1.0, 1.0))]
-    geo = hv.tv_launch(x.shape, 0, z_range)
-    gx, gy, gz = geo.grid
-    assert gz == nb * geo.ranges and geo.partials == gx * gy * geo.ranges
+    geo = hv.tv_launch(x.shape, 0)
+    gx, gy = geo.grid[:2]
+    ranges = -(-nz // z_range)
+    gz, per_vol = nb * ranges, gx * gy * ranges
+    if z_range == hv.Z_RANGE:
+        assert (geo.grid[2], geo.ranges, geo.partials) == (gz, ranges, per_vol)
     grad = np.full(x.shape, np.nan)
     writes = np.zeros(x.shape, int)
-    partials = np.zeros((nb, geo.partials))
+    partials = np.zeros((nb, per_vol))
     # Global row / column of each staged row / column, relative to the tile origin.
     rows, cols = np.arange(-1, TY + 1), np.arange(-HALO_X, TX + HALO_X)
     for bz in range(gz):
-        vol, rz = divmod(bz, geo.ranges)
+        vol, rz = divmod(bz, ranges)
         z0, z1 = rz * z_range, min(rz * z_range + z_range, nz)
         pstart, pend = (z0 - 1 if z0 > 0 else 0), min(z1 + 1, nz)
         for by in range(gy):
@@ -135,7 +141,7 @@ def test_kernel_walk_zero_on_a_constant_batch():
 ])
 def test_launch_geometry_of_the_main_shapes(shape, grid, ranges):
     geo = hv.tv_launch(shape, 0)
-    assert geo.grid == grid and geo.ranges == ranges and geo.z_range == hv.Z_RANGE
+    assert geo.grid == grid and geo.ranges == ranges and hv.Z_RANGE == 32
     assert geo.partials == grid[0] * grid[1] * ranges
 
 
@@ -147,7 +153,7 @@ def test_launch_geometry_refuses_grids_above_the_limit():
     with pytest.raises(ValueError, match="65535"):
         hv.tv_launch((hv.Z_RANGE * 65535 + 1, 1, 4), 0)
     with pytest.raises(ValueError, match="65535"):
-        hv.tv_launch((40000, 2, 1, 4), 0, z_range=1)
+        hv.tv_launch((40000, hv.Z_RANGE + 1, 1, 4), 0)  # two z ranges a volume
     with pytest.raises(ValueError, match="65535"):
         hv.tv_launch((1, hv.TILE_Y * 65535 + 1, 4), 0)
 
