@@ -9,9 +9,10 @@ with ``torch.profiler`` (CPU and CUDA activities), after one untraced
 warm-up of each:
 
 - ``deconvolve`` of the bench scene at 256^3, 20 iterations (``chip_smoke.py``
-  phase 3's solve);
+  phase 3's solve), then ``admm_deconvolve`` of the same scene, untracked,
+  tracked and weighted (phase 10's solves);
 - ``batched_deconvolve`` of 4 bench scenes at 64x256x256, 20 iterations
-  (phase 7);
+  (phase 7), then the same batch with ``engine="admm"`` (phase 12);
 - ``tiled_deconvolve`` of a 256x464x464 volume made as phase 8 makes its
   design-scale volume: 4 tiles of 256^3 with overlap 24, one batch of 4,
   10 iterations, which is one of the design-scale run's 19 batches.
@@ -19,8 +20,8 @@ warm-up of each:
 For each it prints one line: the wall of the traced region (host clock,
 synchronized), the device busy time (the sum of kernel and copy times; one
 stream, so they do not overlap), the idle share 1 - busy / wall, the share of
-the busy time by class (the TV kernels, cuFFT, reductions, copies, the other
-elementwise kernels) and the number of kernels launched. The card's name and
+the busy time by class (the TV kernels, the ADMM kernels, cuFFT, reductions,
+copies, the other elementwise kernels) and the number of kernels launched. The card's name and
 power limit come first.
 """
 
@@ -32,13 +33,15 @@ import time
 
 import torch
 
-CLASSES = ("tv", "cufft", "reduction", "copy", "elementwise")
+CLASSES = ("tv", "admm", "cufft", "reduction", "copy", "elementwise")
 
 
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "hyperbolic_tv" in low:
         return "tv"
+    if "admm_" in low:
+        return "admm"
     if "fft" in low:
         return "cufft"
     if "memcpy" in low or "memset" in low:
@@ -79,9 +82,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chip_smoke as cs
+    from microtipi_tpu_torch.jobs.admm import admm_deconvolve
     from microtipi_tpu_torch.jobs.batch import batched_deconvolve
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
     from microtipi_tpu_torch.jobs.tiled import tiled_deconvolve
+    from microtipi_tpu_torch.weights.updaters import InverseVarianceWeights
 
     print(cs.phase0_card(), flush=True)
     dev = torch.device("cuda")
@@ -90,11 +95,19 @@ def main() -> int:
 
     _, data, psf = cs.bench_scene(cs.SHAPE, dev, torch.float32)
     trace(f"deconvolve {cs.SHAPE}", lambda: deconvolve(data, psf, config=cfg20))
-    del data, psf
+    trace(f"admm_deconvolve {cs.SHAPE}, untracked",
+          lambda: admm_deconvolve(data, psf, config=cfg20, track_objective=False))
+    trace(f"admm_deconvolve {cs.SHAPE}, tracked", lambda: admm_deconvolve(data, psf, config=cfg20))
+    weights = InverseVarianceWeights().from_data(data)
+    trace(f"admm_deconvolve {cs.SHAPE}, weighted, untracked",
+          lambda: admm_deconvolve(data, psf, weights=weights, config=cfg20, track_objective=False))
+    del data, psf, weights
 
     scenes = [cs.bench_scene(cs.LANE_SHAPE, dev, torch.float32, seed=s) for s in range(4)]
     batch, psf = torch.stack([d for _, d, _ in scenes]), scenes[0][2]
     trace(f"batched_deconvolve 4 x {cs.LANE_SHAPE}", lambda: batched_deconvolve(batch, psf, config=cfg20))
+    trace(f"batched_deconvolve engine='admm' 4 x {cs.LANE_SHAPE}",
+          lambda: batched_deconvolve(batch, psf, config=cfg20, engine="admm"))
     del scenes, batch, psf
 
     psf = cs.design_psf()

@@ -10,8 +10,9 @@ raises and the script exits non-zero:
 
 0. the card: name and power limit (nvidia-smi), torch and CUDA versions, and
    that float32 matmuls run in full float32 (TF32 off);
-1. build the hyperbolic-TV CUDA kernel from ``microtipi_tpu_torch/csrc``,
-   with ptxas's report (registers, shared memory, spills);
+1. build the CUDA kernels from ``microtipi_tpu_torch/csrc`` (hyperbolic TV and
+   the ADMM split update and right-hand side; one ``nvcc`` a source, started
+   together), with ptxas's report (registers, shared memory, spills);
 2. the kernel against its plain PyTorch version on the card, its TMA and its
    4-byte-copy (unaligned) instantiations, then its time at 256^3:
    ``kernel_ms`` from CUDA events around 50 back-to-back raw launches into
@@ -20,8 +21,9 @@ raises and the script exits non-zero:
 3. the slice at full size on the bench scene of ``bench.py`` (256^3):
    ``deconvolve`` (20 VMLMB iterations) and ``blind_deconvolve`` (5 rounds,
    joint defocus+phase fit), with the kernel's launch count;
-4. card (float32, kernel) against CPU (float64, plain version) parity, of
-   ``deconvolve`` and of ``batched_deconvolve`` at 3 lanes;
+4. card (float32, kernels) against CPU (float64, plain versions) parity, of
+   ``deconvolve``, of ``batched_deconvolve`` at 3 lanes and of
+   ``admm_deconvolve``;
 5. cuFFT float32 precision against float64 NumPy at 256^3;
 6. the batched hyperbolic-TV kernel against its plain version, each lane
    against the single-volume kernel (bitwise), unaligned batches and lane
@@ -31,22 +33,40 @@ raises and the script exits non-zero:
 7. ``batched_deconvolve`` at full width: 4 bench scenes of 64x256x256, each
    lane against ``deconvolve`` of that scene, with both launch counts;
 8. ``tiled_deconvolve`` at design scale: a 512x1024x1024 volume in 75 tiles
-   of 256^3 (overlap 24) streamed 4 at a time, after a warm-up on 7 tiles;
+   of 256^3 (overlap 24) streamed 4 at a time, after a warm-up on two corners
+   of 4 and 3 tiles;
    and one tile covering a 64x256x256 volume against ``deconvolve``, with
-   the witnesses of where the two part.
+   the witnesses of where the two part;
+9. the ADMM kernels (``admm_split_update``, ``admm_rhs``) against their plain
+   versions at ragged and full shapes, single and batched, over-relaxation
+   on and off, positivity on and off, with and without scales, per-lane
+   ``rho``s that differ; the Newton prox against float64; then their
+   ``kernel_ms``, ``call_ms`` and plain times at 256^3 and 4x64x256x256;
+10. ``admm_deconvolve`` at full width on the bench scene (256^3, 20
+    iterations): untracked (the ``admm_value`` lane of ``bench.py``), tracked
+    (``f_history`` must fall and end below phase 3's VMLMB objective),
+    weighted by ``InverseVarianceWeights.from_data`` (the data split), and
+    stopped by the Boyd residual test; then two 200-iteration float32 runs
+    that must agree bit for bit;
+11. ``blind_deconvolve`` with the ADMM engine, the recommended recipe (the
+    ``blind_admm_value`` lane of ``bench.py``);
+12. ``batched_deconvolve(engine="admm")`` at 4x64x256x256, each lane against
+    ``admm_deconvolve`` of its scene, and ``tiled_deconvolve(method="admm")``
+    on the two warm-up corners (4 and 3 tiles) and on the design volume.
 
-The main paths are phase 3 (the single-volume kernel) and phases 7-8 (the
-batched kernel): each is driven with the launch counts set to 0 just before
-and read just after, and none may take the unaligned instantiation. The
-line before the last is ``{"kernels": [...]}`` with each kernel's launches
-on its paths, error, times and bound (``ms`` is the wrapper call's time,
-``call_ms``; ``kernel_ms`` the raw launches'); the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 and
+The main paths are phase 3 (the single-volume TV kernel), phases 7-8 (the
+batched TV kernel) and phases 10-12 (the ADMM kernels): each is driven with
+the launch counts set to 0 just before and read just after, and none may take
+the TV kernel's unaligned instantiation. The line before the last is
+``{"kernels": [...]}`` with each kernel's launches on its paths, error, times
+and bound (``ms`` is the wrapper call's time, ``call_ms``; ``kernel_ms`` the
+raw launches'); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 and
 prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -67,9 +87,10 @@ BATCH_SHAPES = ((4, 64, 256, 256), (3, 37, 64, 96), (2, 256, 8, 128), (4, 256, 2
 UNALIGNED_BATCH = (3, 33, 45, 67)  # its lanes x[1], x[2] start off 16-byte alignment too
 LANE_SHAPE = (64, 256, 256)  # one lane of the batched object step
 VOLUME, TILE, OVERLAP, MAX_BATCH = (512, 1024, 1024), (256, 256, 256), 24, 4  # BASELINE.md:1241-1251
-# A corner of VOLUME cut into 7 tiles along x (stride 256 - 2*24): one full
-# batch and one ragged batch of 3, to warm the tiled run's FFT plans.
-WARM_VOLUME = (256, 256, 256 + 6 * 208)
+# Two corners of VOLUME (tile stride 256 - 2*24 = 208) that warm the FFT plans
+# of both of the tiled run's batch sizes: 4 tiles along x, one full batch, and
+# 3 tiles along z, the ragged batch (75 tiles are 18 batches of 4 and one of 3).
+WARM_VOLUMES = ((256, 256, 256 + 3 * 208), (512, 256, 256))
 PSF_SHAPE = (64, 64, 64)
 # The fused-TV tolerances of tests/test_pallas_tv.py:25-26 (float32 kernel
 # against the float32 plain version: sums in another order), and its 256-plane
@@ -80,6 +101,20 @@ TV_COST_RTOL, TV_GRAD_RTOL, TV_GRAD_ATOL, TV_F64_RTOL = 1e-5, 1e-4, 1e-5, 5e-7
 # 3 adds, a square root and a reciprocal, 6 multiplies for the weights, 5
 # adds for the gradient and 2 for the cost.
 HBM_BYTES_PER_S, F32_OPS_PER_S, TV_OPS_PER_VOXEL = 3.35e12, 67e12, 27
+# The ADMM kernels: volumes of float32 moved (each input read once, each output
+# written once) and float32 operations a voxel, a division or a square root
+# counted as one. Split update: x, u1 x 3, u2 in and z1 x 3, u1 x 3, z2, u2 out
+# (over-relaxed: z1 x 3 and z2 in as well); 14 operations a Newton step, 8
+# steps, about 45 around them (12 more over-relaxed). Right-hand side: z1 x 3,
+# u1 x 3, z2, u2 in, one volume out; 12 operations of the adjoint, 6 after it.
+SPLIT_VOLUMES, SPLIT_VOLUMES_RELAXED, SPLIT_OPS, SPLIT_OPS_RELAXED, RHS_VOLUMES, RHS_OPS = 13, 17, 157, 169, 9, 18
+ADMM_KERNEL_SHAPES = ((1, 37, 64, 96), (1, 33, 45, 67), (3, 37, 64, 96))
+ADMM_FULL_SHAPES = ((1, *SHAPE), (4, *LANE_SHAPE))
+# Scales whose reciprocals are exact: PyTorch's CUDA operators turn a division
+# by a Python scalar into a multiplication by its reciprocal, the kernels
+# divide; with (3, 1, 0.7) the two differ by an ulp here and there.
+EXACT_SCALES, INEXACT_SCALES = (None, (2.0, 1.0, 1.0)), (3.0, 1.0, 0.7)
+ADMM_ULPS = 4  # float32 ulp of a launch's largest value, the bound where not bitwise
 
 
 def tv_bound(x: torch.Tensor) -> tuple[float, str]:
@@ -112,12 +147,16 @@ def phase0_card() -> str:
 def phase1_build() -> None:
     from microtipi_tpu_torch._build import build_report, load_library
 
+    names = ("hyperbolic_tv", "admm_split")
     t0 = time.perf_counter()
-    load_library("hyperbolic_tv")
-    log(1, f"built hyperbolic_tv.cu with nvcc in {time.perf_counter() - t0:.2f} s")
-    for line in build_report("hyperbolic_tv").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(1, line.strip())
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source, side by side
+        for built in [pool.submit(load_library, name) for name in names]:
+            built.result()
+    log(1, f"built {', '.join(n + '.cu' for n in names)} with nvcc in {time.perf_counter() - t0:.2f} s")
+    for name in names:
+        for line in build_report(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(1, line.strip())
 
 
 def raw_ms(launch, n: int = 50, warmup: int = 5) -> float:
@@ -274,9 +313,11 @@ def _check_object(name: str, x: torch.Tensor) -> None:
         raise AssertionError(f"{name}: object not finite and non-negative")
 
 
-def phase3_slice(card: str) -> int:
+def phase3_slice(card: str) -> tuple[int, float]:
+    """Returns the TV kernel's launches on the path and the objective that
+    ``deconvolve`` reached (in the residual form, for phase 10)."""
     from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig, blind_deconvolve
-    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve, make_objective
     from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
     from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
     from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
@@ -295,6 +336,8 @@ def phase3_slice(card: str) -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     deconv_launches = hv.launches
+    f_vmlmb = float(make_objective(psf, data, None, cfg, accurate=True)(res.x)[0])
+    hv.launches = deconv_launches  # that evaluation is not the path's
     wall = float(np.median(walls))
     _check_object("deconvolve", res.x)
     if not np.isfinite(res.f) or deconv_launches == 0:
@@ -332,7 +375,7 @@ def phase3_slice(card: str) -> int:
     if hv.batched_launches != 0 or hv.unaligned_launches != 0:
         raise AssertionError(f"the single-volume path launched the batched kernel {hv.batched_launches} times, "
                              f"the unaligned instantiation {hv.unaligned_launches} times")
-    return hv.launches
+    return hv.launches, f_vmlmb
 
 
 def phase4_parity() -> None:
@@ -382,6 +425,28 @@ def phase4_parity() -> None:
     log(4, f"batched card float32 vs CPU float64 at 3 x {PARITY_SHAPE}: f_history[:4] {f4:.3g} rel "
            f"(< 1e-4), final f {ff:.3g} rel (< 1e-3); iterations {r32.iterations.tolist()}/"
            f"{r64.iterations.tolist()}")
+
+    # The ADMM engine, tracked: the card through both kernels, the CPU through
+    # their plain versions. An ADMM iteration is a contraction with no line
+    # search, so float32 follows float64 all the way: f_history to 1e-4
+    # relative (the float32 residual sum), x to 1e-3 relative L2.
+    from microtipi_tpu_torch.jobs.admm import admm_deconvolve
+    from microtipi_tpu_torch.ops.kernels import admm_split as ak
+
+    out = {}
+    for dev, dtype in ((torch.device("cuda"), torch.float32), (torch.device("cpu"), torch.float64)):
+        _, data, psf = bench_scene(PARITY_SHAPE, dev, dtype)
+        before = ak.split_launches, ak.rhs_launches
+        res = admm_deconvolve(data, psf, config=cfg)
+        out[dev.type] = (res, ak.split_launches - before[0], ak.rhs_launches - before[1])
+    (r32, s32, h32), (r64, s64, h64) = out["cuda"], out["cpu"]
+    fh = float(np.max(np.abs(r32.f_history - r64.f_history) / np.abs(r64.f_history)))
+    xe = float(torch.linalg.norm(r32.x.double().cpu() - r64.x) / torch.linalg.norm(r64.x))
+    if fh > 1e-4 or xe > 1e-3 or (s32, h32) != (cfg.max_iter,) * 2 or (s64, h64) != (0, 0):
+        raise AssertionError(f"ADMM card/CPU parity: f_history {fh:.3g}, x {xe:.3g}, kernel launches cuda "
+                             f"{s32}/{h32} (expected {cfg.max_iter} each), cpu {s64}/{h64}")
+    log(4, f"admm_deconvolve card float32 (kernels) vs CPU float64 (plain) at {PARITY_SHAPE}, {cfg.max_iter} "
+           f"iterations: f_history {fh:.3g} rel (< 1e-4), x {xe:.3g} relative L2 (< 1e-3)")
 
 
 def phase5_cufft(card: str) -> None:
@@ -557,28 +622,26 @@ def design_psf() -> torch.Tensor:
         return model.compute_psf(model.init_params())
 
 
-def phase8_tiled(card: str) -> int:
+def phase8_tiled(card: str, psf: torch.Tensor, data: np.ndarray, setup: float) -> int:
     """``tiled_deconvolve`` at design scale (BASELINE.md:1241-1251): the
-    VOLUME scene, the PSF of :func:`design_psf`, tiles of TILE with
-    OVERLAP, MAX_BATCH lanes a batch, 10 VMLMB iterations, timed after a
-    warm-up on the WARM_VOLUME corner (the FFT plans of both batch sizes);
-    then one tile covering a LANE_SHAPE volume against ``deconvolve``."""
+    VOLUME scene ``data`` (made in ``setup`` seconds), the PSF of
+    :func:`design_psf`, tiles of TILE with OVERLAP, MAX_BATCH lanes a batch,
+    10 VMLMB iterations, timed after a warm-up on the WARM_VOLUMES corners
+    (the FFT plans of both batch sizes); then one tile covering a LANE_SHAPE
+    volume against ``deconvolve``."""
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
     from microtipi_tpu_torch.jobs.tiled import tile_plan, tiled_deconvolve
     from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
 
-    psf = design_psf()
-    t0 = time.perf_counter()
-    data = design_volume(psf)
-    setup = time.perf_counter() - t0
     plan = tile_plan(VOLUME, TILE, (OVERLAP,) * 3)
     n_tiles = int(np.prod([len(starts) for starts, _ in plan]))
     n_batches = -(-n_tiles // MAX_BATCH)
     cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=10, grtol=0.0, gatol=0.0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tiled_deconvolve(data[tuple(slice(n) for n in WARM_VOLUME)], psf, tile=TILE, overlap=OVERLAP, config=cfg,
-                     max_batch=MAX_BATCH)
+    for corner in WARM_VOLUMES:
+        tiled_deconvolve(data[tuple(slice(n) for n in corner)], psf, tile=TILE, overlap=OVERLAP, config=cfg,
+                         max_batch=MAX_BATCH)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -599,11 +662,11 @@ def phase8_tiled(card: str) -> int:
     vox, halo_vox = float(np.prod(VOLUME)), float(n_tiles * np.prod(TILE))
     log(8, f"[{card}] tiled_deconvolve {VOLUME} float32 (made in {setup:.1f} s), tile {TILE}, overlap "
            f"{OVERLAP}, max_batch {MAX_BATCH}: {n_tiles} tiles in {n_batches} batches, wall {wall:.3f} s "
-           f"(1 run after a warm-up of {WARM_VOLUME} in 7 tiles, {warm:.3f} s), at max_iter {cfg.max_iter}: "
+           f"(1 run after a warm-up of {WARM_VOLUMES} in 4 and 3 tiles, {warm:.3f} s), at max_iter {cfg.max_iter}: "
            f"{vox * cfg.max_iter / wall / 1e6:.1f} Mvox*iter/s of output, "
            f"{halo_vox * cfg.max_iter / wall / 1e6:.1f} including halos; batched kernel launches "
            f"{batched} (single-volume {single}, unaligned {unaligned}); peak device memory {peak:.3f} GiB")
-    del data, out
+    del out
     phase8_single_tile(cfg)
     return batched
 
@@ -670,6 +733,366 @@ def phase8_single_tile(cfg) -> None:
            f"rel, x {nudge_x:.3g} relative L2")
 
 
+def admm_state(shape, seed: int = 0) -> dict:
+    """Random x, z1, u1, z2, u2 of a batch ``shape`` on the card and per-lane
+    lam, rho1, rho2 that differ between lanes."""
+    rng = np.random.default_rng(seed)
+    nb = shape[0]
+
+    def normal(s):
+        return torch.as_tensor(rng.standard_normal(s, dtype=np.float32), device="cuda")
+
+    st = {"x": normal(shape), "z1": normal((nb, 3, *shape[1:])), "u1": normal((nb, 3, *shape[1:])),
+          "z2": normal(shape), "u2": normal(shape)}
+    st.update({k: torch.as_tensor(rng.uniform(0.05, 2.0, nb).astype(np.float32), device="cuda")
+               for k in ("lam", "rho1", "rho2")})
+    return st
+
+
+def admm_bound(shape, volumes: int, ops: int) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of an ADMM kernel over ``shape``."""
+    n = float(np.prod(shape))
+    t_bytes, t_ops = volumes * n * 4 / HBM_BYTES_PER_S, ops * n / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase9_admm_kernels(card: str) -> tuple[dict, dict]:
+    """Both ADMM kernels against their plain versions on the card: bitwise
+    where PyTorch's operators round once (EXACT_SCALES), else within ADMM_ULPS
+    float32 ulp of the launch's largest value; two launches bitwise equal; the
+    Newton prox against float64; then the times at ADMM_FULL_SHAPES."""
+    from microtipi_tpu_torch.ops.kernels import admm_split as ak
+
+    eps32 = float(np.finfo(np.float32).eps)
+    worst = {"split": 0.0, "rhs": 0.0}  # max abs error over every comparison
+    inexact = 0.0  # the largest error in ulp of the array's largest value, where not bitwise
+
+    def compare(shape, alpha, positivity, scales):
+        nonlocal inexact
+        st = admm_state(shape, seed=9)
+        pl, again = ({k: v.clone() for k, v in st.items()} for _ in range(2))
+        args = (0.3, alpha, positivity, scales)
+        ak.admm_split_update(st["x"], st["z1"], st["u1"], st["z2"], st["u2"], st["lam"], *args)
+        ak.admm_split_update(again["x"], again["z1"], again["u1"], again["z2"], again["u2"], again["lam"], *args)
+        ak.admm_split_update_plain(pl["x"], pl["z1"], pl["u1"], pl["z2"], pl["u2"], pl["lam"], *args)
+        pairs = [("split", k, st[k], pl[k], again[k]) for k in ("z1", "u1", "z2", "u2")]
+        rhs_args = (st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"], scales)
+        pairs.append(("rhs", "rhs", ak.admm_rhs(*rhs_args), ak.admm_rhs_plain(*rhs_args), ak.admm_rhs(*rhs_args)))
+        # u1 = (u1 + d) - z1 cancels, so an ulp is one of the update's largest operand, not of u1.
+        largest = {"split": max(float(pl[k].abs().max()) for k in ("z1", "u1", "z2", "u2")),
+                   "rhs": float(pairs[-1][3].abs().max())}
+        for kernel, name, got, want, twice in pairs:
+            err = float((got - want).abs().max())
+            worst[kernel] = max(worst[kernel], err)
+            ulps = err / (eps32 * largest[kernel])
+            where = f"{name} at {shape} alpha={alpha} positivity={positivity} scales={scales}"
+            if scales in EXACT_SCALES and not torch.equal(got, want):
+                raise AssertionError(f"kernel != plain, bitwise expected: {where}: max abs {err:.3g} ({ulps:.2f} ulp)")
+            if ulps > ADMM_ULPS:
+                raise AssertionError(f"kernel != plain: {where}: max abs {err:.3g}, {ulps:.2f} ulp of the largest value")
+            if not torch.equal(got, twice):
+                raise AssertionError(f"two launches differ: {where}")
+            inexact = max(inexact, ulps)
+        if not torch.equal(st["x"], pl["x"]):
+            raise AssertionError(f"the split update wrote x at {shape}")
+
+    n = 0
+    for shape in ADMM_KERNEL_SHAPES:
+        for alpha in (1.0, 1.8):
+            for positivity in (True, False):
+                for scales in (*EXACT_SCALES, INEXACT_SCALES):
+                    compare(shape, alpha, positivity, scales)
+                    n += 1
+    for shape in ADMM_FULL_SHAPES:
+        for alpha, positivity, scales in ((1.8, True, None), (1.0, False, (2.0, 1.0, 1.0)), (1.8, True, INEXACT_SCALES)):
+            compare(shape, alpha, positivity, scales)
+            n += 1
+
+    # The Newton prox against float64: with x = u1 = 0 and z1 = v, alpha = 0
+    # makes the relaxed difference v itself, so z1 comes back as prox(|v|) v/|v|.
+    shape, lam, eps = (1, 16, 32, 64), 0.4, 0.3
+    v = torch.as_tensor(np.random.default_rng(2).uniform(-3.0, 3.0, (1, 3, *shape[1:])).astype(np.float32), device="cuda")
+    z1, zeros = v.clone(), torch.zeros(shape, device="cuda")
+    ak.admm_split_update(zeros, z1, torch.zeros_like(v), zeros.clone(), zeros.clone(),
+                         torch.tensor([lam], device="cuda"), eps, alpha=0.0)
+    inner = (slice(None), slice(None), slice(0, -1), slice(0, -1), slice(0, -1))  # off the trailing faces
+    v64 = v.double()
+    mag = torch.sqrt((v64 * v64).sum(1, keepdim=True))
+    want = (ak.hyperbolic_prox(mag, lam, eps, newton_iters=50) / mag * v64)[inner]
+    prox_ulps = float((z1.double()[inner] - want).abs().max()) / (eps32 * float(want.abs().max()))
+    if prox_ulps > ADMM_ULPS:
+        raise AssertionError(f"the kernel's Newton prox is {prox_ulps:.2f} float32 ulp off the float64 prox")
+    torch.cuda.synchronize()
+    log(9, f"admm_split_update and admm_rhs == plain over {n} cases at {list(ADMM_KERNEL_SHAPES + ADMM_FULL_SHAPES)}, "
+           f"alpha (1.0, 1.8), positivity on and off, per-lane lam and rho: bitwise for scales {EXACT_SCALES}, within "
+           f"{inexact:.2f} ulp of the largest value (bound {ADMM_ULPS}) for {INEXACT_SCALES}; max abs err split "
+           f"{worst['split']:.3g}, rhs {worst['rhs']:.3g}; two launches bitwise equal; Newton prox {prox_ulps:.2f} "
+           f"ulp off the float64 prox (bound {ADMM_ULPS})")
+
+    split, rhs = {}, {}
+    for shape in ADMM_FULL_SHAPES:
+        st = admm_state(shape, seed=0)
+        vols = (st["x"], st["z1"], st["u1"], st["z2"], st["u2"], st["lam"])
+        for alpha, volumes, ops in ((1.8, SPLIT_VOLUMES_RELAXED, SPLIT_OPS_RELAXED), (1.0, SPLIT_VOLUMES, SPLIT_OPS)):
+            t = {"kernel_ms": raw_ms(ak.prepare_split_update(*vols, 1.0, alpha)),
+                 "call_ms": _median_ms(lambda: ak.admm_split_update(*vols, 1.0, alpha)),
+                 "plain_ms": _median_ms(lambda: ak.admm_split_update_plain(*vols, 1.0, alpha), n=5, warmup=1)}
+            t["bound_ms"], t["bound_by"] = admm_bound(shape, volumes, ops)
+            t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+            split[(shape, alpha)] = t
+            log(9, f"[{card}] admm_split_update at {shape}, alpha {alpha}: {admm_times_line(shape, volumes, t)}")
+        st = admm_state(shape, seed=1)  # the update above has grown u1 and u2 launch by launch
+        rhs_args = (st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"])
+        t = {"kernel_ms": raw_ms(ak.prepare_rhs(*rhs_args)[0]), "call_ms": _median_ms(lambda: ak.admm_rhs(*rhs_args)),
+             "plain_ms": _median_ms(lambda: ak.admm_rhs_plain(*rhs_args), n=5, warmup=1)}
+        t["bound_ms"], t["bound_by"] = admm_bound(shape, RHS_VOLUMES, RHS_OPS)
+        t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+        rhs[shape] = t
+        log(9, f"[{card}] admm_rhs at {shape}: {admm_times_line(shape, RHS_VOLUMES, t)}")
+        del st, vols, rhs_args
+    single, lanes = ADMM_FULL_SHAPES
+
+    def entry(main, err, others: dict) -> dict:
+        return {"max_abs_err": err, "ms": main["call_ms"], **main, "library_ms": None,
+                **{k: {"shape": list(sh), **t} for k, (sh, t) in others.items()}}
+
+    return (entry(split[(single, 1.8)], worst["split"], {"alpha_1": (single, split[(single, 1.0)]),
+                                                         "batched": (lanes, split[(lanes, 1.8)]),
+                                                         "batched_alpha_1": (lanes, split[(lanes, 1.0)])}),
+            entry(rhs[single], worst["rhs"], {"batched": (lanes, rhs[lanes])}))
+
+
+def admm_times_line(shape, volumes: int, t: dict) -> str:
+    moved = volumes * int(np.prod(shape)) * 4
+    return (f"kernel_ms {t['kernel_ms']:.4f} (50 raw launches, {moved / (t['kernel_ms'] * 1e-3) / 1e9:.1f} GB/s), "
+            f"call_ms {t['call_ms']:.4f} (wrapper call, median of 20), plain {t['plain_ms']:.4f} ms; bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {volumes} volumes, {moved / 2**20:.0f} MiB at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s), {t['bound_share']:.1%} of it")
+
+
+class AdmmCounts:
+    """The ADMM and TV kernels' launch counts over a stretch of the main path:
+    set to 0 on entry, read on exit."""
+
+    def __enter__(self):
+        from microtipi_tpu_torch.ops.kernels import admm_split as ak
+        from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+        self.ak, self.hv = ak, hv
+        ak.split_launches = ak.rhs_launches = hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.split, self.rhs = self.ak.split_launches, self.ak.rhs_launches
+        self.tv, self.unaligned = self.hv.launches + self.hv.batched_launches, self.hv.unaligned_launches
+        return False
+
+    def check(self, name: str, iterations: int, objective_values: int) -> str:
+        """Each ADMM kernel once an iteration, the TV kernel once an objective value."""
+        if (self.split, self.rhs, self.tv, self.unaligned) != (iterations, iterations, objective_values, 0):
+            raise AssertionError(f"{name}: admm_split_update {self.split} and admm_rhs {self.rhs} launches (expected "
+                                 f"{iterations} each), TV launches {self.tv} (expected {objective_values}), "
+                                 f"unaligned {self.unaligned}")
+        return f"admm_split_update {self.split}, admm_rhs {self.rhs}, TV {self.tv} launches"
+
+
+def _timed(fn, runs: int = 3):
+    """(median wall of ``runs`` calls after one warm-up, the last result)."""
+    fn()
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)), res
+
+
+def phase10_admm(card: str, f_vmlmb: float) -> tuple[int, int]:
+    """``admm_deconvolve`` on phase 3's scene and config (``bench.py:150-153``).
+    Returns the two ADMM kernels' launches on these paths."""
+    from microtipi_tpu_torch.jobs.admm import admm_deconvolve
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.weights.updaters import InverseVarianceWeights
+
+    dev, nvox = torch.device("cuda"), float(np.prod(SHAPE))
+    _, data, psf = bench_scene(SHAPE, dev, torch.float32)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
+    launched = np.zeros(2, np.int64)
+
+    def rate(wall, iterations):
+        return f"wall {wall:.4f} s (median of 3 after 1 warm-up), {nvox * iterations / wall / 1e6:.1f} Mvox*iter/s"
+
+    torch.cuda.reset_peak_memory_stats()
+    with AdmmCounts() as c:
+        wall, res = _timed(lambda: admm_deconvolve(data, psf, config=cfg, track_objective=False))
+    launched += (c.split, c.rhs)
+    _check_object("admm_deconvolve", res.x)
+    if not np.isfinite(res.f) or not np.isnan(res.f_history[1:]).all():
+        raise AssertionError(f"admm_deconvolve untracked: f={res.f}, f_history {res.f_history}")
+    log(10, f"[{card}] admm_deconvolve {SHAPE}, 20 iterations, untracked: f {float(res.f):.6g}, {rate(wall, 20)}, "
+            f"{c.check('untracked', 4 * 20, 4 * 2)} (4 runs), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    with AdmmCounts() as c:
+        wall, res = _timed(lambda: admm_deconvolve(data, psf, config=cfg))
+    launched += (c.split, c.rhs)
+    fh = res.f_history
+    if not (np.isfinite(fh).all() and np.all(np.diff(fh[2:]) < 0) and fh[-1] < f_vmlmb and float(res.f) == fh[-1]):
+        raise AssertionError(f"admm_deconvolve tracked: f_history must fall from iteration 2 on and end below "
+                             f"deconvolve's {f_vmlmb:.6g}: {fh.tolist()}")
+    log(10, f"[{card}] admm_deconvolve tracked: f_history {fh[0]:.6g} -> {fh[-1]:.6g}, falling from iteration 2 on, "
+            f"below deconvolve's 20-iteration objective {f_vmlmb:.6g}; {rate(wall, 20)}, "
+            f"{c.check('tracked', 4 * 20, 4 * 22)} (4 runs)")
+
+    weights = InverseVarianceWeights(gain=1.0, readout_variance=1.0).from_data(data)
+    torch.cuda.reset_peak_memory_stats()
+    with AdmmCounts() as c:
+        wall, res = _timed(lambda: admm_deconvolve(data, psf, weights=weights, config=cfg, track_objective=False))
+    launched += (c.split, c.rhs)
+    _check_object("weighted admm_deconvolve", res.x)
+    if not np.isfinite(res.f):
+        raise AssertionError(f"weighted admm_deconvolve: f={res.f}")
+    log(10, f"[{card}] admm_deconvolve weighted by InverseVarianceWeights.from_data (the data split, 4 FFTs an "
+            f"iteration, its prox and dual update PyTorch operators): f {float(res.f):.6g}, {rate(wall, 20)}, "
+            f"{c.check('weighted', 4 * 20, 4 * 2)} (4 runs), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    budget = 600
+    bcfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=budget, admm_reltol=1e-3, admm_abstol=1e-6)
+    with AdmmCounts() as c:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = admm_deconvolve(data, psf, config=bcfg, track_objective=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched += (c.split, c.rhs)
+    if res.status != 0 or not 0 < res.iterations < budget or res.iterations % bcfg.admm_check_every:
+        raise AssertionError(f"Boyd-stopped admm_deconvolve: status {res.status} after {res.iterations} of {budget}")
+    log(10, f"[{card}] admm_deconvolve stopped by the Boyd test (reltol 1e-3, abstol 1e-6, checked every "
+            f"{bcfg.admm_check_every}): status 0 after {res.iterations} of {budget} iterations, f {float(res.f):.6g}, "
+            f"wall {wall:.4f} s (1 run), {nvox * res.iterations / wall / 1e6:.1f} Mvox*iter/s, "
+            f"{c.check('Boyd-stopped', res.iterations, 2)}")
+
+    # Two float32 runs of 200 tracked iterations in one process: cuFFT and
+    # both kernels are deterministic, so f and x must agree bit for bit. (The
+    # bench scene stands in for the blobs scene of BASELINE.md:1679-1691,
+    # which has no generator in the repository.)
+    lcfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=200)
+    with AdmmCounts() as c:
+        one, two = (admm_deconvolve(data, psf, config=lcfg) for _ in range(2))
+    launched += (c.split, c.rhs)
+    same_f = np.array_equal(one.f_history, two.f_history) and one.f == two.f
+    if not (same_f and torch.equal(one.x, two.x)):
+        raise AssertionError(
+            f"two 200-iteration float32 ADMM runs differ: f_history by "
+            f"{np.max(np.abs(one.f_history - two.f_history) / np.abs(one.f_history)):.3g} relative, x by "
+            f"{float(torch.linalg.norm(one.x - two.x) / torch.linalg.norm(one.x)):.3g} relative L2")
+    log(10, f"two float32 runs of 200 tracked iterations at {SHAPE}: f_history, f ({float(one.f):.6g}) and x equal bit "
+            f"for bit; {c.check('determinism', 400, 404)}")
+    return int(launched[0]), int(launched[1])
+
+
+def phase11_blind_admm(card: str) -> tuple[int, int]:
+    """The blind loop with the ADMM engine, the recommended recipe of
+    ``bench.py:243-251`` on phase 3's blind scene."""
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig, blind_deconvolve
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+    from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+
+    nvox = float(np.prod(SHAPE))
+    model, data, _ = bench_scene(SHAPE, torch.device("cuda"), torch.float32, phase=[0.15, -0.1, 0.08, 0.0, 0.05, 0.0])
+    bcfg = BlindDeconvConfig.recommended(
+        loops=5, families=(DEFOCUS, PHASE), psf_max_iter=(5, 5), deconv_engine="admm",
+        deconv=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0),
+        fit=PsfFitConfig(grtol=0.0))
+    torch.cuda.reset_peak_memory_stats()
+    with AdmmCounts() as c:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = blind_deconvolve(data, model, config=bcfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _check_object("blind_deconvolve (admm)", res.obj)
+    iters = int(res.deconv_iters.sum())
+    if not (np.isfinite(res.deconv_f).all() and np.isnan(res.fit_f[-1]).all() and np.isfinite(res.fit_f[:-1]).all()
+            and bool(torch.isfinite(res.psf).all()) and iters == 100):
+        raise AssertionError(f"blind (admm): deconv_f {res.deconv_f}, fit_f {res.fit_f}, object iterations {iters}")
+    if (c.split, c.rhs) != (100, 100) or c.tv < 10 or c.unaligned:
+        raise AssertionError(f"blind (admm): admm_split_update {c.split}, admm_rhs {c.rhs} launches (expected 100 "
+                             f"each), TV {c.tv}, unaligned {c.unaligned}")
+    log(11, f"[{card}] blind_deconvolve {SHAPE}, recommended recipe with the ADMM engine (wiener start, mu "
+            f"{[round(m, 4) for m in bcfg.mu_schedule]}, 5 rounds of 20 iterations, joint defocus+phase fits of 5): "
+            f"deconv_f {res.deconv_f.tolist()}, wall {wall:.3f} s (1 run), {nvox * iters / wall / 1e6:.1f} "
+            f"Mvox*obj_iter/s, admm_split_update {c.split}, admm_rhs {c.rhs}, TV {c.tv} launches, peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return c.split, c.rhs
+
+
+def phase12_batched_tiled_admm(card: str, psf: torch.Tensor, volume: np.ndarray) -> tuple[int, int]:
+    """``batched_deconvolve(engine="admm")`` on phase 7's batch, each lane
+    against ``admm_deconvolve`` of its scene (float32 lanes are compared by
+    f: cuFFT rounds a batch otherwise than one volume; an ADMM trajectory
+    does not amplify that, so x is held to 1e-3 relative L2 as well); then
+    ``tiled_deconvolve(method="admm")`` on the WARM_VOLUMES corners and on
+    the whole design volume, phase 8's geometry and iterations."""
+    from microtipi_tpu_torch.jobs.admm import admm_deconvolve
+    from microtipi_tpu_torch.jobs.batch import batched_deconvolve
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.tiled import tile_plan, tiled_deconvolve
+
+    dev, nvox = torch.device("cuda"), float(np.prod(LANE_SHAPE))
+    scenes = [bench_scene(LANE_SHAPE, dev, torch.float32, seed=s) for s in range(4)]
+    data, lane_psf = torch.stack([d for _, d, _ in scenes]), scenes[0][2]
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
+    launched = np.zeros(2, np.int64)
+    torch.cuda.reset_peak_memory_stats()
+    with AdmmCounts() as c:
+        wall, res = _timed(lambda: batched_deconvolve(data, lane_psf, config=cfg, engine="admm"))
+    launched += (c.split, c.rhs)
+    _check_object("batched_deconvolve (admm)", res.x)
+    if not np.isfinite(res.f).all() or res.iterations.tolist() != [20] * 4:
+        raise AssertionError(f"batched_deconvolve (admm): f={res.f}, iterations {res.iterations}")
+    log(12, f"[{card}] batched_deconvolve engine='admm' 4 x {LANE_SHAPE}, 20 iterations: wall {wall:.4f} s (median of "
+            f"3 after 1 warm-up), {4 * nvox * 20 / wall / 1e6:.1f} Mvox*iter/s, {c.check('batched', 4 * 20, 4 * 2)} "
+            f"(4 runs), peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    worstf = worstx = 0.0
+    for b in range(4):
+        r = admm_deconvolve(data[b], lane_psf, config=cfg, track_objective=False)
+        worstf = max(worstf, abs(float(res.f[b]) - float(r.f)) / abs(float(r.f)))
+        worstx = max(worstx, float(torch.linalg.norm(res.x[b] - r.x) / torch.linalg.norm(r.x)))
+    if worstf > 1e-4 or worstx > 1e-3:
+        raise AssertionError(f"batched ADMM lanes != admm_deconvolve: f {worstf:.3g}, x {worstx:.3g}")
+    log(12, f"each lane against admm_deconvolve of its scene: f {worstf:.3g} rel (< 1e-4), x {worstx:.3g} relative L2 "
+            f"(< 1e-3)")
+
+    tcfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=10, grtol=0.0, gatol=0.0)
+    corners = [(f"warm-up corner {i + 1}", volume[tuple(slice(n) for n in c)]) for i, c in enumerate(WARM_VOLUMES)]
+    for name, vol in (*corners, ("design scale", volume)):
+        n_tiles = int(np.prod([len(starts) for starts, _ in tile_plan(vol.shape, TILE, (OVERLAP,) * 3)]))
+        torch.cuda.reset_peak_memory_stats()
+        with AdmmCounts() as c:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tiled_deconvolve(vol, psf, tile=TILE, overlap=OVERLAP, config=tcfg, method="admm", max_batch=MAX_BATCH)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launched += (c.split, c.rhs)
+        if out.shape != vol.shape or not np.isfinite(out).all() or out.min() < 0:
+            raise AssertionError(f"tiled_deconvolve (admm), {name}: shape {out.shape}, finite "
+                                 f"{np.isfinite(out).all()}, min {out.min()}")
+        n_batches = -(-n_tiles // MAX_BATCH)
+        vox = float(np.prod(vol.shape))
+        log(12, f"[{card}] tiled_deconvolve method='admm', {name} {vol.shape}: {n_tiles} tiles of {TILE} in "
+                f"{n_batches} batches, 10 iterations, wall {wall:.3f} s (1 run), {vox * 10 / wall / 1e6:.1f} "
+                f"Mvox*iter/s of output, {c.check(name, 10 * n_batches, 2 * n_batches)}, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        del out
+    return int(launched[0]), int(launched[1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -680,19 +1103,35 @@ def main() -> int:
     card = phase0_card()
     phase1_build()
     kern = phase2_kernel(card)
-    launches = phase3_slice(card)
+    launches, f_vmlmb = phase3_slice(card)
     if launches == 0:
         raise AssertionError("the main path never launched the TV kernel")
     phase4_parity()
     phase5_cufft(card)
     bkern = phase6_batched_kernel(card)
-    batched_launches = phase7_batched(card) + phase8_tiled(card)
-    source = "microtipi_tpu_torch/csrc/hyperbolic_tv.cu"
+    psf = design_psf()
+    t0 = time.perf_counter()
+    volume = design_volume(psf)
+    setup = time.perf_counter() - t0
+    batched_launches = phase7_batched(card) + phase8_tiled(card, psf, volume, setup)
+    split_kern, rhs_kern = phase9_admm_kernels(card)
+    admm_launches = np.sum([phase10_admm(card, f_vmlmb), phase11_blind_admm(card),
+                            phase12_batched_tiled_admm(card, psf, volume)], axis=0)
+    if admm_launches.min() == 0:
+        raise AssertionError(f"the ADMM paths never launched a kernel: {admm_launches.tolist()}")
+    source, admm_source = "microtipi_tpu_torch/csrc/hyperbolic_tv.cu", "microtipi_tpu_torch/csrc/admm_split.cu"
+    fused_by_xla = "fused by XLA under jit, no Pallas kernel"
     print(json.dumps({"kernels": [
         {"name": "hyperbolic_tv", "route": "cuda", "source": source,
          "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:80 and :111", "launches": launches, **kern},
         {"name": "hyperbolic_tv_batched", "route": "cuda", "source": source,
          "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:203", "launches": batched_launches, **bkern},
+        {"name": "admm_split_update", "route": "cuda", "source": admm_source,
+         "replaces": f"microtipi_tpu/jobs/admm.py:353-368 ({fused_by_xla})", "launches": int(admm_launches[0]),
+         **split_kern},
+        {"name": "admm_rhs", "route": "cuda", "source": admm_source,
+         "replaces": f"microtipi_tpu/jobs/admm.py:330-331 ({fused_by_xla})", "launches": int(admm_launches[1]),
+         **rhs_kern},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

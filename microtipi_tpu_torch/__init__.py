@@ -1,16 +1,22 @@
 """microtipi_tpu_torch — the PyTorch / CUDA port of ``microtipi_tpu``.
 
 The same blind-deconvolution main path as the JAX package — wide-field PSF
-synthesis, FFT convolution data terms, hyperbolic-TV regularised VMLMB object
-steps and the alternating blind loop — written in PyTorch, with the fused
-hyperbolic-TV cost-and-gradient sweep as a hand-written CUDA kernel for
-Hopper (``csrc/hyperbolic_tv.cu``). Each module sits at the same relative
-path as its JAX counterpart, which stays the reference it is tested against.
+synthesis, FFT convolution data terms, hyperbolic-TV regularised object steps
+by VMLMB or ADMM, and the alternating blind loop — written in PyTorch, with
+the hot sweeps as hand-written CUDA kernels for Hopper: the fused
+hyperbolic-TV cost and gradient (``csrc/hyperbolic_tv.cu``) and the ADMM
+engine's split update and right-hand side (``csrc/admm_split.cu``). Each
+module sits at the same relative path as its JAX counterpart, which stays the
+reference it is tested against.
 
 This package imports ``torch`` and NumPy only, never ``jax`` and never
-``microtipi_tpu``. Importing it builds nothing: the CUDA kernel is compiled
+``microtipi_tpu``. Importing it builds nothing: the CUDA kernels are compiled
 by ``nvcc`` at first use (``_build.py``).
 
-Entry points: ``jobs.deconv.deconvolve`` and ``jobs.blind.blind_deconvolve``
-with a ``models.widefield.WideFieldModel``.
+Entry points: ``jobs.deconv.deconvolve``, ``jobs.admm.admm_deconvolve`` and
+``fista_deconvolve``, ``jobs.blind.blind_deconvolve`` with a
+``models.widefield.WideFieldModel``, ``jobs.batch.batched_deconvolve`` and
+``jobs.tiled.tiled_deconvolve``; ``weights.updaters.InverseVarianceWeights``
+makes the data weights, ``convert`` carries parameters and configurations
+between the two packages.
 """

@@ -1,10 +1,14 @@
-"""Carry wide-field PSF parameters and configuration between the packages.
+"""Carry wide-field PSF parameters and configurations between the packages.
 
 The JAX package's ``WideFieldParams`` and ``WideFieldConfig`` cross over as
 NumPy arrays and plain fields, so both packages compute from the same state
 without this module importing jax: anything with ``defocus``/``phase``/
 ``modulus`` attributes that ``np.asarray`` accepts (a JAX params tuple, a
-dict wrapped in a namespace, the port's own params) converts.
+dict wrapped in a namespace, the port's own params) converts. The solver
+configurations (``DeconvolutionConfig``, ``PsfFitConfig``,
+``BlindDeconvConfig``) and the ``InverseVarianceWeights`` model cross over
+field by field, by name: the port keeps its own classes, and a field the port
+does not have is left behind.
 """
 
 from __future__ import annotations
@@ -14,9 +18,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
+from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
 from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldParams
+from microtipi_tpu_torch.weights.updaters import InverseVarianceWeights
 
-__all__ = ["config_fields", "config_from_fields", "params_to_numpy", "params_to_torch"]
+__all__ = ["blind_config_from_fields", "config_fields", "config_from_fields", "deconv_config_from_fields",
+           "params_to_numpy", "params_to_torch", "weights_from_fields"]
 
 _CONFIG_FIELDS = ("shape", "na", "wavelength", "ni", "dxy", "dz", "n_phase", "n_modulus", "radial")
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
@@ -55,3 +64,29 @@ def config_fields(cfg: WideFieldConfig) -> dict:
     out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     out["dtype"] = np.float64 if cfg.dtype == torch.float64 else np.float32
     return out
+
+
+def _from_fields(cls, src, **overrides):
+    """``cls(...)`` from the attributes of ``src`` named like ``cls``'s fields."""
+    fields = {f.name: getattr(src, f.name) for f in dataclasses.fields(cls) if hasattr(src, f.name)}
+    fields.update(overrides)
+    return cls(**fields)
+
+
+def deconv_config_from_fields(cfg) -> DeconvolutionConfig:
+    """The port's object-step config from one with the JAX
+    ``DeconvolutionConfig``'s fields (the TPU-only switches stay behind)."""
+    return _from_fields(DeconvolutionConfig, cfg)
+
+
+def blind_config_from_fields(cfg) -> BlindDeconvConfig:
+    """The port's blind-loop config from one with the JAX
+    ``BlindDeconvConfig``'s fields, its ``deconv`` and ``fit`` included."""
+    return _from_fields(BlindDeconvConfig, cfg, deconv=deconv_config_from_fields(cfg.deconv),
+                        fit=_from_fields(PsfFitConfig, cfg.fit))
+
+
+def weights_from_fields(model) -> InverseVarianceWeights:
+    """The port's weight model from one with ``gain``/``readout_variance``/
+    ``saturation`` (the JAX ``InverseVarianceWeights``)."""
+    return _from_fields(InverseVarianceWeights, model)

@@ -8,6 +8,10 @@ batched objective (``jobs/deconv.make_batched_objective``) over the lanes
 still running, which is one batched FFT pair and one launch of the batched
 hyperbolic-TV kernel. Each lane keeps its own iterate, line search, memory
 and stopping, so lane b gives what ``deconvolve`` gives on volume b.
+``engine="admm"`` hands the batch to the ADMM engine
+(``jobs/admm.admm_deconvolve``), which is written over lanes: one batched FFT
+pair and one launch of each of its kernels an iteration, per-lane ``rho``s and
+per-lane Boyd stopping.
 
 The other batched solvers of the JAX module raise ``NotImplementedError``
 naming the ROADMAP.md item that ports them.
@@ -18,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from microtipi_tpu_torch.jobs.admm import admm_deconvolve
 from microtipi_tpu_torch.jobs.deconv import (
     DeconvolutionConfig,
     DeconvolutionResult,
@@ -48,17 +53,23 @@ def batched_deconvolve(
     a leading batch axis on every field. Float32 uniform-weight lanes that
     stall on the quadratic form's value resolution continue on the residual
     form, each on its own budget, as ``deconvolve`` does.
+
+    ``engine="admm"`` runs the ADMM engine instead, ``config.max_iter``
+    iterations a lane with no line searches at all, without tracking the
+    objective; ``config.admm_abstol``/``admm_reltol`` compose: each lane stops
+    at its own Boyd residual test and the batch runs until the slowest stops.
     """
     if engine == "admm":
-        raise NotImplementedError("engine='admm' is not ported yet (ROADMAP.md queue 1, item 10: "
-                                  "the ADMM engine)")
+        if data.ndim != 4:
+            raise ValueError(f"a batch of volumes is 4D, got shape {tuple(data.shape)}")
+        return admm_deconvolve(data, psf, weights=weights, x0=x0, config=config, track_objective=False)
     if engine != "vmlmb":
         raise ValueError(f"unknown engine {engine!r}")
     if x0 is None:
         x0 = torch.clamp_min(data, 0.0) if config.positivity else data
     fun = make_batched_objective(psf, data, weights, config)
     results = minimize_vmlmb_batched(fun, x0, **_vmlmb_options(config), maxeval=config.max_eval)
-    if weights is None and data.dtype == torch.float32:
+    if config.data_term == "gaussian" and weights is None and data.dtype == torch.float32:
         results = _f32_stall_continue_batched(results, psf, data, config)
     return DeconvolutionResult(
         torch.stack([r.x for r in results]),

@@ -12,9 +12,11 @@ Port of the slice's part of ``microtipi_tpu/jobs/blind.py`` (reference:
        in order with its own budget and ``grtol = 0`` (``:118-133``),
        skipping zero-budget families (``:126``) — or all of them jointly.
 
-The JAX ``fori_loop`` and unrolled paths become one Python loop. Not ported
-yet (they raise ``NotImplementedError``): the ADMM engine (ROADMAP.md queue
-1 item 10), bead anchors and the calibration prior (item 15).
+The JAX ``fori_loop`` and unrolled paths become one Python loop. The object
+step is VMLMB (``jobs/deconv.deconvolve``) or, with ``deconv_engine="admm"``,
+the ADMM engine (``jobs/admm.admm_deconvolve``). Not ported yet (they raise
+``NotImplementedError``): bead anchors and the calibration prior (ROADMAP.md
+queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from microtipi_tpu_torch.jobs.admm import admm_deconvolve
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
 from microtipi_tpu_torch.jobs.wiener import wiener
 from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig, fit_psf, fit_psf_joint
@@ -42,7 +45,12 @@ class BlindDeconvConfig:
     (``BlindDeconvJob.java:80-88``); ``phase_schedule`` and ``mu_schedule``
     give per-round active phase modes and TV weights; ``joint_fit`` fits the
     families in one VMLMB run; ``phase_freeze_head`` freezes the first phase
-    coefficients; ``init`` is the round-1 warm start. The last round never
+    coefficients; ``init`` is the round-1 warm start. ``deconv_engine`` is
+    "vmlmb" (reference semantics, ``PSF_Estimation.java:186-199``) or "admm":
+    ``deconv.max_iter`` fixed iterations a round (or Boyd stopping, if the
+    object config sets it) on the plain TV objective; pair it with an annealed
+    ``mu_schedule`` (:meth:`recommended`), since an exactly converged object
+    step under a weak constant mu absorbs the aberration. The last round never
     refits (``BlindDeconvJob.java:116``); the JAX ``skip_last_fit`` switch
     serves checkpointed per-round runs, which come with ROADMAP.md item 19."""
 
@@ -70,11 +78,13 @@ class BlindDeconvConfig:
             raise ValueError("phase_schedule is not supported with joint_fit")
         if self.init not in ("data", "wiener"):
             raise ValueError(f"unknown init {self.init!r}")
-        if self.deconv_engine == "admm":
-            raise NotImplementedError(
-                "deconv_engine='admm' is not ported yet (ROADMAP.md queue 1, item 10)")
-        if self.deconv_engine != "vmlmb":
+        if self.deconv_engine not in ("vmlmb", "admm"):
             raise ValueError(f"unknown deconv_engine {self.deconv_engine!r}")
+        if self.deconv_engine == "admm" and (
+            self.deconv.sparsity > 0 or self.deconv.hessian > 0 or self.deconv.var_shape is not None
+        ):
+            raise ValueError("deconv_engine='admm' supports the plain TV objective only (no sparsity/hessian "
+                             "priors, no padded-variable mode); use the vmlmb engine")
         if self.phase_prior_weight > 0:
             raise NotImplementedError(
                 "phase_prior_weight is not ported yet (ROADMAP.md queue 1, item 15)")
@@ -99,7 +109,7 @@ class BlindDeconvResult(NamedTuple):
     psf: torch.Tensor  # final synthesized PSF (corner-origin)
     deconv_f: np.ndarray  # per-round final object-step cost, (loops,)
     fit_f: np.ndarray  # per-round per-family final PSF-step cost, (loops, nfam)
-    deconv_iters: np.ndarray  # per-round object-step VMLMB iterations, (loops,)
+    deconv_iters: np.ndarray  # per-round object-step iterations, (loops,)
 
 
 def run_blind_loop(config, f_dtype, x0, params0, object_step, fit_weights, fit_one, fit_joint):
@@ -173,7 +183,15 @@ def blind_deconvolve(
         dcfg = config.deconv if mu is None else dataclasses.replace(config.deconv, mu=mu)
         # The object step always sees the user's weights: the reference
         # disables the pre-deconv weight update (BlindDeconvJob.java:105-107).
-        dres = deconvolve(data, psf, weights=weights, x0=x, config=dcfg)
+        if config.deconv_engine == "admm":
+            # over_relax=1.0 inside the alternation: the relaxed engine's
+            # faster per-round convergence re-feeds the object-absorbs-
+            # aberration mode that the annealed mu_schedule suppresses
+            # (jobs/blind.py:318-323). Standalone solves keep the 1.8 default.
+            dres = admm_deconvolve(data, psf, weights=weights, x0=x, config=dcfg, over_relax=1.0,
+                                   track_objective=False)
+        else:
+            dres = deconvolve(data, psf, weights=weights, x0=x, config=dcfg)
         return dres.x, dres.f, dres.iterations, psf
 
     def fit_weights(x, psf):

@@ -10,13 +10,18 @@ with VMLMB. The TV term goes through the fused wrapper
 (``ops/kernels/hyperbolic_tv.py``): the CUDA kernel for a CUDA tensor (float32,
 3D; anything else raises), its plain version for a CPU tensor.
 
+``data_term="poisson"`` swaps the Gaussian term for the generalized
+Kullback-Leibler deviance of ``d ~ Poisson(psf (*) x + background)``.
+
 A batch of volumes (B, Nz, Ny, Nx) has its own objective,
 :func:`make_batched_objective`: per-lane costs from one batched FFT pair and
-one batched TV launch, for the lockstep solver of ``jobs/batch.py``.
+one batched TV launch, for the lockstep solver of ``jobs/batch.py``. The ADMM
+and FISTA engines (``jobs/admm.py``) read the same objective, values only,
+through :func:`objective_value`.
 
-Not ported yet (they raise ``NotImplementedError``): the Poisson data term,
-the padded variable grid (``var_shape``) and the ``sparsity``/``hessian``
-priors — ROADMAP.md queue 1 item 12.
+Not ported yet (they raise ``NotImplementedError``): the padded variable grid
+(``var_shape``) and the ``sparsity``/``hessian`` priors — ROADMAP.md queue 1
+item 12.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from microtipi_tpu_torch.jobs.wiener import wiener
 from microtipi_tpu_torch.ops.convolution import (
+    PoissonConvCost,
     QuadraticConvCost,
     UniformConvCost,
     WeightedConvolutionCost,
@@ -51,6 +57,7 @@ __all__ = [
     "make_batched_objective",
     "make_objective",
     "make_regularizer",
+    "objective_value",
 ]
 
 
@@ -69,19 +76,21 @@ class DeconvolutionConfig:
     hessian: float = 0.0
     positivity: bool = True
     data_term: str = "gaussian"
+    background: float = 0.0
     max_iter: int = 50
     max_eval: int | None = None
     gatol: float = 0.0
     grtol: float = 1e-3
     mem: int = 5
     var_shape: tuple[int, ...] | None = None
+    admm_abstol: float = 0.0
+    admm_reltol: float = 0.0
+    admm_check_every: int = 20
 
     def check_ported(self) -> None:
         """Raise for options whose code is not ported yet."""
         item12 = "is not ported yet (ROADMAP.md queue 1, item 12: the rest of the 3D object step)"
-        if self.data_term == "poisson":
-            raise NotImplementedError(f"data_term='poisson' {item12}")
-        if self.data_term != "gaussian":
+        if self.data_term not in ("gaussian", "poisson"):
             raise ValueError(f"unknown data_term {self.data_term!r}")
         for name in ("sparsity", "hessian"):
             if getattr(self, name) > 0:
@@ -119,12 +128,18 @@ def make_regularizer(config: DeconvolutionConfig):
     return reg
 
 
-def _data_cost(psf, data, weights, accurate: bool):
-    """The data term: uniform weights take the 2-FFT quadratic form
-    (``accurate=True``: the 3-FFT residual form), weights the weighted cost.
-    A batch (B, Nz, Ny, Nx) takes a shared 3D PSF or one per lane."""
+def _data_cost(psf, data, weights, config: DeconvolutionConfig, accurate: bool):
+    """The data term (``jobs/deconv.py:265-288``): the Poisson deviance, or
+    the Gaussian term, where uniform weights take the 2-FFT quadratic form
+    (``accurate=True``: the 3-FFT residual form) and weights the weighted
+    cost. A batch (B, Nz, Ny, Nx) takes a shared 3D PSF or one per lane."""
     shape = tuple(data.shape[-3:])
     kernel = pad_fft_kernel(psf, shape)
+    if config.data_term == "poisson":
+        if weights is not None:
+            raise ValueError("data_term='poisson' models the noise itself; per-voxel "
+                             "Gaussian weights do not compose with it")
+        return PoissonConvCost.build(kernel, data, config.background, shape)
     if weights is None:
         return (UniformConvCost if accurate else QuadraticConvCost).build(kernel, data)
     return WeightedConvolutionCost.build(kernel, data, weights, shape)
@@ -142,11 +157,28 @@ def _objective(cost, config: DeconvolutionConfig):
     return value_and_grad(objective)
 
 
+def objective_value(cost, config: DeconvolutionConfig):
+    """``x -> f`` of the same objective without its gradient, for the engines
+    that only track values (``jobs/admm.py``): no autograd graph, and the
+    residual-form cost skips its gradient's FFT. Per lane (B,) for a batch."""
+    reg = make_regularizer(config)
+    data_value = getattr(cost, "value", cost.cost)
+
+    def value(x):
+        with torch.no_grad():
+            f = data_value(x)
+            if config.mu > 0:
+                f = f + reg(x)
+        return f
+
+    return value
+
+
 def make_objective(psf, data, weights, config: DeconvolutionConfig, accurate: bool = False):
     """The ``x -> (f, grad f)`` closure of the object step
     (``jobs/deconv.py:229-298``); the kernel spectrum is computed once per
     call."""
-    return _objective(_data_cost(psf, data, weights, accurate), config)
+    return _objective(_data_cost(psf, data, weights, config, accurate), config)
 
 
 def make_batched_objective(psf, data, weights, config: DeconvolutionConfig, accurate: bool = False):
@@ -159,7 +191,7 @@ def make_batched_objective(psf, data, weights, config: DeconvolutionConfig, accu
     lane; a call on fewer lanes indexes them (``select_lanes``)."""
     if data.ndim != 4:
         raise ValueError(f"a batch of volumes is 4D, got shape {tuple(data.shape)}")
-    full = _data_cost(psf, data, weights, accurate)
+    full = _data_cost(psf, data, weights, config, accurate)
     every = tuple(range(data.shape[0]))
     cache: dict = {}
 
@@ -275,7 +307,7 @@ def deconvolve(
             x0 = torch.clamp_min(x0, 0.0)
     fun = make_objective(psf, data, weights, config)
     res = minimize_vmlmb(fun, x0, **_vmlmb_options(config), maxeval=config.max_eval)
-    if weights is None and data.dtype == torch.float32:
+    if config.data_term == "gaussian" and weights is None and data.dtype == torch.float32:
         # Exactly the gate under which make_objective took the quadratic
         # form AND its eps*c value floor can stall a float32 search.
         res = _f32_stall_continue(res, psf, data, config)

@@ -10,9 +10,10 @@ TV launch per step. The JAX package padded the last, smaller batch to keep
 one compiled program; PyTorch runs eagerly, so the ragged tail is solved as
 it is.
 
-Only ``method="vmlmb"`` is ported; the ADMM and Richardson-Lucy methods and
-the depth-varying path raise ``NotImplementedError`` naming their
-ROADMAP.md items.
+``method="vmlmb"`` and ``method="admm"`` (the same objective through the ADMM
+engine, ``config.max_iter`` fixed iterations a tile) are ported; the
+Richardson-Lucy method and the depth-varying path raise
+``NotImplementedError`` naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -146,19 +147,18 @@ def tiled_deconvolve(
     ``psf`` may instead be a callable ``psf_fn(center) -> corner-origin
     PSF`` receiving each tile's center in volume voxel coordinates (build
     one with :func:`field_psf`): the tiles of a batch then solve with one
-    kernel per lane. ``config.var_shape`` is ignored (padding is what the
-    halo is for).
+    kernel per lane. ``method`` is "vmlmb" (TV + positivity by VMLMB) or "admm"
+    (the same objective through the ADMM engine, a fixed ``config.max_iter``
+    per tile). ``config.var_shape`` is ignored (padding is what the halo is
+    for).
     """
     if depthvar_anchors is not None:
         raise NotImplementedError("depthvar_anchors is not ported yet (ROADMAP.md queue 1, "
                                   "items 13 and 14: the Gibson-Lanni model and jobs/depthvar.py)")
-    if method == "admm":
-        raise NotImplementedError("method='admm' is not ported yet (ROADMAP.md queue 1, item 10: "
-                                  "the ADMM engine)")
     if method == "rl":
         raise NotImplementedError("method='rl' is not ported yet (ROADMAP.md queue 1, item 12: "
                                   "jobs/richardson_lucy.py)")
-    if method != "vmlmb":
+    if method not in ("vmlmb", "admm"):
         raise ValueError(f"unknown method {method!r}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -200,7 +200,7 @@ def tiled_deconvolve(
                 prep_kernel(psf(tuple(s + t / 2.0 for s, t in zip(starts, tile))))
                 for starts, _ in chunk
             ])
-        xs = batched_deconvolve(batch, kern, weights=wbatch, config=cfg).x.cpu().numpy()
+        xs = batched_deconvolve(batch, kern, weights=wbatch, config=cfg, engine=method).x.cpu().numpy()
         for (starts, cores), x in zip(chunk, xs):
             dst = tuple(slice(lo, hi) for lo, hi in cores)
             src = tuple(slice(lo - s, hi - s) for (lo, hi), s in zip(cores, starts))

@@ -6,6 +6,7 @@ Port of ``microtipi_tpu/ops/convolution.py`` (TiPi's
 
     f(x) = 0.5 * alpha * sum_i  w_i * ((K (*) x)_i - d_i)^2
 
+(or, for photon-counting data, the Poisson deviance of :class:`PoissonConvCost`)
 with circular convolution by a corner-origin kernel ``K`` computed with real
 FFTs (``torch.fft``: cuFFT on the card, pocketfft on the CPU). The same
 object serves both sub-problems: in the object step the variable is the
@@ -38,11 +39,13 @@ import torch
 from microtipi_tpu_torch.utils.arrays import crop_to_shape
 
 __all__ = [
+    "PoissonConvCost",
     "QuadraticConvCost",
     "UniformConvCost",
     "WeightedConvolutionCost",
     "convolve",
     "convolve_spectrum",
+    "generalized_kl",
     "select_lanes",
 ]
 
@@ -151,6 +154,61 @@ class WeightedConvolutionCost(NamedTuple):
         return 0.5 * alpha * _lane_sum(wr2)
 
 
+def generalized_kl(m: torch.Tensor, d: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Generalized Kullback-Leibler deviance ``sum (m - d) - d*log(m/d)``
+    (``convolution.py:74-86``), per lane for a batch.
+
+    The Poisson negative log-likelihood of ``d`` under mean ``m``, up to the
+    x-independent constant; >= 0 with equality at m == d. ``d == 0`` voxels
+    contribute exactly ``m``; the log is guarded at the dtype's smallest
+    normal. ``mask`` (0/1) excludes voxels entirely.
+    """
+    tiny = torch.finfo(m.dtype).tiny
+    m = torch.clamp_min(m, tiny)
+    log_ratio = torch.log(m) - torch.log(torch.clamp_min(d, tiny))
+    term = (m - d) - torch.where(d > 0, d * log_ratio, torch.zeros_like(d))
+    return _lane_sum(term if mask is None else mask * term)
+
+
+class PoissonConvCost(NamedTuple):
+    """Poisson-likelihood data term (``convolution.py:173-227``): the
+    generalized KL deviance of ``d ~ Poisson(H x + b)``,
+
+        f(x) = sum_i  (m_i - d_i) - d_i * log(m_i / d_i),   m = H x + b.
+
+    ``background`` b > 0 is recommended under the positivity bound (at b = 0
+    a voxel with m -> 0 and d > 0 is an infinite barrier). The gradient is
+    plain autograd through the FFTs.
+    """
+
+    kernel_hat: torch.Tensor
+    data: torch.Tensor
+    background: float
+    var_shape: tuple[int, ...]
+
+    @classmethod
+    def build(cls, kernel, data, background: float = 0.0, var_shape=None) -> "PoissonConvCost":
+        if var_shape is None:
+            var_shape = tuple(data.shape[-3:])
+        if tuple(kernel.shape[-len(var_shape):]) != tuple(var_shape):
+            raise ValueError(
+                f"kernel shape {tuple(kernel.shape)} != variable shape {tuple(var_shape)}; "
+                "use utils.arrays.pad_fft_kernel to embed it"
+            )
+        if background < 0:
+            raise ValueError("background must be >= 0")
+        return cls(convolve_spectrum(kernel), data, float(background), tuple(var_shape))
+
+    def model(self, x: torch.Tensor) -> torch.Tensor:
+        hx = convolve(x, self.kernel_hat, self.var_shape)
+        if hx.shape != self.data.shape:
+            hx = crop_to_shape(hx, tuple(self.data.shape[-len(self.var_shape):]))
+        return hx
+
+    def cost(self, x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+        return alpha * generalized_kl(self.model(x) + self.background, self.data)
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """<a, b> per volume (B,) or of one volume: the product summed by
     :func:`_lane_sum`, so a volume and a lane reduce alike."""
@@ -233,3 +291,10 @@ class UniformConvCost(NamedTuple):
 
     def cost(self, x: torch.Tensor) -> torch.Tensor:
         return _UniformCost.apply(x, self.kernel_hat, self.kernel_sq, self.b, self.data, self.shape)
+
+    def value(self, x: torch.Tensor) -> torch.Tensor:
+        """The cost alone from 2 FFTs, without the gradient that
+        :meth:`cost` prepares (the primal of ``_uniform_cost``,
+        ``convolution.py:344-348``)."""
+        r = _irfftn(self.kernel_hat * _rfftn(x), self.shape) - self.data
+        return 0.5 * _lane_sum(r * r)

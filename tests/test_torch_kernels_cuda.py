@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from microtipi_tpu_torch.ops.kernels import admm_split as ak
 from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
 
 # float32 against float32 in another summation order (tests/test_pallas_tv.py:25-26).
@@ -118,3 +119,130 @@ def test_two_launches_bitwise_equal(shape, cuda_device):
     f1, g1 = fused(x, 1.0)
     f2, g2 = fused(x, 1.0)
     assert torch.equal(f1, f2) and torch.equal(g1, g2)
+
+
+def _admm_state(shape, device, seed=0):
+    """x, z1, u1, z2, u2 of a batch and per-lane lam, rho1, rho2 that differ."""
+    rng = np.random.default_rng(seed)
+    nb = shape[0]
+
+    def normal(s):
+        return torch.as_tensor(rng.standard_normal(s, dtype=np.float32), device=device)
+
+    st = {"x": normal(shape), "z1": normal((nb, 3, *shape[1:])), "u1": normal((nb, 3, *shape[1:])),
+          "z2": normal(shape), "u2": normal(shape)}
+    st.update({k: torch.as_tensor(rng.uniform(0.05, 2.0, nb).astype(np.float32), device=device)
+               for k in ("lam", "rho1", "rho2")})
+    return st
+
+
+def _assert_kernel_is_plain(got, want, exact, largest):
+    """Bitwise where PyTorch's operators round once; a division by a scale
+    whose reciprocal is inexact is a multiplication by it in PyTorch's CUDA
+    operators, and then within 4 float32 ulp of ``largest``, the launch's
+    largest value (u1 = (u1 + d) - z1 cancels, so not u1's own)."""
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= 4 * np.finfo(np.float32).eps * largest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 37, 64, 96), (1, 33, 45, 67), (3, 37, 64, 96)])
+@pytest.mark.parametrize("alpha", [1.0, 1.8])
+@pytest.mark.parametrize("positivity", [True, False])
+@pytest.mark.parametrize("scales", [None, (2.0, 1.0, 1.0), (3.0, 1.0, 0.7)])
+def test_admm_kernels_match_plain(shape, alpha, positivity, scales, cuda_device):
+    st = _admm_state(shape, cuda_device)
+    pl = {k: v.clone() for k, v in st.items()}
+    ak.split_launches = ak.rhs_launches = 0
+    ak.admm_split_update(st["x"], st["z1"], st["u1"], st["z2"], st["u2"], st["lam"], 0.3, alpha, positivity, scales)
+    ak.admm_split_update_plain(pl["x"], pl["z1"], pl["u1"], pl["z2"], pl["u2"], pl["lam"], 0.3, alpha, positivity,
+                               scales)
+    rhs = ak.admm_rhs(st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"], scales)
+    rhs_plain = ak.admm_rhs_plain(st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"], scales)
+    torch.cuda.synchronize()
+    assert (ak.split_launches, ak.rhs_launches) == (1, 1)
+    exact = scales != (3.0, 1.0, 0.7)
+    largest = max(float(pl[name].abs().max()) for name in ("z1", "u1", "z2", "u2"))
+    for name in ("z1", "u1", "z2", "u2"):
+        _assert_kernel_is_plain(st[name], pl[name], exact, largest)
+    _assert_kernel_is_plain(rhs, rhs_plain, exact, float(rhs_plain.abs().max()))
+    assert torch.equal(st["x"], pl["x"])  # read only
+
+
+@pytest.mark.cuda
+def test_admm_kernel_lanes_are_single_launches(cuda_device):
+    """Each lane of a batched launch is bitwise the launch on that lane alone
+    with its own lam and rhos."""
+    st = _admm_state((3, 20, 33, 47), cuda_device, seed=1)
+    one = [{k: v[b:b + 1].clone() for k, v in st.items()} for b in range(3)]
+    ak.admm_split_update(st["x"], st["z1"], st["u1"], st["z2"], st["u2"], st["lam"], 0.3, 1.8)
+    rhs = ak.admm_rhs(st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"])
+    for b, o in enumerate(one):
+        ak.admm_split_update(o["x"], o["z1"], o["u1"], o["z2"], o["u2"], o["lam"], 0.3, 1.8)
+        assert all(torch.equal(st[k][b], o[k][0]) for k in ("z1", "u1", "z2", "u2"))
+        assert torch.equal(rhs[b], ak.admm_rhs(o["z1"], o["u1"], o["z2"], o["u2"], o["rho1"], o["rho2"])[0])
+
+
+@pytest.mark.cuda
+def test_admm_prox_against_float64(cuda_device):
+    """With x = u1 = 0 and z1 = v the relaxed difference is (1 - alpha) v, so
+    at alpha = 0 the update returns prox(|v|) v / |v|: the kernel's float32
+    Newton steps against the float64 prox, to 4 float32 ulp of the largest
+    value."""
+    shape, lam, eps = (1, 8, 16, 32), 0.4, 0.3
+    rng = np.random.default_rng(2)
+    v = torch.as_tensor(rng.uniform(-3.0, 3.0, (1, 3, *shape[1:])).astype(np.float32), device=cuda_device)
+    z1, u1 = v.clone(), torch.zeros_like(v)
+    x = torch.zeros(shape, device=cuda_device)
+    ak.admm_split_update(x, z1, u1, torch.zeros_like(x), torch.zeros_like(x),
+                         torch.tensor([lam], device=cuda_device), eps, alpha=0.0)
+    inner = (slice(None), slice(None), slice(0, -1), slice(0, -1), slice(0, -1))  # off the trailing faces
+    v64 = v.double()
+    mag = torch.sqrt((v64 * v64).sum(1, keepdim=True))
+    want = (ak.hyperbolic_prox(mag, lam, eps, newton_iters=50) / mag * v64)[inner]
+    assert float((z1.double()[inner] - want).abs().max()) <= 4 * np.finfo(np.float32).eps * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_admm_kernels_reject_what_they_do_not_take(cuda_device):
+    st = _admm_state((2, 4, 8, 8), cuda_device)
+    args = [st[k] for k in ("x", "z1", "u1", "z2", "u2", "lam")]
+    with pytest.raises(TypeError):
+        ak.admm_split_update(*[a.double() for a in args], 0.3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ak.admm_split_update(st["x"].transpose(2, 3).contiguous().transpose(2, 3), *args[1:], 0.3)
+    with pytest.raises(ValueError, match="expected shape"):
+        ak.admm_split_update(st["x"], st["z1"][:, :2].contiguous(), *args[2:], 0.3)
+    with pytest.raises(ValueError, match="batch"):
+        ak.admm_split_update(st["x"][0], *args[1:], 0.3)
+    with pytest.raises(ValueError, match="one device"):
+        ak.admm_rhs(st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"].cpu(), st["rho2"])
+    with pytest.raises(TypeError):
+        ak.admm_rhs(st["z1"], st["u1"], st["z2"].double(), st["u2"].double(), st["rho1"], st["rho2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_admm_engine_launches_its_kernels_once_an_iteration(batched, cuda_device):
+    """On the card the engine goes through both kernels once an iteration and
+    through the TV kernel for every objective value (f0, one an iteration when
+    tracking, the final f); two runs agree bit for bit."""
+    from microtipi_tpu_torch.jobs.admm import admm_deconvolve
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+
+    rng = np.random.default_rng(3)
+    shape = (2, 16, 32, 32) if batched else (16, 32, 32)
+    data = torch.as_tensor(rng.uniform(0.0, 10.0, shape).astype(np.float32), device=cuda_device)
+    psf = torch.zeros(shape[-3:], device=cuda_device)
+    psf[:2, :2, :2] = 0.125
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=7)
+    runs = []
+    for track in (True, False, False):
+        ak.split_launches = ak.rhs_launches = hv.launches = hv.batched_launches = 0
+        runs.append(admm_deconvolve(data, psf, config=cfg, track_objective=track))
+        assert (ak.split_launches, ak.rhs_launches) == (7, 7)
+        assert hv.launches + hv.batched_launches == (9 if track else 2)
+    assert torch.equal(runs[1].x, runs[2].x) and torch.equal(runs[0].x, runs[1].x)
+    assert np.array_equal(runs[1].f, runs[2].f) and bool(torch.isfinite(runs[0].x).all())
