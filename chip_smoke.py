@@ -41,7 +41,8 @@ raises and the script exits non-zero:
    versions at ragged and full shapes, single and batched, over-relaxation
    on and off, positivity on and off, with and without scales, per-lane
    ``rho``s that differ; the Newton prox against float64; then their
-   ``kernel_ms``, ``call_ms`` and plain times at 256^3 and 4x64x256x256;
+   ``kernel_ms``, ``call_ms`` and plain times at 256^3, 4x64x256x256 and the
+   tiled run's 4x256^3 (its ragged 3x256^3 batch is compared too);
 10. ``admm_deconvolve`` at full width on the bench scene (256^3, 20
     iterations): untracked (the ``admm_value`` lane of ``bench.py``), tracked
     (``f_history`` must fall and end below phase 3's VMLMB objective),
@@ -52,7 +53,9 @@ raises and the script exits non-zero:
     ``blind_admm_value`` lane of ``bench.py``);
 12. ``batched_deconvolve(engine="admm")`` at 4x64x256x256, each lane against
     ``admm_deconvolve`` of its scene, and ``tiled_deconvolve(method="admm")``
-    on the two warm-up corners (4 and 3 tiles) and on the design volume.
+    on the two warm-up corners (4 and 3 tiles, run cold) and on the design
+    volume, and one tile covering a 64x256x256 volume against
+    ``admm_deconvolve``.
 
 The main paths are phase 3 (the single-volume TV kernel), phases 7-8 (the
 batched TV kernel) and phases 10-12 (the ADMM kernels): each is driven with
@@ -109,7 +112,8 @@ HBM_BYTES_PER_S, F32_OPS_PER_S, TV_OPS_PER_VOXEL = 3.35e12, 67e12, 27
 # u1 x 3, z2, u2 in, one volume out; 12 operations of the adjoint, 6 after it.
 SPLIT_VOLUMES, SPLIT_VOLUMES_RELAXED, SPLIT_OPS, SPLIT_OPS_RELAXED, RHS_VOLUMES, RHS_OPS = 13, 17, 157, 169, 9, 18
 ADMM_KERNEL_SHAPES = ((1, 37, 64, 96), (1, 33, 45, 67), (3, 37, 64, 96))
-ADMM_FULL_SHAPES = ((1, *SHAPE), (4, *LANE_SHAPE))
+# The first two are timed too; the last two are the tiled run's full and ragged batches.
+ADMM_FULL_SHAPES = ((1, *SHAPE), (4, *LANE_SHAPE), (MAX_BATCH, *TILE), (3, *TILE))
 # Scales whose reciprocals are exact: PyTorch's CUDA operators turn a division
 # by a Python scalar into a multiplication by its reciprocal, the kernels
 # divide; with (3, 1, 0.7) the two differ by an ulp here and there.
@@ -335,9 +339,7 @@ def phase3_slice(card: str) -> tuple[int, float]:
         res = deconvolve(data, psf, config=cfg)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    deconv_launches = hv.launches
-    f_vmlmb = float(make_objective(psf, data, None, cfg, accurate=True)(res.x)[0])
-    hv.launches = deconv_launches  # that evaluation is not the path's
+    deconv_launches, x_vmlmb, data_vmlmb = hv.launches, res.x, data
     wall = float(np.median(walls))
     _check_object("deconvolve", res.x)
     if not np.isfinite(res.f) or deconv_launches == 0:
@@ -375,7 +377,8 @@ def phase3_slice(card: str) -> tuple[int, float]:
     if hv.batched_launches != 0 or hv.unaligned_launches != 0:
         raise AssertionError(f"the single-volume path launched the batched kernel {hv.batched_launches} times, "
                              f"the unaligned instantiation {hv.unaligned_launches} times")
-    return hv.launches, f_vmlmb
+    launches = hv.launches  # the path's count, read before the evaluation below
+    return launches, float(make_objective(psf, data_vmlmb, None, cfg, accurate=True)(x_vmlmb)[0])
 
 
 def phase4_parity() -> None:
@@ -760,17 +763,19 @@ def phase9_admm_kernels(card: str) -> tuple[dict, dict]:
     """Both ADMM kernels against their plain versions on the card: bitwise
     where PyTorch's operators round once (EXACT_SCALES), else within ADMM_ULPS
     float32 ulp of the launch's largest value; two launches bitwise equal; the
-    Newton prox against float64; then the times at ADMM_FULL_SHAPES."""
+    Newton prox against float64; then the times at the first three of
+    ADMM_FULL_SHAPES (one volume, the batched step's lanes, the tiled run's
+    full batch)."""
     from microtipi_tpu_torch.ops.kernels import admm_split as ak
 
     eps32 = float(np.finfo(np.float32).eps)
     worst = {"split": 0.0, "rhs": 0.0}  # max abs error over every comparison
     inexact = 0.0  # the largest error in ulp of the array's largest value, where not bitwise
 
-    def compare(shape, alpha, positivity, scales):
+    def compare(base, alpha, positivity, scales):
         nonlocal inexact
-        st = admm_state(shape, seed=9)
-        pl, again = ({k: v.clone() for k, v in st.items()} for _ in range(2))
+        shape = tuple(base["x"].shape)
+        st, pl, again = ({k: v.clone() for k, v in base.items()} for _ in range(3))
         args = (0.3, alpha, positivity, scales)
         ak.admm_split_update(st["x"], st["z1"], st["u1"], st["z2"], st["u2"], st["lam"], *args)
         ak.admm_split_update(again["x"], again["z1"], again["u1"], again["z2"], again["u2"], again["lam"], *args)
@@ -798,15 +803,18 @@ def phase9_admm_kernels(card: str) -> tuple[dict, dict]:
 
     n = 0
     for shape in ADMM_KERNEL_SHAPES:
+        base = admm_state(shape, seed=9)
         for alpha in (1.0, 1.8):
             for positivity in (True, False):
                 for scales in (*EXACT_SCALES, INEXACT_SCALES):
-                    compare(shape, alpha, positivity, scales)
+                    compare(base, alpha, positivity, scales)
                     n += 1
     for shape in ADMM_FULL_SHAPES:
+        base = admm_state(shape, seed=9)
         for alpha, positivity, scales in ((1.8, True, None), (1.0, False, (2.0, 1.0, 1.0)), (1.8, True, INEXACT_SCALES)):
-            compare(shape, alpha, positivity, scales)
+            compare(base, alpha, positivity, scales)
             n += 1
+    del base
 
     # The Newton prox against float64: with x = u1 = 0 and z1 = v, alpha = 0
     # makes the relaxed difference v itself, so z1 comes back as prox(|v|) v/|v|.
@@ -830,7 +838,7 @@ def phase9_admm_kernels(card: str) -> tuple[dict, dict]:
            f"ulp off the float64 prox (bound {ADMM_ULPS})")
 
     split, rhs = {}, {}
-    for shape in ADMM_FULL_SHAPES:
+    for shape in ADMM_FULL_SHAPES[:3]:
         st = admm_state(shape, seed=0)
         vols = (st["x"], st["z1"], st["u1"], st["z2"], st["u2"], st["lam"])
         for alpha, volumes, ops in ((1.8, SPLIT_VOLUMES_RELAXED, SPLIT_OPS_RELAXED), (1.0, SPLIT_VOLUMES, SPLIT_OPS)):
@@ -850,7 +858,7 @@ def phase9_admm_kernels(card: str) -> tuple[dict, dict]:
         rhs[shape] = t
         log(9, f"[{card}] admm_rhs at {shape}: {admm_times_line(shape, RHS_VOLUMES, t)}")
         del st, vols, rhs_args
-    single, lanes = ADMM_FULL_SHAPES
+    single, lanes, tiled = ADMM_FULL_SHAPES[:3]
 
     def entry(main, err, others: dict) -> dict:
         return {"max_abs_err": err, "ms": main["call_ms"], **main, "library_ms": None,
@@ -858,8 +866,9 @@ def phase9_admm_kernels(card: str) -> tuple[dict, dict]:
 
     return (entry(split[(single, 1.8)], worst["split"], {"alpha_1": (single, split[(single, 1.0)]),
                                                          "batched": (lanes, split[(lanes, 1.8)]),
-                                                         "batched_alpha_1": (lanes, split[(lanes, 1.0)])}),
-            entry(rhs[single], worst["rhs"], {"batched": (lanes, rhs[lanes])}))
+                                                         "batched_alpha_1": (lanes, split[(lanes, 1.0)]),
+                                                         "tiled_batch": (tiled, split[(tiled, 1.8)])}),
+            entry(rhs[single], worst["rhs"], {"batched": (lanes, rhs[lanes]), "tiled_batch": (tiled, rhs[tiled])}))
 
 
 def admm_times_line(shape, volumes: int, t: dict) -> str:
@@ -1036,11 +1045,15 @@ def phase12_batched_tiled_admm(card: str, psf: torch.Tensor, volume: np.ndarray)
     against ``admm_deconvolve`` of its scene (float32 lanes are compared by
     f: cuFFT rounds a batch otherwise than one volume; an ADMM trajectory
     does not amplify that, so x is held to 1e-3 relative L2 as well); then
-    ``tiled_deconvolve(method="admm")`` on the WARM_VOLUMES corners and on
-    the whole design volume, phase 8's geometry and iterations."""
+    ``tiled_deconvolve(method="admm")`` on the WARM_VOLUMES corners (cold:
+    one run each, the ADMM path's first at its batch size) and on the whole
+    design volume, phase 8's geometry and iterations; then one tile covering a
+    LANE_SHAPE volume, which must be the batched solve of that volume bit for
+    bit (the tiling is exact) and ``admm_deconvolve`` of it within the lanes'
+    bounds."""
     from microtipi_tpu_torch.jobs.admm import admm_deconvolve
     from microtipi_tpu_torch.jobs.batch import batched_deconvolve
-    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, make_objective
     from microtipi_tpu_torch.jobs.tiled import tile_plan, tiled_deconvolve
 
     dev, nvox = torch.device("cuda"), float(np.prod(LANE_SHAPE))
@@ -1069,7 +1082,8 @@ def phase12_batched_tiled_admm(card: str, psf: torch.Tensor, volume: np.ndarray)
             f"(< 1e-3)")
 
     tcfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=10, grtol=0.0, gatol=0.0)
-    corners = [(f"warm-up corner {i + 1}", volume[tuple(slice(n) for n in c)]) for i, c in enumerate(WARM_VOLUMES)]
+    corners = [(f"warm-up corner {i + 1} (cold: 1 run, no warm-up of its own)",
+                volume[tuple(slice(n) for n in c)]) for i, c in enumerate(WARM_VOLUMES)]
     for name, vol in (*corners, ("design scale", volume)):
         n_tiles = int(np.prod([len(starts) for starts, _ in tile_plan(vol.shape, TILE, (OVERLAP,) * 3)]))
         torch.cuda.reset_peak_memory_stats()
@@ -1090,6 +1104,25 @@ def phase12_batched_tiled_admm(card: str, psf: torch.Tensor, volume: np.ndarray)
                 f"Mvox*iter/s of output, {c.check(name, 10 * n_batches, 2 * n_batches)}, peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         del out
+
+    vol = data[3]
+    with AdmmCounts() as c:
+        got = tiled_deconvolve(vol.cpu().numpy(), lane_psf, tile=LANE_SHAPE, overlap=4, config=tcfg, method="admm")
+    launched += (c.split, c.rhs)
+    counts = c.check("single tile", 10, 2)
+    lane = batched_deconvolve(vol[None], lane_psf, config=tcfg, engine="admm")
+    want = admm_deconvolve(vol, lane_psf, config=tcfg, track_objective=False)
+    bitwise = np.array_equal(got, lane.x[0].cpu().numpy())
+    f_of, x_got = make_objective(lane_psf, vol, None, tcfg, accurate=True), torch.as_tensor(got, device=dev)
+    f_got, f_want = float(f_of(x_got)[0]), float(f_of(want.x)[0])
+    tile_f = abs(f_got - f_want) / abs(f_want)
+    tile_x = float(torch.linalg.norm(x_got - want.x) / torch.linalg.norm(want.x))
+    if not bitwise or tile_f > 1e-4 or tile_x > 1e-3:
+        raise AssertionError(f"single-tile tiled_deconvolve (admm): bitwise the batched solve {bitwise}; against "
+                             f"admm_deconvolve f {tile_f:.3g}, x {tile_x:.3g}")
+    log(12, f"one tile covering {LANE_SHAPE}, method='admm': bitwise equal to batched_deconvolve(engine='admm') of the "
+            f"volume; against admm_deconvolve on the card objective {tile_f:.3g} rel (< 1e-4), x {tile_x:.3g} relative "
+            f"L2 (< 1e-3); {counts}")
     return int(launched[0]), int(launched[1])
 
 

@@ -64,6 +64,7 @@ from microtipi_tpu_torch.ops.kernels.admm_split import (
     admm_split_update,
     circ_diffs as _circ_diffs,
     circ_diffs_adjoint as _circ_diffs_adjoint,
+    per_lane as _per_lane,
 )
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
@@ -137,11 +138,6 @@ def _admm_tolerances(config: DeconvolutionConfig):
         raise ValueError("admm_abstol/admm_reltol must be >= 0")
     check_every = max(int(config.admm_check_every), 1)
     return abstol, reltol, check_every, (abstol > 0.0 or reltol > 0.0)
-
-
-def _per_lane(t: torch.Tensor) -> torch.Tensor:
-    """(B,) -> (B, 1, 1, 1): one value a lane against (B, Nz, Ny, Nx)."""
-    return t.reshape(-1, 1, 1, 1)
 
 
 def _scale_spectrum_(z_hat: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
@@ -345,16 +341,13 @@ def admm_deconvolve(
 
     refresh_rho()
     out = torch.empty_like(x)
-    live = list(range(nb))  # the lanes of st, by their index in the batch
     iterations = np.full((nb,), n, np.int64)
     status = np.full((nb,), 1 if use_tol else 0, np.int64)
     splits = ("z0", "z1", "z2") if data_split else ("z1", "z2")
 
-    def retire(local: list) -> None:
-        """Write the result of the live lanes ``local`` into ``out``: z2 is
-        feasible (>= 0) by construction."""
-        res = st["z2"] if config.positivity else st["x"]
-        out[[live[k] for k in local]] = res[local]
+    def result() -> torch.Tensor:
+        """The live lanes' answer: z2 is feasible (>= 0) by construction."""
+        return st["z2"] if config.positivity else st["x"]
 
     for i in range(1, n + 1):
         check = use_tol and i % check_every == 0
@@ -368,20 +361,19 @@ def admm_deconvolve(
             hist[st["lane"], i] = objective(st["z2"])
         if not check:
             continue
-        done = converged(z_old, hx).tolist()  # the check's host sync
-        if not any(done):
+        done = converged(z_old, hx)
+        stop = st["lane"][done].tolist()  # the check's host sync
+        if not stop:
             continue
-        stop = [k for k, d in enumerate(done) if d]
-        retire(stop)
-        iterations[[live[k] for k in stop]] = i
-        status[[live[k] for k in stop]] = 0
-        keep = [k for k, d in enumerate(done) if not d]
-        live = [live[k] for k in keep]
-        if not live:
-            break
+        out[stop] = result()[done]
+        iterations[stop] = i
+        status[stop] = 0
+        keep = (~done).nonzero().squeeze(1)
         st = {k: v[keep] for k, v in st.items()}
+        if keep.numel() == 0:
+            break
         objective = objective_value(select_lanes(cost, st["lane"]), config)
-    retire(list(range(len(live))))
+    out[st["lane"]] = result()
 
     f = objective_value(cost, config)(out).cpu().numpy()
     f_history = hist.cpu().numpy()

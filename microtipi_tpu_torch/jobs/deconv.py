@@ -162,11 +162,9 @@ def objective_value(cost, config: DeconvolutionConfig):
     that only track values (``jobs/admm.py``): no autograd graph, and the
     residual-form cost skips its gradient's FFT. Per lane (B,) for a batch."""
     reg = make_regularizer(config)
-    data_value = getattr(cost, "value", cost.cost)
-
     def value(x):
         with torch.no_grad():
-            f = data_value(x)
+            f = cost.value(x)
             if config.mu > 0:
                 f = f + reg(x)
         return f

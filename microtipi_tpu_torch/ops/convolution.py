@@ -153,6 +153,8 @@ class WeightedConvolutionCost(NamedTuple):
         wr2 = r * r if self.weights is None else self.weights * r * r
         return 0.5 * alpha * _lane_sum(wr2)
 
+    value = cost  # the cost alone, under torch.no_grad(): nothing to skip here
+
 
 def generalized_kl(m: torch.Tensor, d: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
     """Generalized Kullback-Leibler deviance ``sum (m - d) - d*log(m/d)``
@@ -208,6 +210,8 @@ class PoissonConvCost(NamedTuple):
     def cost(self, x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
         return alpha * generalized_kl(self.model(x) + self.background, self.data)
 
+    value = cost
+
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """<a, b> per volume (B,) or of one volume: the product summed by
@@ -252,6 +256,14 @@ class QuadraticConvCost(NamedTuple):
     def cost(self, x: torch.Tensor) -> torch.Tensor:
         return _QuadraticCost.apply(x, self.kernel_sq, self.b, self.c, self.shape)
 
+    value = cost
+
+
+def _residual_cost(x_hat, kernel_hat, data, shape) -> torch.Tensor:
+    """0.5||K(*)x - d||^2 from the spectrum of x, per lane for a batch."""
+    r = _irfftn(kernel_hat * x_hat, shape) - data
+    return 0.5 * _lane_sum(r * r)
+
 
 class _UniformCost(torch.autograd.Function):
     """0.5||K(*)x - d||^2 from the residual (no cancellation), gradient
@@ -261,9 +273,8 @@ class _UniformCost(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel_hat, kernel_sq, b, data, shape):
         x_hat = _rfftn(x)
-        r = _irfftn(kernel_hat * x_hat, shape) - data
         ctx.save_for_backward(_irfftn(kernel_sq * x_hat, shape) - b)
-        return 0.5 * _lane_sum(r * r)
+        return _residual_cost(x_hat, kernel_hat, data, shape)
 
     @staticmethod
     def backward(ctx, g):
@@ -296,5 +307,4 @@ class UniformConvCost(NamedTuple):
         """The cost alone from 2 FFTs, without the gradient that
         :meth:`cost` prepares (the primal of ``_uniform_cost``,
         ``convolution.py:344-348``)."""
-        r = _irfftn(self.kernel_hat * _rfftn(x), self.shape) - self.data
-        return 0.5 * _lane_sum(r * r)
+        return _residual_cost(_rfftn(x), self.kernel_hat, self.data, self.shape)

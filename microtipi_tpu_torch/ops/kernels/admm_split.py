@@ -45,6 +45,7 @@ __all__ = [
     "circ_diffs",
     "circ_diffs_adjoint",
     "hyperbolic_prox",
+    "per_lane",
 ]
 
 #: ``admm_split_update`` kernel launches since the last reset (``split_launches = 0``).
@@ -97,8 +98,9 @@ def _trailing_face(t: torch.Tensor, a: int) -> torch.Tensor:
     return t[:, a].select(a + 1, -1)
 
 
-def _per_lane(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    return t.reshape((-1,) + (1,) * (like.ndim - 1))
+def per_lane(t: torch.Tensor) -> torch.Tensor:
+    """(B,) -> (B, 1, 1, 1): one value a lane against (B, Nz, Ny, Nx)."""
+    return t.reshape(-1, 1, 1, 1)
 
 
 def admm_split_update_plain(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float = 1.0,
@@ -113,7 +115,7 @@ def admm_split_update_plain(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float
     for a in range(3):
         _trailing_face(sq, a).zero_()
     vmag = torch.sqrt(sq[:, 0] + sq[:, 1] + sq[:, 2] + torch.finfo(x.dtype).tiny)
-    scale = hyperbolic_prox(vmag, _per_lane(lam, vmag), float(epsilon)) / vmag
+    scale = hyperbolic_prox(vmag, per_lane(lam), float(epsilon)) / vmag
     z1_new = scale[:, None] * v
     for a in range(3):  # unpenalized there: the prox is the identity
         _trailing_face(z1_new, a).copy_(_trailing_face(v, a))
@@ -128,7 +130,7 @@ def admm_split_update_plain(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float
 def admm_rhs_plain(z1, u1, z2, u2, rho1, rho2, scales=None) -> torch.Tensor:
     """``rho1 * D^T(z1 - u1) + rho2 * (z2 - u2)`` with PyTorch operators:
     the kernel's plain version, on any device and dtype."""
-    return _per_lane(rho1, z2) * circ_diffs_adjoint(z1 - u1, scales) + _per_lane(rho2, z2) * (z2 - u2)
+    return per_lane(rho1) * circ_diffs_adjoint(z1 - u1, scales) + per_lane(rho2) * (z2 - u2)
 
 
 @functools.cache
