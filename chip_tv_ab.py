@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The hyperbolic-TV CUDA kernel of this checkout against another checkout's, on one card.
+"""A CUDA kernel of this checkout against another checkout's, on one card.
 
-    python3 chip_tv_ab.py OTHER
+    python3 chip_tv_ab.py OTHER [--kernel tv|admm_split]
 
 ``OTHER`` is the root of another checkout of the repo, for example an
 earlier commit unpacked into a git-ignored directory:
@@ -10,10 +10,12 @@ earlier commit unpacked into a git-ignored directory:
 
 Each tree runs in a process of its own, in turns other, this, this, other.
 A process imports its own tree's ``microtipi_tpu_torch`` (which builds its
-kernel from its own sources into its own ``_build/``) and calls the two
-wrappers every version has, ``hyperbolic_tv_fused`` and
-``hyperbolic_tv_batched_fused``. At 256^3, 4x64x256x256 and 4x256^3 (eps 1,
-unit scales) it reports:
+kernels from its own sources into its own ``_build/``) and calls wrappers
+that every version has.
+
+``--kernel tv`` (the default): ``hyperbolic_tv_fused`` and
+``hyperbolic_tv_batched_fused`` at 256^3, 4x64x256x256 and 4x256^3 (eps 1,
+unit scales):
 
 - ``kernel_ms``: the device time of the kernels named ``hyperbolic_tv`` per
   evaluation, from torch.profiler over 50 back-to-back wrapper calls;
@@ -22,9 +24,17 @@ unit scales) it reports:
 - ``call_ms``: CUDA events around one wrapper call into an idle queue,
   median of 20;
 
-and the host time of one wrapper call at 8x16x64 (mean of 2000). The first
-process of each tree saves its costs and gradients, and the two trees'
-are compared: elements that differ, largest difference in float32 ulp. The
+and the host time of one wrapper call at 8x16x64 (mean of 2000).
+
+``--kernel admm_split``: ``admm_split_update`` with over-relaxation 1.8 and
+1 on the random states of ``chip_smoke.py`` phase 9 at 256^3, 4x64x256x256
+and 4x256^3 and on the 256^3 bench solve's iteration-10 states, captured
+once by this tree and loaded by both: ``kernel_ms`` is the profiler's device
+time of the kernels named ``admm_split_update`` per launch, over 20 launches
+each on a fresh copy of the state.
+
+The first process of each tree saves its outputs, and the two trees' are
+compared: elements that differ, largest difference in float32 ulp. The
 card's name and power limit come first, one JSON object of every number
 last. Without a CUDA card it exits 2.
 """
@@ -47,18 +57,40 @@ import chip_smoke as cs  # this checkout's, beside this file: times and bounds m
 SHAPES = ((256, 256, 256), (4, 64, 256, 256), (4, 256, 256, 256))
 HOST_SHAPE = (8, 16, 64)
 CALLS = 50
+ADMM_SHAPES = ((1, *SHAPES[0]), SHAPES[1], SHAPES[2])
+ADMM_LAUNCHES = 20
+SOLVE_ITERATION = 10
+
+
+def import_tree(root: str, module: str):
+    """``microtipi_tpu_torch.ops.kernels.<module>`` of the tree at ``root``."""
+    import importlib
+
+    sys.path.insert(0, root)
+    mod = importlib.import_module(f"microtipi_tpu_torch.ops.kernels.{module}")
+    if not os.path.abspath(mod.__file__).startswith(os.path.join(root, "")):
+        raise RuntimeError(f"imported {mod.__file__}, not the tree at {root}")
+    return mod
+
+
+def device_us(prof, name: str) -> tuple[float, float]:
+    """(device µs of the kernels whose name holds ``name``, all device µs) in a trace."""
+    kernel = total = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            total += ev.device_time_total
+            kernel += ev.device_time_total if name in ev.name else 0.0
+    if kernel == 0.0:
+        raise RuntimeError(f"the trace holds no {name} kernel")
+    return kernel, total
 
 
 def worker(root: str, save: str | None) -> dict:
-    """The numbers of the tree at ``root``; its costs and gradients go to
+    """The TV numbers of the tree at ``root``; its costs and gradients go to
     ``save`` (one ``.npy`` each per shape) if given."""
     from torch.profiler import ProfilerActivity, profile
 
-    sys.path.insert(0, root)
-    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
-
-    if not os.path.abspath(hv.__file__).startswith(os.path.join(root, "")):
-        raise RuntimeError(f"imported {hv.__file__}, not the tree at {root}")
+    hv = import_tree(root, "hyperbolic_tv")
     out = {"root": root, "shapes": []}
     for i, shape in enumerate(SHAPES):
         x = torch.as_tensor(np.random.default_rng(0).standard_normal(shape, dtype=np.float32), device="cuda")
@@ -70,15 +102,9 @@ def worker(root: str, save: str | None) -> dict:
             for _ in range(CALLS):
                 fused(x, 1.0)
             torch.cuda.synchronize()
-        tv_us = device_us = 0.0
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                device_us += ev.device_time_total
-                tv_us += ev.device_time_total if "hyperbolic_tv" in ev.name else 0.0
-        if tv_us == 0.0:
-            raise RuntimeError(f"the trace at {shape} holds no hyperbolic_tv kernel")
+        tv_us, all_us = device_us(prof, "hyperbolic_tv")
         out["shapes"].append({"shape": list(shape), "kernel_ms": tv_us / CALLS / 1e3,
-                              "device_ms": device_us / CALLS / 1e3,
+                              "device_ms": all_us / CALLS / 1e3,
                               "call_ms": cs._median_ms(lambda: fused(x, 1.0))})
         if save:
             os.makedirs(save, exist_ok=True)
@@ -98,6 +124,88 @@ def worker(root: str, save: str | None) -> dict:
     return out
 
 
+def capture(states: str) -> None:
+    """The split update's inputs at iteration SOLVE_ITERATION of the 256^3
+    bench solve (phase 10's scene and config), over-relaxed 1.8 and 1, saved
+    to ``states`` for both trees' workers."""
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+
+    _, data, psf = cs.bench_scene(SHAPES[0], torch.device("cuda"), torch.float32)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=SOLVE_ITERATION, grtol=0.0, gatol=0.0)
+    os.makedirs(states, exist_ok=True)
+    for alpha in cs.SOLVE_ALPHAS:
+        tensors, args = cs.capture_split_states(data, psf, cfg, alpha)[SOLVE_ITERATION]
+        torch.save({"tensors": tensors, "args": args}, os.path.join(states, f"solve_{alpha:g}.pt"))
+
+
+def admm_cases(states: str):
+    """(label, state tensors, update arguments): phase 9's random states at
+    ADMM_SHAPES and the saved solve states, each over-relaxed 1.8 and 1."""
+    for shape in ADMM_SHAPES:
+        st = cs.admm_state(shape, seed=0)
+        for alpha in cs.SOLVE_ALPHAS:
+            yield f"random {shape}, alpha {alpha:g}", [st[k] for k in ("x", "z1", "u1", "z2", "u2", "lam")], \
+                (1.0, alpha, True, None)
+        del st
+    for alpha in cs.SOLVE_ALPHAS:
+        saved = torch.load(os.path.join(states, f"solve_{alpha:g}.pt"), map_location="cuda")
+        yield f"solve iteration {SOLVE_ITERATION} {ADMM_SHAPES[0]}, alpha {alpha:g}", saved["tensors"], saved["args"]
+
+
+def admm_worker(root: str, states: str, save: str | None, against: str | None) -> dict:
+    """The split update's numbers of the tree at ``root``: device time per
+    launch, each on a fresh copy of the state. At 256^3 its outputs go to
+    ``save``, or are compared with those in ``against`` (in ulp)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ak = import_tree(root, "admm_split")
+    out = {"root": root, "cases": []}
+    for i, (label, tensors, args) in enumerate(admm_cases(states)):
+        work = [t.clone() for t in tensors]
+
+        def launch():
+            for w, t in zip(work[1:5], tensors[1:5]):
+                w.copy_(t)
+            ak.admm_split_update(*work, *args)
+
+        for _ in range(3):
+            launch()
+        torch.cuda.synchronize()
+        for attempt in range(3):  # a trace has come back without the kernel's device events
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(ADMM_LAUNCHES):
+                    launch()
+                torch.cuda.synchronize()
+            try:
+                kernel_us = device_us(prof, "admm_split_update")[0]
+                break
+            except RuntimeError:
+                if attempt == 2:
+                    raise
+        row = {"case": label, "shape": list(tensors[0].shape), "kernel_ms": kernel_us / ADMM_LAUNCHES / 1e3}
+        if work[0].shape[0] == 1:
+            path = os.path.join(save or against or "", f"{i}.pt")
+            if save:
+                os.makedirs(save, exist_ok=True)
+                torch.save(work[1:5], path)
+            elif against:
+                diffs = [ulp_diff(a, b) for a, b in zip(work[1:5], torch.load(path, map_location="cuda"))]
+                row["elements_differing"] = sum(d for d, _ in diffs)
+                row["max_ulp"] = max(u for _, u in diffs)
+                os.remove(path)
+        out["cases"].append(row)
+        del work, tensors
+    return out
+
+
+def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
+    """Elements whose bit patterns differ, and the largest difference in
+    float32 ulp between them."""
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    differ = ia != ib
+    return int(differ.sum()), int((ia - ib).abs()[differ].max()) if bool(differ.any()) else 0
+
+
 def compare(a_dir: str, b_dir: str, i: int) -> dict:
     """Elements of the gradients that differ, the largest difference in
     float32 ulp, and the largest relative cost difference, at shape ``i``."""
@@ -112,18 +220,28 @@ def compare(a_dir: str, b_dir: str, i: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("root", help="the other checkout's root (with --worker: the tree to measure)")
+    ap.add_argument("--kernel", choices=("tv", "admm_split"), default="tv")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--save", help=argparse.SUPPRESS)
+    ap.add_argument("--against", help=argparse.SUPPRESS)
+    ap.add_argument("--states", help=argparse.SUPPRESS)
+    ap.add_argument("--capture", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_tv_ab.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     root = os.path.abspath(args.root)
-    if args.worker:
-        print(json.dumps(worker(root, args.save)))
+    if args.capture:
+        capture(args.states)
         return 0
-    if not os.path.isfile(os.path.join(root, "microtipi_tpu_torch", "ops", "kernels", "hyperbolic_tv.py")):
-        print(f"{root} is not a checkout of the repo", file=sys.stderr)
+    if args.worker:
+        if args.kernel == "tv":
+            print(json.dumps(worker(root, args.save)))
+        else:
+            print(json.dumps(admm_worker(root, args.states, args.save, args.against)))
+        return 0
+    if not os.path.isfile(os.path.join(root, "microtipi_tpu_torch", "ops", "kernels", f"{args.kernel}.py")):
+        print(f"{root} is not a checkout of the repo with the {args.kernel} kernel", file=sys.stderr)
         return 2
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -131,18 +249,47 @@ def main() -> int:
     print(card, flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
     runs = {"other": [], "this": []}
-    with tempfile.TemporaryDirectory() as tmp:
-        for who in ("other", "this", "this", "other"):
-            cmd = [sys.executable, os.path.abspath(__file__), root if who == "other" else here, "--worker"]
-            if not runs[who]:
-                cmd += ["--save", os.path.join(tmp, who)]
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-            if proc.returncode != 0:
-                raise RuntimeError(f"the {who} tree's process failed:\n{proc.stderr[-4000:]}")
-            runs[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        diffs = [compare(os.path.join(tmp, "this"), os.path.join(tmp, "other"), i) for i in range(len(SHAPES))]
 
-    result = {"card": card, "other": root, "shapes": [],
+    def run(cmd):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), *cmd, "--kernel", args.kernel],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cmd} failed:\n{proc.stderr[-4000:]}")
+        return proc.stdout
+
+    with tempfile.TemporaryDirectory() as tmp:
+        states = os.path.join(tmp, "states")
+        if args.kernel == "admm_split":
+            run([here, "--capture", "--states", states])
+        for who in ("other", "this", "this", "other"):
+            cmd = [root if who == "other" else here, "--worker", "--states", states]
+            if not runs[who]:
+                if args.kernel == "tv" or who == "other":
+                    cmd += ["--save", os.path.join(tmp, who)]
+                else:
+                    cmd += ["--against", os.path.join(tmp, "other")]
+            runs[who].append(json.loads(run(cmd).strip().splitlines()[-1]))
+        if args.kernel == "tv":
+            diffs = [compare(os.path.join(tmp, "this"), os.path.join(tmp, "other"), i) for i in range(len(SHAPES))]
+
+    if args.kernel == "admm_split":
+        result = {"card": card, "other": root, "kernel": args.kernel, "cases": []}
+        for i, case in enumerate(runs["this"][0]["cases"]):
+            volumes = cs.SPLIT_VOLUMES if case["case"].endswith("alpha 1") else cs.SPLIT_VOLUMES_RELAXED
+            row = {**case, "bound_ms": cs.admm_bound(case["shape"], volumes, cs.SPLIT_OPS_RELAXED)[0],
+                   "kernel_ms": {who: [r["cases"][i]["kernel_ms"] for r in rs] for who, rs in runs.items()}}
+            result["cases"].append(row)
+            same = (f"outputs: {row['elements_differing']} elements differ, largest {row['max_ulp']} ulp; "
+                    if "max_ulp" in row else "")
+            print(f"[ab] [{card}] admm_split_update on {case['case']}: kernel_ms "
+                  + ", ".join(f"{who} {row['kernel_ms'][who]}" for who in ("other", "this"))
+                  + f" (device time a launch, turns other, this, this, other); {same}bound {row['bound_ms']:.4f} "
+                  f"ms, this at {row['bound_ms'] / min(row['kernel_ms']['this']):.1%}, other at "
+                  f"{row['bound_ms'] / min(row['kernel_ms']['other']):.1%}", flush=True)
+        print(json.dumps(result))
+        return 0
+
+    result = {"card": card, "other": root, "kernel": args.kernel, "shapes": [],
               "host_us": {who: [r["host_us"] for r in rs] for who, rs in runs.items()}}
     for i, shape in enumerate(SHAPES):
         row = {"shape": list(shape), **diffs[i], "bound_ms": cs.tv_bound(torch.empty(shape, device="meta"))[0]}

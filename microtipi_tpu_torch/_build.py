@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_report", "load_library", "nvcc_path"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_report", "library_path", "load_library", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
@@ -44,7 +44,8 @@ def nvcc_path() -> str:
                        "are built at first use and need the CUDA toolkit")
 
 
-def _library_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` with these flags lies."""
     src = CSRC_DIR / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
@@ -53,7 +54,7 @@ def _library_path(name: str) -> Path:
 def build_report(name: str) -> str:
     """What ``nvcc`` printed when it built ``csrc/<name>.cu`` (the ``ptxas``
     lines: registers, shared memory, spills); empty if it is not built."""
-    log = _library_path(name).with_suffix(".log")
+    log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
@@ -61,7 +62,7 @@ def build_report(name: str) -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its hashed library is missing, and load it."""
     src = CSRC_DIR / f"{name}.cu"
-    lib = _library_path(name)
+    lib = library_path(name)
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -14,43 +14,64 @@
 //
 // Layout: x, z2, u2 and the rhs are (B, nz, ny, nx); z1 and u1 are (B, 3, nz, ny, nx),
 // the component index a in (z, y, x) second. Every lane b has its own lam = mu/rho1,
-// rho1 and rho2, read from device arrays of B floats.
+// rho1 and rho2, read from device arrays of B floats. Each scale s_a arrives as its
+// reciprocal r_a = (float)(1.0 / s_a), rounded on the host: PyTorch's CUDA division
+// of a float32 tensor by a Python scalar is a multiplication by that number.
 //
-// Math of admm_split_update per voxel p of lane b, per axis a with scale s_a (e_a
-// wraps around the volume: the splitting is circular so that D^T D stays circulant):
-//   d_a   = (x(p + e_a) - x(p)) / s_a
+// Math of admm_split_update per voxel p of lane b, per axis a (e_a wraps around the
+// volume: the splitting is circular so that D^T D stays circulant):
+//   d_a   = (x(p + e_a) - x(p)) * r_a
 //   dr_a  = alpha d_a + (1 - alpha) z1_a            (alpha != 1 only, else d_a)
 //   v_a   = dr_a + u1_a
 //   vmag  = sqrt(sum_a m_a v_a^2 + tiny),  m_a = 0 on axis a's trailing face, else 1
-//   s     = Newton(vmag, lam, eps): s <- max(s - g/g', 0) 8 times from max(vmag - lam, 0),
-//           g = s + lam s/r - vmag, g' = 1 + lam eps^2 / r^3, r = sqrt(s^2 + eps^2)
+//   s     = 8 Newton steps s <- max(s - g/g', 0) from max(vmag - lam, 0), with
+//           r = sqrt(s^2 + eps^2), q = 1/r, g = s + lam s q - vmag, g' = 1 + lam eps^2 q^3
 //   z1_a  = (s / vmag) v_a where m_a = 1, v_a on the trailing face (unpenalized there:
 //           the penalty is the replicate-boundary TV)
 //   xr    = alpha x + (1 - alpha) z2                (alpha != 1 only, else x)
 //   z2    = max(xr + u2, 0)                         (or xr + u2 without positivity)
-//   u1_a += dr_a - z1_a,   u2 += xr - z2
+//   u1_a += dr_a - z1_a  (= v_a - z1_a),   u2 += xr - z2
 // in place on z1, u1, z2, u2. Only x is read at neighbouring voxels, and x is not
 // written, so the in-place update is safe. admm_rhs reads z1 - u1 at p - e_a and
 // therefore runs as its own launch:
-//   rhs = rho1 * sum_a ((z1_a - u1_a)(p - e_a) - (z1_a - u1_a)(p)) / s_a + rho2 (z2 - u2).
+//   rhs = rho1 * sum_a ((z1_a - u1_a)(p - e_a) - (z1_a - u1_a)(p)) * r_a + rho2 (z2 - u2).
 //
-// What bounds them: bytes. admm_split_update reads x, u1 x 3 and u2 and writes
+// What bounds them. By bytes, admm_split_update reads x, u1 x 3 and u2 and writes
 // z1 x 3, u1 x 3, z2 and u2, 13 volumes (17 with alpha != 1, which also reads z1 x 3
-// and z2): 52 N bytes a lane, 0.26 ms at 256^3 and 3.35 TB/s. The Newton loop is
-// about 100 float32 operations a voxel, a few percent of that time at 67 TFLOP/s.
-// admm_rhs reads 8 volumes and writes 1 (0.18 ms at 256^3). The design is the plain
-// one: a thread a voxel, consecutive threads along x so every access of the own
-// voxel coalesces, the neighbours of x (and of z1 - u1) left to the caches; a block
-// covers 256 voxels of one (lane, z) plane and strides over planes, so the index
-// arithmetic is 32-bit. Staging in shared memory and fusing the two launches into
-// one sweep are later work.
+// and z2): 0.26 / 0.34 ms at 256^3 and 3.35 TB/s. The first design (one thread a
+// voxel, 8 fixed Newton steps of three correctly rounded divisions and a square root
+// each, the scales divided) ran 0.61 / 0.63 ms at both byte counts: held by its
+// instructions, not by memory. A correctly rounded division or square root is a
+// MUFU approximation, a few FMAs, a range check (FCHK) and a call to a slow path
+// for operands near the ends of the range. This design cuts the instructions:
+//   - Newton stops when it has settled. The step is a fixed function of s for a
+//     voxel, so once an iterate repeats the one before it (a fixed point) or the one
+//     two before (an orbit of period 2, which a quarter of the voxels of a solve
+//     end in, alternating at the last ulp), every later iterate is known: the 8th
+//     is the current one if 8 - k is even after k steps, else the one before. So
+//     the kernel stops there and returns the 8th step's value bit for bit (the
+//     iterates are compared as bit patterns, so -0 and +0 stay apart). On the
+//     256^3 solve's states every 128-voxel warp settles in 4 or 5 steps.
+//   - A Newton step takes one reciprocal q = 1/r (__frcp_rn) and one division,
+//     not three divisions; the scales are multiplications by their reciprocals.
+//   - Four voxels a thread, their Newton chains interleaved step by step so that
+//     four independent dependency chains hide each other's latency. Where nx % 4 == 0
+//     and every base is 16-byte aligned (kVec), the four are consecutive along x and
+//     every access of x, z1, u1, z2 and u2 is one 16-byte load or store (z1, u1, z2,
+//     u2 with the streaming hint, so x's neighbouring planes stay in L2); the x
+//     neighbour at +1 is the next voxel of the same float4, or one 4-byte load for
+//     the fourth. Otherwise the four are 256 voxels apart (each access coalesced
+//     across the warp) with 4-byte accesses.
+// x's neighbours along y and z come from L1 / L2 (a block covers 1024 voxels of one
+// (lane, z) plane and the blocks of plane z + 1 run alongside), so x is staged
+// nowhere. Offsets inside a lane are 32-bit (a lane holds fewer than 2^31 voxels),
+// the lane's base pointer 64-bit. admm_rhs keeps one thread a voxel: without
+// divisions it runs at about 90% of its bound (0.18 ms at 256^3, 9 volumes).
 //
 // Rounding: every operation is an explicit round-to-nearest intrinsic in the order
 // of the plain PyTorch version (ops/kernels/admm_split.py), so nvcc contracts no
-// multiply-add and the two agree bit for bit where PyTorch's own operators round
-// once (they do, but for a division by a Python scalar on the card, which PyTorch
-// turns into a multiplication by its reciprocal: exact for unit scales and powers
-// of two).
+// multiply-add, flushes nothing to zero, and the two agree bit for bit on the card
+// at every scale.
 //
 // A plain C interface, loaded with ctypes. Each launch goes on the caller's stream
 // and the function returns cudaGetLastError().
@@ -60,6 +81,7 @@
 #include <stdint.h>
 
 #define ADMM_THREADS 256
+#define ADMM_VOXELS 4  // voxels a thread of admm_split_update
 #define ADMM_NEWTON 8
 #define ADMM_GRID_Y 65535
 
@@ -69,87 +91,191 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ bool same(float a, float b) { return __float_as_uint(a) == __float_as_uint(b); }
 
-// prox of lam * (sqrt(t^2 + eps^2) - eps) on the magnitude v >= 0: the root of
-// g(s) = s + lam s / sqrt(s^2 + eps^2) - v by Newton from max(v - lam, 0) <= s*.
-__device__ __forceinline__ float hyperbolic_prox(float v, float lam, float eps, float eps2) {
-    const float le2 = mul(mul(lam, eps), eps);
-    float s = fmaxf(sub(v, lam), 0.0f);
-#pragma unroll
-    for (int k = 0; k < ADMM_NEWTON; ++k) {
-        const float r = __fsqrt_rn(add(mul(s, s), eps2));
-        const float g = sub(add(s, dvd(mul(lam, s), r)), v);
-        const float gp = add(1.0f, dvd(le2, mul(mul(r, r), r)));
-        s = fmaxf(sub(s, dvd(g, gp)), 0.0f);
-    }
-    return s;
+// One Newton step for the root of g(s) = s + lam s / sqrt(s^2 + eps^2) - v
+// (le2 = lam eps^2, eps2 = eps^2).
+__device__ __forceinline__ float newton_step(float s, float v, float lam, float le2, float eps2) {
+    const float r = __fsqrt_rn(add(mul(s, s), eps2));
+    const float q = __frcp_rn(r);
+    const float g = sub(add(s, mul(mul(lam, s), q)), v);
+    const float gp = add(1.0f, mul(mul(mul(le2, q), q), q));
+    return fmaxf(sub(s, dvd(g, gp)), 0.0f);
 }
 
-template <bool kRelax, bool kPositivity>
+// The prox of lam * (sqrt(t^2 + eps^2) - eps) on the magnitudes v[i] >= 0, for
+// ADMM_VOXELS voxels side by side: what ADMM_NEWTON Newton steps from
+// max(v - lam, 0) leave, bit for bit, stopping once every voxel has settled.
+__device__ __forceinline__ void hyperbolic_prox(float (&s)[ADMM_VOXELS], const float (&v)[ADMM_VOXELS], float lam,
+                                                float eps, float eps2) {
+    const float le2 = mul(mul(lam, eps), eps);
+    float last[ADMM_VOXELS];  // the iterate before s; at the start s itself
+#pragma unroll
+    for (int i = 0; i < ADMM_VOXELS; ++i) last[i] = s[i] = fmaxf(sub(v[i], lam), 0.0f);
+    int k = 0;
+    bool settled = false;
+    while (!settled && k < ADMM_NEWTON) {
+        ++k;
+        settled = true;
+#pragma unroll
+        for (int i = 0; i < ADMM_VOXELS; ++i) {
+            const float t = newton_step(s[i], v[i], lam, le2, eps2);
+            settled &= same(t, s[i]) | same(t, last[i]);
+            last[i] = s[i];
+            s[i] = t;
+        }
+    }
+    // s is step k, last step k - 1; from here on they alternate (or are equal).
+    if ((ADMM_NEWTON - k) & 1) {
+#pragma unroll
+        for (int i = 0; i < ADMM_VOXELS; ++i) s[i] = last[i];
+    }
+}
+
+// The four voxels' values at offset `at` (+ each voxel's own offset) of a lane.
+template <bool kVec, bool kStream>
+__device__ __forceinline__ void load4(const float* p, int at, const int (&off)[ADMM_VOXELS],
+                                      float (&out)[ADMM_VOXELS]) {
+    if (kVec) {
+        const float4* src = reinterpret_cast<const float4*>(p + at + off[0]);
+        const float4 t = kStream ? __ldcs(src) : *src;
+        out[0] = t.x, out[1] = t.y, out[2] = t.z, out[3] = t.w;
+    } else {
+#pragma unroll
+        for (int i = 0; i < ADMM_VOXELS; ++i) out[i] = kStream ? __ldcs(p + at + off[i]) : p[at + off[i]];
+    }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(float* p, int at, const int (&off)[ADMM_VOXELS], const float (&v)[ADMM_VOXELS],
+                                       const bool (&valid)[ADMM_VOXELS]) {
+    if (kVec) {
+        __stcs(reinterpret_cast<float4*>(p + at + off[0]), make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+#pragma unroll
+        for (int i = 0; i < ADMM_VOXELS; ++i)
+            if (valid[i]) __stcs(p + at + off[i], v[i]);
+    }
+}
+
+template <bool kVec, bool kRelax, bool kPositivity>
 __global__ void __launch_bounds__(ADMM_THREADS)
 admm_split_update_kernel(const float* __restrict__ x, float* __restrict__ z1, float* __restrict__ u1,
-                         float* __restrict__ z2, float* __restrict__ u2, const float* __restrict__ lam,
-                         int nb, int nz, int ny, int nx, float eps, float eps2, float alpha,
-                         float one_minus_alpha, float sz, float sy, float sx) {
-    const int plane = ny * nx;
-    const int q = blockIdx.x * ADMM_THREADS + threadIdx.x;  // voxel within the (lane, z) plane
-    if (q >= plane) return;
-    const int iy = q / nx, ix = q - iy * nx;
-    const int64_t n = (int64_t)nz * plane;
-    const float scales[3] = {sz, sy, sx};
+                         float* __restrict__ z2, float* __restrict__ u2, const float* __restrict__ lam, int nb,
+                         int nz, int ny, int nx, float eps, float eps2, float alpha, float one_minus_alpha, float rz,
+                         float ry, float rx) {
+    const int plane = ny * nx, n = nz * plane;
+    // Voxel i of this thread within its (lane, z) plane: consecutive along x (kVec,
+    // nx % 4 == 0) or ADMM_THREADS apart. A voxel past the plane's end computes on
+    // voxel 0's data and stores nothing.
+    const int q0 = kVec ? (blockIdx.x * ADMM_THREADS + threadIdx.x) * ADMM_VOXELS
+                        : blockIdx.x * ADMM_THREADS * ADMM_VOXELS + threadIdx.x;
+    if (q0 >= plane) return;
+    int off[ADMM_VOXELS], step_y[ADMM_VOXELS], step_x[ADMM_VOXELS];
+    bool valid[ADMM_VOXELS], face_y[ADMM_VOXELS], face_x[ADMM_VOXELS];
+#pragma unroll
+    for (int i = 0; i < ADMM_VOXELS; ++i) {
+        const int q = kVec ? q0 + i : q0 + i * ADMM_THREADS;
+        valid[i] = q < plane;
+        off[i] = valid[i] ? q : q0;
+        const int iy = off[i] / nx, ix = off[i] - iy * nx;
+        face_y[i] = iy == ny - 1;
+        face_x[i] = ix == nx - 1;
+        step_y[i] = face_y[i] ? -(ny - 1) * nx : nx;
+        step_x[i] = face_x[i] ? -(nx - 1) : 1;
+    }
+    const float rs[3] = {rz, ry, rx};
 
     for (int p = blockIdx.y; p < nb * nz; p += gridDim.y) {
         const int lane = p / nz, iz = p - lane * nz;
-        const int64_t i = (int64_t)p * plane + q;  // into x, z2, u2
-        const int64_t j = i + 2 * lane * n;        // into z1, u1, component 0
-        const float xc = x[i];
-        const float xn[3] = {
-            x[iz == nz - 1 ? i - (int64_t)(nz - 1) * plane : i + plane],
-            x[iy == ny - 1 ? i - (int64_t)(ny - 1) * nx : i + nx],
-            x[ix == nx - 1 ? i - (nx - 1) : i + 1],
-        };
-        const bool face[3] = {iz == nz - 1, iy == ny - 1, ix == nx - 1};
-        const float lam_b = lam[lane];
+        const int at = iz * plane;  // the plane's offset in its lane
+        const bool face_z = iz == nz - 1;
+        const int step_z = face_z ? -(nz - 1) * plane : plane;
+        const int64_t base = (int64_t)lane * n;
+        const float* xl = x + base;
 
-        float dr[3], v[3], uo[3];
-        float sum = 0.0f;
+        float xc[ADMM_VOXELS], xn[3][ADMM_VOXELS];
+        load4<kVec, false>(xl, at, off, xc);
+        load4<kVec, false>(xl, at + step_z, off, xn[0]);
+        if (kVec) {
+            load4<true, false>(xl, at + step_y[0], off, xn[1]);
+#pragma unroll
+            for (int i = 0; i < ADMM_VOXELS - 1; ++i) xn[2][i] = xc[i + 1];
+            xn[2][ADMM_VOXELS - 1] = xl[at + off[ADMM_VOXELS - 1] + step_x[ADMM_VOXELS - 1]];
+        } else {
+#pragma unroll
+            for (int i = 0; i < ADMM_VOXELS; ++i) {
+                xn[1][i] = xl[at + off[i] + step_y[i]];
+                xn[2][i] = xl[at + off[i] + step_x[i]];
+            }
+        }
+
+        // z2 and u2 first: they need nothing else.
+        {
+            float zo[ADMM_VOXELS], uo[ADMM_VOXELS], z[ADMM_VOXELS], u[ADMM_VOXELS];
+            if (kRelax) load4<kVec, true>(z2 + base, at, off, zo);
+            load4<kVec, true>(u2 + base, at, off, uo);
+#pragma unroll
+            for (int i = 0; i < ADMM_VOXELS; ++i) {
+                const float xr = kRelax ? add(mul(alpha, xc[i]), mul(one_minus_alpha, zo[i])) : xc[i];
+                z[i] = add(xr, uo[i]);
+                if (kPositivity) z[i] = fmaxf(z[i], 0.0f);
+                u[i] = sub(add(uo[i], xr), z[i]);
+            }
+            store4<kVec>(z2 + base, at, off, z, valid);
+            store4<kVec>(u2 + base, at, off, u, valid);
+        }
+
+        float v[3][ADMM_VOXELS], vmag[ADMM_VOXELS];
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
-            float d = dvd(sub(xn[a], xc), scales[a]);
-            if (kRelax) d = add(mul(alpha, d), mul(one_minus_alpha, z1[j + a * n]));
-            dr[a] = d;
-            uo[a] = u1[j + a * n];
-            v[a] = add(d, uo[a]);
-            const float sq = face[a] ? 0.0f : mul(v[a], v[a]);
-            sum = a == 0 ? sq : add(sum, sq);
+            const int64_t comp = base * 3 + (int64_t)a * n;
+            float zo[ADMM_VOXELS], uo[ADMM_VOXELS];
+            if (kRelax) load4<kVec, true>(z1 + comp, at, off, zo);
+            load4<kVec, true>(u1 + comp, at, off, uo);
+#pragma unroll
+            for (int i = 0; i < ADMM_VOXELS; ++i) {
+                float d = mul(sub(xn[a][i], xc[i]), rs[a]);
+                if (kRelax) d = add(mul(alpha, d), mul(one_minus_alpha, zo[i]));
+                v[a][i] = add(d, uo[i]);
+                const bool face = a == 0 ? face_z : a == 1 ? face_y[i] : face_x[i];
+                const float sq = face ? 0.0f : mul(v[a][i], v[a][i]);
+                vmag[i] = a == 0 ? sq : add(vmag[i], sq);
+            }
         }
-        const float vmag = __fsqrt_rn(add(sum, FLT_MIN));
-        const float scale = dvd(hyperbolic_prox(vmag, lam_b, eps, eps2), vmag);
+#pragma unroll
+        for (int i = 0; i < ADMM_VOXELS; ++i) vmag[i] = __fsqrt_rn(add(vmag[i], FLT_MIN));
+
+        float scale[ADMM_VOXELS];
+        hyperbolic_prox(scale, vmag, lam[lane], eps, eps2);
+#pragma unroll
+        for (int i = 0; i < ADMM_VOXELS; ++i) scale[i] = dvd(scale[i], vmag[i]);
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
-            const float z = face[a] ? v[a] : mul(scale, v[a]);
-            z1[j + a * n] = z;
-            u1[j + a * n] = sub(add(uo[a], dr[a]), z);
+            const int64_t comp = base * 3 + (int64_t)a * n;
+            float z[ADMM_VOXELS], u[ADMM_VOXELS];
+#pragma unroll
+            for (int i = 0; i < ADMM_VOXELS; ++i) {
+                const bool face = a == 0 ? face_z : a == 1 ? face_y[i] : face_x[i];
+                z[i] = face ? v[a][i] : mul(scale[i], v[a][i]);
+                u[i] = sub(v[a][i], z[i]);  // (u1 + dr) - z1, as u1 + dr is v bit for bit
+            }
+            store4<kVec>(z1 + comp, at, off, z, valid);
+            store4<kVec>(u1 + comp, at, off, u, valid);
         }
-        const float xr = kRelax ? add(mul(alpha, xc), mul(one_minus_alpha, z2[i])) : xc;
-        const float uo2 = u2[i];
-        float z = add(xr, uo2);
-        if (kPositivity) z = fmaxf(z, 0.0f);
-        z2[i] = z;
-        u2[i] = sub(add(uo2, xr), z);
     }
 }
 
 __global__ void __launch_bounds__(ADMM_THREADS)
 admm_rhs_kernel(const float* __restrict__ z1, const float* __restrict__ u1, const float* __restrict__ z2,
                 const float* __restrict__ u2, const float* __restrict__ rho1, const float* __restrict__ rho2,
-                float* __restrict__ out, int nb, int nz, int ny, int nx, float sz, float sy, float sx) {
+                float* __restrict__ out, int nb, int nz, int ny, int nx, float rz, float ry, float rx) {
     const int plane = ny * nx;
     const int q = blockIdx.x * ADMM_THREADS + threadIdx.x;
     if (q >= plane) return;
     const int iy = q / nx, ix = q - iy * nx;
     const int64_t n = (int64_t)nz * plane;
-    const float scales[3] = {sz, sy, sx};
+    const float rs[3] = {rz, ry, rx};
 
     for (int p = blockIdx.y; p < nb * nz; p += gridDim.y) {
         const int lane = p / nz, iz = p - lane * nz;
@@ -167,22 +293,26 @@ admm_rhs_kernel(const float* __restrict__ z1, const float* __restrict__ u1, cons
             const int64_t c = j + a * n;
             const float g = sub(z1[c], u1[c]);
             const float gb = sub(z1[c + back[a]], u1[c + back[a]]);
-            const float t = dvd(sub(gb, g), scales[a]);
+            const float t = mul(sub(gb, g), rs[a]);
             adj = a == 0 ? t : add(adj, t);
         }
         out[i] = add(mul(rho1[lane], adj), mul(rho2[lane], sub(z2[i], u2[i])));
     }
 }
 
-// The grid of both kernels: x over a plane's voxels, y over the B * nz planes
-// (strided above CUDA's limit on grid y).
-bool plane_grid(int nb, int nz, int ny, int nx, dim3* grid) {
+// The grid: x over a plane's voxels, `per_thread` a thread, y over the B * nz
+// planes (strided above CUDA's limit on grid y). A lane must hold fewer than 2^31
+// voxels (admm_split_update's offsets inside a lane are 32-bit).
+bool plane_grid(int nb, int nz, int ny, int nx, int per_thread, dim3* grid) {
     if (nb < 1 || nz < 1 || ny < 1 || nx < 1) return false;
-    if ((int64_t)ny * nx > INT32_MAX - ADMM_THREADS || (int64_t)nb * nz > INT32_MAX) return false;
-    const int planes = nb * nz;
-    *grid = dim3((ny * nx + ADMM_THREADS - 1) / ADMM_THREADS, planes < ADMM_GRID_Y ? planes : ADMM_GRID_Y, 1);
+    const int64_t plane = (int64_t)ny * nx;
+    if (plane * nz > INT32_MAX - (int64_t)ADMM_THREADS * per_thread || (int64_t)nb * nz > INT32_MAX) return false;
+    const int planes = nb * nz, tile = ADMM_THREADS * per_thread;
+    *grid = dim3((unsigned)((plane + tile - 1) / tile), planes < ADMM_GRID_Y ? planes : ADMM_GRID_Y, 1);
     return true;
 }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -191,38 +321,47 @@ extern "C" {
 // One split update over nb contiguous float32 lanes, in place on z1, u1 (nb, 3, nz,
 // ny, nx) and z2, u2 (nb, nz, ny, nx); x is (nb, nz, ny, nx), lam nb floats on the
 // device. eps2 is eps^2 and one_minus_alpha is 1 - alpha, both rounded from double
-// by the caller as PyTorch rounds its scalars. relax = 0 requires alpha == 1 and
-// skips the reads of z1 and z2. Sizes that do not fit the grid are refused with
-// cudaErrorInvalidConfiguration before launching.
+// by the caller as PyTorch rounds its scalars; rz, ry, rx are the scales'
+// reciprocals. relax = 0 requires alpha == 1 and skips the reads of z1 and z2.
+// vec = 1 takes the 16-byte instantiation and requires nx % 4 == 0 and every base
+// 16-byte aligned (else cudaErrorMisalignedAddress); vec = 0 the 4-byte one. Sizes
+// that do not fit the grid are refused with cudaErrorInvalidConfiguration before
+// launching.
 int admm_split_update_f32(const void* x, void* z1, void* u1, void* z2, void* u2, const void* lam, int nb,
                           int nz, int ny, int nx, float eps, float eps2, float alpha, float one_minus_alpha,
-                          int relax, int positivity, float sz, float sy, float sx, void* stream) {
+                          int relax, int positivity, int vec, float rz, float ry, float rx, void* stream) {
     dim3 grid;
-    if (!plane_grid(nb, nz, ny, nx, &grid)) return (int)cudaErrorInvalidConfiguration;
+    if (!plane_grid(nb, nz, ny, nx, ADMM_VOXELS, &grid)) return (int)cudaErrorInvalidConfiguration;
     if (!relax && alpha != 1.0f) return (int)cudaErrorInvalidValue;
-#define ADMM_LAUNCH(R, P)                                                                                   \
-    admm_split_update_kernel<R, P><<<grid, ADMM_THREADS, 0, (cudaStream_t)stream>>>(                        \
+    if (vec && (nx % 4 != 0 || !aligned16(x) || !aligned16(z1) || !aligned16(u1) || !aligned16(z2) || !aligned16(u2)))
+        return (int)cudaErrorMisalignedAddress;
+#define ADMM_LAUNCH(V, R, P)                                                                                \
+    admm_split_update_kernel<V, R, P><<<grid, ADMM_THREADS, 0, (cudaStream_t)stream>>>(                     \
         (const float*)x, (float*)z1, (float*)u1, (float*)z2, (float*)u2, (const float*)lam, nb, nz, ny, nx, \
-        eps, eps2, alpha, one_minus_alpha, sz, sy, sx)
+        eps, eps2, alpha, one_minus_alpha, rz, ry, rx)
+#define ADMM_LAUNCH_VEC(R, P) \
+    if (vec) ADMM_LAUNCH(true, R, P); else ADMM_LAUNCH(false, R, P)
     if (relax) {
-        if (positivity) ADMM_LAUNCH(true, true); else ADMM_LAUNCH(true, false);
+        if (positivity) { ADMM_LAUNCH_VEC(true, true); } else { ADMM_LAUNCH_VEC(true, false); }
     } else {
-        if (positivity) ADMM_LAUNCH(false, true); else ADMM_LAUNCH(false, false);
+        if (positivity) { ADMM_LAUNCH_VEC(false, true); } else { ADMM_LAUNCH_VEC(false, false); }
     }
+#undef ADMM_LAUNCH_VEC
 #undef ADMM_LAUNCH
     return (int)cudaGetLastError();
 }
 
 // out (nb, nz, ny, nx) = rho1 * D^T(z1 - u1) + rho2 * (z2 - u2) with the circular
-// adjoint; rho1 and rho2 are nb floats on the device. out must not alias an input.
+// adjoint; rho1 and rho2 are nb floats on the device, rz, ry, rx the scales'
+// reciprocals. out must not alias an input.
 int admm_rhs_f32(const void* z1, const void* u1, const void* z2, const void* u2, const void* rho1,
-                 const void* rho2, void* out, int nb, int nz, int ny, int nx, float sz, float sy, float sx,
+                 const void* rho2, void* out, int nb, int nz, int ny, int nx, float rz, float ry, float rx,
                  void* stream) {
     dim3 grid;
-    if (!plane_grid(nb, nz, ny, nx, &grid)) return (int)cudaErrorInvalidConfiguration;
+    if (!plane_grid(nb, nz, ny, nx, 1, &grid)) return (int)cudaErrorInvalidConfiguration;
     admm_rhs_kernel<<<grid, ADMM_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)z1, (const float*)u1, (const float*)z2, (const float*)u2, (const float*)rho1,
-        (const float*)rho2, (float*)out, nb, nz, ny, nx, sz, sy, sx);
+        (const float*)rho2, (float*)out, nb, nz, ny, nx, rz, ry, rx);
     return (int)cudaGetLastError();
 }
 

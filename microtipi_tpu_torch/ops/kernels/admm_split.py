@@ -19,10 +19,12 @@ On a CUDA tensor a wrapper launches its kernel (float32, contiguous) or
 raises; on a CPU tensor it takes the plain version beside it
 (:func:`admm_split_update_plain`, :func:`admm_rhs_plain`: the JAX lines with
 ``torch.roll``, any dtype and device). The kernels keep the plain versions'
-operation order, so on the card the two agree to float32 round-off, bit for
-bit where PyTorch's operators round once. ``split_launches`` and
-``rhs_launches`` count kernel launches (CPU calls leave them alone); a run
-sets them to 0 and reads them to show that its path went through the kernels.
+operation order, and both multiply by the scales' reciprocals
+(:func:`reciprocals`), so on the card the two agree bit for bit.
+``split_launches`` and ``rhs_launches`` count kernel launches (CPU calls leave
+them alone); a run sets them to 0 and reads them to show that its path went
+through the kernels. ``split_unaligned_launches`` counts the split update's
+4-byte instantiation (:func:`split_vectorized` is false).
 
 :func:`circ_diffs`, :func:`circ_diffs_adjoint` and :func:`hyperbolic_prox` are
 the plain building blocks, which the engine also uses outside its iteration.
@@ -46,34 +48,45 @@ __all__ = [
     "circ_diffs_adjoint",
     "hyperbolic_prox",
     "per_lane",
+    "reciprocals",
+    "split_magnitude",
 ]
 
 #: ``admm_split_update`` kernel launches since the last reset (``split_launches = 0``).
 split_launches = 0
 #: ``admm_rhs`` kernel launches since the last reset (``rhs_launches = 0``).
 rhs_launches = 0
+#: of ``split_launches``, those of the 4-byte instantiation (nx % 4 != 0 or a base
+#: off 16-byte alignment).
+split_unaligned_launches = 0
 
 NEWTON_ITERS = 8  # ADMM_NEWTON in csrc/admm_split.cu
 
 
-def _scales(scales) -> tuple[float, float, float]:
-    return (1.0, 1.0, 1.0) if scales is None else tuple(float(s) for s in scales)
+def reciprocals(scales, dtype: torch.dtype = torch.float32) -> tuple[float, float, float]:
+    """``1 / s`` for each scale, in double and rounded to ``dtype``: for
+    float32 the number PyTorch's CUDA division of a tensor by a Python scalar
+    multiplies by. The plain versions multiply by these and the kernels take
+    them, so the two agree bit for bit at every scale."""
+    if scales is None:
+        return (1.0, 1.0, 1.0)
+    return tuple(float(torch.tensor(1.0 / float(s), dtype=dtype)) for s in scales)
 
 
 def circ_diffs(x: torch.Tensor, scales=None) -> torch.Tensor:
     """Circular forward differences of a batch (B, Nz, Ny, Nx) along each
     volume axis, scaled, stacked on axis 1 (``admm.py:98-103``)."""
-    sz = _scales(scales)
-    return torch.stack([(torch.roll(x, -1, dims=a + 1) - x) / sz[a] for a in range(3)], dim=1)
+    r = reciprocals(scales, x.dtype)
+    return torch.stack([(torch.roll(x, -1, dims=a + 1) - x) * r[a] for a in range(3)], dim=1)
 
 
 def circ_diffs_adjoint(g: torch.Tensor, scales=None) -> torch.Tensor:
     """Adjoint of :func:`circ_diffs` on a stack (B, 3, Nz, Ny, Nx):
     ``D^T g = sum_a (roll(g_a, +1) - g_a) / s_a`` (``admm.py:106-112``)."""
-    sz = _scales(scales)
+    r = reciprocals(scales, g.dtype)
     out = 0.0
     for a in range(3):
-        out = out + (torch.roll(g[:, a], 1, dims=a + 1) - g[:, a]) / sz[a]
+        out = out + (torch.roll(g[:, a], 1, dims=a + 1) - g[:, a]) * r[a]
     return out
 
 
@@ -81,13 +94,15 @@ def hyperbolic_prox(vmag: torch.Tensor, lam, eps: float, newton_iters: int = NEW
     """prox of ``lam * (sqrt(t^2 + eps^2) - eps)`` on the gradient magnitude
     (``admm.py:170-182``): ``argmin_{s>=0} lam*sqrt(s^2+eps^2) + 0.5*(s-v)^2``
     for v >= 0, the root of ``g(s) = s + lam*s/sqrt(s^2+eps^2) - v`` by Newton
-    (g' >= 1: globally convergent from ``max(v - lam, 0) <= s*``). ``lam`` is a
-    number or a tensor that broadcasts against ``vmag``."""
+    (g' >= 1: globally convergent from ``max(v - lam, 0) <= s*``), one
+    reciprocal ``q = 1/r`` a step. ``lam`` is a number or a tensor that
+    broadcasts against ``vmag``."""
     s = torch.clamp_min(vmag - lam, 0.0)
+    le2 = lam * eps * eps
     for _ in range(newton_iters):
-        r = torch.sqrt(s * s + eps * eps)
-        g = s + lam * s / r - vmag
-        gp = 1.0 + lam * eps * eps / (r * r * r)
+        q = torch.reciprocal(torch.sqrt(s * s + eps * eps))
+        g = s + lam * s * q - vmag
+        gp = 1.0 + le2 * q * q * q
         s = torch.clamp_min(s - g / gp, 0.0)
     return s
 
@@ -103,18 +118,24 @@ def per_lane(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, 1, 1, 1)
 
 
-def admm_split_update_plain(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float = 1.0,
-                            positivity: bool = True, scales=None) -> None:
-    """The split update with PyTorch operators, in place on ``z1, u1, z2,
-    u2``: the kernel's plain version, on any device and dtype. The
-    replicate-boundary mask is applied on the trailing faces' views."""
+def split_magnitude(x, z1, u1, alpha: float = 1.0, scales=None):
+    """``(dxr, v, vmag)`` of the split update: the relaxed differences, ``v =
+    dxr + u1`` and its masked magnitude (B, Nz, Ny, Nx), ``tiny`` under the
+    root. The replicate-boundary mask is applied on the trailing faces' views."""
     dx = circ_diffs(x, scales)
     dxr = dx if alpha == 1.0 else alpha * dx + (1.0 - alpha) * z1
     v = dxr + u1
     sq = v * v
     for a in range(3):
         _trailing_face(sq, a).zero_()
-    vmag = torch.sqrt(sq[:, 0] + sq[:, 1] + sq[:, 2] + torch.finfo(x.dtype).tiny)
+    return dxr, v, torch.sqrt(sq[:, 0] + sq[:, 1] + sq[:, 2] + torch.finfo(x.dtype).tiny)
+
+
+def admm_split_update_plain(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float = 1.0,
+                            positivity: bool = True, scales=None) -> None:
+    """The split update with PyTorch operators, in place on ``z1, u1, z2,
+    u2``: the kernel's plain version, on any device and dtype."""
+    dxr, v, vmag = split_magnitude(x, z1, u1, alpha, scales)
     scale = hyperbolic_prox(vmag, per_lane(lam), float(epsilon)) / vmag
     z1_new = scale[:, None] * v
     for a in range(3):  # unpenalized there: the prox is the identity
@@ -139,7 +160,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("admm_split")
     lib.admm_split_update_f32.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_int] * 3
         + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     )
     lib.admm_split_update_f32.restype = ctypes.c_int
@@ -184,6 +205,12 @@ def _launcher(name: str, fn, args: tuple, device: torch.device, buffers: tuple):
     return launch
 
 
+def split_vectorized(x, z1, u1, z2, u2) -> bool:
+    """Whether the split update takes its 16-byte instantiation on these
+    tensors: nx % 4 == 0 and every base 16-byte aligned."""
+    return x.shape[-1] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, z1, u1, z2, u2))
+
+
 def prepare_split_update(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float = 1.0, positivity: bool = True,
                          scales=None):
     """A callable that launches the split-update kernel on these tensors (in
@@ -192,7 +219,8 @@ def prepare_split_update(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float = 
     _check("admm_split_update", x, stacks=(z1, u1), volumes=(z2, u2), lanes=(lam,))
     eps, alpha = float(epsilon), float(alpha)
     args = (x.data_ptr(), z1.data_ptr(), u1.data_ptr(), z2.data_ptr(), u2.data_ptr(), lam.data_ptr(), *x.shape,
-            eps, eps * eps, alpha, 1.0 - alpha, int(alpha != 1.0), int(bool(positivity)), *_scales(scales))
+            eps, eps * eps, alpha, 1.0 - alpha, int(alpha != 1.0), int(bool(positivity)),
+            int(split_vectorized(x, z1, u1, z2, u2)), *reciprocals(scales))
     return _launcher("admm_split_update", _library().admm_split_update_f32, args, x.device,
                      (x, z1, u1, z2, u2, lam))
 
@@ -204,7 +232,7 @@ def prepare_rhs(z1, u1, z2, u2, rho1, rho2, scales=None):
     _check("admm_rhs", z2, stacks=(z1, u1), volumes=(u2,), lanes=(rho1, rho2))
     out = torch.empty_like(z2)
     args = (z1.data_ptr(), u1.data_ptr(), z2.data_ptr(), u2.data_ptr(), rho1.data_ptr(), rho2.data_ptr(),
-            out.data_ptr(), *z2.shape, *_scales(scales))
+            out.data_ptr(), *z2.shape, *reciprocals(scales))
     return _launcher("admm_rhs", _library().admm_rhs_f32, args, z2.device, (z1, u1, z2, u2, rho1, rho2, out)), out
 
 
@@ -213,10 +241,11 @@ def admm_split_update(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float = 1.0
     """One split update in place on ``z1, u1, z2, u2`` from the new iterate
     ``x``: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
     ``lam`` (B,) is ``mu / rho1`` per lane, ``alpha`` the over-relaxation."""
-    global split_launches
+    global split_launches, split_unaligned_launches
     if x.device.type == "cuda":
         prepare_split_update(x, z1, u1, z2, u2, lam, epsilon, alpha, positivity, scales)()
         split_launches += 1
+        split_unaligned_launches += not split_vectorized(x, z1, u1, z2, u2)
     elif x.device.type == "cpu":
         admm_split_update_plain(x, z1, u1, z2, u2, lam, epsilon, alpha, positivity, scales)
     else:

@@ -152,3 +152,56 @@ def test_rhs_plain_matches_jax(shape, scales):
         want = st["rho1"][b] * jadmm._circ_diffs_adjoint(diff, scales) + st["rho2"][b] * jnp.asarray(
             st["z2"][b] - st["u2"][b])
         assert _rel(got[b], want) < RTOL
+
+
+def _prox_settled(vmag, lam, eps):
+    """The kernel's Newton loop on float32, element by element: stop after
+    step k once the iterate repeats the one before it (a fixed point) or the
+    one two before (an orbit of period 2), compared as bit patterns, and
+    return step 8's value: the iterate if 8 - k is even, else the one before."""
+    f = ak.hyperbolic_prox
+    seq = [f(vmag, lam, eps, newton_iters=k).view(torch.int32) for k in range(ak.NEWTON_ITERS + 1)]
+    out = seq[-1].clone()
+    done = torch.zeros(vmag.shape, dtype=torch.bool)
+    for k in range(1, ak.NEWTON_ITERS + 1):
+        settled = ~done & ((seq[k] == seq[k - 1]) | (seq[k] == seq[max(k - 2, 0)]))
+        out = torch.where(settled, seq[k] if (ak.NEWTON_ITERS - k) % 2 == 0 else seq[k - 1], out)
+        done |= settled
+    return out.view(torch.float32), done
+
+
+@pytest.mark.parametrize("lam,eps", [(1.0, 1.0), (0.05, 1.0), (2.0, 0.3), (0.4, 0.01)])
+def test_prox_stopped_where_it_settles_is_eight_steps_bitwise(lam, eps):
+    """float32: the prox stopped at its bitwise fixed point or period-2 orbit
+    (the kernel's rule) equals 8 full steps bit for bit, at v = 0 (vmag =
+    sqrt(tiny)), +0 and -0 and across the range; most voxels settle early."""
+    tiny = np.finfo(np.float32).tiny
+    v = np.concatenate([[np.sqrt(tiny), 0.0, -0.0, tiny, lam, np.nextafter(lam, 0)],
+                        np.random.default_rng(6).uniform(0.0, 8.0, 4000),
+                        10.0 ** np.random.default_rng(7).uniform(-20, 2, 4000)]).astype(np.float32)
+    vmag = torch.tensor(v)
+    lam_t = torch.full_like(vmag, lam)
+    got, done = _prox_settled(vmag, lam_t, eps)
+    want = ak.hyperbolic_prox(vmag, lam_t, eps)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert float(done.double().mean()) > 0.99
+    # some settle in an orbit of period 2, which a fixed point alone would run to 8 steps
+    seq = [ak.hyperbolic_prox(vmag, lam_t, eps, newton_iters=k).view(torch.int32) for k in (7, 8)]
+    assert bool(((seq[1] != seq[0]) & done).any())
+
+
+def test_reciprocals_round_to_the_tensor_type():
+    """1/s in double, rounded to float32 (what PyTorch's CUDA ``t / s``
+    multiplies by; 1000 for 0.001, where float32 division gives 999.99994)
+    and to float64; the plain differences multiply by them."""
+    scales = (3.0, 0.001, 0.7)
+    r32 = ak.reciprocals(scales)
+    assert r32 == tuple(float(np.float32(1.0 / s)) for s in scales) and r32[1] == 1000.0
+    assert ak.reciprocals(scales, torch.float64) == tuple(1.0 / s for s in scales)
+    assert ak.reciprocals(None) == (1.0, 1.0, 1.0)
+    x = torch.tensor(np.random.default_rng(8).standard_normal((1, 4, 5, 6), dtype=np.float32))
+    d = ak.circ_diffs(x, scales)
+    for a in range(3):
+        want = (torch.roll(x, -1, dims=a + 1) - x).numpy() * np.float32(r32[a])
+        np.testing.assert_array_equal(d[:, a].numpy(), want)
+

@@ -136,15 +136,31 @@ def _admm_state(shape, device, seed=0):
     return st
 
 
-def _assert_kernel_is_plain(got, want, exact, largest):
-    """Bitwise where PyTorch's operators round once; a division by a scale
-    whose reciprocal is inexact is a multiplication by it in PyTorch's CUDA
-    operators, and then within 4 float32 ulp of ``largest``, the launch's
-    largest value (u1 = (u1 + d) - z1 cancels, so not u1's own)."""
-    if exact:
-        assert torch.equal(got, want)
-    else:
-        assert float((got - want).abs().max()) <= 4 * np.finfo(np.float32).eps * largest
+def _offset_copy(t):
+    """A copy of ``t`` whose base lies 4 bytes off 16-byte alignment."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def _split_and_rhs_match_plain(st, alpha, positivity, scales):
+    """The split update and the rhs on ``st`` against their plain versions on
+    clones: bit for bit at every scale (both multiply by the same float32
+    reciprocals of the scales). Returns the split update's launches of its
+    4-byte instantiation."""
+    pl = {k: v.clone() for k, v in st.items()}
+    ak.split_launches = ak.rhs_launches = ak.split_unaligned_launches = 0
+    ak.admm_split_update(st["x"], st["z1"], st["u1"], st["z2"], st["u2"], st["lam"], 0.3, alpha, positivity, scales)
+    ak.admm_split_update_plain(pl["x"], pl["z1"], pl["u1"], pl["z2"], pl["u2"], pl["lam"], 0.3, alpha, positivity,
+                               scales)
+    rhs = ak.admm_rhs(st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"], scales)
+    rhs_plain = ak.admm_rhs_plain(st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"], scales)
+    torch.cuda.synchronize()
+    assert (ak.split_launches, ak.rhs_launches) == (1, 1)
+    for name in ("z1", "u1", "z2", "u2"):
+        assert torch.equal(st[name], pl[name]), name
+    assert torch.equal(rhs, rhs_plain)
+    assert torch.equal(st["x"], pl["x"])  # read only
+    return ak.split_unaligned_launches
 
 
 @pytest.mark.cuda
@@ -153,22 +169,53 @@ def _assert_kernel_is_plain(got, want, exact, largest):
 @pytest.mark.parametrize("positivity", [True, False])
 @pytest.mark.parametrize("scales", [None, (2.0, 1.0, 1.0), (3.0, 1.0, 0.7)])
 def test_admm_kernels_match_plain(shape, alpha, positivity, scales, cuda_device):
+    """Bit for bit at every scale; nx = 67 takes the 4-byte instantiation."""
     st = _admm_state(shape, cuda_device)
-    pl = {k: v.clone() for k, v in st.items()}
-    ak.split_launches = ak.rhs_launches = 0
-    ak.admm_split_update(st["x"], st["z1"], st["u1"], st["z2"], st["u2"], st["lam"], 0.3, alpha, positivity, scales)
-    ak.admm_split_update_plain(pl["x"], pl["z1"], pl["u1"], pl["z2"], pl["u2"], pl["lam"], 0.3, alpha, positivity,
-                               scales)
-    rhs = ak.admm_rhs(st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"], scales)
-    rhs_plain = ak.admm_rhs_plain(st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"], scales)
-    torch.cuda.synchronize()
-    assert (ak.split_launches, ak.rhs_launches) == (1, 1)
-    exact = scales != (3.0, 1.0, 0.7)
-    largest = max(float(pl[name].abs().max()) for name in ("z1", "u1", "z2", "u2"))
-    for name in ("z1", "u1", "z2", "u2"):
-        _assert_kernel_is_plain(st[name], pl[name], exact, largest)
-    _assert_kernel_is_plain(rhs, rhs_plain, exact, float(rhs_plain.abs().max()))
-    assert torch.equal(st["x"], pl["x"])  # read only
+    assert _split_and_rhs_match_plain(st, alpha, positivity, scales) == (shape[-1] % 4 != 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [1.0, 1.8])
+@pytest.mark.parametrize("scales", [None, (3.0, 1.0, 0.7)])
+def test_admm_split_update_unaligned_views_match_plain(alpha, scales, cuda_device):
+    """Views 4 bytes off 16-byte alignment (nx % 4 == 0) take the 4-byte
+    instantiation and equal the plain version, and so the 16-byte
+    instantiation on aligned copies, bit for bit."""
+    base = _admm_state((2, 20, 24, 36), cuda_device, seed=4)
+    st = {k: _offset_copy(v) if v.ndim > 1 else v.clone() for k, v in base.items()}
+    assert st["x"].data_ptr() % 16 != 0
+    assert _split_and_rhs_match_plain(st, alpha, True, scales) == 1
+    aligned = {k: v.clone() for k, v in base.items()}
+    assert _split_and_rhs_match_plain(aligned, alpha, True, scales) == 0
+    assert all(torch.equal(st[k], aligned[k]) for k in ("z1", "u1", "z2", "u2"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [1.0, 1.8])
+def test_admm_split_update_zero_gradient_regions(alpha, cuda_device):
+    """A state whose first half along z has v = 0 (x constant, u1 = z1 = 0:
+    vmag = sqrt(tiny)) and a random second half: bit for bit the plain
+    version, and z1 = 0 where v = 0."""
+    st = _admm_state((1, 16, 32, 64), cuda_device, seed=5)
+    for k in ("z1", "u1"):
+        st[k][:, :, :8] = 0.0
+    st["x"][:, :9] = 1.5
+    _split_and_rhs_match_plain(st, alpha, True, (3.0, 1.0, 0.7))
+    assert float(st["z1"][:, :, :8].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [3.0, 0.7, 1.3, 2.0, 0.2, 1e-3, 7.77])
+def test_host_reciprocal_is_what_cuda_division_multiplies_by(s, cuda_device):
+    """PyTorch's CUDA ``t / s`` for a Python scalar is ``t * r`` with r the
+    reciprocal that ``reciprocals`` rounds on the host (the double 1/s
+    rounded to float32), here and at 500 scales around s."""
+    t = torch.as_tensor(np.random.default_rng(6).standard_normal(4096, dtype=np.float32), device=cuda_device)
+    one = torch.ones(1, device=cuda_device)
+    for sc in [s, *(s * np.random.default_rng(7).uniform(0.5, 2.0, 500))]:
+        r = ak.reciprocals((sc, sc, sc))[0]
+        assert float((one / sc).item()) == r, sc
+        assert torch.equal(t / sc, t * r), sc
 
 
 @pytest.mark.cuda
