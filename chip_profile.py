@@ -15,7 +15,12 @@ warm-up of each:
   (phase 7), then the same batch with ``engine="admm"`` (phase 12);
 - ``tiled_deconvolve`` of a 256x464x464 volume made as phase 8 makes its
   design-scale volume: 4 tiles of 256^3 with overlap 24, one batch of 4,
-  10 iterations, which is one of the design-scale run's 19 batches.
+  10 iterations, which is one of the design-scale run's 19 batches; then
+  the same batch with ``method="rl"`` and RL-TV (phase 14);
+- ``richardson_lucy`` of the bench scene at 256^3, 50 iterations, matched
+  and RL-TV (phase 13), and ``object_uncertainty`` at 256^3 with 8 probes
+  and 25 CG iterations at most on a 30-iteration ``deconvolve`` solution
+  (phase 16).
 
 For each it prints one line: the wall of the traced region (host clock,
 synchronized), the device busy time (the sum of kernel and copy times; one
@@ -85,7 +90,9 @@ def main() -> int:
     from microtipi_tpu_torch.jobs.admm import admm_deconvolve
     from microtipi_tpu_torch.jobs.batch import batched_deconvolve
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+    from microtipi_tpu_torch.jobs.richardson_lucy import richardson_lucy
     from microtipi_tpu_torch.jobs.tiled import tiled_deconvolve
+    from microtipi_tpu_torch.jobs.uncertainty import object_uncertainty
     from microtipi_tpu_torch.weights.updaters import InverseVarianceWeights
 
     print(cs.phase0_card(), flush=True)
@@ -101,7 +108,14 @@ def main() -> int:
     weights = InverseVarianceWeights().from_data(data)
     trace(f"admm_deconvolve {cs.SHAPE}, weighted, untracked",
           lambda: admm_deconvolve(data, psf, weights=weights, config=cfg20, track_objective=False))
-    del data, psf, weights
+    trace(f"richardson_lucy {cs.SHAPE}, matched, 50 iterations", lambda: richardson_lucy(data, psf, iterations=50))
+    trace(f"richardson_lucy {cs.SHAPE}, RL-TV, 50 iterations",
+          lambda: richardson_lucy(data, psf, iterations=50, mu=0.01, epsilon=1.0))
+    cfg30 = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=30, grtol=0.0, gatol=0.0)
+    x_hat = deconvolve(data, psf, config=cfg30).x
+    trace(f"object_uncertainty {cs.SHAPE}, 8 probes, 25 CG iterations at most",
+          lambda: object_uncertainty(data, psf, x_hat, config=cfg30, n_probes=8, cg_maxiter=25))
+    del data, psf, weights, x_hat
 
     scenes = [cs.bench_scene(cs.LANE_SHAPE, dev, torch.float32, seed=s) for s in range(4)]
     batch, psf = torch.stack([d for _, d, _ in scenes]), scenes[0][2]
@@ -115,6 +129,9 @@ def main() -> int:
     trace("tiled_deconvolve (256, 464, 464), 4 tiles of 256^3 in one batch",
           lambda: tiled_deconvolve(volume, psf, tile=cs.TILE, overlap=cs.OVERLAP, config=cfg10,
                                    max_batch=cs.MAX_BATCH))
+    trace("tiled_deconvolve method='rl' (256, 464, 464), RL-TV, 10 iterations, 4 tiles of 256^3 in one batch",
+          lambda: tiled_deconvolve(volume, psf, tile=cs.TILE, overlap=cs.OVERLAP, config=cfg10, method="rl",
+                                   rl_iterations=10, max_batch=cs.MAX_BATCH))
     return 0
 
 

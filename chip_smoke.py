@@ -22,8 +22,10 @@ raises and the script exits non-zero:
    ``deconvolve`` (20 VMLMB iterations) and ``blind_deconvolve`` (5 rounds,
    joint defocus+phase fit), with the kernel's launch count;
 4. card (float32, kernels) against CPU (float64, plain versions) parity, of
-   ``deconvolve``, of ``batched_deconvolve`` at 3 lanes and of
-   ``admm_deconvolve``;
+   ``deconvolve``, of ``batched_deconvolve`` at 3 lanes, of
+   ``admm_deconvolve``, of ``richardson_lucy`` (matched, RL-TV,
+   Wiener-Butterworth accelerated), of ``deconvolve_auto_mu`` (the same
+   decisions and mu) and of the Laplace uncertainty (the same probes);
 5. cuFFT float32 precision against float64 NumPy at 256^3;
 6. the batched hyperbolic-TV kernel against its plain version, each lane
    against the single-volume kernel (bitwise), unaligned batches and lane
@@ -63,12 +65,29 @@ raises and the script exits non-zero:
     ``admm_deconvolve`` of its scene, and ``tiled_deconvolve(method="admm")``
     on the two warm-up corners (4 and 3 tiles, run cold) and on the design
     volume, and one tile covering a 64x256x256 volume against
-    ``admm_deconvolve``.
+    ``admm_deconvolve``;
+13. ``richardson_lucy`` at 256^3 on phase 3's scene: matched (50
+    iterations), RL-TV (50, the TV kernel once an iteration), Wiener-
+    Butterworth accelerated (10) and the same with the Gaussian discrepancy
+    stop on the estimated sigma (tau just above the 10-iteration residual);
+    ``multiview_richardson_lucy`` of two views through two widefield PSFs;
+14. ``tiled_deconvolve(method="rl", rl_iterations=10)`` with RL-TV on phase
+    8's design volume (190 batched TV launches, none single), and one RL
+    tile covering a 64x256x256 volume against ``richardson_lucy``;
+15. ``deconvolve`` at 256^3 with the sparsity and Hessian priors on the
+    padded grid 288^3, ``deconvolve_auto_mu`` at 256^3 (tau 4, 8 probes of
+    20 iterations) and ``batched_deconvolve_auto_mu`` at 4x64x256x256, each
+    discrepancy beside its target;
+16. ``object_uncertainty`` at 256^3 (8 probes, 25 preconditioned CG
+    iterations at most) on a 30-iteration ``deconvolve`` solution.
 
-The main paths are phase 3 (the single-volume TV kernel), phases 7-8 (the
-batched TV kernel) and phases 10-12 (the ADMM kernels): each is driven with
-the launch counts set to 0 just before and read just after, and none may take
-the TV kernel's unaligned instantiation or the split update's 4-byte one.
+The main paths are phases 3, 13 and 15 (the single-volume TV kernel),
+phases 7-8, 14 and 15 (the batched TV kernel) and phases 10-12 (the ADMM
+kernels): each is driven with the launch counts set to 0 just before and
+read just after, and none may take the TV kernel's unaligned instantiation
+or the split update's 4-byte one; the TV entries of the kernels line give
+their launches path by path (``launches_by_path``). Phase 16 must launch no
+TV kernel: its Hessian comes from the plain objective.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on its paths, error, times and bound (``ms`` is the wrapper call's
 time, ``call_ms``; ``kernel_ms`` the raw launches'; the split update's
@@ -1322,6 +1341,320 @@ def phase12_batched_tiled_admm(card: str, psf: torch.Tensor, volume: np.ndarray)
     return int(launched[0]), int(launched[1])
 
 
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.norm(a.double().cpu() - b.double().cpu()) / torch.linalg.norm(b.double().cpu()))
+
+
+def phase4_new_paths() -> None:
+    """Card float32 (kernels) against CPU float64 (plain versions) at
+    PARITY_SHAPE for the paths of phases 13-16. RL has no line search, so
+    float32 follows float64: matched and RL-TV (20 iterations) to 1e-4
+    relative L2, Wiener-Butterworth accelerated (10) to 1e-3 (the
+    extrapolation amplifies round-off). Auto-mu (tau 5, so that the
+    bisection goes both ways): the same decisions and mu_history to 1e-6
+    relative (float32 rounding of sqrt(lo*hi)), with the float64 run's
+    discrepancies at least 1e-3 relative from their target.
+    Uncertainty with the same 4 probes at the float64 solve x_hat, 25 CG
+    iterations at most: var to 1e-2 relative L2 (both CG runs stop with
+    residuals near 3e-3)."""
+    from microtipi_tpu_torch.jobs import uncertainty as tu
+    from microtipi_tpu_torch.jobs.autotune import deconvolve_auto_mu
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+    from microtipi_tpu_torch.jobs.richardson_lucy import richardson_lucy
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    rl_runs = {"matched": (dict(iterations=20), 1e-4), "RL-TV": (dict(iterations=20, mu=0.01, epsilon=1.0), 1e-4),
+               "Wiener-Butterworth accelerated": (dict(iterations=10, backprojector="wiener-butterworth",
+                                                       accelerate=True), 1e-3)}
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=10, grtol=0.0, gatol=0.0)
+    out, inputs = {}, {}
+    for dev, dtype in ((torch.device("cuda"), torch.float32), (torch.device("cpu"), torch.float64)):
+        _, data, psf = bench_scene(PARITY_SHAPE, dev, dtype)
+        inputs[dev.type] = (data, psf)
+        hv.launches = hv.batched_launches = 0
+        rl = {name: richardson_lucy(data, psf, **kw) for name, (kw, _) in rl_runs.items()}
+        launches = hv.launches, hv.batched_launches
+        out[dev.type] = (rl, launches, deconvolve_auto_mu(data, psf, config=cfg, steps=6, tau=5.0))
+    (rl32, n32, a32), (rl64, n64, a64) = out["cuda"], out["cpu"]
+    errs = {name: _rel_l2(rl32[name], rl64[name]) for name in rl_runs}
+    if any(errs[name] > bound for name, (_, bound) in rl_runs.items()) or n32 != (20, 0) or n64 != (0, 0):
+        raise AssertionError(f"RL card/CPU parity: {errs}, TV launches cuda {n32} (expected (20, 0)), cpu {n64}")
+    log(4, f"richardson_lucy card float32 (kernels) vs CPU float64 (plain) at {PARITY_SHAPE}: "
+           + ", ".join(f"{name} {err:.3g} relative L2 (< {rl_runs[name][1]:g})" for name, err in errs.items())
+           + "; RL-TV launched the TV kernel 20 times on the card")
+    margin = float(np.min(np.abs(a64.discrepancy_history - a64.target) / a64.target))
+    same = np.array_equal(a32.discrepancy_history > a32.target, a64.discrepancy_history > a64.target)
+    mu_err = float(np.max(np.abs(a32.mu_history - a64.mu_history) / a64.mu_history))
+    if margin < 1e-3 or not same or mu_err > 1e-6:
+        raise AssertionError(f"auto-mu card/CPU parity: margin {margin:.3g}, same decisions {same}, "
+                             f"mu_history {mu_err:.3g}")
+    log(4, f"deconvolve_auto_mu card vs CPU at {PARITY_SHAPE}, tau 5, 6 probes of 10 iterations: the same decisions "
+           f"{(a64.discrepancy_history > a64.target).astype(int).tolist()} (1: over the target), "
+           f"mu_history within {mu_err:.3g} relative (< 1e-6), mu {float(a32.mu):.6g} / {float(a64.mu):.6g}; "
+           f"the float64 discrepancies are at least {margin:.3g} relative from the target (> 1e-3)")
+
+    data64, psf64 = inputs["cpu"]
+    x_hat = deconvolve(data64, psf64, config=cfg).x
+    probes = torch.randint(0, 2, (4, *PARITY_SHAPE), generator=torch.Generator().manual_seed(0)) * 2.0 - 1.0
+    est = {}
+    for dev, dtype in ((torch.device("cuda"), torch.float32), (torch.device("cpu"), torch.float64)):
+        data, psf = inputs[dev.type]
+        hv.launches = hv.batched_launches = 0
+        est[dev.type] = tu._uncertainty(data, psf, x_hat.to(dev, dtype), None, cfg, probes.to(dev, dtype), 1e-5, 25,
+                                        0.0, True)
+        if hv.launches or hv.batched_launches:
+            raise AssertionError("object_uncertainty launched the TV kernel")
+    (u32, it32), (u64, it64) = est["cuda"], est["cpu"]
+    var_err = _rel_l2(u32.var, u64.var)
+    if var_err > 1e-2 or not torch.equal(u32.free.cpu().double(), u64.free):
+        raise AssertionError(f"uncertainty card/CPU parity: var {var_err:.3g}, free sets equal "
+                             f"{torch.equal(u32.free.cpu().double(), u64.free)}")
+    log(4, f"object uncertainty card float32 vs CPU float64 at {PARITY_SHAPE}, the same 4 probes, preconditioned CG "
+           f"of at most 25 iterations ({it32.tolist()} / {it64.tolist()}): var {var_err:.3g} relative L2 (< 1e-2), "
+           f"residual {float(u32.residual):.3g} / {float(u64.residual):.3g}, the same free set, no TV kernel launch")
+
+
+OTHER_PHASE = [0.1, 0.05, -0.12, 0.04, 0.0, 0.06]  # the multi-view run's second PSF
+
+
+def phase13_rl(card: str) -> int:
+    """``richardson_lucy`` on phase 3's scene at SHAPE: matched (50
+    iterations), RL-TV (50; the TV kernel once an iteration), Wiener-
+    Butterworth accelerated (10), the same with the Gaussian discrepancy stop
+    on the estimated sigma (its tau just above the 10-iteration run's final
+    residual, so that the stop decides inside the run), and
+    ``multiview_richardson_lucy`` of two views. Returns the TV kernel's
+    launches."""
+    from microtipi_tpu_torch.jobs.autotune import estimate_noise_sigma
+    from microtipi_tpu_torch.jobs.richardson_lucy import multiview_richardson_lucy, richardson_lucy
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    dev, nvox = torch.device("cuda"), float(np.prod(SHAPE))
+    model, data, psf = bench_scene(SHAPE, dev, torch.float32)
+    sigma = float(estimate_noise_sigma(data))
+
+    def residual_ratio(x) -> float:
+        """sum (H x - d)^2 / (N sigma^2): the Gaussian stop's discrepancy over its tau-1 target."""
+        r = torch.fft.irfftn(torch.fft.rfftn(psf) * torch.fft.rfftn(x), s=SHAPE) - data
+        return float((r * r).sum()) / (nvox * sigma ** 2)
+
+    runs = [("matched", dict(iterations=50)),
+            ("RL-TV (mu 0.01, epsilon 1)", dict(iterations=50, mu=0.01, epsilon=1.0)),
+            ("Wiener-Butterworth, accelerated", dict(iterations=10, backprojector="wiener-butterworth",
+                                                     accelerate=True))]
+    richardson_lucy(data, psf, iterations=2, mu=0.01, epsilon=1.0)  # warm-up (cuFFT plans, the kernel's first load)
+    tv_launches = 0
+    while runs:
+        name, kw = runs.pop(0)
+        hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, k = richardson_lucy(data, psf, return_iterations=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _check_object(f"richardson_lucy {name}", x)
+        want = k if kw.get("mu") else 0
+        if (hv.launches, hv.batched_launches, hv.unaligned_launches) != (want, 0, 0):
+            raise AssertionError(f"richardson_lucy {name}: TV launches {hv.launches} (expected {want}), batched "
+                                 f"{hv.batched_launches}, unaligned {hv.unaligned_launches}")
+        tv_launches += hv.launches
+        ratio = residual_ratio(x)
+        extra = f", residual {ratio:.4g} N sigma^2 (sigma {sigma:.6g})"
+        if kw.get("backprojector") and "stop" not in kw:
+            # On this sparse scene the residual stays far above N sigma^2 (tau 1) for hundreds of
+            # iterations, and matched RL barely lowers it (5.6 N sigma^2 after 50 on an H100); the
+            # stop runs the same Wiener-Butterworth iteration with its target just above where 10
+            # iterations ended.
+            tau = 1.05 * ratio
+            runs.append((f"{name}, gaussian stop on the estimated sigma, tau {tau:.4g}",
+                         dict(kw, iterations=100, stop="gaussian", stop_tau=tau)))
+        if "stop" in kw:
+            if not 1 < k < kw["iterations"]:
+                raise AssertionError(f"the Gaussian stop did not decide inside the run: k {k}")
+            extra += f"; stopped at k {k} of {kw['iterations']}"
+        log(13, f"[{card}] richardson_lucy {SHAPE} {name}: {k} iterations, wall {wall:.4f} s (1 run), "
+                f"{nvox * k / wall / 1e6:.1f} Mvox*iter/s, TV kernel launches {hv.launches}{extra}")
+
+    phase = torch.as_tensor(OTHER_PHASE, dtype=torch.float32, device=dev)
+    _, other, _ = bench_scene(SHAPE, dev, torch.float32, phase=OTHER_PHASE)
+    with torch.no_grad():
+        psf2 = model.compute_psf(model.init_params()._replace(phase=phase))
+    views, psfs = torch.stack([data, other]), torch.stack([psf, psf2])
+    multiview_richardson_lucy(views, psfs, iterations=2)  # warm-up (the 2-view batched plans)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = multiview_richardson_lucy(views, psfs, iterations=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_object("multiview_richardson_lucy", x)
+    log(13, f"[{card}] multiview_richardson_lucy 2 x {SHAPE} (the bench PSF and one with phase {OTHER_PHASE}), 20 "
+            f"iterations: wall {wall:.4f} s (1 run), {nvox * 20 / wall / 1e6:.1f} Mvox*iter/s of the object")
+    return tv_launches
+
+
+def phase14_tiled_rl(card: str, psf: torch.Tensor, volume: np.ndarray) -> int:
+    """``tiled_deconvolve(method="rl", rl_iterations=10)`` with RL-TV on phase
+    8's design volume and geometry (its batch sizes' FFT plans are warm from
+    phase 8): one batched TV launch an iteration and batch, none of one
+    volume. Then one RL tile covering a LANE_SHAPE volume: bitwise the
+    batched RL of that volume (a batch of one; the tiling is exact) and
+    within 1e-4 relative L2 of ``richardson_lucy`` of the volume (cuFFT rounds
+    a batch of one otherwise than one volume; RL has no line search to
+    amplify it). Returns the batched launches."""
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.richardson_lucy import richardson_lucy
+    from microtipi_tpu_torch.jobs.tiled import tile_plan, tiled_deconvolve
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    n_batches = -(-int(np.prod([len(starts) for starts, _ in tile_plan(VOLUME, TILE, (OVERLAP,) * 3)])) // MAX_BATCH)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0)
+    torch.cuda.reset_peak_memory_stats()
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tiled_deconvolve(volume, psf, tile=TILE, overlap=OVERLAP, config=cfg, method="rl", rl_iterations=10,
+                           max_batch=MAX_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    single, batched, unaligned = hv.launches, hv.batched_launches, hv.unaligned_launches
+    if out.shape != VOLUME or not np.isfinite(out).all() or out.min() < 0:
+        raise AssertionError(f"tiled RL: shape {out.shape}, finite {np.isfinite(out).all()}, min {out.min()}")
+    if (single, batched, unaligned) != (0, 10 * n_batches, 0):
+        raise AssertionError(f"tiled RL: batched TV launches {batched} (expected {10 * n_batches}), single-volume "
+                             f"{single}, unaligned {unaligned}")
+    log(14, f"[{card}] tiled_deconvolve method='rl' {VOLUME}, RL-TV (mu 0.01, epsilon 1), 10 iterations, tile {TILE}, "
+            f"overlap {OVERLAP}, max_batch {MAX_BATCH}: {n_batches} batches, wall {wall:.3f} s (1 run), "
+            f"{float(np.prod(VOLUME)) * 10 / wall / 1e6:.1f} Mvox*iter/s of output; batched TV launches {batched} "
+            f"(10 x {n_batches}), single-volume {single}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del out
+
+    _, vol, lane_psf = bench_scene(LANE_SHAPE, torch.device("cuda"), torch.float32, seed=5)
+    got = tiled_deconvolve(vol.cpu().numpy(), lane_psf, tile=LANE_SHAPE, overlap=4, config=cfg, method="rl",
+                           rl_iterations=10)
+    lane = richardson_lucy(vol[None], lane_psf, iterations=10, mu=0.01, epsilon=1.0)[0]
+    want = richardson_lucy(vol, lane_psf, iterations=10, mu=0.01, epsilon=1.0)
+    bitwise = np.array_equal(got, lane.cpu().numpy())
+    err = _rel_l2(torch.as_tensor(got), want)
+    if not bitwise or err > 1e-4:
+        raise AssertionError(f"single RL tile: bitwise the batched RL {bitwise}, against richardson_lucy {err:.3g}")
+    log(14, f"one RL tile covering {LANE_SHAPE}: bitwise the batched RL of the volume, {err:.3g} relative L2 from "
+            "richardson_lucy of it (< 1e-4)")
+    return batched
+
+
+def phase15_priors_auto_mu(card: str) -> tuple[int, int]:
+    """``deconvolve`` with the sparsity and Hessian priors on a padded grid,
+    ``deconvolve_auto_mu`` at SHAPE and ``batched_deconvolve_auto_mu`` of 4
+    scenes at LANE_SHAPE, each discrepancy beside its target. Returns the TV
+    kernel's single and batched launches."""
+    from microtipi_tpu_torch.jobs.autotune import _build_data_cost, deconvolve_auto_mu, estimate_noise_sigma
+    from microtipi_tpu_torch.jobs.batch import batched_deconvolve_auto_mu
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    dev, nvox = torch.device("cuda"), float(np.prod(SHAPE))
+    _, data, psf = bench_scene(SHAPE, dev, torch.float32)
+    sigma = float(estimate_noise_sigma(data))
+    target = nvox * sigma ** 2
+    var_shape = (288, 288, 288)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, sparsity=0.01, hessian=0.01, var_shape=var_shape, max_iter=20,
+                              grtol=0.0, gatol=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = deconvolve(data, psf, config=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_object("deconvolve with priors on a padded grid", res.x)
+    with torch.no_grad():
+        disc = 2.0 * float(_build_data_cost(psf, data, None, cfg)[0].cost(res.x))
+    if (tuple(res.x.shape) != var_shape or hv.launches != res.evaluations or hv.batched_launches
+            or hv.unaligned_launches):
+        raise AssertionError(f"deconvolve with priors: x {tuple(res.x.shape)}, TV launches {hv.launches} for "
+                             f"{res.evaluations} evaluations, batched {hv.batched_launches}")
+    single = hv.launches
+    log(15, f"[{card}] deconvolve {SHAPE} with sparsity 0.01, hessian 0.01 on var_shape {var_shape}, 20 iterations: "
+            f"{res.iterations} iterations, {res.evaluations} evaluations, f {float(res.f):.6g}, wall {wall:.4f} s "
+            f"(1 run, cold), discrepancy {disc:.6g} against the target N sigma^2 = {target:.6g} (sigma {sigma:.6g}), "
+            f"TV kernel launches {hv.launches}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del res
+
+    # tau 4: at tau 1 every probe of 20 iterations ends over the target on this sparse scene (2.97
+    # N sigma^2 at the bracket's floor on an H100), and mu falls to the floor.
+    acfg, tau = DeconvolutionConfig(epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0), 4.0
+    hv.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    auto = deconvolve_auto_mu(data, psf, config=acfg, steps=8, tau=tau)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_object("deconvolve_auto_mu", auto.result.x)
+    if hv.launches == 0 or hv.batched_launches or not np.isfinite(auto.discrepancy):
+        raise AssertionError(f"deconvolve_auto_mu: TV launches {hv.launches}, batched {hv.batched_launches}, "
+                             f"discrepancy {auto.discrepancy}")
+    single += hv.launches
+    log(15, f"[{card}] deconvolve_auto_mu {SHAPE}, tau {tau}, 8 probes of 20 iterations: mu {float(auto.mu):.6g}, "
+            f"mu_history "
+            f"{[float(f'{m:.4g}') for m in auto.mu_history]}, discrepancy {float(auto.discrepancy):.6g} against the "
+            f"target {float(auto.target):.6g} (sigma {float(auto.sigma):.6g}), wall {wall:.3f} s (1 run), TV kernel "
+            f"launches {hv.launches}")
+
+    scenes = [bench_scene(LANE_SHAPE, dev, torch.float32, seed=s) for s in range(4)]
+    batch, lane_psf = torch.stack([d for _, d, _ in scenes]), scenes[0][2]
+    hv.launches = hv.batched_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bauto = batched_deconvolve_auto_mu(batch, lane_psf, config=acfg, steps=8, tau=tau)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_object("batched_deconvolve_auto_mu", bauto.result.x)
+    if hv.launches or hv.batched_launches == 0 or not np.isfinite(bauto.discrepancy).all():
+        raise AssertionError(f"batched_deconvolve_auto_mu: single-volume TV launches {hv.launches}, batched "
+                             f"{hv.batched_launches}, discrepancy {bauto.discrepancy}")
+    log(15, f"[{card}] batched_deconvolve_auto_mu 4 x {LANE_SHAPE}, tau {tau}, 8 probes of 20 iterations a lane: mu "
+            f"{[float(f'{m:.4g}') for m in bauto.mu]}, discrepancy / target "
+            f"{[round(float(d / t), 4) for d, t in zip(bauto.discrepancy, bauto.target)]}, sigma "
+            f"{[float(f'{s:.4g}') for s in bauto.sigma]}, wall {wall:.3f} s (1 run), batched TV launches "
+            f"{hv.batched_launches}, single-volume {hv.launches}")
+    return single, hv.batched_launches
+
+
+def phase16_uncertainty(card: str) -> None:
+    """``object_uncertainty`` at SHAPE on a 30-iteration ``deconvolve``
+    solution, 8 probes, 25 preconditioned CG iterations at most: the CG
+    residual, the mean free-set sigma, sigma exactly 0 on the active set, no
+    TV kernel launch (the Hessian comes from the plain objective), peak
+    device memory."""
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+    from microtipi_tpu_torch.jobs.uncertainty import object_uncertainty
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    _, data, psf = bench_scene(SHAPE, torch.device("cuda"), torch.float32)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=30, grtol=0.0, gatol=0.0)
+    x_hat = deconvolve(data, psf, config=cfg).x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hv.launches = hv.batched_launches = 0
+    t0 = time.perf_counter()
+    est = object_uncertainty(data, psf, x_hat, config=cfg, n_probes=8, cg_maxiter=25)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    free = est.free > 0
+    pinned_max = float(est.sigma[~free].abs().max()) if bool((~free).any()) else 0.0
+    if (hv.launches or hv.batched_launches or pinned_max != 0.0 or not bool(torch.isfinite(est.sigma).all())
+            or not np.isfinite(float(est.residual))):
+        raise AssertionError(f"object_uncertainty: TV launches {hv.launches}/{hv.batched_launches}, sigma on the "
+                             f"active set up to {pinned_max}, residual {float(est.residual)}")
+    log(16, f"[{card}] object_uncertainty {SHAPE} at a 30-iteration deconvolve solution, 8 probes, preconditioned CG "
+            f"of at most 25 iterations: residual {float(est.residual):.4g}, mean sigma on the free set "
+            f"{float(est.sigma[free].mean()):.6g} ({float(free.double().mean()):.4f} of the voxels free), sigma "
+            f"exactly "
+            f"0 on the active set, wall {wall:.3f} s (1 run, cold), no TV kernel launch, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1336,6 +1669,7 @@ def main() -> int:
     if launches == 0:
         raise AssertionError("the main path never launched the TV kernel")
     phase4_parity()
+    phase4_new_paths()
     phase5_cufft(card)
     bkern = phase6_batched_kernel(card)
     psf = design_psf()
@@ -1348,13 +1682,24 @@ def main() -> int:
                             phase12_batched_tiled_admm(card, psf, volume)], axis=0)
     if admm_launches.min() == 0:
         raise AssertionError(f"the ADMM paths never launched a kernel: {admm_launches.tolist()}")
+    rl_launches = phase13_rl(card)
+    tiled_rl_launches = phase14_tiled_rl(card, psf, volume)
+    del volume
+    prior_launches, auto_batched_launches = phase15_priors_auto_mu(card)
+    phase16_uncertainty(card)
+    tv_paths = {"deconvolve and blind (phase 3)": launches, "RL-TV (phase 13)": rl_launches,
+                "priors and auto-mu (phase 15)": prior_launches}
+    batched_paths = {"batched and tiled VMLMB (phases 7-8)": batched_launches,
+                     "tiled RL-TV (phase 14)": tiled_rl_launches, "batched auto-mu (phase 15)": auto_batched_launches}
     source, admm_source = "microtipi_tpu_torch/csrc/hyperbolic_tv.cu", "microtipi_tpu_torch/csrc/admm_split.cu"
     fused_by_xla = "fused by XLA under jit, no Pallas kernel"
     print(json.dumps({"kernels": [
         {"name": "hyperbolic_tv", "route": "cuda", "source": source,
-         "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:80 and :111", "launches": launches, **kern},
+         "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:80 and :111", "launches": sum(tv_paths.values()),
+         "launches_by_path": tv_paths, **kern},
         {"name": "hyperbolic_tv_batched", "route": "cuda", "source": source,
-         "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:203", "launches": batched_launches, **bkern},
+         "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:203", "launches": sum(batched_paths.values()),
+         "launches_by_path": batched_paths, **bkern},
         {"name": "admm_split_update", "route": "cuda", "source": admm_source,
          "replaces": f"microtipi_tpu/jobs/admm.py:353-368 ({fused_by_xla})", "launches": int(admm_launches[0]),
          **split_kern},

@@ -11,7 +11,8 @@ and stopping, so lane b gives what ``deconvolve`` gives on volume b.
 ``engine="admm"`` hands the batch to the ADMM engine
 (``jobs/admm.admm_deconvolve``), which is written over lanes: one batched FFT
 pair and one launch of each of its kernels an iteration, per-lane ``rho``s and
-per-lane Boyd stopping.
+per-lane Boyd stopping. :func:`batched_deconvolve_auto_mu` bisects a mu
+a lane (``jobs/autotune.py``), each probe round one lockstep solve.
 
 The other batched solvers of the JAX module raise ``NotImplementedError``
 naming the ROADMAP.md item that ports them.
@@ -23,14 +24,18 @@ import numpy as np
 import torch
 
 from microtipi_tpu_torch.jobs.admm import admm_deconvolve
+from microtipi_tpu_torch.jobs.autotune import AutoMuResult, auto_mu_lanes
 from microtipi_tpu_torch.jobs.deconv import (
     DeconvolutionConfig,
     DeconvolutionResult,
     _f32_stall_continue_batched,
     _vmlmb_options,
     make_batched_objective,
+    stall_gate,
+    var_shape_of,
 )
 from microtipi_tpu_torch.optim.vmlmb import minimize_vmlmb_batched
+from microtipi_tpu_torch.utils.arrays import pad_to_shape
 
 __all__ = ["batched_deconvolve", "batched_blind_deconvolve",
            "batched_deconvolve_auto_mu", "batched_deconvolve_depthvar"]
@@ -66,11 +71,19 @@ def batched_deconvolve(
     if engine != "vmlmb":
         raise ValueError(f"unknown engine {engine!r}")
     if x0 is None:
-        x0 = torch.clamp_min(data, 0.0) if config.positivity else data
+        x0 = pad_to_shape(data, var_shape_of(config, data))
+        if config.positivity:
+            x0 = torch.clamp_min(x0, 0.0)
     fun = make_batched_objective(psf, data, weights, config)
     results = minimize_vmlmb_batched(fun, x0, **_vmlmb_options(config), maxeval=config.max_eval)
-    if config.data_term == "gaussian" and weights is None and data.dtype == torch.float32:
+    if stall_gate(config, data, weights):
         results = _f32_stall_continue_batched(results, psf, data, config)
+    return _stacked(results)
+
+
+def _stacked(results) -> DeconvolutionResult:
+    """Per-lane VMLMB results as one ``DeconvolutionResult`` with a leading
+    batch axis on every field."""
     return DeconvolutionResult(
         torch.stack([r.x for r in results]),
         np.array([r.f for r in results]),
@@ -94,7 +107,22 @@ def batched_blind_deconvolve(*args, **kw):
                               "item 17: the rest of the out-of-core and batched solvers)")
 
 
-def batched_deconvolve_auto_mu(*args, **kw):
-    """Per-frame discrepancy-principle mu over a batch (``jobs/batch.py:124-151``)."""
-    raise NotImplementedError("batched_deconvolve_auto_mu is not ported yet (ROADMAP.md queue 1, "
-                              "item 12: jobs/autotune.py)")
+def batched_deconvolve_auto_mu(
+    data: torch.Tensor,
+    psf: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    config: DeconvolutionConfig = DeconvolutionConfig(),
+    **auto_kw,
+) -> AutoMuResult:
+    """Discrepancy-principle mu over a (B, Nz, Ny, Nx) stack, per frame
+    (``jobs/batch.py:124-151``): each lane runs its own bisection with its
+    own blind noise estimate, and each probe round is one lockstep solve of
+    every lane at its own mu. ``auto_kw`` forwards ``sigma`` (a float shared
+    by all lanes, one per lane, or None to estimate per lane), ``tau``,
+    ``bracket``, ``steps``, ``search_max_iter`` and ``init``. Returns an
+    ``AutoMuResult`` with a leading batch axis on every field, ``result``
+    included."""
+    if data.ndim != 4:
+        raise ValueError(f"a batch of volumes is 4D, got shape {tuple(data.shape)}")
+    results, auto = auto_mu_lanes(data, psf, weights, config, **auto_kw)
+    return auto._replace(result=_stacked(results))

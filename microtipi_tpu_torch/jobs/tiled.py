@@ -10,10 +10,12 @@ TV launch per step. The JAX package padded the last, smaller batch to keep
 one compiled program; PyTorch runs eagerly, so the ragged tail is solved as
 it is.
 
-``method="vmlmb"`` and ``method="admm"`` (the same objective through the ADMM
-engine, ``config.max_iter`` fixed iterations a tile) are ported; the
-Richardson-Lucy method and the depth-varying path raise
-``NotImplementedError`` naming their ROADMAP.md items.
+``method="vmlmb"``, ``method="admm"`` (the same objective through the ADMM
+engine, ``config.max_iter`` fixed iterations a tile) and ``method="rl"``
+(Richardson-Lucy, ``rl_iterations`` a tile, RL-TV when ``config.mu > 0``,
+through the batched RL engine of ``jobs/richardson_lucy.py``: one batched TV
+launch an iteration) are ported; the depth-varying path raises
+``NotImplementedError`` naming its ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from microtipi_tpu_torch.jobs.batch import batched_deconvolve
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+from microtipi_tpu_torch.jobs.richardson_lucy import richardson_lucy
 from microtipi_tpu_torch.utils.arrays import crop_to_shape, pad_fft_kernel, roll, unroll
 
 __all__ = ["field_depthvar_psf", "field_psf", "tile_plan", "tiled_deconvolve"]
@@ -133,6 +136,7 @@ def tiled_deconvolve(
     overlap: tuple[int, int, int] | int = 16,
     config: DeconvolutionConfig = DeconvolutionConfig(),
     method: str = "vmlmb",
+    rl_iterations: int = 50,
     max_batch: int = 8,
     depthvar_anchors=None,
     device: torch.device | str = "cuda",
@@ -147,18 +151,16 @@ def tiled_deconvolve(
     ``psf`` may instead be a callable ``psf_fn(center) -> corner-origin
     PSF`` receiving each tile's center in volume voxel coordinates (build
     one with :func:`field_psf`): the tiles of a batch then solve with one
-    kernel per lane. ``method`` is "vmlmb" (TV + positivity by VMLMB) or "admm"
+    kernel per lane. ``method`` is "vmlmb" (TV + positivity by VMLMB), "admm"
     (the same objective through the ADMM engine, a fixed ``config.max_iter``
-    per tile). ``config.var_shape`` is ignored (padding is what the halo is
-    for).
+    per tile) or "rl" (Richardson-Lucy, ``rl_iterations`` per tile;
+    ``config.mu``/``epsilon`` feed its TV variant; ``weights`` are not
+    used). ``config.var_shape`` is ignored (padding is what the halo is for).
     """
     if depthvar_anchors is not None:
         raise NotImplementedError("depthvar_anchors is not ported yet (ROADMAP.md queue 1, "
                                   "items 13 and 14: the Gibson-Lanni model and jobs/depthvar.py)")
-    if method == "rl":
-        raise NotImplementedError("method='rl' is not ported yet (ROADMAP.md queue 1, item 12: "
-                                  "jobs/richardson_lucy.py)")
-    if method not in ("vmlmb", "admm"):
+    if method not in ("vmlmb", "admm", "rl"):
         raise ValueError(f"unknown method {method!r}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -185,8 +187,10 @@ def tiled_deconvolve(
     varying = callable(psf)
     kern = None if varying else prep_kernel(psf)
     cfg = dataclasses.replace(config, var_shape=None)
-    if weights is not None:
+    if weights is not None and method != "rl":  # RL models no per-voxel weights
         weights = np.asarray(weights)
+    else:
+        weights = None
     out = np.empty(data.shape, data.dtype)
     for i in range(0, len(boxes), max_batch):
         chunk = boxes[i : i + max_batch]
@@ -200,7 +204,11 @@ def tiled_deconvolve(
                 prep_kernel(psf(tuple(s + t / 2.0 for s, t in zip(starts, tile))))
                 for starts, _ in chunk
             ])
-        xs = batched_deconvolve(batch, kern, weights=wbatch, config=cfg, engine=method).x.cpu().numpy()
+        if method == "rl":
+            xs = richardson_lucy(batch, kern, iterations=rl_iterations, mu=config.mu, epsilon=config.epsilon)
+        else:
+            xs = batched_deconvolve(batch, kern, weights=wbatch, config=cfg, engine=method).x
+        xs = xs.cpu().numpy()
         for (starts, cores), x in zip(chunk, xs):
             dst = tuple(slice(lo, hi) for lo, hi in cores)
             src = tuple(slice(lo - s, hi - s) for (lo, hi), s in zip(cores, starts))

@@ -186,7 +186,6 @@ def test_unported_and_unknown_entry_points():
     with pytest.raises(ValueError, match="unknown engine"):
         batched_deconvolve(data, kernel, engine="sgd")
     for fn, item in ((tbatch.batched_deconvolve_depthvar, "item 14"),
-                     (tbatch.batched_blind_deconvolve, "item 17"),
-                     (tbatch.batched_deconvolve_auto_mu, "item 12")):
+                     (tbatch.batched_blind_deconvolve, "item 17")):
         with pytest.raises(NotImplementedError, match=item):
             fn(data, kernel)
