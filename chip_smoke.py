@@ -13,7 +13,8 @@ raises and the script exits non-zero:
 1. build the CUDA kernels from ``microtipi_tpu_torch/csrc`` (hyperbolic TV and
    the ADMM split update and right-hand side; one ``nvcc`` a source, started
    together), with ptxas's report (registers, shared memory, spills);
-2. the kernel against its plain PyTorch version on the card, its TMA and its
+2. the kernel against its plain PyTorch version on the card, at 256^3, at
+   phase 15's padded grid 288^3 and at ragged shapes, its TMA and its
    4-byte-copy (unaligned) instantiations, then its time at 256^3:
    ``kernel_ms`` from CUDA events around 50 back-to-back raw launches into
    preallocated outputs, ``call_ms`` per wrapper call (allocation and host
@@ -77,7 +78,8 @@ raises and the script exits non-zero:
 15. ``deconvolve`` at 256^3 with the sparsity and Hessian priors on the
     padded grid 288^3, ``deconvolve_auto_mu`` at 256^3 (tau 4, 8 probes of
     20 iterations) and ``batched_deconvolve_auto_mu`` at 4x64x256x256, each
-    discrepancy beside its target;
+    discrepancy beside its target, and the TV launches equal to the
+    evaluations of the solves (of their lockstep steps for the batch);
 16. ``object_uncertainty`` at 256^3 (8 probes, 25 preconditioned CG
     iterations at most) on a 30-iteration ``deconvolve`` solution.
 
@@ -111,7 +113,9 @@ import torch
 
 SHAPE = (256, 256, 256)
 PARITY_SHAPE = (16, 64, 64)
-KERNEL_SHAPES = (SHAPE, (37, 64, 96), (256, 8, 128))
+# Phase 15's padded variable grid: the TV kernel runs there on a main path.
+PAD_SHAPE = (288, 288, 288)
+KERNEL_SHAPES = (SHAPE, PAD_SHAPE, (37, 64, 96), (256, 8, 128))
 # nx % 4 != 0: the kernel's 4-byte-copy instantiation.
 UNALIGNED_SHAPE = (33, 45, 67)
 # The first is timed; the last two are the tiled run's full and ragged batches.
@@ -1543,10 +1547,46 @@ def phase14_tiled_rl(card: str, psf: torch.Tensor, volume: np.ndarray) -> int:
     return batched
 
 
+@contextlib.contextmanager
+def _auto_mu_solves():
+    """The objective calls of each VMLMB solve that ``jobs.autotune`` makes
+    (its probes, then the final solve), counted by wrapping its
+    ``minimize_vmlmb`` and ``minimize_vmlmb_batched`` names for the run.
+    Yields a list that gets, a solve, (calls, VMLMB's evaluations): one
+    count for one volume, one a lane for a lockstep batch, whose calls are
+    its steps."""
+    from microtipi_tpu_torch.jobs import autotune
+
+    wrapped = autotune.minimize_vmlmb, autotune.minimize_vmlmb_batched
+    solves = []
+
+    def counting(minimize):
+        def run(fun, *args, **kw):
+            calls = [0]
+
+            def counted(*a):
+                calls[0] += 1
+                return fun(*a)
+
+            res = minimize(counted, *args, **kw)
+            solves.append((calls[0], [r.evaluations for r in res] if isinstance(res, list) else res.evaluations))
+            return res
+
+        return run
+
+    autotune.minimize_vmlmb, autotune.minimize_vmlmb_batched = map(counting, wrapped)
+    try:
+        yield solves
+    finally:
+        autotune.minimize_vmlmb, autotune.minimize_vmlmb_batched = wrapped
+
+
 def phase15_priors_auto_mu(card: str) -> tuple[int, int]:
     """``deconvolve`` with the sparsity and Hessian priors on a padded grid,
     ``deconvolve_auto_mu`` at SHAPE and ``batched_deconvolve_auto_mu`` of 4
-    scenes at LANE_SHAPE, each discrepancy beside its target. Returns the TV
+    scenes at LANE_SHAPE, each discrepancy beside its target. Each run's TV
+    launches equal its objective evaluations: the solve's, the probes' and
+    the final solve's, or the lockstep steps of the batch's. Returns the TV
     kernel's single and batched launches."""
     from microtipi_tpu_torch.jobs.autotune import _build_data_cost, deconvolve_auto_mu, estimate_noise_sigma
     from microtipi_tpu_torch.jobs.batch import batched_deconvolve_auto_mu
@@ -1557,7 +1597,7 @@ def phase15_priors_auto_mu(card: str) -> tuple[int, int]:
     _, data, psf = bench_scene(SHAPE, dev, torch.float32)
     sigma = float(estimate_noise_sigma(data))
     target = nvox * sigma ** 2
-    var_shape = (288, 288, 288)
+    var_shape = PAD_SHAPE
     cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, sparsity=0.01, hessian=0.01, var_shape=var_shape, max_iter=20,
                               grtol=0.0, gatol=0.0)
     torch.cuda.reset_peak_memory_stats()
@@ -1583,41 +1623,51 @@ def phase15_priors_auto_mu(card: str) -> tuple[int, int]:
 
     # tau 4: at tau 1 every probe of 20 iterations ends over the target on this sparse scene (2.97
     # N sigma^2 at the bracket's floor on an H100), and mu falls to the floor.
-    acfg, tau = DeconvolutionConfig(epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0), 4.0
-    hv.launches = 0
+    acfg, tau, steps = DeconvolutionConfig(epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0), 4.0, 8
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    auto = deconvolve_auto_mu(data, psf, config=acfg, steps=8, tau=tau)
+    with _auto_mu_solves() as solves:
+        auto = deconvolve_auto_mu(data, psf, config=acfg, steps=steps, tau=tau)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     _check_object("deconvolve_auto_mu", auto.result.x)
-    if hv.launches == 0 or hv.batched_launches or not np.isfinite(auto.discrepancy):
-        raise AssertionError(f"deconvolve_auto_mu: TV launches {hv.launches}, batched {hv.batched_launches}, "
-                             f"discrepancy {auto.discrepancy}")
+    calls = [c for c, _ in solves]
+    if (len(solves) != steps + 1 or hv.launches != sum(calls) or calls != [e for _, e in solves]
+            or hv.batched_launches or hv.unaligned_launches or not np.isfinite(auto.discrepancy)):
+        raise AssertionError(f"deconvolve_auto_mu: TV launches {hv.launches} for the solves' evaluations {solves} "
+                             f"(objective calls, VMLMB's count), batched {hv.batched_launches}, unaligned "
+                             f"{hv.unaligned_launches}, discrepancy {auto.discrepancy}")
     single += hv.launches
-    log(15, f"[{card}] deconvolve_auto_mu {SHAPE}, tau {tau}, 8 probes of 20 iterations: mu {float(auto.mu):.6g}, "
+    log(15, f"[{card}] deconvolve_auto_mu {SHAPE}, tau {tau}, {steps} probes of 20 iterations: mu {float(auto.mu):.6g}, "
             f"mu_history "
             f"{[float(f'{m:.4g}') for m in auto.mu_history]}, discrepancy {float(auto.discrepancy):.6g} against the "
             f"target {float(auto.target):.6g} (sigma {float(auto.sigma):.6g}), wall {wall:.3f} s (1 run), TV kernel "
-            f"launches {hv.launches}")
+            f"launches {hv.launches} = the evaluations of the probes and the final solve {calls}")
 
     scenes = [bench_scene(LANE_SHAPE, dev, torch.float32, seed=s) for s in range(4)]
     batch, lane_psf = torch.stack([d for _, d, _ in scenes]), scenes[0][2]
-    hv.launches = hv.batched_launches = 0
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bauto = batched_deconvolve_auto_mu(batch, lane_psf, config=acfg, steps=8, tau=tau)
+    with _auto_mu_solves() as solves:
+        bauto = batched_deconvolve_auto_mu(batch, lane_psf, config=acfg, steps=steps, tau=tau)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     _check_object("batched_deconvolve_auto_mu", bauto.result.x)
-    if hv.launches or hv.batched_launches == 0 or not np.isfinite(bauto.discrepancy).all():
-        raise AssertionError(f"batched_deconvolve_auto_mu: single-volume TV launches {hv.launches}, batched "
-                             f"{hv.batched_launches}, discrepancy {bauto.discrepancy}")
-    log(15, f"[{card}] batched_deconvolve_auto_mu 4 x {LANE_SHAPE}, tau {tau}, 8 probes of 20 iterations a lane: mu "
-            f"{[float(f'{m:.4g}') for m in bauto.mu]}, discrepancy / target "
+    calls = [c for c, _ in solves]
+    if (len(solves) != steps + 1 or hv.batched_launches != sum(calls) or calls != [max(e) for _, e in solves]
+            or hv.launches or hv.unaligned_launches or not np.isfinite(bauto.discrepancy).all()):
+        raise AssertionError(f"batched_deconvolve_auto_mu: batched TV launches {hv.batched_launches} for the "
+                             f"lockstep solves' steps {solves} (objective calls, each lane's evaluations), "
+                             f"single-volume {hv.launches}, unaligned {hv.unaligned_launches}, discrepancy "
+                             f"{bauto.discrepancy}")
+    log(15, f"[{card}] batched_deconvolve_auto_mu 4 x {LANE_SHAPE}, tau {tau}, {steps} probes of 20 iterations a "
+            f"lane: mu {[float(f'{m:.4g}') for m in bauto.mu]}, discrepancy / target "
             f"{[round(float(d / t), 4) for d, t in zip(bauto.discrepancy, bauto.target)]}, sigma "
             f"{[float(f'{s:.4g}') for s in bauto.sigma]}, wall {wall:.3f} s (1 run), batched TV launches "
-            f"{hv.batched_launches}, single-volume {hv.launches}")
+            f"{hv.batched_launches} = the lockstep steps of the probes and the final solve {calls}, single-volume "
+            f"{hv.launches}")
     return single, hv.batched_launches
 
 

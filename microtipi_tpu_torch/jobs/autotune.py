@@ -19,7 +19,7 @@ probe at ``sqrt(lo*hi)`` and the comparison ``d > target``.
 :func:`estimate_noise_sigma` recovers the Gaussian sigma from the data itself
 (Immerkaer 1996 3x3 Laplacian, made robust by the median absolute deviation),
 per z-plane on volumes. ``jobs/batch.batched_deconvolve_auto_mu`` runs one
-bisection a lane through :func:`auto_mu_lanes`.
+bisection a lane through ``_auto_mu_lanes``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from microtipi_tpu_torch.jobs.deconv import (
     DeconvolutionConfig,
     DeconvolutionResult,
     _data_cost,
+    _stacked,
     _vmlmb_options,
     lane_objective,
     make_regularizer,
@@ -45,7 +46,7 @@ from microtipi_tpu_torch.optim.vmlmb import minimize_vmlmb, minimize_vmlmb_batch
 from microtipi_tpu_torch.utils.arrays import pad_to_shape
 from microtipi_tpu_torch.weights.updaters import laplacian_residuals
 
-__all__ = ["AutoMuResult", "auto_mu_lanes", "deconvolve_auto_mu", "estimate_noise_sigma"]
+__all__ = ["AutoMuResult", "deconvolve_auto_mu", "estimate_noise_sigma"]
 
 
 def _median(t: torch.Tensor) -> torch.Tensor:
@@ -211,14 +212,14 @@ def deconvolve_auto_mu(
     return AutoMuResult(mu, sigma_out, target, d, mus, ds, _result(res))
 
 
-def auto_mu_lanes(data, psf, weights, config: DeconvolutionConfig, *, sigma=None, tau: float = 1.0,
-                  bracket=(1e-7, 1e3), steps: int = 12, search_max_iter: int | None = None, init: str = "data"):
+def _auto_mu_lanes(data, psf, weights, config: DeconvolutionConfig, *, sigma=None, tau: float = 1.0,
+                   bracket=(1e-7, 1e3), steps: int = 12, search_max_iter: int | None = None,
+                   init: str = "data") -> AutoMuResult:
     """:func:`deconvolve_auto_mu` of each lane of a batch (B, Nz, Ny, Nx):
     each lane has its own noise estimate, target and bisection, and each
     probe round is one lockstep ``minimize_vmlmb_batched`` solve with one mu
-    a lane (one batched FFT pair and one batched TV launch a step). Returns
-    the final solves' per-lane VMLMB results and an :class:`AutoMuResult`
-    whose ``result`` is None."""
+    a lane (one batched FFT pair and one batched TV launch a step). Every
+    field of the result has a leading batch axis."""
     lo0, hi0 = _check_search(bracket, steps)
     cost, var_shape = _build_data_cost(psf, data, weights, config)
     sigma_out, target = _target(data, weights, config, sigma, tau, lanes=True)
@@ -244,4 +245,4 @@ def auto_mu_lanes(data, psf, weights, config: DeconvolutionConfig, *, sigma=None
     x0 = _start(data, psf, var_shape, config, init, lanes=True)
     mu, mus, ds, results, d = _bisect(solve, discrepancy, target, x0, lo0, hi0, steps, probe_iter,
                                       int(config.max_iter))
-    return results, AutoMuResult(mu, sigma_out, target, d, mus, ds, None)
+    return AutoMuResult(mu, sigma_out, target, d, mus, ds, _stacked(results))

@@ -20,15 +20,15 @@ naming the ROADMAP.md item that ports them.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from microtipi_tpu_torch.jobs.admm import admm_deconvolve
-from microtipi_tpu_torch.jobs.autotune import AutoMuResult, auto_mu_lanes
+from microtipi_tpu_torch.jobs.autotune import AutoMuResult, _auto_mu_lanes
 from microtipi_tpu_torch.jobs.deconv import (
     DeconvolutionConfig,
     DeconvolutionResult,
     _f32_stall_continue_batched,
+    _stacked,
     _vmlmb_options,
     make_batched_objective,
     stall_gate,
@@ -81,20 +81,6 @@ def batched_deconvolve(
     return _stacked(results)
 
 
-def _stacked(results) -> DeconvolutionResult:
-    """Per-lane VMLMB results as one ``DeconvolutionResult`` with a leading
-    batch axis on every field."""
-    return DeconvolutionResult(
-        torch.stack([r.x for r in results]),
-        np.array([r.f for r in results]),
-        np.array([r.iterations for r in results]),
-        np.array([r.evaluations for r in results]),
-        np.array([r.status for r in results]),
-        np.stack([r.f_history for r in results]),
-        np.stack([r.pg_history for r in results]),
-    )
-
-
 def batched_deconvolve_depthvar(*args, **kw):
     """Depth-varying object update over a batch (``jobs/batch.py:62-79``)."""
     raise NotImplementedError("batched_deconvolve_depthvar is not ported yet (ROADMAP.md queue 1, "
@@ -124,5 +110,4 @@ def batched_deconvolve_auto_mu(
     included."""
     if data.ndim != 4:
         raise ValueError(f"a batch of volumes is 4D, got shape {tuple(data.shape)}")
-    results, auto = auto_mu_lanes(data, psf, weights, config, **auto_kw)
-    return auto._replace(result=_stacked(results))
+    return _auto_mu_lanes(data, psf, weights, config, **auto_kw)

@@ -33,6 +33,7 @@ from microtipi_tpu_torch.jobs.wiener import wiener
 from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig, fit_psf, fit_psf_joint
 from microtipi_tpu_torch.models.microscope import DEFOCUS, MODULUS, PHASE
 from microtipi_tpu_torch.ops.convolution import WeightedConvolutionCost
+from microtipi_tpu_torch.utils.arrays import crop_to_shape, pad_fft_kernel, pad_to_shape
 
 __all__ = ["BlindDeconvConfig", "BlindDeconvResult", "blind_deconvolve", "run_blind_loop"]
 
@@ -168,12 +169,15 @@ def blind_deconvolve(
         raise NotImplementedError("bead anchors are not ported yet (ROADMAP.md queue 1, item 15)")
     if params0 is None:
         params0 = model.init_params()
+    # The object lives on deconv.var_shape (the padded variable grid), the
+    # PSF fits on the data window (jobs/blind.py:294-345).
+    var_shape = tuple(config.deconv.var_shape) if config.deconv.var_shape is not None else tuple(data.shape)
     if x0 is None:
         if config.init == "wiener":
             x0 = wiener(data, model.compute_psf(params0))
         else:
             x0 = data
-        x0 = torch.clamp_min(x0, 0.0)
+        x0 = torch.clamp_min(pad_to_shape(x0, var_shape), 0.0)
 
     fit_cfg = dataclasses.replace(config.fit, grtol=0.0)  # BlindDeconvJob.java:124
 
@@ -199,13 +203,16 @@ def blind_deconvolve(
             return weights
         # Model prediction H*x from the updated object; the weights feed only
         # this round's PSF step (BlindDeconvJob.java:109-111).
-        full_cost = WeightedConvolutionCost.build(psf, data)
+        full_cost = WeightedConvolutionCost.build(pad_fft_kernel(psf, var_shape), data, None, var_shape)
         return weight_updater(full_cost.model(x), data)
+
+    def _obj_at_data(x):
+        return crop_to_shape(x, tuple(data.shape)) if tuple(x.shape) != tuple(data.shape) else x
 
     def fit_one(params, x, w_fit, j, phase_active):
         flag = config.families[j]
         fres = fit_psf(
-            model, params, flag, data, x, weights=w_fit,
+            model, params, flag, data, _obj_at_data(x), weights=w_fit,
             config=dataclasses.replace(fit_cfg, max_iter=config.psf_max_iter[j]),
             active=phase_active,
             freeze_head=config.phase_freeze_head if flag == PHASE else 0,
@@ -214,7 +221,7 @@ def blind_deconvolve(
 
     def fit_joint(params, x, w_fit, jfams):
         fres = fit_psf_joint(
-            model, params, jfams, data, x, weights=w_fit,
+            model, params, jfams, data, _obj_at_data(x), weights=w_fit,
             config=dataclasses.replace(fit_cfg, max_iter=max(config.psf_max_iter)),
             phase_freeze_head=config.phase_freeze_head,
         )

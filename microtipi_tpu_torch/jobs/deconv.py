@@ -118,6 +118,20 @@ class DeconvolutionResult(NamedTuple):
     pg_history: np.ndarray
 
 
+def _stacked(results) -> DeconvolutionResult:
+    """Per-lane VMLMB results as one ``DeconvolutionResult`` with a leading
+    batch axis on every field."""
+    return DeconvolutionResult(
+        torch.stack([r.x for r in results]),
+        np.array([r.f for r in results]),
+        np.array([r.iterations for r in results]),
+        np.array([r.evaluations for r in results]),
+        np.array([r.status for r in results]),
+        np.stack([r.f_history for r in results]),
+        np.stack([r.pg_history for r in results]),
+    )
+
+
 def has_regularizer(config: DeconvolutionConfig) -> bool:
     """True when any regularization weight is active (``deconv.py:195-197``)."""
     return config.mu > 0 or config.sparsity > 0 or config.hessian > 0

@@ -6,7 +6,9 @@ Tolerances: the priors and ``regularization_cost`` (values and gradients)
 to 1e-10 relative; ``deconvolve`` and the batched lanes at the bounds of
 tests/test_torch_slice.py::test_deconvolve_matches_jax (same iterations,
 evaluations and status; f_history to 1e-8 over the first six values and
-5e-7 over all; x to 1e-6 relative L2)."""
+5e-7 over all; x to 1e-6 relative L2); the blind loop on a padded grid at
+the bound of tests/test_torch_slice.py::test_blind_matches_jax (1e-6
+relative)."""
 
 import dataclasses
 
@@ -16,12 +18,18 @@ import numpy as np
 import pytest
 import torch
 
+from microtipi_tpu.jobs.blind import BlindDeconvConfig as JaxBlindConfig
+from microtipi_tpu.jobs.blind import blind_deconvolve as jax_blind
 from microtipi_tpu.jobs.deconv import DeconvolutionConfig as JaxDeconvConfig
 from microtipi_tpu.jobs.deconv import deconvolve as jax_deconvolve
 from microtipi_tpu.jobs.deconv import regularization_cost as jax_regularization_cost
+from microtipi_tpu.jobs.psf_fit import PsfFitConfig as JaxFitConfig
+from microtipi_tpu.models.widefield import WideFieldConfig as JaxConfig
 from microtipi_tpu.ops import regularization as jreg
+from microtipi_tpu.weights import updaters as jweights
 from microtipi_tpu_torch import convert
 from microtipi_tpu_torch.jobs.batch import batched_deconvolve
+from microtipi_tpu_torch.jobs.blind import blind_deconvolve
 from microtipi_tpu_torch.jobs.deconv import (
     DeconvolutionConfig,
     deconvolve,
@@ -29,6 +37,8 @@ from microtipi_tpu_torch.jobs.deconv import (
     make_regularizer,
     regularization_cost,
 )
+from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+from microtipi_tpu_torch.models.widefield import WideFieldModel
 from microtipi_tpu_torch.ops import regularization as treg
 
 RTOL = 1e-10
@@ -199,3 +209,37 @@ def test_deconv_config_from_fields_carries_the_priors_and_grid():
     assert (tcfg.sparsity, tcfg.hessian, tcfg.sparsity_epsilon, tcfg.var_shape) == (0.3, 0.04, 0.005, (10, 20, 20))
     names = {f.name for f in dataclasses.fields(tcfg)}
     assert {f.name for f in dataclasses.fields(jcfg)} - names == {"fused_tv", "mem_dtype", "exact_fft"}
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_blind_on_var_shape_matches_jax(weighted):
+    """Two rounds of the blind loop with the object on a padded grid and the
+    PSF fits on the data window (``jobs/blind.py:294-345``); ``weighted``
+    re-estimates inverse-variance weights for the fits from the model on the
+    padded grid. The JAX config crosses over through
+    ``convert.blind_config_from_fields``."""
+    shape, var_shape = (6, 24, 24), (8, 28, 28)
+    cfg = JaxConfig(shape=shape, na=1.2, wavelength=500e-9, ni=1.33, dxy=100e-9, dz=200e-9, n_phase=3,
+                    dtype=jnp.float64)
+    rng = np.random.default_rng(4)
+    truth = rng.random(shape) * (rng.random(shape) > 0.97) * 50.0
+    psf = np.asarray(cfg.compute_psf(cfg.init_params()._replace(phase=jnp.asarray([0.3, -0.2, 0.1]))))
+    data = np.fft.irfftn(np.fft.rfftn(truth) * np.fft.rfftn(psf), s=shape, axes=(0, 1, 2))
+    data += 0.01 * data.max() * rng.standard_normal(shape)
+    jcfg = JaxBlindConfig(loops=2, families=(DEFOCUS, PHASE), psf_max_iter=(4, 4), fit=JaxFitConfig(grtol=0.0),
+                          deconv=JaxDeconvConfig(mu=0.01, epsilon=1.0, max_iter=8, grtol=0.0, gatol=0.0,
+                                                 var_shape=var_shape))
+    jmodel = jweights.InverseVarianceWeights(gain=2.0, readout_variance=0.5) if weighted else None
+    rj = jax_blind(jnp.asarray(data), cfg, weight_updater=jmodel and jmodel.update, config=jcfg)
+    tu = convert.weights_from_fields(jmodel).update if weighted else None
+    model = WideFieldModel(convert.config_from_fields(cfg), device="cpu")
+    rt = blind_deconvolve(torch.tensor(data), model, weight_updater=tu, config=convert.blind_config_from_fields(jcfg))
+    assert tuple(rt.obj.shape) == var_shape == tuple(rj.obj.shape)
+    np.testing.assert_allclose(rt.deconv_f, np.asarray(rj.deconv_f), rtol=1e-6)
+    assert np.isnan(rt.fit_f[-1]).all() and np.isfinite(rt.fit_f[:-1]).all()
+    np.testing.assert_allclose(rt.fit_f, np.asarray(rj.fit_f), rtol=1e-6)
+    np.testing.assert_array_equal(rt.deconv_iters, np.asarray(rj.deconv_iters))
+    for name in ("defocus", "phase"):
+        got, want = getattr(rt.params, name).numpy(), np.asarray(getattr(rj.params, name))
+        assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-6, name
+    assert _rel(rt.obj.numpy(), rj.obj) < 1e-6
