@@ -13,6 +13,9 @@ warm-up of each:
   tracked and weighted (phase 10's solves);
 - ``batched_deconvolve`` of 4 bench scenes at 64x256x256, 20 iterations
   (phase 7), then the same batch with ``engine="admm"`` (phase 12);
+- ``deconvolve_depthvar`` of phase 18's weighted scene at 64x256x256 with 4
+  Gibson-Lanni anchors, 20 iterations, and ``richardson_lucy_depthvar`` of
+  it with RL-TV, 50 iterations (phase 18);
 - ``tiled_deconvolve`` of a 256x464x464 volume made as phase 8 makes its
   design-scale volume: 4 tiles of 256^3 with overlap 24, one batch of 4,
   10 iterations, which is one of the design-scale run's 19 batches; then
@@ -36,6 +39,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 CLASSES = ("tv", "admm", "cufft", "reduction", "copy", "elementwise")
@@ -90,6 +94,7 @@ def main() -> int:
     from microtipi_tpu_torch.jobs.admm import admm_deconvolve
     from microtipi_tpu_torch.jobs.batch import batched_deconvolve
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+    from microtipi_tpu_torch.jobs.depthvar import deconvolve_depthvar, depth_anchor_psfs, richardson_lucy_depthvar
     from microtipi_tpu_torch.jobs.richardson_lucy import richardson_lucy
     from microtipi_tpu_torch.jobs.tiled import tiled_deconvolve
     from microtipi_tpu_torch.jobs.uncertainty import object_uncertainty
@@ -123,6 +128,18 @@ def main() -> int:
     trace(f"batched_deconvolve engine='admm' 4 x {cs.LANE_SHAPE}",
           lambda: batched_deconvolve(batch, psf, config=cfg20, engine="admm"))
     del scenes, batch, psf
+
+    model = cs.depthvar_model(cs.LANE_SHAPE, torch.float32, dev)
+    anchors = np.linspace(0.0, cs.LANE_SHAPE[0] - 1.0, cs.DEPTH_K)
+    with torch.no_grad():
+        psfs = depth_anchor_psfs(model, model.init_params(), anchors)
+    data, _ = cs.depthvar_scene(psfs, anchors, cs.LANE_SHAPE, dev, torch.float32)
+    weights = InverseVarianceWeights().from_data(data)
+    trace(f"deconvolve_depthvar {cs.LANE_SHAPE}, K {cs.DEPTH_K}, weighted, 20 iterations",
+          lambda: deconvolve_depthvar(data, psfs, anchors, weights=weights, config=cfg20))
+    trace(f"richardson_lucy_depthvar {cs.LANE_SHAPE}, K {cs.DEPTH_K}, RL-TV, 50 iterations",
+          lambda: richardson_lucy_depthvar(data, psfs, anchors, iterations=50, mu=0.01, epsilon=1.0))
+    del model, psfs, data, weights
 
     psf = cs.design_psf()
     volume = cs.design_volume(psf, (256, 464, 464))

@@ -26,7 +26,9 @@ raises and the script exits non-zero:
    ``deconvolve``, of ``batched_deconvolve`` at 3 lanes, of
    ``admm_deconvolve``, of ``richardson_lucy`` (matched, RL-TV,
    Wiener-Butterworth accelerated), of ``deconvolve_auto_mu`` (the same
-   decisions and mu) and of the Laplace uncertainty (the same probes);
+   decisions and mu), of the Laplace uncertainty (the same probes) and of
+   ``deconvolve_depthvar`` and ``richardson_lucy_depthvar`` (RL-TV) on
+   Gibson-Lanni anchors;
 5. cuFFT float32 precision against float64 NumPy at 256^3;
 6. the batched hyperbolic-TV kernel against its plain version, each lane
    against the single-volume kernel (bitwise), unaligned batches and lane
@@ -81,11 +83,24 @@ raises and the script exits non-zero:
     discrepancy beside its target, and the TV launches equal to the
     evaluations of the solves (of their lockstep steps for the batch);
 16. ``object_uncertainty`` at 256^3 (8 probes, 25 preconditioned CG
-    iterations at most) on a 30-iteration ``deconvolve`` solution.
+    iterations at most) on a 30-iteration ``deconvolve`` solution;
+17. every PSF family at 256^3 float32 (wide-field, Gibson-Lanni, confocal
+    with and without a pinhole, two-photon, vectorial, Gaussian, Bessel and
+    lattice light sheets, ISM, 4Pi A and C, STED donut and bottle):
+    ``compute_psf`` wall and sum, the gradient for each of its families,
+    card float32 against CPU float64 at 16x64x64; then ``blind_deconvolve``
+    through a ``ConfocalModel`` as phase 3's loop;
+18. the depth-varying object step at ``BASELINE.json`` config 2's size,
+    64x256x256, 4 Gibson-Lanni anchors from one batched synthesis:
+    ``deconvolve_depthvar`` (weighted, 20 iterations), RL-TV
+    ``richardson_lucy_depthvar`` (50), ``batched_deconvolve_depthvar`` of 4
+    scenes, each lane against the single solve, and a DEPTH ``fit_psf``;
+19. ``tiled_deconvolve(depthvar_anchors=...)`` with ``field_depthvar_psf``
+    on phase 8's design volume, 10 iterations.
 
-The main paths are phases 3, 13 and 15 (the single-volume TV kernel),
-phases 7-8, 14 and 15 (the batched TV kernel) and phases 10-12 (the ADMM
-kernels): each is driven with the launch counts set to 0 just before and
+The main paths are phases 3, 13, 15, 17 and 18 (the single-volume TV
+kernel), phases 7-8, 14, 15, 18 and 19 (the batched TV kernel) and phases
+10-12 (the ADMM kernels): each is driven with the launch counts set to 0 just before and
 read just after, and none may take the TV kernel's unaligned instantiation
 or the split update's 4-byte one; the TV entries of the kernels line give
 their launches path by path (``launches_by_path``). Phase 16 must launch no
@@ -331,20 +346,26 @@ def phase2_kernel(card: str) -> dict:
     return {"max_abs_err": max_err, "ms": t["call_ms"], **t, "library_ms": None}
 
 
-def bench_scene(shape, device, dtype, phase=None, seed=0):
-    """The bench's widefield model and data (``bench.py:79-92,182-189``):
-    sparse random beads blurred by the PSF, plus 1% Gaussian noise; ``seed``
-    draws another scene."""
-    from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
-    from microtipi_tpu_torch.ops.convolution import convolve, convolve_spectrum
-
-    model = WideFieldModel(WideFieldConfig(shape=shape, na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9,
-                                           dz=200e-9, n_phase=6, n_modulus=1, dtype=dtype), device=device)
+def bead_objects(shape, device, dtype, seed=0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bench scene's object (sparse random beads) and unit Gaussian
+    noise (``bench.py:182-189``)."""
     rng = np.random.default_rng(seed)
     obj = rng.random(shape, dtype=np.float32) * (rng.random(shape) > 0.999) * 300
     noise = rng.standard_normal(shape).astype(np.float32)
-    obj = torch.as_tensor(obj, dtype=dtype, device=device)
-    noise = torch.as_tensor(noise, dtype=dtype, device=device)
+    return (torch.as_tensor(obj, dtype=dtype, device=device), torch.as_tensor(noise, dtype=dtype, device=device))
+
+
+def bench_scene(shape, device, dtype, phase=None, seed=0, model=None):
+    """The bench's widefield model and data (``bench.py:79-92,182-189``):
+    sparse random beads blurred by the PSF, plus 1% Gaussian noise; ``seed``
+    draws another scene, ``model`` blurs it through another PSF model."""
+    from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
+    from microtipi_tpu_torch.ops.convolution import convolve, convolve_spectrum
+
+    if model is None:
+        model = WideFieldModel(WideFieldConfig(shape=shape, na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9,
+                                               dz=200e-9, n_phase=6, n_modulus=1, dtype=dtype), device=device)
+    obj, noise = bead_objects(shape, device, dtype, seed)
     params = model.init_params()
     if phase is not None:
         params = params._replace(phase=torch.as_tensor(phase, dtype=dtype, device=device))
@@ -1548,16 +1569,15 @@ def phase14_tiled_rl(card: str, psf: torch.Tensor, volume: np.ndarray) -> int:
 
 
 @contextlib.contextmanager
-def _auto_mu_solves():
-    """The objective calls of each VMLMB solve that ``jobs.autotune`` makes
-    (its probes, then the final solve), counted by wrapping its
-    ``minimize_vmlmb`` and ``minimize_vmlmb_batched`` names for the run.
-    Yields a list that gets, a solve, (calls, VMLMB's evaluations): one
-    count for one volume, one a lane for a lockstep batch, whose calls are
-    its steps."""
-    from microtipi_tpu_torch.jobs import autotune
-
-    wrapped = autotune.minimize_vmlmb, autotune.minimize_vmlmb_batched
+def _counted_solves(module):
+    """The objective calls of each VMLMB solve that ``module`` makes (for
+    ``jobs.autotune``: its probes, then the final solve; for ``jobs.batch``:
+    each lockstep batch), counted by wrapping its ``minimize_vmlmb`` and
+    ``minimize_vmlmb_batched`` names for the run. Yields a list that gets, a
+    solve, (calls, VMLMB's evaluations): one count for one volume, one a lane
+    for a lockstep batch, whose calls are its steps."""
+    names = [n for n in ("minimize_vmlmb", "minimize_vmlmb_batched") if hasattr(module, n)]
+    wrapped = [getattr(module, n) for n in names]
     solves = []
 
     def counting(minimize):
@@ -1574,11 +1594,13 @@ def _auto_mu_solves():
 
         return run
 
-    autotune.minimize_vmlmb, autotune.minimize_vmlmb_batched = map(counting, wrapped)
+    for n, fn in zip(names, wrapped):
+        setattr(module, n, counting(fn))
     try:
         yield solves
     finally:
-        autotune.minimize_vmlmb, autotune.minimize_vmlmb_batched = wrapped
+        for n, fn in zip(names, wrapped):
+            setattr(module, n, fn)
 
 
 def phase15_priors_auto_mu(card: str) -> tuple[int, int]:
@@ -1588,6 +1610,7 @@ def phase15_priors_auto_mu(card: str) -> tuple[int, int]:
     launches equal its objective evaluations: the solve's, the probes' and
     the final solve's, or the lockstep steps of the batch's. Returns the TV
     kernel's single and batched launches."""
+    from microtipi_tpu_torch.jobs import autotune
     from microtipi_tpu_torch.jobs.autotune import _build_data_cost, deconvolve_auto_mu, estimate_noise_sigma
     from microtipi_tpu_torch.jobs.batch import batched_deconvolve_auto_mu
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
@@ -1627,7 +1650,7 @@ def phase15_priors_auto_mu(card: str) -> tuple[int, int]:
     hv.launches = hv.batched_launches = hv.unaligned_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _auto_mu_solves() as solves:
+    with _counted_solves(autotune) as solves:
         auto = deconvolve_auto_mu(data, psf, config=acfg, steps=steps, tau=tau)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1650,7 +1673,7 @@ def phase15_priors_auto_mu(card: str) -> tuple[int, int]:
     hv.launches = hv.batched_launches = hv.unaligned_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _auto_mu_solves() as solves:
+    with _counted_solves(autotune) as solves:
         bauto = batched_deconvolve_auto_mu(batch, lane_psf, config=acfg, steps=steps, tau=tau)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1705,6 +1728,414 @@ def phase16_uncertainty(card: str) -> None:
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 
+# Phases 17-19: every PSF family, the depth-varying object step.
+OPTICS = dict(na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9, dz=200e-9, n_phase=6)
+# The light sheet's detection arm: a water-dipping NA 0.8 objective.
+SHEET_OPTICS = dict(OPTICS, na=0.8, ni=1.33, dxy=150e-9, dz=400e-9, wavelength=520e-9)
+BENCH_PHASE = [0.15, -0.1, 0.08, 0.0, 0.05, 0.0]  # phase 3's blind scene's aberration
+# Card float32 against CPU float64 of each family's PSF at PARITY_SHAPE:
+# relative L2. The pupil phases reach ~30 rad, so float32 rounds them by
+# ~2e-6 rad; the FFTs and the composite products add ~1e-6.
+FAMILY_F32_REL = 1e-4
+DEPTH0, DEPTH_K = 10e-6, 4  # phase 18: Gibson-Lanni depth of plane 0, anchors
+
+
+def family_configs(shape, dtype) -> dict:
+    """Every PSF family of the port at ``shape``, with three modulus modes:
+    name -> config."""
+    from microtipi_tpu_torch import models as m
+
+    # three modulus modes: one alone is normalised away and carries no gradient
+    base = dict(OPTICS, shape=shape, dtype=dtype, n_modulus=3)
+    sheet = dict(SHEET_OPTICS, shape=shape, dtype=dtype, n_modulus=3)
+    return {
+        "widefield": m.WideFieldConfig(**base),
+        "gibson_lanni": m.GibsonLanniConfig(ns=1.38, depth=DEPTH0, **base),
+        "confocal": m.ConfocalConfig(wavelength_exc=488e-9, **base),
+        "confocal_pinhole": m.ConfocalConfig(wavelength_exc=488e-9, pinhole=120e-9, **base),
+        "two_photon": m.TwoPhotonConfig(**dict(base, wavelength=920e-9)),
+        "vectorial": m.VectorialConfig(**base),
+        "lightsheet": m.LightSheetConfig(sheet_na=0.1, wavelength_exc=488e-9, **sheet),
+        "bessel": m.StructuredSheetConfig(wavelength_exc=488e-9, **sheet),
+        "lattice": m.StructuredSheetConfig(sheet_mode="lattice", lattice_ky=(0.0, 0.5), wavelength_exc=488e-9,
+                                           **sheet),
+        "ism": m.ISMConfig(wavelength_exc=488e-9, pinhole=40e-9, element_pitch=60e-9, rings=2, **base),
+        "fourpi_a": m.FourPiConfig(fourpi_type="A", wavelength_exc=488e-9, pinhole=120e-9, cavity_phase=0.3, **base),
+        "fourpi_c": m.FourPiConfig(fourpi_type="C", wavelength_exc=488e-9, cavity_phase=0.3, **base),
+        "sted_donut": m.STEDConfig(wavelength_exc=488e-9, wavelength_dep=660e-9, pinhole=120e-9, saturation=10.0,
+                                   **base),
+        "sted_bottle": m.STEDConfig(depletion="bottle", wavelength_exc=488e-9, wavelength_dep=660e-9,
+                                    pinhole=120e-9, saturation=5.0, **base),
+    }
+
+
+def _family_params(model):
+    """The model's initial params with phase 3's aberration."""
+    p = model.init_params()
+    return p._replace(phase=torch.as_tensor(BENCH_PHASE, dtype=model.dtype, device=model.device))
+
+
+def _psf_sum_check(name: str, model, params, psf: torch.Tensor) -> float:
+    """The PSF's sum against what it must be: 1 for the unit-sum families;
+    for the wide-field and Gibson-Lanni ones, by Parseval, sum(rho^2) (each
+    plane's |FFT2(A)|^2 sums to Nx*Ny*sum|A|^2, |A| = rho, over Nx*Ny*Nz)."""
+    total = float(psf.double().sum())
+    want = float((model.compute_pupil(params)[0].double() ** 2).sum()) if name in ("widefield",
+                                                                                  "gibson_lanni") else 1.0
+    return abs(total - want) / want
+
+
+def phase17_families(card: str) -> int:
+    """Every family's ``compute_psf`` at SHAPE in float32 on the card: its
+    sum, finite, its wall (median of 3, no autograd); the gradient of
+    sum(psf * w) with respect to each of its families (finite and non-zero),
+    the forward-and-backward wall (after a warm-up) and peak memory; the card
+    float32 against the CPU float64 at PARITY_SHAPE. Then ``blind_deconvolve`` of phase 3's
+    scene blurred through a confocal PSF, by a ``ConfocalModel``. Returns the
+    TV kernel's launches."""
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig, blind_deconvolve
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+    from microtipi_tpu_torch.models import model_for
+    from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    dev = torch.device("cuda")
+    cards, cpus = family_configs(SHAPE, torch.float32), family_configs(PARITY_SHAPE, torch.float64)
+    small32 = family_configs(PARITY_SHAPE, torch.float32)
+    w = torch.as_tensor(np.random.default_rng(17).random(SHAPE, dtype=np.float32), device=dev)
+    for name, cfg in cards.items():
+        model = model_for(cfg, dev)
+        params = _family_params(model)
+        with torch.no_grad():
+            psf = model.compute_psf(params)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                psf = model.compute_psf(params)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        sum_err = _psf_sum_check(name, model, params, psf)
+        if tuple(psf.shape) != SHAPE or not bool(torch.isfinite(psf).all()) or sum_err > 1e-4:
+            raise AssertionError(f"{name}: PSF shape {tuple(psf.shape)}, finite {bool(torch.isfinite(psf).all())}, "
+                                 f"sum off by {sum_err:.3g}")
+        del psf
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):  # the first backward warms autograd's complex kernels; the second is timed
+            leaves = params._replace(**{k: v.clone().requires_grad_() for k, v in params._asdict().items()})
+            t0 = time.perf_counter()
+            torch.sum(model.compute_psf(leaves) * w).backward()
+            torch.cuda.synchronize()
+            grad_wall = time.perf_counter() - t0
+        grads = {k: getattr(leaves, k).grad for k in leaves._fields}
+        bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0]
+        if bad:
+            raise AssertionError(f"{name}: gradient not finite or zero for {bad}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with torch.no_grad():
+            pair = [model_for(c[name], d) for c, d in ((small32, dev), (cpus, "cpu"))]
+            rel = _rel_l2(*(m.compute_psf(_family_params(m)) for m in pair))
+        if rel > FAMILY_F32_REL:
+            raise AssertionError(f"{name}: card float32 vs CPU float64 at {PARITY_SHAPE}: {rel:.3g} relative L2")
+        log(17, f"[{card}] {name} {SHAPE} float32: compute_psf wall {float(np.median(walls)) * 1e3:.2f} ms (median "
+                f"of 3), sum off by {sum_err:.2g}; gradient of sum(psf * w) for {list(grads)} finite and non-zero, "
+                f"forward+backward {grad_wall * 1e3:.1f} ms (1 run after a warm-up), peak device memory {peak:.3f} GiB; card float32 "
+                f"vs CPU float64 at {PARITY_SHAPE}: {rel:.3g} relative L2 (< {FAMILY_F32_REL:g})")
+        del model, leaves, grads
+
+    model = model_for(cards["confocal_pinhole"], dev)
+    _, data, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE, model=model)
+    bcfg = BlindDeconvConfig(
+        loops=5, families=(DEFOCUS, PHASE), psf_max_iter=(5, 5), joint_fit=True,
+        deconv=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0),
+        fit=PsfFitConfig(grtol=0.0),
+    )
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bres = blind_deconvolve(data, model, config=bcfg)
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    _check_object("confocal blind_deconvolve", bres.obj)
+    df = bres.deconv_f
+    if not (np.isfinite(df).all() and np.all(np.diff(df) < 0)):
+        raise AssertionError(f"confocal blind deconv_f does not decrease across rounds: {df}")
+    if not (np.isnan(bres.fit_f[-1]).all() and np.isfinite(bres.fit_f[:-1]).all()):
+        raise AssertionError(f"confocal blind fit_f: the last row must be NaN, the others finite: {bres.fit_f}")
+    if hv.launches == 0 or hv.batched_launches or hv.unaligned_launches:
+        raise AssertionError(f"confocal blind: TV launches {hv.launches}, batched {hv.batched_launches}, unaligned "
+                             f"{hv.unaligned_launches}")
+    phase_err = float(torch.linalg.norm(bres.params.phase.cpu() - torch.tensor(BENCH_PHASE)))
+    log(17, f"[{card}] blind_deconvolve {SHAPE} through a ConfocalModel (488/561 nm, pinhole 120 nm), 5 rounds, joint "
+            f"defocus+phase fit: object iterations {bres.deconv_iters.tolist()}, deconv_f {df.tolist()}, phase "
+            f"{[round(float(v), 4) for v in bres.params.phase]} (true {BENCH_PHASE}, L2 off {phase_err:.4f}), wall "
+            f"{bwall:.3f} s (1 run), TV kernel launches {hv.launches}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return hv.launches
+
+
+def depthvar_model(shape, dtype, device):
+    """The Gibson-Lanni model of BASELINE.json config 2: NA 1.4, 561 nm,
+    ni 1.518, ns 1.38, 80/200 nm sampling, plane 0 at 10 um depth."""
+    from microtipi_tpu_torch.models import GibsonLanniConfig, GibsonLanniModel
+
+    return GibsonLanniModel(GibsonLanniConfig(shape=shape, ns=1.38, depth=DEPTH0, dtype=dtype, **OPTICS), device)
+
+
+def depthvar_scene(psfs, anchors, shape, device, dtype, seed=0):
+    """Bench beads blurred by the depth-varying operator of ``psfs`` at
+    ``anchors``, plus 1% Gaussian noise; and the object."""
+    from microtipi_tpu_torch.ops.depthconv import DepthVaryingConvCost
+
+    obj, noise = bead_objects(shape, device, dtype, seed)
+    with torch.no_grad():
+        d = DepthVaryingConvCost.build(psfs, obj, anchors=anchors).model(obj)
+        return d + 0.01 * d.max() * noise, obj
+
+
+def phase18_depthvar(card: str) -> tuple[int, int]:
+    """The depth-varying object step at BASELINE.json config 2's size,
+    LANE_SHAPE: DEPTH_K Gibson-Lanni anchors in one batched synthesis, the
+    scene weighted by ``InverseVarianceWeights.from_data``;
+    ``deconvolve_depthvar`` (20 VMLMB iterations, its TV launches equal to
+    its evaluations), ``richardson_lucy_depthvar`` with RL-TV (50, one TV
+    launch an iteration), ``batched_deconvolve_depthvar`` of 4 scenes (its
+    batched launches equal to its lockstep steps), each lane against
+    ``deconvolve_depthvar`` of its scene with phase 4's float32 bounds on f,
+    and ``fit_psf`` of the depth (ns held) on the beads blurred by the PSF at
+    DEPTH0, from 7 um. Returns the single and batched TV launches."""
+    from microtipi_tpu_torch.jobs.batch import batched_deconvolve_depthvar
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.depthvar import deconvolve_depthvar, depth_anchor_psfs, richardson_lucy_depthvar
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig, fit_psf
+    from microtipi_tpu_torch.models.microscope import DEPTH
+    from microtipi_tpu_torch.ops.convolution import convolve, convolve_spectrum
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+    from microtipi_tpu_torch.weights.updaters import InverseVarianceWeights
+
+    dev, nvox = torch.device("cuda"), float(np.prod(LANE_SHAPE))
+    model = depthvar_model(LANE_SHAPE, torch.float32, dev)
+    anchors = np.linspace(0.0, LANE_SHAPE[0] - 1.0, DEPTH_K)
+    with torch.no_grad():
+        depth_anchor_psfs(model, model.init_params(), anchors)  # warm-up (the batched FFT plan)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psfs = depth_anchor_psfs(model, model.init_params(), anchors)
+        torch.cuda.synchronize()
+    synth = time.perf_counter() - t0
+    scenes = [depthvar_scene(psfs, anchors, LANE_SHAPE, dev, torch.float32, seed=s) for s in range(4)]
+    wmodel = InverseVarianceWeights()
+    weights = [wmodel.from_data(d) for d, _ in scenes]
+    data, obj = scenes[0]
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
+    deconvolve_depthvar(data, psfs, anchors, weights=weights[0],
+                        config=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=2))  # warm-up (FFT plans)
+    torch.cuda.reset_peak_memory_stats()
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = deconvolve_depthvar(data, psfs, anchors, weights=weights[0], config=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_object("deconvolve_depthvar", res.x)
+    if (hv.launches, hv.batched_launches, hv.unaligned_launches) != (res.evaluations, 0, 0) or not np.isfinite(res.f):
+        raise AssertionError(f"deconvolve_depthvar: f {res.f}, TV launches {hv.launches} for {res.evaluations} "
+                             f"evaluations, batched {hv.batched_launches}, unaligned {hv.unaligned_launches}")
+    single = hv.launches
+    log(18, f"[{card}] Gibson-Lanni anchors: {DEPTH_K} PSFs of {LANE_SHAPE} at depths "
+            f"{[round(DEPTH0 * 1e6 + float(a) * 0.2, 2) for a in anchors]} um in one batched synthesis, {synth * 1e3:.2f} ms")
+    log(18, f"[{card}] deconvolve_depthvar {LANE_SHAPE}, K {DEPTH_K}, inverse-variance weights, 20 iterations: "
+            f"{res.iterations} iterations, {res.evaluations} evaluations, status {res.status}, f {float(res.f):.6g}, "
+            f"wall {wall:.4f} s (1 run after a warm-up), {nvox * res.iterations / wall / 1e6:.1f} Mvox*iter/s, TV "
+            f"kernel launches {hv.launches} = evaluations, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, k = richardson_lucy_depthvar(data, psfs, anchors, iterations=50, mu=0.01, epsilon=1.0, return_iterations=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_object("richardson_lucy_depthvar", x)
+    if (hv.launches, hv.batched_launches, hv.unaligned_launches) != (50, 0, 0) or k != 50:
+        raise AssertionError(f"richardson_lucy_depthvar RL-TV: {k} iterations, TV launches {hv.launches} (expected "
+                             f"50), batched {hv.batched_launches}, unaligned {hv.unaligned_launches}")
+    single += hv.launches
+    log(18, f"[{card}] richardson_lucy_depthvar {LANE_SHAPE}, RL-TV (mu 0.01, epsilon 1), 50 iterations: wall "
+            f"{wall:.4f} s (1 run), {nvox * 50 / wall / 1e6:.1f} Mvox*iter/s, TV kernel launches {hv.launches}, "
+            f"relative L2 to the true object {_rel_l2(x, obj):.4f} (the data's {_rel_l2(data, obj):.4f})")
+
+    batch, wbatch = torch.stack([d for d, _ in scenes]), torch.stack(weights)
+    batched_deconvolve_depthvar(batch, psfs, anchors, weights=wbatch,
+                                config=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=2))  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bres = batched_deconvolve_depthvar(batch, psfs, anchors, weights=wbatch, config=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = int(np.max(bres.evaluations))
+    _check_object("batched_deconvolve_depthvar", bres.x)
+    if (hv.launches, hv.batched_launches, hv.unaligned_launches) != (0, steps, 0):
+        raise AssertionError(f"batched_deconvolve_depthvar: batched TV launches {hv.batched_launches} for {steps} "
+                             f"lockstep steps, single {hv.launches}, unaligned {hv.unaligned_launches}")
+    batched = hv.batched_launches
+    log(18, f"[{card}] batched_deconvolve_depthvar 4 x {LANE_SHAPE}, K {DEPTH_K}, weighted, 20 iterations: iterations "
+            f"{bres.iterations.tolist()}, evaluations {bres.evaluations.tolist()}, wall {wall:.4f} s (1 run after a "
+            f"warm-up), {nvox * bres.iterations.sum() / wall / 1e6:.1f} Mvox*iter/s, batched TV launches {batched} = "
+            f"lockstep steps, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    worst4 = worstf = worstx = 0.0
+    for b in range(4):
+        r = res if b == 0 else deconvolve_depthvar(batch[b], psfs, anchors, weights=wbatch[b], config=cfg)
+        worst4 = max(worst4, np.max(np.abs(bres.f_history[b, :4] - r.f_history[:4]) / np.abs(r.f_history[:4])))
+        worstf = max(worstf, abs(float(bres.f[b]) - float(r.f)) / abs(float(r.f)))
+        worstx = max(worstx, _rel_l2(bres.x[b], r.x))
+    if worst4 > 1e-4 or worstf > 1e-3:
+        raise AssertionError(f"batched depthvar lanes != deconvolve_depthvar: f_history[:4] {worst4:.3g}, final f "
+                             f"{worstf:.3g}")
+    log(18, f"each lane against deconvolve_depthvar of its scene: f_history[:4] {worst4:.3g} rel (< 1e-4), final f "
+            f"{worstf:.3g} rel (< 1e-3); x {worstx:.3g} relative L2")
+    del batch, wbatch, bres
+
+    truth = model.init_params()
+    with torch.no_grad():
+        fit_data = convolve(obj, convolve_spectrum(model.compute_psf(truth)), LANE_SHAPE)
+        fit_data = fit_data + 0.01 * fit_data.max() * bead_objects(LANE_SHAPE, dev, torch.float32, seed=0)[1]
+    start = truth._replace(depth=torch.tensor([float(truth.depth[0]), 7e-6], device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = fit_psf(model, start, DEPTH, fit_data, obj, config=PsfFitConfig(max_iter=15, grtol=0.0), freeze_head=1,
+                  precondition=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = float(fit.params.depth[1])
+    if not abs(got - DEPTH0) < 0.1 * abs(7e-6 - DEPTH0):
+        raise AssertionError(f"fit_psf(DEPTH): depth {got:.6g} m from 7e-6, true {DEPTH0}")
+    log(18, f"[{card}] fit_psf DEPTH (ns held, preconditioned) on the beads of {LANE_SHAPE} blurred at {DEPTH0 * 1e6} "
+            f"um + 1% noise, given the object: depth {got * 1e6:.4f} um from 7 um (true {DEPTH0 * 1e6} um), "
+            f"{fit.iterations} iterations, {fit.evaluations} evaluations, wall {wall:.3f} s (1 run)")
+    return single, batched
+
+
+def phase19_tiled_depthvar(card: str, volume: np.ndarray) -> int:
+    """``tiled_deconvolve(depthvar_anchors=...)`` on phase 8's design volume
+    and geometry, 10 VMLMB iterations, the PSF field of
+    ``field_depthvar_psf``: a Gibson-Lanni model at TILE, two lateral
+    calibrations (the second 20% deeper), DEPTH_K anchors per tile at its
+    absolute depths, so the anchors differ between the rows of tiles in z.
+    Timed after a warm-up on the first of WARM_VOLUMES (one full batch). Its
+    batched TV launches equal the lockstep steps of its batches. Returns
+    them."""
+    from microtipi_tpu_torch.jobs import batch as jbatch
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.tiled import field_depthvar_psf, tile_plan, tiled_deconvolve
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    dev = torch.device("cuda")
+    plan = tile_plan(VOLUME, TILE, (OVERLAP,) * 3)
+    n_tiles = int(np.prod([len(starts) for starts, _ in plan]))
+    model = depthvar_model(TILE, torch.float32, dev)
+    p = model.init_params()
+    calib = [((0.0, 0.0), p), ((0.0, float(VOLUME[2])), p._replace(depth=p.depth * torch.tensor([1.0, 1.2],
+                                                                                                device=dev)))]
+    zs = np.linspace(0.0, TILE[0] - 1.0, DEPTH_K)
+    fn = field_depthvar_psf(model, calib, zs)
+    rows = [s + TILE[0] / 2.0 for s in plan[0][0]]
+    first, last = fn((rows[0], 512.0, 512.0)), fn((rows[-1], 512.0, 512.0))
+    row_diff = _rel_l2(last, first)
+    del first, last
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=10, grtol=0.0, gatol=0.0)
+    corner = volume[tuple(slice(n) for n in WARM_VOLUMES[0])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiled_deconvolve(corner, fn, tile=TILE, overlap=OVERLAP, config=cfg, max_batch=MAX_BATCH, depthvar_anchors=zs)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _counted_solves(jbatch) as solves:
+        out = tiled_deconvolve(volume, fn, tile=TILE, overlap=OVERLAP, config=cfg, max_batch=MAX_BATCH,
+                               depthvar_anchors=zs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    calls = [c for c, _ in solves]
+    if out.shape != VOLUME or not np.isfinite(out).all() or out.min() < 0:
+        raise AssertionError(f"tiled depthvar: shape {out.shape}, finite {np.isfinite(out).all()}, min {out.min()}")
+    if (hv.launches, hv.unaligned_launches) != (0, 0) or hv.batched_launches != sum(calls) \
+            or calls != [max(e) for _, e in solves] or len(solves) != -(-n_tiles // MAX_BATCH) or row_diff < 1e-3:
+        raise AssertionError(f"tiled depthvar: batched TV launches {hv.batched_launches} for the batches' lockstep "
+                             f"steps {solves}, single {hv.launches}, unaligned {hv.unaligned_launches}; anchors of "
+                             f"the first and last rows of tiles differ by {row_diff:.3g}")
+    log(19, f"[{card}] tiled_deconvolve depthvar_anchors {VOLUME}, tile {TILE}, overlap {OVERLAP}, max_batch "
+            f"{MAX_BATCH}, K {DEPTH_K} Gibson-Lanni anchors a tile from field_depthvar_psf (two lateral calibrations, "
+            f"rows of tiles at z {rows}; the first and last rows' anchors differ by {row_diff:.3g} relative L2), 10 "
+            f"iterations: {n_tiles} tiles in {len(solves)} batches, wall {wall:.3f} s (1 run after a warm-up of "
+            f"{WARM_VOLUMES[0]} in 4 tiles, {warm:.3f} s), {float(np.prod(VOLUME)) * 10 / wall / 1e6:.1f} "
+            f"Mvox*iter/s of output; batched TV launches {hv.batched_launches} = the batches' lockstep steps "
+            f"(single {hv.launches}, unaligned {hv.unaligned_launches}); peak device memory {peak:.3f} GiB")
+    return hv.batched_launches
+
+
+def phase4_depthvar() -> None:
+    """Card float32 (kernel) against CPU float64 (plain TV) at PARITY_SHAPE
+    for the depth-varying solvers, a Gibson-Lanni model with 3 anchors. The
+    anchors' float32 synthesis is held against float64 first (FAMILY_F32_REL:
+    the depth term's phase reaches ~170 rad at 10 um, rounded by ~1e-5 rad);
+    both solves then start from the card's anchors and data, so that they
+    differ by the solver's arithmetic alone. ``deconvolve_depthvar`` (10
+    iterations): f at the start and after the first iteration to 1e-4
+    relative and the final f to 1e-3, phase 4's bounds; from the second
+    iteration on the float32 line search takes other steps than the float64
+    one on this steep start (f falls 8% in one iteration) and the two part by
+    ~2e-4 before they meet again (2e-4 at iteration 2 in a float32 CPU run),
+    so f_history[:4] is shown, not held. ``richardson_lucy_depthvar`` with
+    RL-TV (20 iterations) to 1e-4 relative L2, as RL-TV in phase 4."""
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.depthvar import deconvolve_depthvar, depth_anchor_psfs, richardson_lucy_depthvar
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=10, grtol=0.0, gatol=0.0)
+    anchors = np.linspace(0.0, PARITY_SHAPE[0] - 1.0, 3)
+    synth = {}
+    for dev, dtype in ((torch.device("cuda"), torch.float32), (torch.device("cpu"), torch.float64)):
+        model = depthvar_model(PARITY_SHAPE, dtype, dev)
+        with torch.no_grad():
+            synth[dtype] = depth_anchor_psfs(model, model.init_params(), anchors)
+    psf_err = _rel_l2(synth[torch.float32], synth[torch.float64])
+    psfs = synth[torch.float32]
+    data, _ = depthvar_scene(psfs, anchors, PARITY_SHAPE, psfs.device, torch.float32)
+    out = {}
+    for dev, dtype in ((torch.device("cuda"), torch.float32), (torch.device("cpu"), torch.float64)):
+        hv.launches = hv.batched_launches = 0
+        res = deconvolve_depthvar(data.to(dev, dtype), psfs.to(dev, dtype), anchors, config=cfg)
+        n_vmlmb = hv.launches
+        rl = richardson_lucy_depthvar(data.to(dev, dtype), psfs.to(dev, dtype), anchors, iterations=20, mu=0.01,
+                                      epsilon=1.0)
+        out[dtype] = (res, rl, n_vmlmb, hv.launches - n_vmlmb, hv.batched_launches)
+    (r32, rl32, v32, l32, b32), (r64, rl64, v64, l64, b64) = out[torch.float32], out[torch.float64]
+    rel = np.abs(r32.f_history[:4] - r64.f_history[:4]) / np.abs(r64.f_history[:4])
+    f2, f4 = np.max(rel[:2]), np.max(rel)
+    ff = abs(float(r32.f) - float(r64.f)) / abs(float(r64.f))
+    rl_err = _rel_l2(rl32, rl64)
+    if (psf_err > FAMILY_F32_REL or f2 > 1e-4 or ff > 1e-3 or rl_err > 1e-4
+            or (v32, l32, b32) != (r32.evaluations, 20, 0) or (v64, l64, b64) != (0, 0, 0)):
+        raise AssertionError(f"depthvar card/CPU parity: anchors {psf_err:.3g}, f_history[:2] {f2:.3g}, final f "
+                             f"{ff:.3g}, RL-TV {rl_err:.3g}; TV launches cuda {v32}/{l32}/{b32} cpu {v64}/{l64}/{b64}")
+    log(4, f"depth-varying solvers at {PARITY_SHAPE}, 3 Gibson-Lanni anchors (card float32 synthesis {psf_err:.3g} "
+           f"relative L2 from CPU float64, < {FAMILY_F32_REL:g}), both solves from the card's anchors and data, card "
+           f"float32 (kernel) vs CPU float64 (plain): deconvolve_depthvar f_history[:2] {f2:.3g} rel (< 1e-4), "
+           f"f_history[:4] {f4:.3g}, final f {ff:.3g} rel (< 1e-3), TV launches {v32} = evaluations; "
+           f"richardson_lucy_depthvar RL-TV 20 iterations "
+           f"{rl_err:.3g} relative L2 (< 1e-4), TV launches {l32}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1720,6 +2151,7 @@ def main() -> int:
         raise AssertionError("the main path never launched the TV kernel")
     phase4_parity()
     phase4_new_paths()
+    phase4_depthvar()
     phase5_cufft(card)
     bkern = phase6_batched_kernel(card)
     psf = design_psf()
@@ -1734,13 +2166,19 @@ def main() -> int:
         raise AssertionError(f"the ADMM paths never launched a kernel: {admm_launches.tolist()}")
     rl_launches = phase13_rl(card)
     tiled_rl_launches = phase14_tiled_rl(card, psf, volume)
-    del volume
     prior_launches, auto_batched_launches = phase15_priors_auto_mu(card)
     phase16_uncertainty(card)
+    family_launches = phase17_families(card)
+    depthvar_launches, depthvar_batched_launches = phase18_depthvar(card)
+    tiled_depthvar_launches = phase19_tiled_depthvar(card, volume)
+    del volume
     tv_paths = {"deconvolve and blind (phase 3)": launches, "RL-TV (phase 13)": rl_launches,
-                "priors and auto-mu (phase 15)": prior_launches}
+                "priors and auto-mu (phase 15)": prior_launches, "confocal blind (phase 17)": family_launches,
+                "depthvar and RL-TV depthvar (phase 18)": depthvar_launches}
     batched_paths = {"batched and tiled VMLMB (phases 7-8)": batched_launches,
-                     "tiled RL-TV (phase 14)": tiled_rl_launches, "batched auto-mu (phase 15)": auto_batched_launches}
+                     "tiled RL-TV (phase 14)": tiled_rl_launches, "batched auto-mu (phase 15)": auto_batched_launches,
+                     "batched depthvar (phase 18)": depthvar_batched_launches,
+                     "tiled depthvar (phase 19)": tiled_depthvar_launches}
     source, admm_source = "microtipi_tpu_torch/csrc/hyperbolic_tv.cu", "microtipi_tpu_torch/csrc/admm_split.cu"
     fused_by_xla = "fused by XLA under jit, no Pallas kernel"
     print(json.dumps({"kernels": [

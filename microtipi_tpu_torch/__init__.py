@@ -14,9 +14,10 @@ This package imports ``torch`` and NumPy only, never ``jax`` and never
 by ``nvcc`` at first use (``_build.py``).
 
 Entry points: ``jobs.deconv.deconvolve``, ``jobs.admm.admm_deconvolve`` and
-``fista_deconvolve``, ``jobs.blind.blind_deconvolve`` with a
-``models.widefield.WideFieldModel``, ``jobs.batch.batched_deconvolve`` and
-``jobs.tiled.tiled_deconvolve``; ``weights.updaters.InverseVarianceWeights``
-makes the data weights, ``convert`` carries parameters and configurations
-between the two packages.
+``fista_deconvolve``, ``jobs.blind.blind_deconvolve`` with a model of any PSF
+family of ``models`` (``models.model_for(config)``),
+``jobs.batch.batched_deconvolve``, ``jobs.tiled.tiled_deconvolve``, and the
+depth-varying ``jobs.depthvar.deconvolve_depthvar`` on Gibson-Lanni anchor
+PSFs; ``weights.updaters.InverseVarianceWeights`` makes the data weights,
+``convert`` carries parameters and configurations between the two packages.
 """

@@ -1,14 +1,15 @@
-"""Carry wide-field PSF parameters and configurations between the packages.
+"""Carry PSF parameters and configurations between the packages.
 
-The JAX package's ``WideFieldParams`` and ``WideFieldConfig`` cross over as
-NumPy arrays and plain fields, so both packages compute from the same state
-without this module importing jax: anything with ``defocus``/``phase``/
-``modulus`` attributes that ``np.asarray`` accepts (a JAX params tuple, a
-dict wrapped in a namespace, the port's own params) converts. The solver
-configurations (``DeconvolutionConfig``, ``PsfFitConfig``,
-``BlindDeconvConfig``) and the ``InverseVarianceWeights`` model cross over
-field by field, by name: the port keeps its own classes, and a field the port
-does not have is left behind.
+The JAX package's params tuples and model configs cross over as NumPy arrays
+and plain fields, so both packages compute from the same state without this
+module importing jax: anything with ``defocus``/``phase``/``modulus``
+attributes (and whichever of ``depth``, ``sheet``, ``sted`` and ``cavity`` it
+has) that ``np.asarray`` accepts converts to the port's params tuple of those
+fields. :func:`family_config_from_fields` maps a JAX family config to the
+port's config of the same class name. The solver configurations
+(``DeconvolutionConfig``, ``PsfFitConfig``, ``BlindDeconvConfig``) and the
+``InverseVarianceWeights`` model cross over field by field, by name: the port
+keeps its own classes, and a field the port does not have is left behind.
 """
 
 from __future__ import annotations
@@ -21,31 +22,49 @@ import torch
 from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
 from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+from microtipi_tpu_torch.models import MODELS
+from microtipi_tpu_torch.models.fourpi import FourPiParams
+from microtipi_tpu_torch.models.gibson_lanni import GibsonLanniParams
+from microtipi_tpu_torch.models.lightsheet import LightSheetParams
+from microtipi_tpu_torch.models.sted import STEDParams
 from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldParams
 from microtipi_tpu_torch.weights.updaters import InverseVarianceWeights
 
 __all__ = ["blind_config_from_fields", "config_fields", "config_from_fields", "deconv_config_from_fields",
-           "params_to_numpy", "params_to_torch", "weights_from_fields"]
+           "family_config_from_fields", "params_to_numpy", "params_to_torch", "weights_from_fields"]
 
 _CONFIG_FIELDS = ("shape", "na", "wavelength", "ni", "dxy", "dz", "n_phase", "n_modulus", "radial")
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
 
-def params_to_torch(params, device=None, dtype: torch.dtype = torch.float64) -> WideFieldParams:
-    """The port's params from any object with ``defocus``/``phase``/``modulus``."""
-    return WideFieldParams(*(
-        torch.as_tensor(np.array(getattr(params, name)), dtype=dtype, device=device)
-        for name in WideFieldParams._fields
-    ))
+# Each params tuple of the port, by its extension family (None: wide-field).
+_PARAMS = {None: WideFieldParams, "depth": GibsonLanniParams, "sheet": LightSheetParams, "sted": STEDParams,
+           "cavity": FourPiParams}
+
+
+def _params_class(params):
+    """The port's params tuple with the fields that ``params`` has."""
+    extra = [name for name in _PARAMS if name is not None and hasattr(params, name)]
+    if len(extra) > 1:
+        raise ValueError(f"params carry more than one extension family: {extra}")
+    return _PARAMS[extra[0] if extra else None]
+
+
+def params_to_torch(params, device=None, dtype: torch.dtype = torch.float64):
+    """The port's params from any object with ``defocus``/``phase``/
+    ``modulus`` and at most one of ``depth``/``sheet``/``sted``/``cavity``."""
+    cls = _params_class(params)
+    return cls(*(torch.as_tensor(np.array(getattr(params, name)), dtype=dtype, device=device)
+                 for name in cls._fields))
 
 
 def params_to_numpy(params) -> dict[str, np.ndarray]:
-    """``{"defocus": ..., "phase": ..., "modulus": ...}`` as NumPy arrays; a
-    JAX ``WideFieldParams(**result)`` takes them back."""
+    """Every family of ``params`` as NumPy arrays, by name; the JAX params
+    tuple of the same fields takes them back (``GibsonLanniParams(**result)``)."""
     def arr(v):
         return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
-    return {name: arr(getattr(params, name)) for name in WideFieldParams._fields}
+    return {name: arr(getattr(params, name)) for name in _params_class(params)._fields}
 
 
 def config_from_fields(cfg, dtype: torch.dtype | None = None) -> WideFieldConfig:
@@ -64,6 +83,22 @@ def config_fields(cfg: WideFieldConfig) -> dict:
     out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     out["dtype"] = np.float64 if cfg.dtype == torch.float64 else np.float32
     return out
+
+
+def family_config_from_fields(cfg, dtype: torch.dtype | None = None):
+    """The port's config of the class named like ``cfg``'s (a JAX
+    ``GibsonLanniConfig`` gives the port's ``GibsonLanniConfig``), from its
+    fields; ``dtype`` None maps the source's float dtype."""
+    classes = {cls.__name__: cls for cls in MODELS}
+    name = type(cfg).__name__
+    if name not in classes:
+        raise ValueError(f"no port of the config class {name!r}")
+    if dtype is None:
+        dtype = _TORCH_DTYPES[np.dtype(getattr(cfg, "dtype", np.float32))]
+    cls = classes[name]
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls) if f.name != "dtype"}
+    fields["shape"] = tuple(int(s) for s in fields["shape"])
+    return cls(**fields, dtype=dtype)
 
 
 def _from_fields(cls, src, **overrides):

@@ -13,9 +13,11 @@ and stopping, so lane b gives what ``deconvolve`` gives on volume b.
 pair and one launch of each of its kernels an iteration, per-lane ``rho``s and
 per-lane Boyd stopping. :func:`batched_deconvolve_auto_mu` bisects a mu
 a lane (``jobs/autotune.py``), each probe round one lockstep solve.
+:func:`batched_deconvolve_depthvar` solves the depth-varying object step of
+``jobs/depthvar.py`` a lane, in lockstep, one batched TV launch a step.
 
-The other batched solvers of the JAX module raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them.
+The batched blind loop raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports it.
 """
 
 from __future__ import annotations
@@ -30,10 +32,12 @@ from microtipi_tpu_torch.jobs.deconv import (
     _f32_stall_continue_batched,
     _stacked,
     _vmlmb_options,
+    lane_objective,
     make_batched_objective,
     stall_gate,
     var_shape_of,
 )
+from microtipi_tpu_torch.jobs.depthvar import depthvar_cost, depthvar_objective, depthvar_start
 from microtipi_tpu_torch.optim.vmlmb import minimize_vmlmb_batched
 from microtipi_tpu_torch.utils.arrays import pad_to_shape
 
@@ -81,10 +85,27 @@ def batched_deconvolve(
     return _stacked(results)
 
 
-def batched_deconvolve_depthvar(*args, **kw):
-    """Depth-varying object update over a batch (``jobs/batch.py:62-79``)."""
-    raise NotImplementedError("batched_deconvolve_depthvar is not ported yet (ROADMAP.md queue 1, "
-                              "item 14: jobs/depthvar.py with ops/depthconv.py)")
+def batched_deconvolve_depthvar(
+    data: torch.Tensor,
+    psfs: torch.Tensor,
+    anchors=None,
+    weights: torch.Tensor | None = None,
+    config: DeconvolutionConfig = DeconvolutionConfig(),
+) -> DeconvolutionResult:
+    """Depth-varying object update over a (B, Nz, Ny, Nx) stack
+    (``jobs/batch.py:62-79``): one ``deconvolve_depthvar`` a lane, in
+    lockstep. ``psfs`` is one (K, ...) anchor stack shared by the lanes (a
+    time-lapse: the optics and the depth profile belong to the acquisition)
+    or one a lane (B, K, ...), the tiled solver's; ``weights`` None or per
+    lane. Each lockstep step is one batched FFT chain over the B x K
+    weighted volumes and one batched TV launch. Returns a
+    ``DeconvolutionResult`` with a leading batch axis on every field."""
+    if data.ndim != 4:
+        raise ValueError(f"a batch of volumes is 4D, got shape {tuple(data.shape)}")
+    full = depthvar_cost(data, psfs, anchors, weights, config)
+    fun = lane_objective(full, data.shape[0], lambda cost, lanes: depthvar_objective(cost, config))
+    return _stacked(minimize_vmlmb_batched(fun, depthvar_start(data, config), **_vmlmb_options(config),
+                                           maxeval=config.max_eval))
 
 
 def batched_blind_deconvolve(*args, **kw):

@@ -9,9 +9,13 @@ tracking its best-parameters restore (``:208-216,254``). Defaults mirror the
 reference: ``grtol = 1e-3`` (``:55``), ``gatol = 0`` (``:54``), ``maxeval =
 2*maxiter`` (``:272``), memory 5 and More-Thuente (``:186-188``), no bounds.
 
+Every family of ``models/`` fits, the extension families (DEPTH, SHEET,
+STED, CAVITY) included; ``precondition`` scales the coefficients of a family
+whose components live on different physical scales (the Gibson-Lanni DEPTH
+family's ``ns/lambda`` ~ 1e6 1/m and ``d`` ~ 1e-6 m).
+
 Not ported yet: bead fits, field calibration, the calibration prior,
-auxiliary terms, preconditioning and the windowed fit (ROADMAP.md queue 1,
-item 15).
+auxiliary terms and the windowed fit (ROADMAP.md queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -87,10 +91,14 @@ def fit_psf(
     config: PsfFitConfig = PsfFitConfig(),
     active: int | None = None,
     freeze_head: int = 0,
+    precondition: bool = False,
 ) -> PsfFitResult:
     """Fit the family selected by ``flag`` (``psf_fit.py:502-615``):
     ``active`` fits only its first coefficients, ``freeze_head`` freezes the
-    first k of those."""
+    first k of those. ``precondition`` rescales each coefficient by its
+    initial gradient's magnitude (one extra gradient evaluation): without it
+    the first step of a DEPTH or SHEET fit is orders of magnitude too long
+    (metres of depth) and the search stalls."""
     family = family_name(flag)
     full0 = getattr(params, family).detach()
     if full0.shape[0] == 0:
@@ -107,13 +115,18 @@ def fit_psf(
     def objective(v):
         return cost.cost(model.compute_psf(params._replace(**{family: _with_slice(full0, freeze_head, v)})))
 
+    scale = 1.0
+    if precondition:
+        _, g0 = value_and_grad(objective)(x0)
+        tiny = torch.finfo(g0.dtype).tiny
+        scale = 1.0 / torch.maximum(g0.abs(), torch.clamp_min(1e-12 * g0.abs().max(), tiny))
     res = minimize_vmlmb(
-        value_and_grad(objective), x0,
+        value_and_grad(lambda u: objective(u * scale)), x0 / scale,
         mem=config.mem, maxiter=config.max_iter, maxeval=config.max_eval,
         gatol=config.gatol, grtol=config.grtol,
     )
     return PsfFitResult(
-        params._replace(**{family: _with_slice(full0, freeze_head, res.x)}),
+        params._replace(**{family: _with_slice(full0, freeze_head, res.x * scale)}),
         res.f, res.iterations, res.evaluations, res.status, res.f_history,
     )
 

@@ -139,7 +139,8 @@ def _rl_engine(data, forward, backward, flux, iterations, background, mu, epsilo
                stop_sigma, stop_tau, return_iterations, lanes: bool = False):
     """The RL fixed-point loop over an abstract linear operator
     (``richardson_lucy.py:175-287``): ``forward(y) = H y``, ``backward(r) =
-    B r``, ``flux = B^T H 1`` (a scalar, or one per lane). With ``lanes``
+    B r``, ``flux = B^T H 1`` (a scalar, one per lane, or a (Nz, 1, 1) z
+    profile for the depth-varying operator of ``jobs/depthvar.py``). With ``lanes``
     the leading axis of ``data`` is a batch and every scalar of the loop is
     one per lane (``flux`` too, or one shared)."""
     if stop not in _STOPS:
@@ -163,7 +164,9 @@ def _rl_engine(data, forward, backward, flux, iterations, background, mu, epsilo
     # roundoff leaves slightly negative model values on empty regions, and
     # flooring those at the dtype's tiny makes d/model explode in float32.
     eps = per_voxel(torch.clamp_min(1e-6 * (d.mean(dim=dims) + bg), tiny))
-    flux = per_voxel(torch.as_tensor(flux, dtype=dtype, device=dev))
+    flux = torch.as_tensor(flux, dtype=dtype, device=dev)
+    if flux.ndim <= 1:  # one, or one a lane; a depth-varying H^T 1 is a z profile already
+        flux = per_voxel(flux)
 
     if stop == "gaussian":
         if stop_sigma is None:

@@ -14,8 +14,10 @@ it is.
 engine, ``config.max_iter`` fixed iterations a tile) and ``method="rl"``
 (Richardson-Lucy, ``rl_iterations`` a tile, RL-TV when ``config.mu > 0``,
 through the batched RL engine of ``jobs/richardson_lucy.py``: one batched TV
-launch an iteration) are ported; the depth-varying path raises
-``NotImplementedError`` naming its ROADMAP.md items.
+launch an iteration) are ported, and so is the depth-varying path
+(``depthvar_anchors``, with :func:`field_depthvar_psf` for a PSF that varies
+laterally and with depth): each batch of tiles one lockstep
+``batched_deconvolve_depthvar``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from microtipi_tpu_torch.jobs.batch import batched_deconvolve
+from microtipi_tpu_torch.jobs.batch import batched_deconvolve, batched_deconvolve_depthvar
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
 from microtipi_tpu_torch.jobs.richardson_lucy import richardson_lucy
 from microtipi_tpu_torch.utils.arrays import crop_to_shape, pad_fft_kernel, roll, unroll
@@ -115,9 +117,35 @@ def _idw_params(anchors, center, power, dtype, device):
 
 
 def field_depthvar_psf(model, anchors, zs, power: float = 2.0):
-    """Lateral x axial space-variant PSF field (``jobs/tiled.py:118-161``)."""
-    raise NotImplementedError("field_depthvar_psf is not ported yet (ROADMAP.md queue 1, items 13 "
-                              "and 14: the Gibson-Lanni model and jobs/depthvar.py)")
+    """Lateral x axial space-variant PSF field: a ``psf_fn(center)`` for
+    ``tiled_deconvolve(..., depthvar_anchors=zs)`` (``jobs/tiled.py:118-161``).
+
+    Laterally the parameters are inverse-distance weighted at each tile's
+    centre, as in :func:`field_psf`; axially each tile gets a (K, tz, ty, tx)
+    anchor stack synthesized at the tile's absolute depths, so z-tiled solves
+    see the deep planes' aberration. ``model``: a ``GibsonLanniModel`` at the
+    TILE shape. ``anchors``: ``[((y, x), params), ...]``, each params with a
+    DEPTH family. ``zs``: the K anchor z indices in tile coordinates, the
+    same array as ``tiled_deconvolve``'s ``depthvar_anchors``. The anchor
+    depth of a tile starting at volume plane ``Z0`` is ``params.depth[1] +
+    (Z0 + zs[j]) * dz``; the K PSFs come from one batched synthesis.
+    """
+    anchors = list(anchors)
+    if not anchors:
+        raise ValueError("field_depthvar_psf needs at least one (position, params) anchor")
+    if not hasattr(anchors[0][1], "depth"):
+        raise ValueError("field_depthvar_psf needs params with a DEPTH family (models/gibson_lanni.py)")
+    zs = np.asarray(zs, np.float64)
+    nz_tile, dz = model.shape[0], model.config.dz
+
+    def psf_fn(center):
+        mixed = _idw_params(anchors, center, power, model.dtype, model.device)
+        z0 = float(center[0]) - nz_tile / 2.0  # the tile's first plane, volume coordinates
+        depths = float(_as_numpy(mixed.depth)[1]) + (z0 + zs) * dz
+        with torch.no_grad():
+            return model.compute_depth_psfs(mixed, torch.as_tensor(depths, dtype=model.dtype, device=model.device))
+
+    return psf_fn
 
 
 def _tile_boxes(plan) -> list:
@@ -156,12 +184,19 @@ def tiled_deconvolve(
     per tile) or "rl" (Richardson-Lucy, ``rl_iterations`` per tile;
     ``config.mu``/``epsilon`` feed its TV variant; ``weights`` are not
     used). ``config.var_shape`` is ignored (padding is what the halo is for).
+
+    ``depthvar_anchors``: K anchor z indices in TILE coordinates; each tile
+    then solves under the depth-varying operator of ``jobs/depthvar.py``
+    (vmlmb only, through ``batched_deconvolve_depthvar``), and ``psf`` is a
+    (K, ...) anchor stack or a callable returning one for each tile (build a
+    fully space-variant field with :func:`field_depthvar_psf`).
     """
-    if depthvar_anchors is not None:
-        raise NotImplementedError("depthvar_anchors is not ported yet (ROADMAP.md queue 1, "
-                                  "items 13 and 14: the Gibson-Lanni model and jobs/depthvar.py)")
     if method not in ("vmlmb", "admm", "rl"):
         raise ValueError(f"unknown method {method!r}")
+    if depthvar_anchors is not None:
+        depthvar_anchors = np.asarray(depthvar_anchors, np.float64)
+        if method != "vmlmb":
+            raise ValueError(f"depthvar_anchors rides the vmlmb path; method {method!r} does not take it")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("tiled_deconvolve runs on the CUDA card by default and none is available; "
@@ -184,7 +219,15 @@ def tiled_deconvolve(
             k = unroll(crop_to_shape(roll(k), tuple(min(p, t) for p, t in zip(k.shape, tile))))
         return pad_fft_kernel(k, tile)
 
+    if depthvar_anchors is not None:  # (K, ...) anchor stacks
+        prep_one = prep_kernel
+
+        def prep_kernel(k):
+            return torch.stack([prep_one(h) for h in k])
+
     varying = callable(psf)
+    if not varying and depthvar_anchors is not None and np.ndim(psf) != 4:
+        raise ValueError(f"depthvar_anchors needs a (K, ...) anchor stack, got ndim={np.ndim(psf)}")
     kern = None if varying else prep_kernel(psf)
     cfg = dataclasses.replace(config, var_shape=None)
     if weights is not None and method != "rl":  # RL models no per-voxel weights
@@ -204,7 +247,9 @@ def tiled_deconvolve(
                 prep_kernel(psf(tuple(s + t / 2.0 for s, t in zip(starts, tile))))
                 for starts, _ in chunk
             ])
-        if method == "rl":
+        if depthvar_anchors is not None:
+            xs = batched_deconvolve_depthvar(batch, kern, depthvar_anchors, weights=wbatch, config=cfg).x
+        elif method == "rl":
             xs = richardson_lucy(batch, kern, iterations=rl_iterations, mu=config.mu, epsilon=config.epsilon)
         else:
             xs = batched_deconvolve(batch, kern, weights=wbatch, config=cfg, engine=method).x

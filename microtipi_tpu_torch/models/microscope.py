@@ -3,9 +3,9 @@
 Port of the tags in ``microtipi_tpu/models/microscope.py:29-49`` — the
 DEFOCUS/PHASE/MODULUS indices of the reference
 (``epifluorescence/WideFieldModel.java:113-123``) plus the JAX package's
-extension families. The port's wide-field model carries the three reference
-families only; DEPTH, SHEET, STED and CAVITY belong to models that ROADMAP.md
-queue 1 item 13 ports.
+extension families: DEPTH (Gibson-Lanni, ``models/gibson_lanni.py``), SHEET
+(light sheet, ``models/lightsheet.py``), STED (``models/sted.py``) and
+CAVITY (4Pi, ``models/fourpi.py``). A family is a field of the params tuple.
 """
 
 from __future__ import annotations
@@ -35,11 +35,7 @@ FAMILY_NAMES = {
 
 
 def family_name(flag: int) -> str:
-    """Field name of a family the port's wide-field model carries; the
-    extension families raise until their models are ported."""
-    if flag not in PARAMETER_FLAGS:
-        raise NotImplementedError(
-            f"family {FAMILY_NAMES.get(flag, flag)!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 13: the other PSF families)"
-        )
+    """Field name of the family ``flag`` selects."""
+    if flag not in FAMILY_NAMES:
+        raise ValueError(f"unknown parameter family {flag!r}")
     return FAMILY_NAMES[flag]

@@ -157,19 +157,51 @@ class WideFieldModel(nn.Module):
         """Complex pupil field ``A(z) = rho * exp(i (phi + 2*pi*z_w*dz*psi))``
         with the negative-frequency z fold (``WideFieldModel.java:232-246``)."""
         rho, phi, psi, _ = self.compute_pupil(params)
+        return self._field_from_pupil(rho, phi, psi)
+
+    def _field_from_pupil(self, rho, phi, psi) -> torch.Tensor:
+        """The field of (Ny, Nx) pupil maps over the z planes, (Nz, Ny, Nx);
+        maps with leading axes (K, Ny, Nx) give (K, Nz, Ny, Nx)
+        (``widefield.py:178-182``)."""
         defoc_scale = (2.0 * math.pi * self.config.dz) * self.z_wrapped
-        phase = phi[None] + defoc_scale[:, None, None] * psi[None]
-        return rho[None] * torch.exp(1j * phase.to(self.cdtype))
+        phase = phi.unsqueeze(-3) + defoc_scale[:, None, None] * psi.unsqueeze(-3)
+        return rho.unsqueeze(-3) * torch.exp(1j * phase.to(self.cdtype))
+
+    def _intensity(self, a_hat: torch.Tensor) -> torch.Tensor:
+        """``|FFT2(A)|^2 / (Nx*Ny*Nz)`` (``WideFieldModel.java:251-255``)."""
+        nz, ny, nx = self.shape
+        return (a_hat.real ** 2 + a_hat.imag ** 2) * (1.0 / (nx * ny * nz))
+
+    def compute_psf_from_pupil(self, phi, rho=None, defocus=None) -> torch.Tensor:
+        """PSF from explicit pupil-plane maps instead of the Zernike
+        parameters (``widefield.py:184-210``): ``phi``/``rho`` are (Ny, Nx)
+        maps, masked by the full pupil support; ``rho`` None is the nominal
+        flat modulus, ``defocus`` None the nominal ``(ni/lambda, 0, 0)``.
+        Maps (K, Ny, Nx) with a defocus (3,) or (K, 3) give K PSFs
+        (K, Nz, Ny, Nx) from one batched 2D FFT."""
+        nz, ny, nx = self.shape
+        kw = dict(dtype=self.dtype, device=self.device)
+        d = torch.as_tensor(defocus, **kw) if defocus is not None else self.init_params().defocus
+        psi, mask = defocus_psi(d, ny, nx, self.config.dxy, self.geom_mask)
+        if rho is None:
+            rho = synthesize_modulus(self.init_params().modulus, self.zernike, mask)
+        else:
+            rho = torch.as_tensor(rho, **kw) * mask
+        phi = torch.as_tensor(phi, **kw) * mask
+        return self._intensity(torch.fft.fft2(self._field_from_pupil(rho, phi, psi)))
 
     def compute_psf_and_field(self, params: WideFieldParams):
         """(psf, FFT2(A)) — the unnormalised batched 2D FFT over the last two
         axes, then the 1/(Nx*Ny*Nz) norm (``WideFieldModel.java:251-255``)."""
-        nz, ny, nx = self.shape
         a_hat = torch.fft.fft2(self.compute_pupil_field(params))
-        psf = (a_hat.real ** 2 + a_hat.imag ** 2) * (1.0 / (nx * ny * nz))
-        return psf, a_hat
+        return self._intensity(a_hat), a_hat
 
     def compute_psf(self, params: WideFieldParams) -> torch.Tensor:
         """3D PSF, corner-origin (FFT layout), shape (Nz, Ny, Nx)
         (``WideFieldModel.java:202-203,213,251-255``)."""
         return self.compute_psf_and_field(params)[0]
+
+    def compute_mtf(self, params: WideFieldParams) -> torch.Tensor:
+        """3D FFT of the PSF (``widefield.py:221-233``; the reference's
+        ``getMtf`` never increments its loop, ``WideFieldModel.java:1814,1822``)."""
+        return torch.fft.fftn(self.compute_psf(params).to(self.cdtype))

@@ -96,7 +96,10 @@ def select_lanes(cost, idx: torch.Tensor):
     """The same cost over the lanes ``idx`` of a batch: its per-lane fields
     (a (B,) sum or a (B, ...) stack of volumes) are indexed, the shared ones
     (a 3D kernel spectrum) kept. Nothing is recomputed, so a lane's cost is
-    the same whichever lanes are evaluated with it."""
+    the same whichever lanes are evaluated with it. A cost whose fields say
+    otherwise (``ops/depthconv.py``) brings its own ``select_lanes``."""
+    if hasattr(cost, "select_lanes"):
+        return cost.select_lanes(idx)
     return cost._replace(**{
         k: v[idx] for k, v in cost._asdict().items() if isinstance(v, torch.Tensor) and v.ndim in (1, 4)
     })

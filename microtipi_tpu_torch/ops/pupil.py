@@ -40,9 +40,10 @@ def defocus_psi(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(psi, mask)`` from ``defocus = (ni/lambda, delta_x, delta_y)``
     (``WideFieldModel.java:1452-1499``): ``psi`` is zero at evanescent pixels
-    and ``mask = geom_mask & (radicand > 0)`` carries no gradient."""
+    and ``mask = geom_mask & (radicand > 0)`` carries no gradient. A stack of
+    defocus vectors (K, 3) gives (K, Ny, Nx) maps."""
     dtype, device = defocus.dtype, defocus.device
-    lambda_ni, delta_x, delta_y = defocus[0], defocus[1], defocus[2]
+    lambda_ni, delta_x, delta_y = (defocus[..., i, None, None] for i in range(3))
     kx = torch.as_tensor(fft_index(nx) / (nx * dxy), dtype=dtype, device=device)
     ky = torch.as_tensor(fft_index(ny) / (ny * dxy), dtype=dtype, device=device)
     rx2 = (kx[None, :] - delta_x) ** 2

@@ -185,7 +185,11 @@ def test_unported_and_unknown_entry_points():
         batched_deconvolve(data[0], kernel, engine="admm")
     with pytest.raises(ValueError, match="unknown engine"):
         batched_deconvolve(data, kernel, engine="sgd")
-    for fn, item in ((tbatch.batched_deconvolve_depthvar, "item 14"),
-                     (tbatch.batched_blind_deconvolve, "item 17")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn(data, kernel)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tbatch.batched_blind_deconvolve(data, kernel)
+    # the depth-varying batch is ported (tests/test_torch_depthvar.py): it
+    # takes a (K,)+volume anchor stack and a 4D batch
+    with pytest.raises(ValueError, match=r"\(K,\)\+volume stack"):
+        tbatch.batched_deconvolve_depthvar(data, kernel)
+    with pytest.raises(ValueError, match="a batch of volumes is 4D"):
+        tbatch.batched_deconvolve_depthvar(data[0], kernel[None])

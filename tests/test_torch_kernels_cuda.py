@@ -347,3 +347,81 @@ def test_batched_rl_lanes_match_single_rl(cuda_device):
     for b in range(3):
         one = richardson_lucy(data[b], psf, iterations=10, mu=0.01, epsilon=1.0)
         assert float(torch.linalg.norm(xs[b] - one) / torch.linalg.norm(one)) < 1e-4
+
+
+def _depthvar_inputs(shape, lanes, device):
+    """``lanes`` scenes of :func:`_rl_inputs` and 3 Gaussian anchor PSFs that
+    widen with depth, at anchors 0, (nz-1)/2 and nz-1."""
+    data, _ = _rl_inputs(shape, lanes, device)
+    axes = [np.minimum(np.arange(n), n - np.arange(n)) for n in shape]
+    psfs = []
+    for width in (1.0, 2.0, 3.0):
+        h = np.exp(-axes[0][:, None, None] ** 2 / (2.0 * width) - (axes[1][None, :, None] ** 2
+                                                                     + axes[2][None, None, :] ** 2) / (4.0 * width))
+        psfs.append(h / h.sum())
+    return data, torch.as_tensor(np.stack(psfs), dtype=torch.float32, device=device), np.linspace(0, shape[0] - 1, 3)
+
+
+@pytest.mark.cuda
+def test_depthvar_steps_through_the_kernel_match_plain(cuda_device, monkeypatch):
+    """``deconvolve_depthvar``, 3 VMLMB iterations at 32x64x64: the TV kernel
+    once an evaluation, and the run against the same run with the plain TV:
+    f_history to 1e-4 relative, x to 1e-3 relative L2 (the TV costs agree to
+    the kernel's 1e-5 rtol, a small part of f)."""
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.depthvar import deconvolve_depthvar
+
+    data, psfs, anchors = _depthvar_inputs((32, 64, 64), 1, cuda_device)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=3, grtol=0.0, gatol=0.0)
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    got = deconvolve_depthvar(data[0], psfs, anchors, config=cfg)
+    torch.cuda.synchronize()
+    assert (hv.launches, hv.batched_launches, hv.unaligned_launches) == (got.evaluations, 0, 0)
+    monkeypatch.setattr(hv, "hyperbolic_tv_fused", hv.hyperbolic_tv_plain)
+    want = deconvolve_depthvar(data[0], psfs, anchors, config=cfg)
+    assert np.max(np.abs(got.f_history - want.f_history) / np.abs(want.f_history)) < 1e-4
+    assert float(torch.linalg.norm(got.x - want.x) / torch.linalg.norm(want.x)) < 1e-3
+    assert bool(torch.isfinite(got.x).all()) and float(got.x.min()) >= 0.0
+
+
+@pytest.mark.cuda
+def test_rl_tv_depthvar_steps_through_the_kernel_match_plain(cuda_device, monkeypatch):
+    """``richardson_lucy_depthvar`` with RL-TV, 3 iterations at 32x64x64: one
+    TV launch an iteration, x against the plain TV's to 1e-5 relative L2,
+    as RL-TV's own test above."""
+    import importlib
+
+    from microtipi_tpu_torch.jobs.depthvar import richardson_lucy_depthvar
+
+    rl = importlib.import_module("microtipi_tpu_torch.jobs.richardson_lucy")
+    data, psfs, anchors = _depthvar_inputs((32, 64, 64), 1, cuda_device)
+    hv.launches = hv.batched_launches = 0
+    got = richardson_lucy_depthvar(data[0], psfs, anchors, iterations=3, mu=0.01, epsilon=1.0)
+    torch.cuda.synchronize()
+    assert (hv.launches, hv.batched_launches) == (3, 0)
+    monkeypatch.setattr(rl, "hyperbolic_tv_fused", hv.hyperbolic_tv_plain)
+    want = richardson_lucy_depthvar(data[0], psfs, anchors, iterations=3, mu=0.01, epsilon=1.0)
+    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) < 1e-5
+    assert bool(torch.isfinite(got).all()) and float(got.min()) >= 0.0
+
+
+@pytest.mark.cuda
+def test_batched_depthvar_launches_the_batched_kernel(cuda_device):
+    """Two lanes of ``batched_deconvolve_depthvar``, 5 iterations: one batched
+    TV launch a lockstep step and none of one volume; each lane against
+    ``deconvolve_depthvar`` of its scene, f over the first iterations to 1e-4
+    relative and the final f to 1e-3 (``chip_smoke.py`` phase 4's bounds)."""
+    from microtipi_tpu_torch.jobs.batch import batched_deconvolve_depthvar
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.depthvar import deconvolve_depthvar
+
+    data, psfs, anchors = _depthvar_inputs((16, 64, 64), 2, cuda_device)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=5, grtol=0.0, gatol=0.0)
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    res = batched_deconvolve_depthvar(data, psfs, anchors, config=cfg)
+    torch.cuda.synchronize()
+    assert (hv.launches, hv.batched_launches, hv.unaligned_launches) == (0, int(np.max(res.evaluations)), 0)
+    for b in range(2):
+        one = deconvolve_depthvar(data[b], psfs, anchors, config=cfg)
+        assert np.max(np.abs(res.f_history[b, :4] - one.f_history[:4]) / np.abs(one.f_history[:4])) < 1e-4
+        assert abs(float(res.f[b]) - float(one.f)) / abs(float(one.f)) < 1e-3

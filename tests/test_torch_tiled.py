@@ -150,9 +150,11 @@ def test_field_psf_matches_jax():
 def test_unported_options_and_default_device():
     psf, obj, data = _scene((8, 24, 24))
     cfg = DeconvolutionConfig(max_iter=2)
-    with pytest.raises(NotImplementedError, match="items 13"):
-        ttiled.tiled_deconvolve(data, psf, config=cfg, device="cpu", depthvar_anchors=[0.0, 7.0])
-    with pytest.raises(NotImplementedError, match="items 13"):
+    # the depth-varying path is ported (tests/test_torch_depthvar.py), on
+    # the vmlmb method only
+    with pytest.raises(ValueError, match="vmlmb path"):
+        ttiled.tiled_deconvolve(data, psf, config=cfg, device="cpu", method="rl", depthvar_anchors=[0.0, 7.0])
+    with pytest.raises(ValueError, match="at least one"):
         ttiled.field_depthvar_psf(None, [], [0.0])
     with pytest.raises(ValueError, match="unknown method"):
         ttiled.tiled_deconvolve(data, psf, config=cfg, device="cpu", method="sgd")
