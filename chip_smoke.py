@@ -26,9 +26,11 @@ raises and the script exits non-zero:
    ``deconvolve``, of ``batched_deconvolve`` at 3 lanes, of
    ``admm_deconvolve``, of ``richardson_lucy`` (matched, RL-TV,
    Wiener-Butterworth accelerated), of ``deconvolve_auto_mu`` (the same
-   decisions and mu), of the Laplace uncertainty (the same probes) and of
+   decisions and mu), of the Laplace uncertainty (the same probes), of
    ``deconvolve_depthvar`` and ``richardson_lucy_depthvar`` (RL-TV) on
-   Gibson-Lanni anchors;
+   Gibson-Lanni anchors, and of the bead pieces: ``center_bead_stack``,
+   ``bead_anchor_term`` and its gradient, ``fit_psf_beads``,
+   ``bead_fit_uncertainty`` and ``calibrate_depth``;
 5. cuFFT float32 precision against float64 NumPy at 256^3;
 6. the batched hyperbolic-TV kernel against its plain version, each lane
    against the single-volume kernel (bitwise), unaligned batches and lane
@@ -96,9 +98,20 @@ raises and the script exits non-zero:
     ``richardson_lucy_depthvar`` (50), ``batched_deconvolve_depthvar`` of 4
     scenes, each lane against the single solve, and a DEPTH ``fit_psf``;
 19. ``tiled_deconvolve(depthvar_anchors=...)`` with ``field_depthvar_psf``
-    on phase 8's design volume, 10 iterations.
+    on phase 8's design volume, 10 iterations;
+20. bead calibration with the bench optics: a 64x512x512 bead slide (8
+    beads, two halves of different phase, Poisson), ``detect_beads``,
+    ``average_beads`` (64^3 patch), ``fit_psf_beads``,
+    ``bead_fit_uncertainty``, ``empirical_psf``, ``calibrate_field`` and
+    ``field_psf`` against the truth; then ``blind_deconvolve`` on phase 3's
+    scene, free and from the calibration with the calibration prior, the
+    bead anchor and the fit window, and ``fit_uncertainty`` at 256^3;
+21. the depth ladder: ``calibrate_depth`` on 4 Gibson-Lanni beads of 64^3
+    from a wrong sample index, ``ladder_fit_uncertainty``,
+    ``fit_psf_depthvar`` at 64x256x256 and ``blind_deconvolve_depthvar``
+    from the ladder, with the prior and with a bead anchor.
 
-The main paths are phases 3, 13, 15, 17 and 18 (the single-volume TV
+The main paths are phases 3, 13, 15, 17, 18, 20 and 21 (the single-volume TV
 kernel), phases 7-8, 14, 15, 18 and 19 (the batched TV kernel) and phases
 10-12 (the ADMM kernels): each is driven with the launch counts set to 0 just before and
 read just after, and none may take the TV kernel's unaligned instantiation
@@ -117,6 +130,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -2136,6 +2150,415 @@ def phase4_depthvar() -> None:
            f"{rl_err:.3g} relative L2 (< 1e-4), TV launches {l32}")
 
 
+# Phase 20: a bead slide of 8 beads in two rows of four, at least 96 voxels
+# apart laterally; the left half's beads are blurred by BENCH_PHASE (phase
+# 3's aberration), the right half's by OTHER_PHASE. Each bead's peak holds
+# SLIDE_PEAK photons minus 5% a bead (so that the brightness order is known)
+# over a background of SLIDE_BG; Poisson noise (1% at a peak).
+SLIDE_SHAPE, BEAD_PATCH = (64, 512, 512), (64, 64, 64)
+SLIDE_BEADS = ((128, 96), (384, 96), (128, 192), (384, 192), (128, 320), (384, 320), (128, 416), (384, 416))
+SLIDE_PEAK, SLIDE_BG, SLIDE_SPLIT = 1e4, 100.0, 256
+FIT_WINDOW = (128, 128, 128)
+# Phase 21: the depth ladder's rungs (planes of phase 18's geometry) and the
+# wrong sample index the fit starts from (the basin of this 10 um ladder is
+# narrow: from ns 1.375 or 1.39 a float32 CPU fit of the same ladder stops in
+# a local minimum of the axial shifts).
+LADDER_Z, LADDER_NS, LADDER_NS_START = (0.0, 16.0, 32.0, 48.0), 1.38, 1.385
+
+
+def bead_photons(psf: torch.Tensor, peak: float, generator) -> torch.Tensor:
+    """A bead stack from a corner-origin PSF: centred, scaled to ``peak``
+    photons over SLIDE_BG, Poisson."""
+    from microtipi_tpu_torch.utils.arrays import roll
+
+    return torch.poisson(peak * roll(psf) / psf.max() + SLIDE_BG, generator=generator)
+
+
+def bead_model(dev, dtype=torch.float32):
+    """The bench's widefield optics (phase 3's model) on the bead patch."""
+    from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
+
+    return WideFieldModel(WideFieldConfig(shape=BEAD_PATCH, dtype=dtype, **OPTICS), dev)
+
+
+def _with_phase(model, phase):
+    return model.init_params()._replace(phase=torch.as_tensor(phase, dtype=model.dtype, device=model.device))
+
+
+def _phase_err(params, truth) -> float:
+    return float(torch.linalg.norm(params.phase.double().cpu() - torch.tensor(truth, dtype=torch.float64)))
+
+
+def _params_like(params, model):
+    """``params`` in ``model``'s dtype and device."""
+    return type(params)(*(t.to(model.device, model.dtype) for t in params))
+
+
+def phase4_calibration() -> None:
+    """Card float32 against CPU float64 at PARITY_SHAPE for the bead pieces:
+    one bead of the bench optics with BENCH_PHASE (Poisson, SLIDE_PEAK
+    photons), made once in float64. ``center_bead_stack`` to 1e-5 relative
+    L2 (float32 FFTs, ~3e-6 in a float32 CPU run); ``bead_anchor_term`` at a
+    fixed point: value to 1e-5 relative, gradient to 1e-3 relative L2 (sums
+    over 65k voxels; ~2e-4 in a float32 CPU run); ``fit_psf_beads`` (PHASE,
+    20 iterations) final f to 1e-4 (the float32 trajectory takes other
+    steps; the phases are shown); ``bead_fit_uncertainty`` (DEFOCUS, PHASE,
+    at the float64 fit's params): std to 1e-3 relative, the cov gap shown.
+    ``calibrate_depth`` on three rungs (planes 0, 5 and 10) of a Gibson-Lanni
+    ladder at PARITY_SHAPE from ns 1.385: f_history[:2] to 1e-4, final f to
+    1e-3, as phase 4's solves."""
+    from microtipi_tpu_torch.jobs.depthvar import calibrate_depth
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig, bead_anchor_term, bead_fit_uncertainty
+    from microtipi_tpu_torch.jobs.psf_fit import center_bead_stack, fit_psf_beads, model_at
+    from microtipi_tpu_torch.models.microscope import DEFOCUS, DEPTH, PHASE
+    from microtipi_tpu_torch.optim.treeutil import value_and_grad
+
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    m64 = model_at(bead_model(cpu, torch.float64), PARITY_SHAPE)
+    with torch.no_grad():
+        bead = bead_photons(m64.compute_psf(_with_phase(m64, BENCH_PHASE)), SLIDE_PEAK,
+                            torch.Generator().manual_seed(4))
+    out = {}
+    for dev, dtype in ((cpu, torch.float64), (card, torch.float32)):
+        model = model_at(bead_model(dev, dtype), PARITY_SHAPE)
+        b = bead.to(dev, dtype)
+        p = _with_phase(model, [0.1, 0.0, 0.05, 0.0, 0.0, 0.0])
+        term = bead_anchor_term(model, b / b.max())
+        f, g = value_and_grad(lambda sub: term(p._replace(**sub)))({"defocus": p.defocus, "phase": p.phase})
+        fit, amp = fit_psf_beads(model, b, (PHASE,), config=PsfFitConfig(max_iter=20, grtol=0.0))
+        at = out[torch.float64][3].params if dtype == torch.float32 else fit.params
+        unc = bead_fit_uncertainty(model, _params_like(at, model), (DEFOCUS, PHASE), b)
+        out[dtype] = (center_bead_stack(b), f, g, fit, unc)
+    (c64, f64, g64, fit64, u64), (c32, f32, g32, fit32, u32) = out[torch.float64], out[torch.float32]
+    errs = {"center": _rel_l2(c32, c64), "term": abs(float(f32) - float(f64)) / abs(float(f64)),
+            "gradient": max(_rel_l2(g32[k], g64[k]) for k in g64),
+            "fit f": abs(float(fit32.f) - float(fit64.f)) / abs(float(fit64.f)),
+            "std": max(_rel_l2(u32.std[k].reshape(-1), u64.std[k].reshape(-1)) for k in u64.std)}
+    bounds = {"center": 1e-5, "term": 1e-5, "gradient": 1e-3, "fit f": 1e-4, "std": 1e-3}
+    if any(errs[k] > bounds[k] for k in bounds):
+        raise AssertionError(f"bead pieces card/CPU parity: {errs} (bounds {bounds})")
+    log(4, f"bead pieces card float32 vs CPU float64 at {PARITY_SHAPE}: " + ", ".join(
+        f"{k} {v:.3g} (< {bounds[k]:g})" for k, v in errs.items())
+        + f"; fit_psf_beads phase {[round(float(v), 4) for v in fit32.params.phase]} / "
+          f"{[round(float(v), 4) for v in fit64.params.phase]}, {fit32.iterations} / {fit64.iterations} iterations; "
+          f"bead_fit_uncertainty cov {_rel_l2(u32.cov, u64.cov):.3g} relative L2")
+
+    ladder_z = np.array([0.0, 5.0, 10.0])
+    gl64 = depthvar_model(PARITY_SHAPE, torch.float64, cpu)
+    truth = gl64.init_params()
+    with torch.no_grad():
+        psfs = gl64.compute_depth_psfs(truth, truth.depth[1] + torch.tensor(ladder_z * OPTICS["dz"]))
+        gen = torch.Generator().manual_seed(5)
+        beads = torch.stack([bead_photons(h, SLIDE_PEAK, gen) for h in psfs])
+    res = {}
+    for dev, dtype in ((cpu, torch.float64), (card, torch.float32)):
+        gl = depthvar_model(PARITY_SHAPE, dtype, dev)
+        p0 = gl.init_params()._replace(depth=torch.tensor([LADDER_NS_START / OPTICS["wavelength"], DEPTH0],
+                                                          dtype=dtype, device=dev))
+        res[dtype] = calibrate_depth(gl, beads.to(dev, dtype), ladder_z, families=(DEPTH,), params0=p0,
+                                     config=PsfFitConfig(max_iter=20, grtol=0.0))
+    (l64, z64), (l32, z32) = res[torch.float64], res[torch.float32]
+    f2 = float(np.max(np.abs(l32.f_history[:2] - l64.f_history[:2]) / np.abs(l64.f_history[:2])))
+    ff = abs(float(l32.f) - float(l64.f)) / abs(float(l64.f))
+    ns = [float(r.params.depth[0]) * OPTICS["wavelength"] for r in (l32, l64)]
+    if f2 > 1e-4 or ff > 1e-3:
+        raise AssertionError(f"calibrate_depth card/CPU parity: f_history[:2] {f2:.3g}, final f {ff:.3g}")
+    log(4, f"calibrate_depth card float32 vs CPU float64, 3 Gibson-Lanni rungs of {PARITY_SHAPE} at planes "
+           f"{ladder_z.tolist()} from ns {LADDER_NS_START}: f_history[:2] {f2:.3g} rel (< 1e-4), final f {ff:.3g} "
+           f"rel (< 1e-3); ns {ns[0]:.6f} / {ns[1]:.6f}, zshifts {[round(float(v), 3) for v in z32]} / "
+           f"{[round(float(v), 3) for v in z64]}, {l32.iterations} / {l64.iterations} iterations")
+
+
+def calibration_slide(dev) -> tuple[torch.Tensor, dict]:
+    """The phase-20 bead slide (float32, on ``dev``) and each half's true
+    corner-origin PSF on BEAD_PATCH."""
+    model = bead_model(dev)
+    with torch.no_grad():
+        truths = {"left": model.compute_psf(_with_phase(model, BENCH_PHASE)),
+                  "right": model.compute_psf(_with_phase(model, OTHER_PHASE))}
+        lam = torch.full(SLIDE_SHAPE, SLIDE_BG, device=dev)
+        from microtipi_tpu_torch.utils.arrays import roll
+
+        for i, (y, x) in enumerate(SLIDE_BEADS):
+            h = truths["left" if x < SLIDE_SPLIT else "right"]
+            lam[:, y - 32:y + 32, x - 32:x + 32] += SLIDE_PEAK * (1.0 - 0.05 * i) * roll(h) / h.max()
+        return torch.poisson(lam, generator=torch.Generator(device=dev).manual_seed(20)), truths
+
+
+def _blind_run(name: str, run, module, falls: str):
+    """``run()``, one blind loop on the card, with the TV counts set to 0
+    just before; the object steps' VMLMB solves are counted through
+    ``module``'s ``minimize_vmlmb``. Checks that deconv_f is finite and
+    ``falls``: "each round" (a free loop: every step lowers the same
+    objective), "overall" (an anchored fit also weighs the prior or the
+    bead, so the object's cost may rise a little in a round: the last round
+    ends below the first) or "no" (a windowed fit minimizes the crop's
+    cost, not the volume's); that the last fit row is NaN and the TV
+    launches equal the object steps' objective calls. Returns (result,
+    wall, launches)."""
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _counted_solves(module) as solves:
+        res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_object(name, res.obj)
+    df, calls = res.deconv_f, [c for c, _ in solves]
+    fell = {"each round": bool(np.all(np.diff(df) < 0)), "overall": bool(df[-1] < df[0]), "no": True}[falls]
+    if not (np.isfinite(df).all() and fell):
+        raise AssertionError(f"{name}: deconv_f does not fall ({falls}): {df}")
+    if not (np.isnan(res.fit_f[-1]).all() and np.isfinite(res.fit_f[:-1]).all()):
+        raise AssertionError(f"{name}: the last fit_f row must be NaN, the others finite: {res.fit_f}")
+    if (hv.launches, hv.batched_launches, hv.unaligned_launches) != (sum(calls), 0, 0) or calls != [
+            e for _, e in solves] or hv.launches == 0:
+        raise AssertionError(f"{name}: TV launches {hv.launches} for the object steps' objective calls {calls} "
+                             f"(evaluations {[e for _, e in solves]}), batched {hv.batched_launches}, unaligned "
+                             f"{hv.unaligned_launches}")
+    return res, wall, hv.launches
+
+
+def phase20_calibration(card: str) -> dict:
+    """Bead calibration and the anchored blind loop with the bench optics.
+    The slide (SLIDE_SHAPE float32): ``detect_beads`` finds the 8 beads;
+    ``average_beads`` averages the left half's 4 (patch BEAD_PATCH);
+    ``fit_psf_beads`` fits the average with DEFOCUS + PHASE (the families'
+    default; on a centred bead defocus's starting gradient is ~1e-8, so the
+    gradient-balanced step can stall at the start, in the JAX package too)
+    and with PHASE alone, the calibration; ``bead_fit_uncertainty``;
+    ``empirical_psf``; ``calibrate_field`` (PHASE, 8 fits) and ``field_psf``
+    at each half's centre against its truth. Then ``blind_deconvolve`` on
+    phase 3's scene and config: free, and from the calibration with the
+    calibration prior (weight 1e-2), with the averaged bead as an anchor
+    (weight sigma_sample^2 / sigma_bead^2) and with ``fit_window``
+    FIT_WINDOW under the same prior (unanchored, the windowed fit drifts: a
+    CPU run of the loop at 128^3 with a 64^3 window ended 17 from the true
+    phase in L2); each anchored run's phase must end nearer the truth than
+    the free loop's, and its TV launches equal its object steps' objective
+    calls. ``fit_uncertainty`` (PHASE) at SHAPE on the prior run. Returns
+    the TV launches by run."""
+    from microtipi_tpu_torch.jobs import deconv as jdeconv
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig, blind_deconvolve
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.psf_fit import (
+        PsfFitConfig, average_beads, bead_fit_uncertainty, calibrate_field, detect_beads, empirical_psf,
+        fit_psf_beads, fit_uncertainty)
+    from microtipi_tpu_torch.jobs.tiled import field_psf
+    from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slide, truths = calibration_slide(dev)
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, positions = detect_beads(slide, n_beads=8, patch=BEAD_PATCH)
+    t_detect = time.perf_counter() - t0
+    if sorted((y, x) for _, y, x in positions) != sorted(SLIDE_BEADS) or [(y, x) for _, y, x in positions] != list(
+            SLIDE_BEADS):
+        raise AssertionError(f"detect_beads: {positions}, planted (brightest first) {SLIDE_BEADS}")
+    left = slide[:, :, :SLIDE_SPLIT]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg, used = average_beads(left, n_beads=4, patch=BEAD_PATCH)
+    torch.cuda.synchronize()
+    t_avg = time.perf_counter() - t0
+    model = bead_model(dev)
+    init_err = _phase_err(model.init_params(), BENCH_PHASE)
+    fits = {}
+    for fams in ((DEFOCUS, PHASE), (PHASE,)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit, amp = fit_psf_beads(model, avg, fams, config=PsfFitConfig(max_iter=40, grtol=0.0))
+        torch.cuda.synchronize()
+        fits[fams] = (fit, float(amp), time.perf_counter() - t0)
+    calib, amp, t_fit = fits[(PHASE,)]
+    calib_err = _phase_err(calib.params, BENCH_PHASE)
+    if used != 4 or not calib_err < 0.5 * init_err or not np.isfinite(fits[(DEFOCUS, PHASE)][0].f):
+        raise AssertionError(f"bead calibration: {used} beads averaged, PHASE fit {calib_err:.4g} from the truth "
+                             f"(the start is {init_err:.4g})")
+    unc = bead_fit_uncertainty(model, calib.params, (PHASE,), avg)
+    std = unc.std["phase"].cpu()
+    emp = empirical_psf(left, n_beads=4, patch=BEAD_PATCH)
+    with torch.no_grad():  # the noiseless bead through the same centring
+        from microtipi_tpu_torch.utils.arrays import roll
+
+        emp_err = _rel_l2(emp, empirical_psf(roll(truths["left"])))
+    if not bool(torch.isfinite(std).all()) or not bool((std > 0).all()) or abs(float(emp.sum()) - 1.0) > 1e-4:
+        raise AssertionError(f"bead error bars {std.tolist()}, empirical PSF sum {float(emp.sum())}")
+    df_fit = fits[(DEFOCUS, PHASE)][0]
+    log(20, f"[{card}] bead slide {SLIDE_SHAPE} float32 (8 beads, {SLIDE_PEAK:g} photons at the brightest peak over "
+            f"{SLIDE_BG:g}, Poisson), made in {t_make:.3f} s; detect_beads found the 8 in brightness order in "
+            f"{t_detect:.3f} s (z {[z for z, _, _ in positions]}); average_beads of the left half's {used} in "
+            f"{t_avg:.3f} s; fit_psf_beads of the average: DEFOCUS+PHASE status {df_fit.status}, {df_fit.iterations} "
+            f"iterations, phase {[round(float(v), 4) for v in df_fit.params.phase]}; PHASE status {calib.status}, "
+            f"{calib.iterations} iterations, {calib.evaluations} evaluations, {t_fit:.3f} s, phase "
+            f"{[round(float(v), 4) for v in calib.params.phase]} (true {BENCH_PHASE}, L2 off {calib_err:.4f}, the "
+            f"start {init_err:.4f}), amplitude {amp:.6g}; bead_fit_uncertainty phase std "
+            f"{[round(float(v), 5) for v in std]}; empirical_psf {emp_err:.4f} relative L2 from the noiseless bead's")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    anchors, ffits = calibrate_field(model, slide, families=(PHASE,), n_beads=8,
+                                     config=PsfFitConfig(max_iter=40, grtol=0.0))
+    torch.cuda.synchronize()
+    t_field = time.perf_counter() - t0
+    fn, field_errs = field_psf(model, anchors), {}
+    for half, x in (("left", SLIDE_SPLIT / 2), ("right", 3 * SLIDE_SPLIT / 2)):
+        psf = fn((32.0, SLIDE_SHAPE[1] / 2, x))
+        other = truths["right" if half == "left" else "left"]
+        field_errs[half] = (_rel_l2(psf, truths[half]), _rel_l2(psf, other))
+    if len(anchors) != 8 or any(own >= other for own, other in field_errs.values()):
+        raise AssertionError(f"calibrate_field: {len(anchors)} anchors, field_psf relative L2 (own truth, other "
+                             f"half's) {field_errs}")
+    log(20, f"[{card}] calibrate_field (PHASE, 8 fits of {BEAD_PATCH}) in {t_field:.3f} s, statuses "
+            f"{[f.status for f in ffits]}, iterations {[f.iterations for f in ffits]}; field_psf at each half's "
+            f"centre, relative L2 to its true PSF and to the other half's: "
+            + ", ".join(f"{h} {a:.4f} / {b:.4f}" for h, (a, b) in field_errs.items())
+            + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del slide, left
+
+    blind_model, data, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE)
+    base = BlindDeconvConfig(
+        loops=5, families=(DEFOCUS, PHASE), psf_max_iter=(5, 5), joint_fit=True,
+        deconv=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0),
+        fit=PsfFitConfig(grtol=0.0))
+    sigma_bead2 = SLIDE_BG / used  # Poisson background variance of the 4-bead average
+    bead_w = float((0.01 * data.max()) ** 2) / sigma_bead2
+    runs = {"free": dict(config=base),
+            "prior": dict(config=dataclasses.replace(base, phase_prior_weight=1e-2), params0=calib.params),
+            "bead": dict(config=dataclasses.replace(base, bead_weight=bead_w), params0=calib.params, bead_data=avg),
+            "window": dict(config=dataclasses.replace(base, phase_prior_weight=1e-2,
+                                                      fit=PsfFitConfig(grtol=0.0, fit_window=FIT_WINDOW)),
+                           params0=calib.params)}
+    counts, errs = {}, {}
+    for name, kw in runs.items():
+        falls = {"free": "each round", "window": "no"}.get(name, "overall")
+        res, wall, counts[name] = _blind_run(f"blind_deconvolve {name}", lambda: blind_deconvolve(
+            data, blind_model, **kw), jdeconv, falls)
+        errs[name] = _phase_err(res.params, BENCH_PHASE)
+        log(20, f"[{card}] blind_deconvolve {SHAPE}, phase 3's loop, {name}"
+                + ("" if name == "free" else " from the bead calibration") + f": deconv_f {res.deconv_f.tolist()} "
+                f"(checked to fall: {falls}), object iterations {res.deconv_iters.tolist()}, defocus "
+                f"{[round(float(v), 2) for v in res.params.defocus]}, phase "
+                f"{[round(float(v), 4) for v in res.params.phase]} (L2 off {errs[name]:.4f}), wall {wall:.3f} "
+                f"s (1 run), TV launches {counts[name]} = the object steps' objective calls, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if name == "prior":
+            prior_res = res
+    if not all(errs[n] < errs["free"] for n in ("prior", "bead", "window")):
+        raise AssertionError(f"the anchored loops' phase errors {errs} are not all below the free loop's")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = fit_uncertainty(blind_model, prior_res.params, PHASE, data, prior_res.obj)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(u.std).all()) or not bool((u.std > 0).all()):
+        raise AssertionError(f"fit_uncertainty at {SHAPE}: std {u.std.tolist()}")
+    log(20, f"[{card}] fit_uncertainty PHASE at {SHAPE} on the prior run: std {[f'{float(v):.3g}' for v in u.std]}, "
+            f"sigma {float(u.sigma):.4g}, wall {wall:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return counts
+
+
+def phase21_depth_ladder(card: str) -> dict:
+    """The depth ladder and the depth-varying blind loop with phase 18's
+    Gibson-Lanni optics (ns LADDER_NS, plane 0 at DEPTH0) and BENCH_PHASE:
+    ``calibrate_depth`` (DEPTH + PHASE) on DEPTH_K beads of BEAD_PATCH at
+    planes LADDER_Z (Poisson, SLIDE_PEAK photons) from ns LADDER_NS_START and
+    no phase, then ``ladder_fit_uncertainty``; ``fit_psf_depthvar`` (PHASE,
+    given the object) on phase 18's scene geometry (LANE_SHAPE, DEPTH_K
+    anchors) blurred through the true pupil; ``blind_deconvolve_depthvar`` of
+    that scene, 5 rounds as phase 3's loop, from the ladder's params with the
+    calibration prior, without and with the rung at plane 0 as a bead anchor
+    (the bead term centres the bead's peak at the origin while this PSF
+    peaks ~8 planes off it, so the anchor pulls Z4 toward the focal shift;
+    alone, it took Z4 to ~77 rad in a CPU run at 64^3); their TV launches
+    equal their object steps' objective calls. Returns the TV launches by
+    run."""
+    from microtipi_tpu_torch.jobs import depthvar as jdv
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+    from microtipi_tpu_torch.models.microscope import DEFOCUS, DEPTH, PHASE
+
+    dev, lam = torch.device("cuda"), OPTICS["wavelength"]
+    gl = depthvar_model(BEAD_PATCH, torch.float32, dev)
+    truth = _with_phase(gl, BENCH_PHASE)
+    ladder_z = np.asarray(LADDER_Z)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        psfs = gl.compute_depth_psfs(truth, truth.depth[1] + torch.tensor(ladder_z * OPTICS["dz"], device=dev))
+        gen = torch.Generator(device=dev).manual_seed(21)
+        beads = torch.stack([bead_photons(h, SLIDE_PEAK, gen) for h in psfs])
+    p0 = gl.init_params()._replace(depth=torch.tensor([LADDER_NS_START / lam, DEPTH0], device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit, zshifts = jdv.calibrate_depth(gl, beads, ladder_z, families=(DEPTH, PHASE), params0=p0,
+                                       config=PsfFitConfig(max_iter=60, grtol=0.0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ns = float(fit.params.depth[0]) * lam
+    t0 = time.perf_counter()
+    unc = jdv.ladder_fit_uncertainty(gl, fit.params, (DEPTH, PHASE), beads, ladder_z, zshifts)
+    torch.cuda.synchronize()
+    t_unc = time.perf_counter() - t0
+    ns_std = float(unc.std["depth"][0]) * lam
+    if not abs(ns - LADDER_NS) < 1e-3 or not np.isfinite(ns_std) or not ns_std > 0:
+        raise AssertionError(f"calibrate_depth: ns {ns:.6f} (true {LADDER_NS}), std {ns_std:.3g}")
+    log(21, f"[{card}] calibrate_depth DEPTH+PHASE, {len(ladder_z)} Gibson-Lanni beads of {BEAD_PATCH} at planes "
+            f"{ladder_z.tolist()} (plane 0 at {DEPTH0 * 1e6:g} um), from ns {LADDER_NS_START} and no phase: ns "
+            f"{ns:.6f} +- {ns_std:.2g} (true {LADDER_NS}), d0 {float(fit.params.depth[1]) * 1e6:.4f} um, phase "
+            f"{[round(float(v), 4) for v in fit.params.phase]} (true {BENCH_PHASE}), zshifts "
+            f"{[round(float(v), 3) for v in zshifts]}, status {fit.status}, {fit.iterations} iterations, "
+            f"{fit.evaluations} evaluations, {wall:.3f} s; ladder_fit_uncertainty {t_unc:.3f} s")
+
+    model = depthvar_model(LANE_SHAPE, torch.float32, dev)
+    anchors = np.linspace(0.0, LANE_SHAPE[0] - 1.0, DEPTH_K)
+    true_lane = _with_phase(model, BENCH_PHASE)
+    with torch.no_grad():
+        data, obj = depthvar_scene(jdv.depth_anchor_psfs(model, true_lane, anchors), anchors, LANE_SHAPE, dev,
+                                   torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dfit = jdv.fit_psf_depthvar(model, model.init_params(), (PHASE,), data, obj, anchors,
+                                config=PsfFitConfig(max_iter=15, grtol=0.0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err, err0 = _phase_err(dfit.params, BENCH_PHASE), _phase_err(model.init_params(), BENCH_PHASE)
+    if not err < 0.5 * err0:
+        raise AssertionError(f"fit_psf_depthvar PHASE: {err:.4g} from the truth, the start {err0:.4g}")
+    log(21, f"[{card}] fit_psf_depthvar PHASE on {LANE_SHAPE}, K {DEPTH_K}, given the object: phase "
+            f"{[round(float(v), 4) for v in dfit.params.phase]} (L2 off {err:.4f}, the start {err0:.4f}), "
+            f"{dfit.iterations} iterations, {dfit.evaluations} evaluations, wall {wall:.3f} s (1 run)")
+
+    cfg = BlindDeconvConfig(
+        loops=5, families=(DEFOCUS, PHASE), psf_max_iter=(5, 5), joint_fit=True,
+        deconv=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0),
+        fit=PsfFitConfig(grtol=0.0), phase_prior_weight=1e-2, bead_weight=float((0.01 * data.max()) ** 2) / SLIDE_BG)
+    counts = {}
+    for name, bead in (("prior", None), ("prior and bead", beads[0])):
+        res, wall, n = _blind_run(f"blind_deconvolve_depthvar {name}", lambda: jdv.blind_deconvolve_depthvar(
+            data, model, anchors, params0=fit.params, config=cfg, bead_data=bead), jdv, "overall")
+        if res.psf.shape != (DEPTH_K, *LANE_SHAPE):
+            raise AssertionError(f"blind_deconvolve_depthvar: psf {tuple(res.psf.shape)}")
+        counts[f"depth-varying blind, ladder {name} (phase 21)"] = n
+        log(21, f"[{card}] blind_deconvolve_depthvar {LANE_SHAPE}, K {DEPTH_K}, 5 rounds, joint defocus+phase fits, "
+                f"from the ladder (ns {ns:.6f}) with the calibration prior (1e-2)"
+                + (" and the plane-0 rung as a bead anchor" if bead is not None else "")
+                + f": deconv_f {res.deconv_f.tolist()}, phase {[round(float(v), 4) for v in res.params.phase]} (L2 off "
+                f"{_phase_err(res.params, BENCH_PHASE):.4f}, the ladder's {_phase_err(fit.params, BENCH_PHASE):.4f}), "
+                f"wall {wall:.3f} s (1 run), TV launches {n} = the object steps' objective calls, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2152,6 +2575,7 @@ def main() -> int:
     phase4_parity()
     phase4_new_paths()
     phase4_depthvar()
+    phase4_calibration()
     phase5_cufft(card)
     bkern = phase6_batched_kernel(card)
     psf = design_psf()
@@ -2172,9 +2596,13 @@ def main() -> int:
     depthvar_launches, depthvar_batched_launches = phase18_depthvar(card)
     tiled_depthvar_launches = phase19_tiled_depthvar(card, volume)
     del volume
+    calibration_launches = phase20_calibration(card)
+    ladder_launches = phase21_depth_ladder(card)
     tv_paths = {"deconvolve and blind (phase 3)": launches, "RL-TV (phase 13)": rl_launches,
                 "priors and auto-mu (phase 15)": prior_launches, "confocal blind (phase 17)": family_launches,
-                "depthvar and RL-TV depthvar (phase 18)": depthvar_launches}
+                "depthvar and RL-TV depthvar (phase 18)": depthvar_launches,
+                **{f"blind, calibration {k} (phase 20)": v for k, v in calibration_launches.items()},
+                **ladder_launches}
     batched_paths = {"batched and tiled VMLMB (phases 7-8)": batched_launches,
                      "tiled RL-TV (phase 14)": tiled_rl_launches, "batched auto-mu (phase 15)": auto_batched_launches,
                      "batched depthvar (phase 18)": depthvar_batched_launches,

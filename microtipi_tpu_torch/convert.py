@@ -5,7 +5,8 @@ and plain fields, so both packages compute from the same state without this
 module importing jax: anything with ``defocus``/``phase``/``modulus``
 attributes (and whichever of ``depth``, ``sheet``, ``sted`` and ``cavity`` it
 has) that ``np.asarray`` accepts converts to the port's params tuple of those
-fields. :func:`family_config_from_fields` maps a JAX family config to the
+fields, and :func:`anchors_to_torch` carries a field calibration's anchors
+across. :func:`family_config_from_fields` maps a JAX family config to the
 port's config of the same class name. The solver configurations
 (``DeconvolutionConfig``, ``PsfFitConfig``, ``BlindDeconvConfig``) and the
 ``InverseVarianceWeights`` model cross over field by field, by name: the port
@@ -30,8 +31,9 @@ from microtipi_tpu_torch.models.sted import STEDParams
 from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldParams
 from microtipi_tpu_torch.weights.updaters import InverseVarianceWeights
 
-__all__ = ["blind_config_from_fields", "config_fields", "config_from_fields", "deconv_config_from_fields",
-           "family_config_from_fields", "params_to_numpy", "params_to_torch", "weights_from_fields"]
+__all__ = ["anchors_to_torch", "blind_config_from_fields", "config_fields", "config_from_fields",
+           "deconv_config_from_fields", "family_config_from_fields", "params_to_numpy", "params_to_torch",
+           "weights_from_fields"]
 
 _CONFIG_FIELDS = ("shape", "na", "wavelength", "ni", "dxy", "dz", "n_phase", "n_modulus", "radial")
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
@@ -56,6 +58,14 @@ def params_to_torch(params, device=None, dtype: torch.dtype = torch.float64):
     cls = _params_class(params)
     return cls(*(torch.as_tensor(np.array(getattr(params, name)), dtype=dtype, device=device)
                  for name in cls._fields))
+
+
+def anchors_to_torch(anchors, device=None, dtype: torch.dtype = torch.float64) -> list:
+    """A field calibration ``[((y, x), params), ...]`` (the JAX
+    ``calibrate_field``'s anchors) with the port's params, for
+    ``jobs.tiled.field_psf``; a fit's params alone go through
+    :func:`params_to_torch`."""
+    return [((float(pos[0]), float(pos[1])), params_to_torch(p, device, dtype)) for pos, p in anchors]
 
 
 def params_to_numpy(params) -> dict[str, np.ndarray]:

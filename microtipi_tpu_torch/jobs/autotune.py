@@ -43,19 +43,10 @@ from microtipi_tpu_torch.jobs.deconv import (
 from microtipi_tpu_torch.jobs.wiener import wiener
 from microtipi_tpu_torch.optim.treeutil import value_and_grad
 from microtipi_tpu_torch.optim.vmlmb import minimize_vmlmb, minimize_vmlmb_batched
-from microtipi_tpu_torch.utils.arrays import pad_to_shape
+from microtipi_tpu_torch.utils.arrays import median, pad_to_shape
 from microtipi_tpu_torch.weights.updaters import laplacian_residuals
 
 __all__ = ["AutoMuResult", "deconvolve_auto_mu", "estimate_noise_sigma"]
-
-
-def _median(t: torch.Tensor) -> torch.Tensor:
-    """``jnp.median``: the mean of the two middle order statistics of an
-    even count (``torch.median`` takes the lower one, and ``torch.quantile``
-    refuses more than 16M elements)."""
-    v = torch.sort(t.reshape(-1)).values
-    h = v.numel() // 2
-    return v[h] if v.numel() % 2 else (v[h - 1] + v[h]) * 0.5
 
 
 def estimate_noise_sigma(data: torch.Tensor) -> torch.Tensor:
@@ -65,7 +56,7 @@ def estimate_noise_sigma(data: torch.Tensor) -> torch.Tensor:
     (``weights.updaters.laplacian_residuals``, already divided by 6). A 0-dim
     tensor on the data's device."""
     r, _ = laplacian_residuals(data)
-    return _median(r.abs()) / 0.6745
+    return median(r.abs()) / 0.6745
 
 
 class AutoMuResult(NamedTuple):

@@ -14,9 +14,11 @@ Port of the slice's part of ``microtipi_tpu/jobs/blind.py`` (reference:
 
 The JAX ``fori_loop`` and unrolled paths become one Python loop. The object
 step is VMLMB (``jobs/deconv.deconvolve``) or, with ``deconv_engine="admm"``,
-the ADMM engine (``jobs/admm.admm_deconvolve``). Not ported yet (they raise
-``NotImplementedError``): bead anchors and the calibration prior (ROADMAP.md
-queue 1 item 15).
+the ADMM engine (``jobs/admm.admm_deconvolve``). A bead calibration anchors
+the fits two ways: the calibration prior pulls the phase toward ``params0``
+(``phase_prior_weight``), and a bead stack joins every fit as a data term of
+its own (``bead_data``, ``psf_fit.bead_anchor_term``). ``fit.fit_window``
+moves the fits to a centred crop.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ import torch
 from microtipi_tpu_torch.jobs.admm import admm_deconvolve
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
 from microtipi_tpu_torch.jobs.wiener import wiener
-from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig, fit_psf, fit_psf_joint
-from microtipi_tpu_torch.models.microscope import DEFOCUS, MODULUS, PHASE
+from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig, bead_anchor_term, fit_psf, fit_psf_joint, model_at
+from microtipi_tpu_torch.models.microscope import DEFOCUS, DEPTH, MODULUS, PHASE, SHEET
 from microtipi_tpu_torch.ops.convolution import WeightedConvolutionCost
 from microtipi_tpu_torch.utils.arrays import crop_to_shape, pad_fft_kernel, pad_to_shape
 
@@ -51,9 +53,16 @@ class BlindDeconvConfig:
     ``deconv.max_iter`` fixed iterations a round (or Boyd stopping, if the
     object config sets it) on the plain TV objective; pair it with an annealed
     ``mu_schedule`` (:meth:`recommended`), since an exactly converged object
-    step under a weak constant mu absorbs the aberration. The last round never
-    refits (``BlindDeconvJob.java:116``); the JAX ``skip_last_fit`` switch
-    serves checkpointed per-round runs, which come with ROADMAP.md item 19."""
+    step under a weak constant mu absorbs the aberration.
+    ``phase_prior_weight`` adds ``w * f0 * ||phase - phase(params0)||^2`` to
+    every fit, anchored at the initial parameters (a bead calibration passed
+    as ``params0``); ``bead_weight`` weighs the bead stack's data term in
+    natural intensity units (1 is the joint maximum likelihood when bead and
+    sample share a noise level), ``bead_subvoxel`` centres the bead laterally
+    to a subvoxel (``jobs/blind.py:86-109``). The last round never refits
+    (``BlindDeconvJob.java:116``); the JAX ``skip_last_fit`` switch and
+    ``phase_anchor`` argument serve checkpointed per-round runs, which come
+    with ROADMAP.md item 19."""
 
     loops: int = 5
     families: tuple[int, ...] = (DEFOCUS, PHASE, MODULUS)
@@ -65,6 +74,8 @@ class BlindDeconvConfig:
     phase_freeze_head: int = 0
     init: str = "data"
     phase_prior_weight: float = 0.0
+    bead_weight: float = 1.0
+    bead_subvoxel: bool = True
     mu_schedule: tuple[float, ...] | None = None
     deconv_engine: str = "vmlmb"
 
@@ -86,9 +97,6 @@ class BlindDeconvConfig:
         ):
             raise ValueError("deconv_engine='admm' supports the plain TV objective only (no sparsity/hessian "
                              "priors, no padded-variable mode); use the vmlmb engine")
-        if self.phase_prior_weight > 0:
-            raise NotImplementedError(
-                "phase_prior_weight is not ported yet (ROADMAP.md queue 1, item 15)")
 
     @classmethod
     def recommended(cls, pin_z4: bool = False, **overrides) -> "BlindDeconvConfig":
@@ -162,11 +170,13 @@ def blind_deconvolve(
 ) -> BlindDeconvResult:
     """Run the alternating blind-deconvolution loop (``jobs/blind.py:269-434``).
 
-    ``model`` is a ``WideFieldModel``; ``weight_updater`` maps
-    (model prediction, data) -> weights for the PSF step of each round.
+    ``model`` is a PSF model (``WideFieldModel`` or another family);
+    ``weight_updater`` maps (model prediction, data) -> weights for the PSF
+    step of each round. ``bead_data``: a bead stack measured on the same
+    optics (laterally square, e.g. ``psf_fit.average_beads``'s patch), which
+    joins every PSF fit as a data term at its own grid, weighted by
+    ``config.bead_weight``.
     """
-    if bead_data is not None:
-        raise NotImplementedError("bead anchors are not ported yet (ROADMAP.md queue 1, item 15)")
     if params0 is None:
         params0 = model.init_params()
     # The object lives on deconv.var_shape (the padded variable grid), the
@@ -206,24 +216,37 @@ def blind_deconvolve(
         full_cost = WeightedConvolutionCost.build(pad_fft_kernel(psf, var_shape), data, None, var_shape)
         return weight_updater(full_cost.model(x), data)
 
-    def _obj_at_data(x):
-        return crop_to_shape(x, tuple(data.shape)) if tuple(x.shape) != tuple(data.shape) else x
+    # The calibration prior's anchor is the original params0, not the
+    # drifting estimate of each round (jobs/blind.py:347-354).
+    phase_anchor = params0.phase.detach() if config.phase_prior_weight > 0 else None
+    aux_terms = _bead_terms(model, bead_data, config)
+    fit_view, fit_model = _fit_window_view(model, data, config.fit.fit_window)
 
     def fit_one(params, x, w_fit, j, phase_active):
         flag = config.families[j]
+        fdata, fobj, fw = fit_view(x, w_fit)
         fres = fit_psf(
-            model, params, flag, data, _obj_at_data(x), weights=w_fit,
+            fit_model, params, flag, fdata, fobj, weights=fw,
             config=dataclasses.replace(fit_cfg, max_iter=config.psf_max_iter[j]),
             active=phase_active,
             freeze_head=config.phase_freeze_head if flag == PHASE else 0,
+            # DEPTH and SHEET mix physical scales; unpreconditioned they stall.
+            precondition=flag in (DEPTH, SHEET),
+            anchor=phase_anchor if flag == PHASE else None,
+            prior_weight=config.phase_prior_weight if flag == PHASE else 0.0,
+            aux_terms=aux_terms,
         )
         return fres.params, fres.f
 
     def fit_joint(params, x, w_fit, jfams):
+        fdata, fobj, fw = fit_view(x, w_fit)
         fres = fit_psf_joint(
-            model, params, jfams, data, _obj_at_data(x), weights=w_fit,
+            fit_model, params, jfams, fdata, fobj, weights=fw,
             config=dataclasses.replace(fit_cfg, max_iter=max(config.psf_max_iter)),
             phase_freeze_head=config.phase_freeze_head,
+            phase_anchor=phase_anchor,
+            phase_prior_weight=config.phase_prior_weight,
+            aux_terms=aux_terms,
         )
         return fres.params, fres.f
 
@@ -234,3 +257,41 @@ def blind_deconvolve(
     with torch.no_grad():
         psf = model.compute_psf(params)
     return BlindDeconvResult(x, params, psf, deconv_f, fit_f, deconv_iters)
+
+
+def _bead_terms(model, bead_data, config: BlindDeconvConfig) -> tuple:
+    """The fits' auxiliary terms: none, or the bead stack's
+    ``psf_fit.bead_anchor_term`` on ``model``'s optics at the stack's grid,
+    weighted by ``config.bead_weight`` (``jobs/blind.py:356-371``)."""
+    if bead_data is None:
+        return ()
+    if bead_data.shape[-1] != bead_data.shape[-2]:
+        raise ValueError(f"bead stack must be laterally square for the pupil model, got {tuple(bead_data.shape)}; "
+                         "crop it or run psf_fit.average_beads (its default patch is square)")
+    term = bead_anchor_term(model_at(model, bead_data.shape), bead_data, subvoxel=config.bead_subvoxel)
+    return ((term, config.bead_weight),)
+
+
+def _fit_window_view(model, data, fit_window):
+    """``(view, fit_model)`` of the windowed fit (``jobs/blind.py:373-424``):
+    ``view(x, w) -> (data, object, weights)`` at the fit grid, the object
+    cropped to the data window first; with a window all three are centred
+    crops and ``fit_model`` is the model at the window's shape."""
+    shape = tuple(data.shape)
+
+    def at_data(x):
+        return crop_to_shape(x, shape) if tuple(x.shape) != shape else x
+
+    if fit_window is None:
+        return (lambda x, w: (data, at_data(x), w)), model
+    win = tuple(int(v) for v in fit_window)
+    if any(w > s for w, s in zip(win, shape)):
+        raise ValueError(f"fit_window {win} exceeds the data shape {shape}")
+    if win[1] != win[2]:
+        raise ValueError(f"fit_window lateral dims must be square (pupil model), got {win}")
+
+    def view(x, w):
+        return (crop_to_shape(data, win), crop_to_shape(at_data(x), win),
+                None if w is None else crop_to_shape(w, win))
+
+    return view, model_at(model, win)

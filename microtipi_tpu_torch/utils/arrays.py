@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["roll", "unroll", "pad_to_shape", "crop_to_shape", "pad_fft_kernel"]
+__all__ = ["roll", "unroll", "pad_to_shape", "crop_to_shape", "pad_fft_kernel", "median"]
 
 
 def roll(x: torch.Tensor, axes=None) -> torch.Tensor:
@@ -77,3 +77,13 @@ def pad_fft_kernel(kernel: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor
         return kernel
     axes = tuple(range(len(lead), kernel.ndim))
     return unroll(pad_to_shape(roll(kernel, axes), shape), axes)
+
+
+def median(t: torch.Tensor) -> torch.Tensor:
+    """``jnp.median`` of all elements: the mean of the two middle order
+    statistics of an even count (``torch.median`` takes the lower one, and
+    ``torch.quantile`` refuses more than 2^24 elements), a 0-dim tensor on
+    ``t``'s device."""
+    v = torch.sort(t.reshape(-1)).values
+    h = v.numel() // 2
+    return v[h] if v.numel() % 2 else (v[h - 1] + v[h]) * 0.5

@@ -3,14 +3,19 @@ CPU (float64): ``depth_weights``, ``DepthVaryingConvCost`` (plain, padded,
 weighted, and over lanes), the anchor PSFs from a Gibson-Lanni model and
 from pupil maps, ``deconvolve_depthvar`` (Gaussian, Poisson, padded),
 ``richardson_lucy_depthvar`` (matched, RL-TV, accelerated),
-``batched_deconvolve_depthvar`` and the tiled depth-varying path with
-``field_depthvar_psf``. Inputs come from numpy with a seed and feed both
-packages; the JAX references are computed once, in module fixtures.
+``batched_deconvolve_depthvar``, the tiled depth-varying path with
+``field_depthvar_psf``, ``fit_psf_depthvar`` (with the calibration prior and
+a bead anchor), ``blind_deconvolve_depthvar``, the depth ladder
+``calibrate_depth`` and its ``ladder_fit_uncertainty``. Inputs come from
+numpy with a seed and feed both packages; the JAX references are computed
+once, in module fixtures.
 
 Tolerances: the operator, its costs and gradients and the anchor PSFs to
 1e-10 relative (the same float64 arithmetic up to FFT and summation order);
 every solver's object to 1e-5 relative L2, the BASELINE.json fidelity bar,
-and its final cost to 1e-8 relative with the same iteration count."""
+and its final cost to 1e-8 relative with the same iteration count; the PSF
+fits' and the ladder's cost at the start to 1e-10, their params and f to
+1e-5; the ladder's error bars to 1e-8."""
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +41,7 @@ from microtipi_tpu_torch.jobs.batch import batched_deconvolve_depthvar
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
 from microtipi_tpu_torch.jobs.tiled import field_depthvar_psf, tiled_deconvolve
 from microtipi_tpu_torch.models import model_for
+from microtipi_tpu_torch.models.microscope import DEFOCUS, DEPTH, PHASE
 from microtipi_tpu_torch.ops.depthconv import DepthVaryingConvCost, depth_weights
 
 SHAPE = (8, 16, 16)
@@ -327,8 +333,207 @@ def test_tiled_depthvar_matches_jax(tiled_runs):
                          device="cpu")
 
 
-@pytest.mark.parametrize("name", ["fit_psf_depthvar", "blind_deconvolve_depthvar", "calibrate_depth",
-                                  "ladder_fit_uncertainty"])
-def test_item_15_functions_raise(name):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        getattr(tdepthvar, name)(None, None)
+# The depth-varying fits, the blind loop and the depth ladder, on a
+# Gibson-Lanni model at plane-0 depth 0 (the JAX tests' optics).
+FIT_SHAPE = (12, 16, 16)
+FIT_OPTICS = dict(na=1.3, wavelength=500e-9, ni=1.518, dxy=100e-9, dz=250e-9, n_phase=3, ns=1.36, depth=0.0,
+                  dtype=jnp.float64)
+FIT_ANCHORS = np.array([0.0, 5.5, 11.0])
+LADDER_Z = np.array([0.0, 5.5, 11.0])
+NS_TRUE, NS_START = 1.36, 1.45
+UNC_RTOL = 1e-8
+
+
+def _fit_scene(phase=(0.2, -0.1, 0.05), seed=11):
+    """Sparse beads under the depth-varying blur of ``phase`` at
+    FIT_ANCHORS, 1% noise; the JAX config and the port's model."""
+    cfg = JaxGLConfig(shape=FIT_SHAPE, **FIT_OPTICS)
+    p = cfg.init_params()._replace(phase=jnp.asarray(phase))
+    stack = jax_anchor_psfs(cfg, p, FIT_ANCHORS, depth0=0.0)
+    rng = np.random.default_rng(seed)
+    obj = rng.random(FIT_SHAPE) * (rng.random(FIT_SHAPE) > 0.9) * 100 + 1.0
+    data = np.asarray(JaxDepthCost.build(stack, jnp.asarray(obj), anchors=FIT_ANCHORS).model(jnp.asarray(obj)))
+    data = data + 0.01 * data.max() * rng.standard_normal(FIT_SHAPE)
+    return cfg, model_for(family_config_from_fields(cfg), device="cpu"), obj, data
+
+
+def _ladder_beads(seed=13):
+    """Beads at LADDER_Z planes under the true sample index, x2e4, with a
+    background of 10 and unit noise (``tests/test_depthvar.py:273``)."""
+    cfg = JaxGLConfig(shape=FIT_SHAPE, **FIT_OPTICS)
+    p = cfg.init_params()._replace(depth=jnp.asarray([NS_TRUE / 500e-9, 0.0]))
+    rng = np.random.default_rng(seed)
+    return cfg, p, np.stack([2e4 * np.asarray(cfg.compute_psf(p._replace(depth=jnp.asarray([NS_TRUE / 500e-9,
+                                                                                             z * cfg.dz]))))
+                             + 10.0 + rng.standard_normal(FIT_SHAPE) for z in LADDER_Z])
+
+
+# name: (families, keyword arguments) of fit_psf_depthvar; "prior" pulls the
+# phase toward PRIOR_ANCHOR, "bead" adds a bead anchor term.
+DV_FITS = {
+    "phase_prior_bead": ((PHASE,), dict(phase_prior_weight=1e-2, bead=10.0)),
+    "phase_active": ((PHASE,), dict(phase_active=2, phase_freeze_head=1)),
+    "joint_defocus_depth": ((DEFOCUS, DEPTH), dict()),
+}
+PRIOR_ANCHOR = [0.15, -0.05, 0.0]
+
+
+def _dv_fit(pkg_fit, cfg_or_model, p0, obj, data, bead_term, flags, kw, config):
+    kw = dict(kw)
+    weight = kw.pop("bead", None)
+    if weight is not None:
+        kw["aux_terms"] = ((bead_term, weight),)
+    return pkg_fit(cfg_or_model, p0, flags, data, obj, FIT_ANCHORS, config=config, **kw)
+
+
+@pytest.fixture(scope="module")
+def dv_runs():
+    """The JAX depth-varying fits, ladder, ladder error bars and blind
+    loops of this file, once."""
+    from microtipi_tpu.jobs import depthvar as jdv
+    from microtipi_tpu.jobs.psf_fit import PsfFitConfig as JaxFitConfig
+    from microtipi_tpu.jobs.psf_fit import bead_anchor_term as jax_bead_term
+
+    cfg, model, obj, data = _fit_scene()
+    bead = 300.0 * np.asarray(cfg.compute_psf(cfg.init_params()._replace(phase=jnp.asarray([0.2, -0.1, 0.05])))) + 1.0
+    out = {}
+    start = {"joint_defocus_depth": cfg.init_params()._replace(depth=jnp.asarray([1.40 / 500e-9, 0.0]))}
+    for name, (flags, kw) in DV_FITS.items():
+        p0 = start.get(name, cfg.init_params()._replace(phase=jnp.asarray(PRIOR_ANCHOR)))
+        res = _dv_fit(jdv.fit_psf_depthvar, cfg, p0, jnp.asarray(obj), jnp.asarray(data),
+                      jax_bead_term(cfg, jnp.asarray(bead)), flags, kw, JaxFitConfig(max_iter=15, grtol=0.0))
+        out[name] = (p0, {k: np.asarray(v) for k, v in res.params._asdict().items()}, float(res.f),
+                     np.asarray(res.f_history))
+    lcfg, p_true, beads = _ladder_beads()
+    p0 = p_true._replace(depth=jnp.asarray([NS_START / 500e-9, 0.0]))
+    fit, zs = jdv.calibrate_depth(lcfg, jnp.asarray(beads), LADDER_Z, families=(DEPTH,), params0=p0,
+                                  config=JaxFitConfig(max_iter=50, grtol=0.0))
+    unc = jdv.ladder_fit_uncertainty(lcfg, fit.params, (DEPTH,), jnp.asarray(beads), LADDER_Z, zs)
+    out["ladder"] = (p0, fit, np.asarray(zs), unc)
+    for name, case in DV_BLIND.items():
+        res = jdv.blind_deconvolve_depthvar(jnp.asarray(data), cfg, FIT_ANCHORS, **_dv_blind_args(cfg, bead, case,
+                                                                                                   jax_side=True))
+        out["blind_" + name] = res
+    return cfg, model, obj, data, bead, beads, out
+
+
+@pytest.mark.parametrize("name", list(DV_FITS))
+def test_fit_psf_depthvar_matches_jax(name, dv_runs):
+    """f at the start (the prior and bead term before a step) to 1e-10; the
+    fit's params and f to 1e-5."""
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig, bead_anchor_term
+
+    cfg, model, obj, data, bead, _, out = dv_runs
+    p0, params, f, f_history = out[name]
+    flags, kw = DV_FITS[name]
+    res = _dv_fit(tdepthvar.fit_psf_depthvar, model, params_to_torch(p0), torch.tensor(obj), torch.tensor(data),
+                  bead_anchor_term(model, torch.tensor(bead)), flags, kw, PsfFitConfig(max_iter=15, grtol=0.0))
+    assert abs(res.f_history[0] - f_history[0]) / f_history[0] < OP_RTOL
+    assert abs(float(res.f) - f) / f < X_REL
+    for k, v in params.items():  # an unfitted family is equal, zero or not
+        assert np.linalg.norm(getattr(res.params, k).numpy() - v) <= X_REL * np.linalg.norm(v), k
+    if name == "joint_defocus_depth":  # the sample index moves toward the truth from 1.40
+        assert abs(float(res.params.depth[0]) * 500e-9 - 1.36) < 0.04 / 4
+
+
+def test_cyclic_shift_z_matches_jax():
+    from microtipi_tpu.jobs.depthvar import _cyclic_shift_z as jax_shift
+
+    h = np.random.default_rng(12).random(FIT_SHAPE)
+    for s in (0.0, 2.3, -5.7, 12.0):
+        want = np.asarray(jax_shift(jnp.asarray(h), s, jnp.complex128))
+        assert _rel(tdepthvar._cyclic_shift_z(torch.tensor(h), s, torch.complex128), want) < OP_RTOL
+    stack = np.stack([h, h[::-1].copy()])
+    got = tdepthvar._cyclic_shift_z(torch.tensor(stack), torch.tensor([2.3, -5.7], dtype=torch.float64),
+                                 torch.complex128)
+    for b, s in enumerate((2.3, -5.7)):
+        assert _rel(got[b], jax_shift(jnp.asarray(stack[b]), s, jnp.complex128)) < OP_RTOL
+    np.testing.assert_allclose(tdepthvar._cyclic_shift_z(torch.tensor(h), 3.0, torch.complex128).numpy(),
+                               np.roll(h, 3, axis=0), atol=1e-12)
+
+
+def test_calibrate_depth_matches_jax(dv_runs):
+    """The ladder's cost at the start (its zshift start included) to 1e-10,
+    the fitted index, d0 and shifts and f to 1e-5; ns is recovered."""
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+
+    cfg, _, _, _, _, beads, out = dv_runs
+    p0, fit_j, zs_j, _ = out["ladder"]
+    model = model_for(family_config_from_fields(cfg), device="cpu")
+    fit, zs = tdepthvar.calibrate_depth(model, torch.tensor(beads), LADDER_Z, families=(DEPTH,),
+                                        params0=params_to_torch(p0), config=PsfFitConfig(max_iter=50, grtol=0.0))
+    fh = np.asarray(fit_j.f_history)
+    assert abs(fit.f_history[0] - fh[0]) / fh[0] < OP_RTOL
+    assert abs(float(fit.f) - float(fit_j.f)) / float(fit_j.f) < X_REL
+    assert _rel(fit.params.depth, fit_j.params.depth) < X_REL and _rel(zs, zs_j) < X_REL
+    assert abs(float(fit.params.depth[0]) * 500e-9 - NS_TRUE) < 5e-3
+    with pytest.raises(ValueError, match="include it"):
+        tdepthvar.calibrate_depth(model, torch.tensor(beads), LADDER_Z, families=(PHASE,))
+    with pytest.raises(ValueError, match="one z position per bead"):
+        tdepthvar.calibrate_depth(model, torch.tensor(beads), LADDER_Z[:2])
+
+
+def test_ladder_fit_uncertainty_matches_jax(dv_runs):
+    cfg, _, _, _, _, beads, out = dv_runs
+    _, fit_j, zs_j, unc = out["ladder"]
+    model = model_for(family_config_from_fields(cfg), device="cpu")
+    got = tdepthvar.ladder_fit_uncertainty(model, params_to_torch(fit_j.params), (DEPTH,), torch.tensor(beads),
+                                           LADDER_Z, torch.tensor(zs_j))
+    assert set(got.std) == {"depth", "zshift", "amp", "background"}
+    for k in got.std:
+        assert _rel(got.std[k], unc.std[k]) < UNC_RTOL, k
+    assert _rel(got.cov, unc.cov) < UNC_RTOL and abs(float(got.sigma) - float(unc.sigma)) / float(unc.sigma) < UNC_RTOL
+
+
+# name: the depth-varying blind loop's options
+DV_BLIND = {"prior_bead": dict(joint_fit=False, phase_prior_weight=1e-2, params0=True, bead_weight=10.0, bead=True)}
+
+
+def _dv_blind_args(cfg, bead, case, jax_side):
+    """The keyword arguments of blind_deconvolve_depthvar for ``case``:
+    3 rounds of 4 object iterations, DEFOCUS and PHASE fits of 4."""
+    from microtipi_tpu.jobs.blind import BlindDeconvConfig as JaxBlindConfig
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
+
+    case = dict(case)
+    use_prior, use_bead = case.pop("params0", False), case.pop("bead", False)
+    fields = dict(loops=3, families=(DEFOCUS, PHASE), psf_max_iter=(4, 4), **case)
+    dcfg = dict(mu=1e-3, epsilon=1.0, max_iter=4, grtol=0.0)
+    p0 = cfg.init_params()._replace(phase=jnp.asarray(PRIOR_ANCHOR)) if use_prior else None
+    if jax_side:
+        return dict(params0=p0, bead_data=jnp.asarray(bead) if use_bead else None,
+                    config=JaxBlindConfig(deconv=JaxDeconvConfig(**dcfg), **fields))
+    return dict(params0=None if p0 is None else params_to_torch(p0),
+                bead_data=torch.tensor(bead) if use_bead else None,
+                config=BlindDeconvConfig(deconv=DeconvolutionConfig(**dcfg), **fields))
+
+
+@pytest.mark.parametrize("name", list(DV_BLIND))
+def test_blind_deconvolve_depthvar_matches_jax(name, dv_runs):
+    """3 rounds with the calibration prior and a bead anchor, sequential
+    fits: params, every round's f and the object to 1e-5; the loop refuses
+    ADMM, a fit window and a model without DEPTH."""
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+
+    cfg, model, _, data, bead, _, out = dv_runs
+    want = out["blind_" + name]
+    got = tdepthvar.blind_deconvolve_depthvar(torch.tensor(data), model, FIT_ANCHORS,
+                                              **_dv_blind_args(cfg, bead, DV_BLIND[name], jax_side=False))
+    for k in ("defocus", "phase", "depth"):
+        assert _rel(getattr(got.params, k), getattr(want.params, k)) < X_REL, k
+    wd, wf = np.asarray(want.deconv_f), np.asarray(want.fit_f)
+    assert np.max(np.abs(got.deconv_f - wd) / wd) < X_REL
+    np.testing.assert_array_equal(np.isnan(got.fit_f), np.isnan(wf))
+    ok = ~np.isnan(wf)
+    assert np.max(np.abs(got.fit_f[ok] - wf[ok]) / wf[ok]) < X_REL
+    assert got.psf.shape == (3, *FIT_SHAPE) and _rel(got.obj, want.obj) < X_REL and _rel(got.psf, want.psf) < X_REL
+    if name == "prior_bead":
+        for bad, match in ((dict(deconv_engine="admm"), "circulant"),
+                           (dict(fit=PsfFitConfig(fit_window=(12, 8, 8))), "fit_window")):
+            with pytest.raises(ValueError, match=match):
+                tdepthvar.blind_deconvolve_depthvar(torch.tensor(data), model, 3, config=BlindDeconvConfig(**bad))
+        wmodel = model_for(family_config_from_fields(JaxConfig(shape=FIT_SHAPE, **{
+            k: v for k, v in FIT_OPTICS.items() if k not in ("ns", "depth")})), device="cpu")
+        with pytest.raises(ValueError, match="DEPTH family"):
+            tdepthvar.blind_deconvolve_depthvar(torch.tensor(data), wmodel, 3)
