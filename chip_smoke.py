@@ -14,8 +14,9 @@ raises and the script exits non-zero:
    the ADMM split update and right-hand side; one ``nvcc`` a source, started
    together), with ptxas's report (registers, shared memory, spills);
 2. the kernel against its plain PyTorch version on the card, at 256^3, at
-   phase 15's padded grid 288^3 and at ragged shapes, its TMA and its
-   4-byte-copy (unaligned) instantiations, then its time at 256^3:
+   phase 15's padded grid 288^3, at phase 22's 64x512x512 and at ragged
+   shapes, its TMA and its 4-byte-copy (unaligned) instantiations, then its
+   time at 256^3:
    ``kernel_ms`` from CUDA events around 50 back-to-back raw launches into
    preallocated outputs, ``call_ms`` per wrapper call (allocation and host
    launch latency included), and the plain version's;
@@ -30,11 +31,13 @@ raises and the script exits non-zero:
    ``deconvolve_depthvar`` and ``richardson_lucy_depthvar`` (RL-TV) on
    Gibson-Lanni anchors, and of the bead pieces: ``center_bead_stack``,
    ``bead_anchor_term`` and its gradient, ``fit_psf_beads``,
-   ``bead_fit_uncertainty`` and ``calibrate_depth``;
+   ``bead_fit_uncertainty`` and ``calibrate_depth``; and of every joint solver
+   (time series, multichannel joint and separate, unmixing, 5D, superres,
+   by VMLMB and by ADMM) at 16x64x64 volumes, 10 iterations;
 5. cuFFT float32 precision against float64 NumPy at 256^3;
 6. the batched hyperbolic-TV kernel against its plain version, each lane
-   against the single-volume kernel (bitwise), unaligned batches and lane
-   views, then its ``kernel_ms`` and ``call_ms`` at 4x64x256x256 and at the
+   against the single-volume kernel (bitwise), at phase 22's 8, 3 and 2
+   lanes of 64x512x512 too, unaligned batches and lane views, then its ``kernel_ms`` and ``call_ms`` at 4x64x256x256 and at the
    tiled run's 4x256^3 beside the plain version, and 4 single-volume
    launches at 4x64x256x256;
 7. ``batched_deconvolve`` at full width: 4 bench scenes of 64x256x256, each
@@ -57,7 +60,8 @@ raises and the script exits non-zero:
    copy; the SASS counts of the division and square-root sequences
    (``cuobjdump``); then both kernels' ``kernel_ms``, ``call_ms`` and plain
    times at 256^3, 4x64x256x256 and the tiled run's 4x256^3 (its ragged
-   3x256^3 batch is compared too);
+   3x256^3 batch is compared too, and phase 22's 8, 3, 2 and 1 lanes of
+   64x512x512);
 10. ``admm_deconvolve`` at full width on the bench scene (256^3, 20
     iterations): untracked (the ``admm_value`` lane of ``bench.py``), tracked
     (``f_history`` must fall and end below phase 3's VMLMB objective),
@@ -109,14 +113,28 @@ raises and the script exits non-zero:
 21. the depth ladder: ``calibrate_depth`` on 4 Gibson-Lanni beads of 64^3
     from a wrong sample index, ``ladder_fit_uncertainty``,
     ``fit_psf_depthvar`` at 64x256x256 and ``blind_deconvolve_depthvar``
-    from the ladder, with the prior and with a bead anchor.
+    from the ladder, with the prior and with a bead anchor;
+22. the joint solvers on the bench optics, volumes of 64x512x512: a time
+    series of 8 frames (fixed beads, more appearing at frame 4) by
+    ``deconvolve_timeseries`` at mu_t 0 and 0.01 and by
+    ``admm_deconvolve_timeseries`` (untracked at both, tracked, weighted with
+    bleaching gains, Boyd-stopped at reltol 1e-2), the temporal prior
+    lowering each engine's error to the truth under 0.94x and both engines
+    keeping the event; 3 channels through 460/525/610 nm PSFs, joint and
+    separate by both engines, joint coupling lowering the dim channel's
+    error (ADMM under 0.92x, VMLMB under 1x), and 2 dyes behind README's mixing
+    matrix; a 4 x 2 (T, C) block with mu_t and bleach by both engines; camera
+    data of 64x256x256 onto the 64x512x512 grid by ``deconvolve_superres``
+    and ``admm_deconvolve_superres``, localising off-lattice beads better
+    than the coarse solves.
 
-The main paths are phases 3, 13, 15, 17, 18, 20 and 21 (the single-volume TV
-kernel), phases 7-8, 14, 15, 18 and 19 (the batched TV kernel) and phases
-10-12 (the ADMM kernels): each is driven with the launch counts set to 0 just before and
-read just after, and none may take the TV kernel's unaligned instantiation
-or the split update's 4-byte one; the TV entries of the kernels line give
-their launches path by path (``launches_by_path``). Phase 16 must launch no
+The main paths are phases 3, 13, 15, 17, 18, 20, 21 and 22's superres (the
+single-volume TV kernel), phases 7-8, 14, 15, 18, 19 and 22 (the batched TV
+kernel) and phases 10-12 and 22 (the ADMM kernels): each is driven with the
+launch counts set to 0 just before and read just after, and none may take the
+TV kernel's unaligned instantiation or the split update's 4-byte one; every
+entry of the kernels line gives its launches path by path
+(``launches_by_path``). Phase 16 must launch no
 TV kernel: its Hessian comes from the plain objective.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on its paths, error, times and bound (``ms`` is the wrapper call's
@@ -144,11 +162,16 @@ SHAPE = (256, 256, 256)
 PARITY_SHAPE = (16, 64, 64)
 # Phase 15's padded variable grid: the TV kernel runs there on a main path.
 PAD_SHAPE = (288, 288, 288)
-KERNEL_SHAPES = (SHAPE, PAD_SHAPE, (37, 64, 96), (256, 8, 128))
+# Phase 22's volumes: a frame, channel or fine grid; the lanes of its series and 5D block (8), its channels (3)
+# and its dyes (2).
+JOINT_VOL = (64, 512, 512)
+JOINT_LANES = (8, 3, 2)
+KERNEL_SHAPES = (SHAPE, PAD_SHAPE, (37, 64, 96), (256, 8, 128), JOINT_VOL)
 # nx % 4 != 0: the kernel's 4-byte-copy instantiation.
 UNALIGNED_SHAPE = (33, 45, 67)
 # The first is timed; the last two are the tiled run's full and ragged batches.
-BATCH_SHAPES = ((4, 64, 256, 256), (3, 37, 64, 96), (2, 256, 8, 128), (4, 256, 256, 256), (3, 256, 256, 256))
+BATCH_SHAPES = ((4, 64, 256, 256), (3, 37, 64, 96), (2, 256, 8, 128), (4, 256, 256, 256), (3, 256, 256, 256),
+                *((b, *JOINT_VOL) for b in JOINT_LANES))
 UNALIGNED_BATCH = (3, 33, 45, 67)  # its lanes x[1], x[2] start off 16-byte alignment too
 LANE_SHAPE = (64, 256, 256)  # one lane of the batched object step
 VOLUME, TILE, OVERLAP, MAX_BATCH = (512, 1024, 1024), (256, 256, 256), 24, 4  # BASELINE.md:1241-1251
@@ -177,8 +200,10 @@ HBM_BYTES_PER_S, F32_OPS_PER_S, TV_OPS_PER_VOXEL = 3.35e12, 67e12, 27
 # volume out; 12 operations of the adjoint, 6 after it.
 SPLIT_VOLUMES, SPLIT_VOLUMES_RELAXED, SPLIT_OPS, SPLIT_OPS_RELAXED, RHS_VOLUMES, RHS_OPS = 13, 17, 149, 161, 9, 18
 ADMM_KERNEL_SHAPES = ((1, 37, 64, 96), (1, 33, 45, 67), (3, 37, 64, 96))
-# The first two are timed too; the last two are the tiled run's full and ragged batches.
-ADMM_FULL_SHAPES = ((1, *SHAPE), (4, *LANE_SHAPE), (MAX_BATCH, *TILE), (3, *TILE))
+# The first three are timed; the next is the tiled run's ragged batch; the rest phase 22's lanes and its
+# superres fine grid (B = 1).
+ADMM_FULL_SHAPES = ((1, *SHAPE), (4, *LANE_SHAPE), (MAX_BATCH, *TILE), (3, *TILE),
+                    *((b, *JOINT_VOL) for b in (*JOINT_LANES, 1)))
 # Scales: unit, a power of two, and reciprocals that float32 does not hold
 # exactly (the kernels and the plain versions multiply by the same rounded ones).
 ADMM_SCALES = (None, (2.0, 1.0, 1.0), (3.0, 1.0, 0.7))
@@ -813,18 +838,17 @@ def phase8_single_tile(cfg) -> None:
 
 
 def admm_state(shape, seed: int = 0) -> dict:
-    """Random x, z1, u1, z2, u2 of a batch ``shape`` on the card and per-lane
-    lam, rho1, rho2 that differ between lanes."""
-    rng = np.random.default_rng(seed)
+    """Random x, z1, u1, z2, u2 of a batch ``shape`` drawn on the card (from
+    ``seed``) and per-lane lam, rho1, rho2 that differ between lanes."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     nb = shape[0]
 
     def normal(s):
-        return torch.as_tensor(rng.standard_normal(s, dtype=np.float32), device="cuda")
+        return torch.randn(s, generator=gen, device="cuda")
 
     st = {"x": normal(shape), "z1": normal((nb, 3, *shape[1:])), "u1": normal((nb, 3, *shape[1:])),
           "z2": normal(shape), "u2": normal(shape)}
-    st.update({k: torch.as_tensor(rng.uniform(0.05, 2.0, nb).astype(np.float32), device="cuda")
-               for k in ("lam", "rho1", "rho2")})
+    st.update({k: 0.05 + 1.95 * torch.rand(nb, generator=gen, device="cuda") for k in ("lam", "rho1", "rho2")})
     return st
 
 
@@ -1146,17 +1170,24 @@ class AdmmCounts:
 
     def __exit__(self, *exc):
         self.split, self.rhs = self.ak.split_launches, self.ak.rhs_launches
-        self.tv = self.hv.launches + self.hv.batched_launches
+        self.tv_single, self.tv_batched = self.hv.launches, self.hv.batched_launches
+        self.tv = self.tv_single + self.tv_batched
         self.unaligned = self.hv.unaligned_launches + self.ak.split_unaligned_launches
         return False
 
-    def check(self, name: str, iterations: int, objective_values: int) -> str:
-        """Each ADMM kernel once an iteration, the TV kernel once an objective value."""
-        if (self.split, self.rhs, self.tv, self.unaligned) != (iterations, iterations, objective_values, 0):
+    def check(self, name: str, iterations: int, objective_values: int, split: int | None = None,
+              tv: str = "batched") -> str:
+        """Each ADMM kernel once an iteration (the split update ``split`` times
+        where given), the TV kernel of kind ``tv`` ("batched" or "single")
+        once an objective value and the other never."""
+        split = iterations if split is None else split
+        want_tv = (objective_values, 0) if tv == "single" else (0, objective_values)
+        if (self.split, self.rhs, (self.tv_single, self.tv_batched), self.unaligned) != (split, iterations, want_tv, 0):
             raise AssertionError(f"{name}: admm_split_update {self.split} and admm_rhs {self.rhs} launches (expected "
-                                 f"{iterations} each), TV launches {self.tv} (expected {objective_values}), "
-                                 f"unaligned instantiations (TV, split update) {self.unaligned}")
-        return f"admm_split_update {self.split}, admm_rhs {self.rhs}, TV {self.tv} launches"
+                                 f"{split} and {iterations}), TV launches single {self.tv_single} and batched "
+                                 f"{self.tv_batched} (expected {want_tv}), unaligned instantiations (TV, split "
+                                 f"update) {self.unaligned}")
+        return f"admm_split_update {self.split}, admm_rhs {self.rhs}, {tv} TV {self.tv} launches"
 
 
 def _timed(fn, runs: int = 3):
@@ -2559,6 +2590,615 @@ def phase21_depth_ladder(card: str) -> dict:
     return counts
 
 
+# Phase 22: the joint solvers (time series, multichannel, 5D, finer grid) on the bench optics.
+SERIES_T, EVENT_T, EVENT_BEADS = 8, 4, 32  # frames, the frame where the event beads appear, how many
+CHANNEL_NM = (460e-9, 525e-9, 610e-9)  # the channels' emission wavelengths
+CHANNEL_SCALES = (1.0, 0.5, 0.15)  # one structure in every channel at these intensities: the last is dim
+MIXING = ((0.85, 0.25), (0.15, 0.75))  # README's two-dye bleed-through matrix
+BLOCK_TC = (4, 2)  # the 5D block's timepoints and channels
+SR_CAMERA, SR_FACTOR = (64, 256, 256), (1, 2, 2)  # camera data; the fine grid is JOINT_VOL
+SR_SPACING = 64  # fine pixels between the superres beads
+JOINT_PARITY_VOL = (16, 64, 64)  # phase 4's size for the joint solvers
+MU_T = 0.01  # the temporal prior's weight (epsilon_t = epsilon = 1)
+# The coupling comparison's mus, one for each prior: the coupled norm makes shared edges cheap, so it takes
+# the larger one (tests/test_multichannel.py:134-152 gives it 10x).
+JOINT_MU, SEPARATE_MU = 1e-2, 3e-3
+
+
+def joint_psf(shape, device, dtype, wavelength=None, dxy=None) -> torch.Tensor:
+    """The bench optics' in-focus widefield PSF (OPTICS) at ``shape``, at
+    another emission wavelength or pixel pitch where given."""
+    from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
+
+    optics = dict(OPTICS, **{k: v for k, v in (("wavelength", wavelength), ("dxy", dxy)) if v is not None})
+    model = WideFieldModel(WideFieldConfig(shape=shape, dtype=dtype, **optics), device=device)
+    with torch.no_grad():
+        return model.compute_psf(model.init_params())
+
+
+def blur(obj: torch.Tensor, psf: torch.Tensor) -> torch.Tensor:
+    """Circular convolution of a stack (..., Nz, Ny, Nx) by one PSF, or one a
+    leading index."""
+    from microtipi_tpu_torch.ops.convolution import convolve, convolve_spectrum
+
+    with torch.no_grad():
+        return convolve(obj, convolve_spectrum(psf), tuple(obj.shape[-3:]))
+
+
+def bead_centres(shape, rng, density=5e-5) -> np.ndarray:
+    """Random bead centres on the host, float32: ``density`` of the voxels,
+    amplitudes uniform in [50, 150]."""
+    return (rng.uniform(50.0, 150.0, shape) * (rng.random(shape) < density)).astype(np.float32)
+
+
+def resolved_beads(centres: np.ndarray, device, dtype) -> torch.Tensor:
+    """0.5 um beads resolved over several voxels: the centres blurred by a
+    Gaussian of 2 planes (400 nm) by 3 pixels (240 nm) standard deviation,
+    peak 1. Point beads under the widefield blur leave 20 iterations far
+    from the truth whatever the prior; on these the noise, which a prior
+    averages, is a share of the error."""
+    vol = centres.shape[-3:]
+    ax = [np.minimum(np.arange(n), n - np.arange(n)).astype(np.float64) for n in vol]
+    k = np.exp(-ax[0][:, None, None] ** 2 / 8.0 - ax[1][None, :, None] ** 2 / 18.0 - ax[2][None, None, :] ** 2 / 18.0)
+    return blur(torch.as_tensor(centres, device=device, dtype=dtype), torch.as_tensor(k, device=device, dtype=dtype))
+
+
+def with_noise(clean: torch.Tensor, sigma: float, rng) -> torch.Tensor:
+    """``clean`` plus Gaussian noise of standard deviation ``sigma`` drawn on
+    the host (the same draw for every device and dtype)."""
+    noise = rng.standard_normal(tuple(clean.shape), dtype=np.float32)
+    return clean + sigma * torch.as_tensor(noise, device=clean.device, dtype=clean.dtype)
+
+
+def series_truth(vol, nt, device, dtype, rng):
+    """``nt`` frames of fixed resolved beads, EVENT_BEADS more of amplitude 150
+    appearing at frame EVENT_T (when ``nt`` reaches it). Returns (truth, the
+    event beads' centres)."""
+    centres = np.repeat(bead_centres(vol, rng)[None], nt, axis=0)
+    events = tuple(rng.integers(m, n - m, EVENT_BEADS) for n, m in zip(vol, (2, 4, 4)))
+    centres[EVENT_T:, events[0], events[1], events[2]] = 150.0
+    return resolved_beads(centres, device, dtype), events
+
+
+def series_scene(vol, nt, device, dtype, seed=0, noise=0.1):
+    """The time series (:func:`series_truth`) blurred by the bench PSF, plus
+    noise of ``noise`` times the clean maximum drawn independently for each
+    frame. Returns (truth, data, psf, the event beads' centres)."""
+    rng = np.random.default_rng(seed)
+    truth, events = series_truth(vol, nt, device, dtype, rng)
+    psf = joint_psf(vol, device, dtype)
+    clean = blur(truth, psf)
+    return truth, with_noise(clean, noise * float(clean.max()), rng), psf, events
+
+
+def event_sums(x: torch.Tensor, events) -> list:
+    """Per frame, the sum over 3x3x3 neighbourhoods of the event beads'
+    centres (tests/test_timeseries.py:62)."""
+    idx = [torch.as_tensor(c, device=x.device) for c in events]
+    offs = torch.arange(-1, 2, device=x.device)
+    z = (idx[0][:, None, None, None] + offs[None, :, None, None]).expand(-1, 3, 3, 3)
+    y = (idx[1][:, None, None, None] + offs[None, None, :, None]).expand(-1, 3, 3, 3)
+    xx = (idx[2][:, None, None, None] + offs[None, None, None, :]).expand(-1, 3, 3, 3)
+    return x[:, z, y, xx].flatten(1).sum(1).tolist()
+
+
+def channel_scene(vol, device, dtype, seed=0, noise=0.5):
+    """The multichannel scene: one set of boxes (cells 0.5-2 um across, 50-80
+    intensity) in every channel at CHANNEL_SCALES, each channel blurred by its
+    own PSF (CHANNEL_NM), plus Gaussian noise of ``noise`` (absolute).
+    Returns (truth (C,)+vol, data, psfs)."""
+    rng = np.random.default_rng(seed)
+    nz, ny, nx = vol
+    obj = np.zeros(vol, np.float32)
+    for _ in range(max(4, ny * nx // 1200)):
+        dz, dy, dx = rng.integers(2, max(3, nz // 3)), rng.integers(6, 24), rng.integers(6, 24)
+        z, y, x = rng.integers(0, nz - dz), rng.integers(0, ny - dy), rng.integers(0, nx - dx)
+        obj[z:z + dz, y:y + dy, x:x + dx] = rng.uniform(50.0, 80.0)
+    truth = torch.as_tensor(np.stack([s * obj for s in CHANNEL_SCALES]), device=device, dtype=dtype)
+    psfs = torch.stack([joint_psf(vol, device, dtype, wavelength=lam) for lam in CHANNEL_NM])
+    return truth, with_noise(blur(truth, psfs), noise, rng), psfs
+
+
+def mixed_scene(vol, device, dtype, seed=0, noise=0.5):
+    """Two dyes behind MIXING: the boxes of :func:`channel_scene` (525 nm)
+    and resolved beads (610 nm), detected in two channels, plus noise.
+    Returns (truth (K,)+vol, detected data (C,)+vol, psfs, mixing)."""
+    boxes, _, _ = channel_scene(vol, device, dtype, seed, noise)
+    beads = resolved_beads(bead_centres(vol, np.random.default_rng(seed + 1), density=2e-4), device, dtype)
+    truth = torch.stack([boxes[0], beads])
+    psfs = torch.stack([joint_psf(vol, device, dtype, wavelength=lam) for lam in CHANNEL_NM[1:]])
+    m = torch.tensor(MIXING, device=device, dtype=dtype)
+    detected = torch.einsum("ck,kzyx->czyx", m, blur(truth, psfs))
+    return truth, with_noise(detected, noise, np.random.default_rng(seed + 2)), psfs, m
+
+
+def block_scene(vol, device, dtype, seed=0, noise=0.05):
+    """The 5D block: BLOCK_TC timepoints x channels of the series' beads
+    (:func:`series_truth`), the second channel at half the intensity, through
+    the 525 and 610 nm PSFs, each channel fading by its own bleaching gains
+    exp(-k_c t), plus noise of ``noise`` times the clean maximum. Returns
+    (truth, data, psfs, gains (T, C))."""
+    nt, _ = BLOCK_TC
+    rng = np.random.default_rng(seed)
+    truth, _ = series_truth(vol, nt, device, dtype, rng)
+    truth = torch.stack([truth, 0.5 * truth], dim=1)
+    psfs = torch.stack([joint_psf(vol, device, dtype, wavelength=lam) for lam in CHANNEL_NM[1:]])
+    gains = torch.exp(-torch.outer(torch.arange(nt, dtype=dtype), torch.tensor([0.05, 0.12], dtype=dtype))).to(device)
+    clean = gains[:, :, None, None, None] * blur(truth, psfs)
+    return truth, with_noise(clean, noise * float(clean.max()), rng), psfs, gains
+
+
+def superres_scene(camera, factor, device, dtype, seed=0, noise=0.01):
+    """Point beads of amplitude 200 off the camera's lattice (odd fine coordinates) every
+    SR_SPACING fine pixels, blurred on the fine grid by the PSF synthesised at
+    dxy / f, binned to the camera, plus noise of ``noise`` times the
+    maximum. Returns (camera data, fine PSF, camera-pitch PSF, bead positions)."""
+    from microtipi_tpu_torch.jobs.superres import bin_volume
+
+    fine = tuple(n * f for n, f in zip(camera, factor))
+    rng = np.random.default_rng(seed)
+    beads = [(int(rng.integers(2, fine[0] - 2)), y + 1, x + 1) for y in range(SR_SPACING // 2, fine[1], SR_SPACING)
+             for x in range(SR_SPACING // 2, fine[2], SR_SPACING)]
+    obj = torch.zeros(fine, device=device, dtype=dtype)
+    for z, y, x in beads:
+        obj[z, y, x] = 200.0
+    psf_fine = joint_psf(fine, device, dtype, dxy=OPTICS["dxy"] / factor[2])
+    clean = bin_volume(blur(obj, psf_fine), factor)
+    data = with_noise(clean, noise * float(clean.max()), rng)
+    return data, psf_fine, joint_psf(camera, device, dtype), beads
+
+
+def centroid_error(x: torch.Tensor, bead, scale: int) -> float:
+    """The distance in fine pixels from a bead to the centroid of the 5x5
+    camera-pixel window around it in the planes z-1..z+1 of ``x`` (sampled
+    at ``scale`` fine pixels a pixel): tests/test_superres.py:70-78."""
+    z, y, xx = bead
+    yc, xc = y // scale, xx // scale
+    win = x[max(0, z - 1):z + 2].sum(0)[yc - 2:yc + 3, xc - 2:xc + 3].double()
+    g = torch.arange(5, dtype=torch.float64, device=x.device)
+    cy = yc - 2 + float((g[:, None] * win).sum() / win.sum())
+    cx = xc - 2 + float((g[None, :] * win).sum() / win.sum())
+    return float(np.hypot(scale * cy - y, scale * cx - xx))
+
+
+def _err(x: torch.Tensor, truth: torch.Tensor) -> float:
+    return float(torch.linalg.norm(x - truth) / torch.linalg.norm(truth))
+
+
+def _vmlmb_run(name: str, run, tv: str):
+    """``run()``, a VMLMB solve of the joint solvers, timed by :func:`_timed`
+    with its objective calls counted over the 4 runs by wrapping
+    ``jobs.multichannel``'s ``minimize_vmlmb``: the TV launches of kind ``tv``
+    ("batched", "single", or "none" for the joint TV, which is PyTorch
+    operators) equal the calls, and the calls VMLMB's evaluations. Returns
+    (result, wall, TV launches)."""
+    from microtipi_tpu_torch.jobs import multichannel
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    with _counted_solves(multichannel) as solves:
+        wall, res = _timed(run)
+    _check_object(name, res.x)
+    calls, evaluations = [c for c, _ in solves], [e for _, e in solves]
+    want = {"batched": (0, sum(calls)), "single": (sum(calls), 0), "none": (0, 0)}[tv]
+    if (hv.launches, hv.batched_launches) != want or calls != evaluations or hv.unaligned_launches:
+        raise AssertionError(f"{name}: TV launches single {hv.launches}, batched {hv.batched_launches} (expected "
+                             f"{want}), unaligned {hv.unaligned_launches}, for the objective calls {calls}, VMLMB's "
+                             f"evaluations {evaluations}")
+    return res, wall, hv.launches + hv.batched_launches
+
+
+def _admm_run(name: str, run, iterations: int, tv_values: int, split: bool = True, timed: bool = True,
+              tv: str = "batched"):
+    """``run()``, an ADMM solve of the joint solvers, timed by :func:`_timed`
+    (4 runs) or once cold, with the kernels counted over every run:
+    ``admm_rhs`` once an iteration, ``admm_split_update`` once an iteration
+    where ``split`` (the joint TV's prox is PyTorch operators), the TV kernel
+    of kind ``tv`` ``tv_values`` times a run and the other TV kernel never.
+    ``iterations`` None takes the run's own count. Returns (result, wall,
+    counts, the counts' line)."""
+    with AdmmCounts() as c:
+        if timed:
+            wall, res = _timed(run)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    runs = 4 if timed else 1
+    _check_object(name, res.x)
+    if not np.isfinite(res.f):
+        raise AssertionError(f"{name}: f {res.f}")
+    n = runs * (res.iterations if iterations is None else iterations)
+    return res, wall, c, c.check(name, n, runs * tv_values, split=n if split else 0, tv=tv) + f" ({runs} runs)"
+
+
+def phase22_series(card: str) -> dict:
+    """The time series, SERIES_T frames of JOINT_VOL (:func:`series_scene`,
+    noise 10%, mu 0.01, epsilon 1, mu_t 0.01): ``deconvolve_timeseries``, 20
+    VMLMB iterations at mu_t 0 and 0.01; ``admm_deconvolve_timeseries``, 20
+    iterations untracked at mu_t 0 and 0.01, tracked, weighted by
+    ``InverseVarianceWeights.from_data`` with the gains of a 5%-a-frame fade
+    (on data faded by them), and stopped by the Boyd test. Checks, as
+    tests/test_timeseries.py:49-66 does, that the temporal prior lowers the
+    error to the truth by its margin (under 0.94x the error at mu_t 0, for
+    each engine) and that both engines keep the event. Returns the kernels'
+    launches on these paths."""
+    from microtipi_tpu_torch.jobs.admm import admm_deconvolve_timeseries
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.timeseries import deconvolve_timeseries
+    from microtipi_tpu_torch.weights.updaters import InverseVarianceWeights
+
+    dev, nt, mu_t = torch.device("cuda"), SERIES_T, MU_T
+    t0 = time.perf_counter()
+    truth, data, psf, events = series_scene(JOINT_VOL, nt, dev, torch.float32)
+    torch.cuda.synchronize()
+    log(22, f"[{card}] time series {nt} x {JOINT_VOL}: made in {time.perf_counter() - t0:.3f} s "
+            f"({EVENT_BEADS} beads appear at frame {EVENT_T})")
+    nvox = float(data.numel())
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
+    launches = {"tv_batched": 0, "split": 0, "rhs": 0}
+
+    def keeps_event(name, x):
+        sums = event_sums(x, events)
+        before, after = max(sums[EVENT_T - 2:EVENT_T]), min(sums[EVENT_T:EVENT_T + 2])
+        if not after > 2.5 * before:
+            raise AssertionError(f"{name}: the event is smeared: per-frame sums {sums}")
+        return f"event sums {[round(s, 1) for s in sums]}"
+
+    torch.cuda.reset_peak_memory_stats()
+    errs = {}
+    for m in (0.0, mu_t):
+        res, wall, n = _vmlmb_run(f"deconvolve_timeseries mu_t {m}",
+                                  lambda: deconvolve_timeseries(data, psf, config=cfg, mu_t=m), "batched")
+        launches["tv_batched"] += n
+        errs["vmlmb", m] = _err(res.x, truth)
+        log(22, f"[{card}] deconvolve_timeseries mu_t {m}, 20 VMLMB iterations: {res.iterations} iterations, "
+                f"{res.evaluations} evaluations, f {float(res.f):.6g}, error to the truth {errs['vmlmb', m]:.4f} "
+                f"relative L2, {keeps_event('deconvolve_timeseries', res.x)}, wall {wall:.4f} s (median of 3 after 1 "
+                f"warm-up), {nvox * res.iterations / wall / 1e6:.1f} Mvox*iter/s, batched TV launches {n} = the "
+                f"objective calls (4 runs)")
+    log(22, f"[{card}] deconvolve_timeseries peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    torch.cuda.reset_peak_memory_stats()
+    for m in (0.0, mu_t):
+        res, wall, c, counted = _admm_run(f"admm_deconvolve_timeseries mu_t {m}", lambda: admm_deconvolve_timeseries(
+            data, psf, config=cfg, mu_t=m, track_objective=False), 20, 2)
+        launches["split"] += c.split
+        launches["rhs"] += c.rhs
+        launches["tv_batched"] += c.tv_batched
+        errs["admm", m] = _err(res.x, truth)
+        log(22, f"[{card}] admm_deconvolve_timeseries mu_t {m}, 20 iterations, untracked: f {float(res.f):.6g}, error "
+                f"to the truth {errs['admm', m]:.4f} relative L2, {keeps_event('admm_deconvolve_timeseries', res.x)}, "
+                f"wall {wall:.4f} s (median of 3 after 1 warm-up), {nvox * 20 / wall / 1e6:.1f} Mvox*iter/s, "
+                f"{counted}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    ratio = {e: errs[e, mu_t] / errs[e, 0.0] for e in ("vmlmb", "admm")}
+    if not max(ratio.values()) < 0.94:
+        raise AssertionError(f"the temporal prior does not lower the error to the truth under 0.94x: {errs}")
+    log(22, f"the temporal prior lowers the error to the truth (held under 0.94x, as tests/test_timeseries.py:57): "
+            f"VMLMB {errs['vmlmb', mu_t]:.4f} against {errs['vmlmb', 0.0]:.4f} at mu_t 0 ({ratio['vmlmb']:.4f}x), "
+            f"ADMM {errs['admm', mu_t]:.4f} against {errs['admm', 0.0]:.4f} ({ratio['admm']:.4f}x)")
+
+    res, wall, c, counted = _admm_run("tracked admm_deconvolve_timeseries", lambda: admm_deconvolve_timeseries(
+        data, psf, config=cfg, mu_t=mu_t), 20, 22)
+    launches["split"] += c.split
+    launches["rhs"] += c.rhs
+    launches["tv_batched"] += c.tv_batched
+    fh = res.f_history
+    if not (np.isfinite(fh).all() and fh[-1] < fh[1] and float(res.f) == fh[-1]):
+        raise AssertionError(f"tracked admm_deconvolve_timeseries: f_history {fh.tolist()}")
+    log(22, f"[{card}] admm_deconvolve_timeseries tracked: f_history {fh[0]:.6g} -> {fh[1]:.6g} -> {fh[-1]:.6g}, wall "
+            f"{wall:.4f} s (median of 3 after 1 warm-up), {nvox * 20 / wall / 1e6:.1f} Mvox*iter/s, {counted}")
+
+    gains = torch.exp(-0.05 * torch.arange(nt, dtype=torch.float32, device=dev))
+    faded = gains[:, None, None, None] * data
+    weights = InverseVarianceWeights(gain=1.0, readout_variance=1.0).from_data(faded)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, c, counted = _admm_run("weighted admm_deconvolve_timeseries with bleach", lambda: (
+        admm_deconvolve_timeseries(faded, psf, weights, config=cfg, mu_t=mu_t, bleach=gains,
+                                   track_objective=False)), 20, 2)
+    launches["split"] += c.split
+    launches["rhs"] += c.rhs
+    launches["tv_batched"] += c.tv_batched
+    log(22, f"[{card}] admm_deconvolve_timeseries weighted (InverseVarianceWeights.from_data) with the gains of a "
+            f"5%-a-frame fade (the data split, 4 4D FFTs an iteration): f {float(res.f):.6g}, error to the truth "
+            f"{_err(res.x, truth):.4f}, wall {wall:.4f} s (median of 3 after 1 warm-up), "
+            f"{nvox * 20 / wall / 1e6:.1f} Mvox*iter/s, {counted}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del faded, weights
+
+    budget = 600  # reltol 1e-2, as tests/test_torch_timeseries.py pins the Boyd stop
+    bcfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=budget, admm_reltol=1e-2, admm_abstol=1e-6)
+    res, wall, c, counted = _admm_run("Boyd-stopped admm_deconvolve_timeseries", lambda: admm_deconvolve_timeseries(
+        data, psf, config=bcfg, mu_t=mu_t, track_objective=False), None, 2, timed=False)
+    launches["split"] += c.split
+    launches["rhs"] += c.rhs
+    launches["tv_batched"] += c.tv_batched
+    if res.status != 0 or not 0 < res.iterations < budget or res.iterations % bcfg.admm_check_every:
+        raise AssertionError(f"Boyd-stopped admm_deconvolve_timeseries: status {res.status} after {res.iterations} "
+                             f"of {budget}")
+    log(22, f"[{card}] admm_deconvolve_timeseries stopped by the Boyd test over the whole block (reltol 1e-2, abstol "
+            f"1e-6, checked every {bcfg.admm_check_every}): status 0 after {res.iterations} of {budget} iterations, f "
+            f"{float(res.f):.6g}, error to the truth {_err(res.x, truth):.4f}, wall {wall:.4f} s (1 run), "
+            f"{nvox * res.iterations / wall / 1e6:.1f} Mvox*iter/s, {counted}")
+    return launches
+
+
+def phase22_channels(card: str) -> dict:
+    """The multichannel solve, C = 3 channels of JOINT_VOL
+    (:func:`channel_scene`): ``deconvolve_multichannel`` and
+    ``admm_deconvolve_multichannel``, 40 iterations, joint at JOINT_MU and
+    separate at SEPARATE_MU; checks, as tests/test_multichannel.py:134 does,
+    that joint coupling lowers the dim channel's error: by ADMM under its
+    0.92x margin, by VMLMB below 1x (the bright channel's errors are
+    reported).
+    Then two dyes behind MIXING (:func:`mixed_scene`) by both engines, 20
+    iterations, separate: each dye ends closer to its truth than the clipped
+    pseudo-inverse unmix it starts from. Returns the launches."""
+    from microtipi_tpu_torch.jobs.admm import admm_deconvolve_multichannel
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.multichannel import deconvolve_multichannel
+
+    dev = torch.device("cuda")
+    truth, data, psfs = channel_scene(JOINT_VOL, dev, torch.float32)
+    nvox = float(data.numel())
+    launches = {"tv_batched": 0, "split": 0, "rhs": 0}
+    errs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for coupling, mu in (("joint", JOINT_MU), ("separate", SEPARATE_MU)):
+        cfg = DeconvolutionConfig(mu=mu, epsilon=1.0, max_iter=40, grtol=0.0, gatol=0.0)
+        sep = coupling == "separate"
+        res, wall, n = _vmlmb_run(f"deconvolve_multichannel {coupling}", lambda: deconvolve_multichannel(
+            data, psfs, config=cfg, coupling=coupling), "batched" if sep else "none")
+        launches["tv_batched"] += n
+        errs["vmlmb", coupling] = [_err(res.x[c], truth[c]) for c in range(3)]
+        log(22, f"[{card}] deconvolve_multichannel {coupling} (mu {mu}) 3 x {JOINT_VOL}, 40 VMLMB iterations: "
+                f"{res.iterations} iterations, {res.evaluations} evaluations, f {float(res.f):.6g}, errors to the "
+                f"truth {[round(e, 4) for e in errs['vmlmb', coupling]]}, wall {wall:.4f} s (median of 3 after 1 "
+                f"warm-up), {nvox * res.iterations / wall / 1e6:.1f} Mvox*iter/s, "
+                + (f"batched TV launches {n} = the objective calls (4 runs)" if sep else "no TV kernel (the joint "
+                   "TV is PyTorch operators)"))
+        res, wall, c, counted = _admm_run(f"admm_deconvolve_multichannel {coupling}", lambda: (
+            admm_deconvolve_multichannel(data, psfs, config=cfg, coupling=coupling)), 40, 42 if sep else 0, split=sep)
+        launches["split"] += c.split
+        launches["rhs"] += c.rhs
+        launches["tv_batched"] += c.tv_batched
+        errs["admm", coupling] = [_err(res.x[c], truth[c]) for c in range(3)]
+        log(22, f"[{card}] admm_deconvolve_multichannel {coupling} (mu {mu}), 40 iterations, tracked: f "
+                f"{float(res.f):.6g}, errors to the truth {[round(e, 4) for e in errs['admm', coupling]]}, wall "
+                f"{wall:.4f} s (median of 3 after 1 warm-up), {nvox * 40 / wall / 1e6:.1f} Mvox*iter/s, {counted}, "
+                f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    ratio = {e: errs[e, "joint"][2] / errs[e, "separate"][2] for e in ("vmlmb", "admm")}
+    bright = {e: errs[e, "joint"][0] / errs[e, "separate"][0] for e in ("vmlmb", "admm")}
+    if not (ratio["admm"] < 0.92 and ratio["vmlmb"] < 1.0):
+        raise AssertionError(f"joint coupling does not help the dim channel: {errs}")
+    log(22, f"joint coupling lowers the dim channel's error: ADMM {ratio['admm']:.4f}x separate's (held < 0.92), "
+            f"VMLMB {ratio['vmlmb']:.4f}x (held < 1); the bright channel's joint/separate {bright['admm']:.4f}x (ADMM), "
+            f"{bright['vmlmb']:.4f}x (VMLMB)")
+    del data
+
+    truth, data, psfs, m = mixed_scene(JOINT_VOL, dev, torch.float32)
+    x0 = torch.clamp_min(torch.einsum("kc,czyx->kzyx", torch.linalg.pinv(m), data), 0.0)
+    start = [_err(x0[k], truth[k]) for k in range(2)]
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
+    res, wall, n = _vmlmb_run("deconvolve_multichannel with mixing", lambda: deconvolve_multichannel(
+        data, psfs, config=cfg, coupling="separate", mixing=m), "batched")
+    launches["tv_batched"] += n
+    ends = {"VMLMB": [_err(res.x[k], truth[k]) for k in range(2)]}
+    log(22, f"[{card}] deconvolve_multichannel with mixing {MIXING} (the (K, K) Fourier coupling, no extra FFT), "
+            f"2 dyes of {JOINT_VOL}, 20 VMLMB iterations: f {float(res.f):.6g}, wall {wall:.4f} s (median of 3 after 1 "
+            f"warm-up), batched TV launches {n} = the objective calls (4 runs)")
+    res, wall, c, counted = _admm_run("admm_deconvolve_multichannel with mixing", lambda: admm_deconvolve_multichannel(
+        data, psfs, config=cfg, coupling="separate", mixing=m), 20, 22)
+    launches["split"] += c.split
+    launches["rhs"] += c.rhs
+    launches["tv_batched"] += c.tv_batched
+    ends["ADMM"] = [_err(res.x[k], truth[k]) for k in range(2)]
+    if not all(e < s for v in ends.values() for e, s in zip(v, start)):
+        raise AssertionError(f"unmixing: the dyes' errors {ends} against the pseudo-inverse start's {start}")
+    log(22, f"[{card}] admm_deconvolve_multichannel with mixing (its data prox a (K, K) inverse by a channel einsum), "
+            f"20 iterations, tracked: f {float(res.f):.6g}, wall {wall:.4f} s (median of 3 after 1 warm-up), "
+            f"{counted}; the dyes' errors to the truth {({k: [round(e, 4) for e in v] for k, v in ends.items()})} "
+            f"against the clipped pseudo-inverse unmix's {[round(e, 4) for e in start]}")
+    return launches
+
+
+def phase22_block(card: str) -> dict:
+    """The 5D block, BLOCK_TC timepoints x channels of JOINT_VOL
+    (:func:`block_scene`), separate coupling, mu_t MU_T and the bleaching
+    gains: ``deconvolve_timeseries_multichannel`` (20 VMLMB iterations, one
+    batched TV launch over the T * C lanes an evaluation) and
+    ``admm_deconvolve_timeseries_multichannel`` (20 iterations tracked, both
+    ADMM kernels over the T * C lanes). Returns the launches."""
+    from microtipi_tpu_torch.jobs.admm import admm_deconvolve_timeseries_multichannel
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.multichannel import deconvolve_timeseries_multichannel
+
+    dev, mu_t = torch.device("cuda"), MU_T
+    truth, data, psfs, gains = block_scene(JOINT_VOL, dev, torch.float32)
+    nvox = float(data.numel())
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
+    kw = dict(config=cfg, mu_t=mu_t, bleach=gains, coupling="separate")
+    launches = {"tv_batched": 0, "split": 0, "rhs": 0}
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, n = _vmlmb_run("deconvolve_timeseries_multichannel", lambda: deconvolve_timeseries_multichannel(
+        data, psfs, **kw), "batched")
+    launches["tv_batched"] += n
+    log(22, f"[{card}] deconvolve_timeseries_multichannel {BLOCK_TC} x {JOINT_VOL}, separate, mu_t {mu_t}, bleach, 20 "
+            f"VMLMB iterations: {res.iterations} iterations, f {float(res.f):.6g}, error to the truth "
+            f"{_err(res.x, truth):.4f}, wall {wall:.4f} s (median of 3 after 1 warm-up), "
+            f"{nvox * res.iterations / wall / 1e6:.1f} Mvox*iter/s, batched TV launches {n} = the objective calls (4 "
+            f"runs), peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, c, counted = _admm_run("admm_deconvolve_timeseries_multichannel", lambda: (
+        admm_deconvolve_timeseries_multichannel(data, psfs, **kw)), 20, 22)
+    launches["split"] += c.split
+    launches["rhs"] += c.rhs
+    launches["tv_batched"] += c.tv_batched
+    fh = res.f_history
+    if not (np.isfinite(fh).all() and fh[-1] < fh[1]):
+        raise AssertionError(f"admm_deconvolve_timeseries_multichannel: f_history {fh.tolist()}")
+    log(22, f"[{card}] admm_deconvolve_timeseries_multichannel, 20 iterations, tracked (the data split carries the "
+            f"gains): f_history {fh[0]:.6g} -> {fh[1]:.6g} -> {fh[-1]:.6g}, error to the truth "
+            f"{_err(res.x, truth):.4f}, wall {wall:.4f} s (median of 3 after 1 warm-up), "
+            f"{nvox * 20 / wall / 1e6:.1f} Mvox*iter/s, {counted}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return launches
+
+
+def phase22_superres(card: str) -> dict:
+    """The finer grid: camera data SR_CAMERA at SR_FACTOR (the fine grid
+    JOINT_VOL, its PSF synthesised at dxy / 2; :func:`superres_scene`):
+    ``deconvolve_superres`` (20 VMLMB iterations, the single-volume TV kernel
+    on the fine grid an evaluation) and ``admm_deconvolve_superres`` (20
+    iterations tracked, both ADMM kernels with B = 1), each against the
+    coarse-grid solve of its engine (``deconvolve``, ``admm_deconvolve``).
+    Checks, as tests/test_superres.py:49-92 does, that the fine grid
+    localises the off-lattice beads better (mean centroid error under 0.6x
+    the coarse grid's). Returns the launches."""
+    from microtipi_tpu_torch.jobs.admm import admm_deconvolve
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+    from microtipi_tpu_torch.jobs.superres import admm_deconvolve_superres, deconvolve_superres
+
+    dev = torch.device("cuda")
+    data, psf_fine, psf_coarse, beads = superres_scene(SR_CAMERA, SR_FACTOR, dev, torch.float32)
+    nvox = float(np.prod(JOINT_VOL))
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=0.5, max_iter=20, grtol=0.0, gatol=0.0)
+    launches = {"tv_single": 0, "split": 0, "rhs": 0}
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, n = _vmlmb_run("deconvolve_superres", lambda: deconvolve_superres(
+        data, psf_fine, SR_FACTOR, config=cfg), "single")
+    launches["tv_single"] += n
+    coarse = deconvolve(data, psf_coarse, config=cfg)
+    runs = {"VMLMB": (res, coarse, f"{res.iterations} iterations, wall {wall:.4f} s (median of 3 after 1 warm-up), "
+                                    f"{nvox * res.iterations / wall / 1e6:.1f} Mvox*iter/s, TV launches {n} = the "
+                                    f"objective calls (4 runs)")}
+    res, wall, c, counted = _admm_run("admm_deconvolve_superres", lambda: admm_deconvolve_superres(
+        data, psf_fine, SR_FACTOR, config=cfg), 20, 22, tv="single")
+    launches["split"] += c.split
+    launches["rhs"] += c.rhs
+    launches["tv_single"] += c.tv_single
+    runs["ADMM"] = (res, admm_deconvolve(data, psf_coarse, config=cfg),
+                    f"wall {wall:.4f} s (median of 3 after 1 warm-up), {nvox * 20 / wall / 1e6:.1f} Mvox*iter/s, "
+                    f"{counted}")
+    for engine, (fine, coarse, line) in runs.items():
+        e_f = [centroid_error(fine.x, b, 1) for b in beads]
+        e_c = [centroid_error(coarse.x, b, 2) for b in beads]
+        if not np.mean(e_f) < 0.6 * np.mean(e_c):
+            raise AssertionError(f"superres {engine}: mean centroid error {np.mean(e_f):.4f} fine pixels against the "
+                                 f"coarse grid's {np.mean(e_c):.4f}")
+        log(22, f"[{card}] {engine} superres {SR_CAMERA} at {SR_FACTOR} onto {JOINT_VOL}, 20 iterations: f "
+                f"{float(fine.f):.6g}, {len(beads)} off-lattice beads localised to {np.mean(e_f):.4f} fine pixels "
+                f"(max {np.max(e_f):.4f}) against the coarse grid's {np.mean(e_c):.4f}, flux "
+                f"{float(fine.x.sum()):.1f} for {200.0 * len(beads):.1f}; {line}")
+    log(22, f"[{card}] superres peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return launches
+
+
+def joint_parity_solves() -> dict:
+    """Phase 4's joint solves: name -> (engine, which kernels the card run
+    launches: (TV, split update, rhs), ``solve(device, dtype)``), each on its
+    scene at JOINT_PARITY_VOL (superres: camera data of (16, 32, 32) at
+    SR_FACTOR), 10 iterations, mu_t MU_T."""
+    from microtipi_tpu_torch.jobs import admm, multichannel, superres, timeseries
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.weights.updaters import InverseVarianceWeights
+
+    vol, kw = JOINT_PARITY_VOL, dict(grtol=0.0, gatol=0.0, max_iter=10)
+    cfg, sr_cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, **kw), DeconvolutionConfig(mu=0.01, epsilon=0.5, **kw)
+    joint, separate = (DeconvolutionConfig(mu=mu, epsilon=1.0, **kw) for mu in (JOINT_MU, SEPARATE_MU))
+
+    def series(solve):
+        def run(dev, dt):
+            _, data, psf, _ = series_scene(vol, 3, dev, dt)
+            return solve(data, psf, config=cfg, mu_t=MU_T)
+        return run
+
+    def weighted_series(dev, dt):
+        _, data, psf, _ = series_scene(vol, 3, dev, dt)
+        gains = torch.tensor([1.0, 0.95, 0.9], device=dev, dtype=dt)
+        faded = gains[:, None, None, None] * data
+        weights = InverseVarianceWeights(gain=1.0, readout_variance=1.0).from_data(faded)
+        return admm.admm_deconvolve_timeseries(faded, psf, weights, config=cfg, mu_t=MU_T, bleach=gains)
+
+    def channels(solve, config, **kw_):
+        def run(dev, dt):
+            _, data, psfs = channel_scene(vol, dev, dt)
+            return solve(data, psfs, config=config, **kw_)
+        return run
+
+    def mixed(dev, dt):
+        _, data, psfs, m = mixed_scene(vol, dev, dt)
+        return admm.admm_deconvolve_multichannel(data, psfs, config=cfg, coupling="separate", mixing=m)
+
+    def block(solve):
+        def run(dev, dt):
+            _, data, psfs, gains = block_scene(vol, dev, dt)
+            return solve(data, psfs, config=cfg, mu_t=MU_T, bleach=gains, coupling="separate")
+        return run
+
+    def fine(solve):
+        def run(dev, dt):
+            data, psf_fine, _, _ = superres_scene((16, 32, 32), SR_FACTOR, dev, dt)
+            return solve(data, psf_fine, SR_FACTOR, config=sr_cfg)
+        return run
+
+    tv, admm_all, rhs = (True, False, False), (True, True, True), (False, False, True)
+    return {
+        "deconvolve_timeseries": ("vmlmb", tv, series(timeseries.deconvolve_timeseries)),
+        "admm_deconvolve_timeseries": ("admm", admm_all, series(admm.admm_deconvolve_timeseries)),
+        "admm_deconvolve_timeseries weighted with bleach": ("admm", admm_all, weighted_series),
+        "deconvolve_multichannel joint": ("vmlmb", (False,) * 3, channels(multichannel.deconvolve_multichannel,
+                                                                           joint)),
+        "deconvolve_multichannel separate": ("vmlmb", tv, channels(
+            multichannel.deconvolve_multichannel, separate, coupling="separate")),
+        "admm_deconvolve_multichannel joint": ("admm", rhs, channels(admm.admm_deconvolve_multichannel, joint)),
+        "admm_deconvolve_multichannel with mixing": ("admm", admm_all, mixed),
+        "deconvolve_timeseries_multichannel": ("vmlmb", tv, block(multichannel.deconvolve_timeseries_multichannel)),
+        "admm_deconvolve_timeseries_multichannel": ("admm", admm_all, block(
+            admm.admm_deconvolve_timeseries_multichannel)),
+        "deconvolve_superres": ("vmlmb", tv, fine(superres.deconvolve_superres)),
+        "admm_deconvolve_superres": ("admm", admm_all, fine(superres.admm_deconvolve_superres)),
+    }
+
+
+def joint_parity_gaps(r32, r64, engine: str) -> dict:
+    """The float32 run's gaps to the float64 one, against phase 4's bounds:
+    VMLMB f over the first 4 iterates (1e-4 relative) and the final f (1e-3);
+    ADMM f_history (1e-4) and x (1e-3 relative L2). Returns name -> (gap,
+    bound)."""
+    if engine == "vmlmb":
+        f4 = np.max(np.abs(r32.f_history[:4] - r64.f_history[:4]) / np.abs(r64.f_history[:4]))
+        return {"f_history[:4]": (float(f4), 1e-4), "final f": (abs(float(r32.f) / float(r64.f) - 1.0), 1e-3)}
+    fh = np.max(np.abs(r32.f_history - r64.f_history) / np.abs(r64.f_history))
+    return {"f_history": (float(fh), 1e-4), "x": (_rel_l2(r32.x, r64.x), 1e-3)}
+
+
+def phase4_joint() -> None:
+    """The joint solvers, card float32 (kernels) against CPU float64 (plain
+    versions), :func:`joint_parity_solves` to :func:`joint_parity_gaps`'
+    bounds; the card runs launch their kernels (the batched or single TV, the
+    rhs, the split update except under the joint TV) and the CPU runs none."""
+    from microtipi_tpu_torch.ops.kernels import admm_split as ak
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    for name, (engine, kernels, solve) in joint_parity_solves().items():
+        out = {}
+        for dev, dt in ((torch.device("cuda"), torch.float32), (torch.device("cpu"), torch.float64)):
+            hv.launches = hv.batched_launches = ak.split_launches = ak.rhs_launches = 0
+            res = solve(dev, dt)
+            out[dev.type] = res, (hv.launches + hv.batched_launches, ak.split_launches, ak.rhs_launches)
+        (r32, n32), (r64, n64) = out["cuda"], out["cpu"]
+        gaps = joint_parity_gaps(r32, r64, engine)
+        if any(g > b for g, b in gaps.values()) or tuple(n > 0 for n in n32) != kernels or n64 != (0, 0, 0):
+            raise AssertionError(f"{name} card/CPU parity: {gaps}, kernel launches (TV, split, rhs) cuda {n32}, "
+                                 f"cpu {n64}")
+        log(4, f"{name} card float32 vs CPU float64, 10 iterations: "
+               + ", ".join(f"{k} {g:.3g} (< {b:g})" for k, (g, b) in gaps.items())
+               + f"; card launches (TV, split update, rhs) {n32}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2576,6 +3216,7 @@ def main() -> int:
     phase4_new_paths()
     phase4_depthvar()
     phase4_calibration()
+    phase4_joint()
     phase5_cufft(card)
     bkern = phase6_batched_kernel(card)
     psf = design_psf()
@@ -2598,15 +3239,24 @@ def main() -> int:
     del volume
     calibration_launches = phase20_calibration(card)
     ladder_launches = phase21_depth_ladder(card)
+    joint = {"time series": phase22_series(card), "multichannel separate and mixing": phase22_channels(card),
+             "5D": phase22_block(card), "superres": phase22_superres(card)}
+    joint_paths = {kind: {f"{name} (phase 22)": n[kind] for name, n in joint.items() if kind in n}
+                   for kind in ("tv_single", "tv_batched", "split", "rhs")}
+    if min(n for paths in joint_paths.values() for n in paths.values()) == 0:
+        raise AssertionError(f"a joint solver's path never launched its kernel: {joint_paths}")
     tv_paths = {"deconvolve and blind (phase 3)": launches, "RL-TV (phase 13)": rl_launches,
                 "priors and auto-mu (phase 15)": prior_launches, "confocal blind (phase 17)": family_launches,
                 "depthvar and RL-TV depthvar (phase 18)": depthvar_launches,
                 **{f"blind, calibration {k} (phase 20)": v for k, v in calibration_launches.items()},
-                **ladder_launches}
+                **ladder_launches, **joint_paths["tv_single"]}
     batched_paths = {"batched and tiled VMLMB (phases 7-8)": batched_launches,
                      "tiled RL-TV (phase 14)": tiled_rl_launches, "batched auto-mu (phase 15)": auto_batched_launches,
                      "batched depthvar (phase 18)": depthvar_batched_launches,
-                     "tiled depthvar (phase 19)": tiled_depthvar_launches}
+                     "tiled depthvar (phase 19)": tiled_depthvar_launches, **joint_paths["tv_batched"]}
+    engine = "3D engine, blind, batched and tiled (phases 10-12)"
+    split_paths = {engine: int(admm_launches[0]), **joint_paths["split"]}
+    rhs_paths = {engine: int(admm_launches[1]), **joint_paths["rhs"]}
     source, admm_source = "microtipi_tpu_torch/csrc/hyperbolic_tv.cu", "microtipi_tpu_torch/csrc/admm_split.cu"
     fused_by_xla = "fused by XLA under jit, no Pallas kernel"
     print(json.dumps({"kernels": [
@@ -2617,11 +3267,13 @@ def main() -> int:
          "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:203", "launches": sum(batched_paths.values()),
          "launches_by_path": batched_paths, **bkern},
         {"name": "admm_split_update", "route": "cuda", "source": admm_source,
-         "replaces": f"microtipi_tpu/jobs/admm.py:353-368 ({fused_by_xla})", "launches": int(admm_launches[0]),
-         **split_kern},
+         "replaces": f"microtipi_tpu/jobs/admm.py:353-368, the joint engines' :738-747 with :756-758, :1072-1094 and "
+                     f":1364-1392, and microtipi_tpu/jobs/superres.py:341-353 ({fused_by_xla})",
+         "launches": sum(split_paths.values()), "launches_by_path": split_paths, **split_kern},
         {"name": "admm_rhs", "route": "cuda", "source": admm_source,
-         "replaces": f"microtipi_tpu/jobs/admm.py:330-331 ({fused_by_xla})", "launches": int(admm_launches[1]),
-         **rhs_kern},
+         "replaces": f"microtipi_tpu/jobs/admm.py:330-331, the joint engines' :723, :1059 and :1348, and "
+                     f"microtipi_tpu/jobs/superres.py:331-332 ({fused_by_xla})",
+         "launches": sum(rhs_paths.values()), "launches_by_path": rhs_paths, **rhs_kern},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -16,8 +16,14 @@ by ``nvcc`` at first use (``_build.py``).
 Entry points: ``jobs.deconv.deconvolve``, ``jobs.admm.admm_deconvolve`` and
 ``fista_deconvolve``, ``jobs.blind.blind_deconvolve`` with a model of any PSF
 family of ``models`` (``models.model_for(config)``),
-``jobs.batch.batched_deconvolve``, ``jobs.tiled.tiled_deconvolve``, and the
+``jobs.batch.batched_deconvolve``, ``jobs.tiled.tiled_deconvolve``, the
 depth-varying ``jobs.depthvar.deconvolve_depthvar`` on Gibson-Lanni anchor
-PSFs; ``weights.updaters.InverseVarianceWeights`` makes the data weights,
-``convert`` carries parameters and configurations between the two packages.
+PSFs, and the joint solvers by VMLMB and ADMM: the time series
+(``jobs.timeseries.deconvolve_timeseries``,
+``jobs.admm.admm_deconvolve_timeseries``), the multichannel and 5D solves
+with color TV and spectral unmixing (``jobs.multichannel``,
+``admm_deconvolve_multichannel``, ``admm_deconvolve_timeseries_multichannel``)
+and the finer-grid solve (``jobs.superres``);
+``weights.updaters.InverseVarianceWeights`` makes the data weights, ``convert``
+carries parameters and configurations between the two packages.
 """

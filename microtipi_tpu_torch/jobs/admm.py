@@ -39,8 +39,13 @@ three axes, the PSF shared or one per lane), and a 3D input is B = 1. Under
 Boyd stopping a lane that has converged is taken out of the batch while the
 rest run on, so each lane gives what its own solve gives.
 
-The time-series, multichannel and 5D engines of the JAX module (:564-1500)
-raise ``NotImplementedError`` naming ROADMAP.md queue 1 item 14.
+The joint solvers' engines (:564-1500) share one engine, :func:`_admm_joint`,
+over a (T, C) + volume block: :func:`admm_deconvolve_timeseries` (C = 1),
+:func:`admm_deconvolve_multichannel` (T = 1) and
+:func:`admm_deconvolve_timeseries_multichannel`. It reuses the kernels' lanes,
+the block's T * C volumes, but not the lane semantics above: the block is one
+problem, with one f, one rho0 and one Boyd test. Its temporal split, the joint
+TV's prox, mixing and the data proxes are PyTorch operators.
 """
 
 from __future__ import annotations
@@ -59,12 +64,17 @@ from microtipi_tpu_torch.jobs.deconv import (
 )
 from microtipi_tpu_torch.ops import convolution as conv
 from microtipi_tpu_torch.ops.convolution import select_lanes
+from microtipi_tpu_torch.jobs.multichannel import make_tsmc_objective
+from microtipi_tpu_torch.jobs.timeseries import as_channel_block
 from microtipi_tpu_torch.ops.kernels.admm_split import (
     admm_rhs,
     admm_split_update,
     circ_diffs as _circ_diffs,
     circ_diffs_adjoint as _circ_diffs_adjoint,
+    hyperbolic_prox,
     per_lane as _per_lane,
+    split_apply,
+    split_magnitude,
 )
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
@@ -445,19 +455,332 @@ def fista_deconvolve(
     return DeconvolutionResult(x, f_prev.cpu().numpy()[()], n, 2 * n, 0, f_history, np.full_like(f_history, np.nan))
 
 
-_ITEM_14 = "is not ported yet (ROADMAP.md queue 1, item 14: the joint solvers and their ADMM engines)"
+_TZYX = (0, 2, 3, 4)  # the 4D transform of a (T, C, Nz, Ny, Nx) block: t and the volume, channels batched
 
 
-def admm_deconvolve_timeseries(*args, **kw):
-    """ADMM engine of the joint 4D time-series solve (``admm.py:564-872``)."""
-    raise NotImplementedError(f"admm_deconvolve_timeseries {_ITEM_14}")
+def _rho0(rho0, config: DeconvolutionConfig, intensity, weights):
+    """The data split's ``rho0`` of the joint and finer-grid engines: as
+    given, else (Poisson) ``1 / (intensity + b)``, the curvature at the data
+    scale, the mean weight, or 1."""
+    if rho0 is not None:
+        return float(rho0)
+    if config.data_term == "poisson":
+        return 1.0 / torch.clamp_min(intensity + float(config.background), 1e-12)
+    return 1.0 if weights is None else weights.mean()
 
 
-def admm_deconvolve_multichannel(*args, **kw):
-    """ADMM engine of the joint multichannel solve (``admm.py:875-1170``)."""
-    raise NotImplementedError(f"admm_deconvolve_multichannel {_ITEM_14}")
+def _admm_joint(data, psfs, weights, x0, config: DeconvolutionConfig, *, mu_t, epsilon_t, bleach, coupling, mixing,
+                rho0, rho1, rho1t, rho2, over_relax, track_objective) -> DeconvolutionResult:
+    """The ADMM engine of the joint solves on a (T, C) + volume block
+    (``admm.py:564-863``, ``:866-1186``, ``:1189-1500``), minimizing
+    ``make_tsmc_objective`` (the time series is its C = 1 case, the
+    multichannel solve its T = 1 case): the data term's split and prox, then
+    :func:`_admm_loop`. With weights, Poisson, bleach or mixing the data
+    split ``z0 = H x`` (per frame and dye) absorbs them in its pointwise prox;
+    mixing's applies T precomputed (K, K) inverses ``(G_t M^T M G_t + rho0
+    I)^-1`` by a channel einsum. The uniform Gaussian term takes no split."""
+    _check_config(config, "admm")
+    objective_grad, aux = make_tsmc_objective(psfs, data, weights, config, mu_t=mu_t, epsilon_t=epsilon_t,
+                                              bleach=bleach, coupling=coupling, mixing=mixing, accurate=True)
+
+    def objective(x):
+        with torch.no_grad():
+            return objective_grad(x)
+
+    data, weights, k_hat, m, g5 = aux["data"], aux["weights"], aux["k_hat"], aux["m"], aux["g5"]
+    nt, nk, dtype, dev = aux["nt"], aux["nk"], data.dtype, data.device
+    bg, poisson = float(config.background), config.data_term == "poisson"
+    r0 = _rho0(rho0, config, data.mean(), weights)
+    data_prox = None
+    if m is not None:  # T (K, K) prox inverses and the constant G_t M^T d_t
+        gk = torch.ones((nt, nk), dtype=dtype, device=dev) if g5 is None else g5[..., 0, 0, 0]
+        eye = torch.eye(nk, dtype=dtype, device=dev)
+        prox_inv = torch.linalg.inv(gk[:, :, None] * (m.T @ m)[None] * gk[:, None, :] + r0 * eye[None])
+        mtd = torch.einsum("tk,ck,tczyx->tkzyx", gk, m, data)
+
+        def data_prox(v):
+            return torch.einsum("tkj,tjzyx->tkzyx", prox_inv, mtd + r0 * v)
+    elif poisson:
+        def data_prox(v):  # rho z^2 + z (1 + rho (b - v)) + (b - d - rho v b) = 0, the + root
+            b_coef = 1.0 + r0 * (bg - v)
+            c_coef = bg - data - r0 * v * bg
+            disc = torch.clamp_min(b_coef * b_coef - 4.0 * r0 * c_coef, 0.0)
+            return (-b_coef + torch.sqrt(disc)) / (2.0 * r0)
+    elif weights is not None or g5 is not None:
+        g = 1.0 if g5 is None else g5
+        w = 1.0 if weights is None else weights
+        wgd, wgg = w * g * data, w * g * g
+
+        def data_prox(v):
+            return (wgd + r0 * v) / (wgg + r0)
+
+    if x0 is None:
+        x0 = data if m is None else torch.einsum("kc,tczyx->tkzyx", torch.linalg.pinv(m), data)
+        if config.positivity:
+            x0 = torch.clamp_min(x0, 0.0)
+    return _admm_loop(objective, k_hat, x0.to(dtype).contiguous(), config, data_prox=data_prox, r0=r0, data=data,
+                      coupling=coupling, mu_t=mu_t, epsilon_t=epsilon_t, rho1=rho1, rho1t=rho1t, rho2=rho2,
+                      over_relax=over_relax, track_objective=track_objective)
 
 
-def admm_deconvolve_timeseries_multichannel(*args, **kw):
-    """ADMM engine of the joint 5D solve (``admm.py:1173-1500``)."""
-    raise NotImplementedError(f"admm_deconvolve_timeseries_multichannel {_ITEM_14}")
+def _admm_loop(objective, k_hat, x, config: DeconvolutionConfig, *, data_prox, r0, data, coupling, mu_t, epsilon_t,
+               rho1, rho1t, rho2, over_relax, track_objective) -> DeconvolutionResult:
+    """The ADMM iterations of the joint and finer-grid engines on a (T, K) +
+    volume block ``x``, minimizing ``objective`` (no autograd) with the
+    spectra ``k_hat`` (K,) + spectrum shared over t.
+
+    Splits: ``z0 = H x`` when ``data_prox`` is given (``v -> argmin_z g(z) +
+    rho0/2 ||z - v||^2`` of the data term at ``r0``; without it the uniform
+    Gaussian x-update carries ``H^T data``), ``z1 = D_s x`` (spatial circular
+    differences), ``zt = D_t x`` (temporal, when ``mu_t > 0``), ``z2 = x``.
+    The spectra are t-constant and D_t is circulant along t, so the x-update
+    is one 4D rfftn/irfftn pair over (t, z, y, x), channels batched, with
+    denominator ``rho0 |H_k|^2 + rho1 sum|D_s|^2 + rho1t |D_t|^2 + rho2``.
+    The trailing face of each frame and the trailing frame are unpenalized
+    (identity-prox) components. With ``coupling="separate"`` the spatial
+    split update runs in the ``admm_split_update`` kernel over the T * K
+    lanes; ``"joint"`` takes one magnitude across a voxel's channels and axes
+    (PyTorch operators); the right-hand side is ``admm_rhs`` over the lanes
+    either way.
+
+    The block is one problem: one scalar f, and the Boyd test's norms over
+    the whole block, which stops as one. The loop syncs with the host only
+    at a Boyd check."""
+    abstol, reltol, check_every, use_tol = _admm_tolerances(config)
+    nt, nk, vol = x.shape[0], x.shape[1], tuple(x.shape[2:])
+    shape, nb, dtype, dev = tuple(x.shape), nt * nk, x.dtype, x.device
+    mu, eps, scales = float(config.mu), float(config.epsilon), config.scales
+    eps_t, mu_t = float(config.epsilon if epsilon_t is None else epsilon_t), float(mu_t)
+    temporal, data_split, al = mu_t > 0, data_prox is not None, float(over_relax)
+    r1 = float(rho1) if rho1 is not None else max(mu / max(eps, 1e-30), 1e-6)
+    r1t = float(rho1t) if rho1t is not None else max(mu_t / max(eps_t, 1e-30), 1e-6)
+    r2 = float(rho2) if rho2 is not None else r1
+    if not data_split:
+        r0 = 1.0
+
+    def fft4(t):
+        return torch.fft.rfftn(t, dim=_TZYX)
+
+    def ifft4(t_hat):
+        return torch.fft.irfftn(t_hat, s=(nt, *vol), dim=_TZYX)
+
+    kc_hat = k_hat[None]  # (1, K, spectrum): broadcast over the t frequencies
+    fdtype = k_hat.real.dtype
+    den = r0 * conv._abs2(kc_hat) + r1 * _grad_sq_spectrum(vol, scales, fdtype, dev) + r2
+    if temporal:
+        st2 = 4.0 * torch.sin(math.pi * torch.fft.fftfreq(nt, dtype=fdtype, device=dev)) ** 2
+        den = den + r1t * st2.reshape(-1, 1, 1, 1, 1)
+    tiny = torch.finfo(dtype).tiny
+    tmask = torch.ones((nt, 1, 1, 1, 1), dtype=dtype, device=dev)
+    tmask[-1] = 0.0
+
+    n = int(config.max_iter)
+    hist = torch.full((n + 1,), float("nan"), dtype=dtype, device=dev)
+    hist[0] = objective(x)
+
+    def lanes(t):
+        """A (T, K) + vol block as the kernels' (T * K) lanes: a view."""
+        return t.view(nb, *vol)
+
+    # z1 and u1 are the kernels' stacks (T * K, 3) + vol; every other state (T, K) + vol.
+    st = {"x": x, "z1": _circ_diffs(lanes(x), scales), "z2": x.clone(), "u2": torch.zeros_like(x)}
+    st["u1"] = torch.zeros_like(st["z1"])
+    rho1_l, rho2_l, lam = (torch.full((nb,), r, dtype=dtype, device=dev) for r in (r1, r2, mu / r1))
+    if temporal:
+        st["zt"] = torch.roll(x, -1, 0) - x
+        st["ut"] = torch.zeros_like(x)
+    if data_split:
+        st["z0"] = conv._irfftn(k_hat * conv._rfftn(x), vol)
+        st["u0"] = torch.zeros_like(x)
+    else:
+        htd_hat = torch.conj(kc_hat) * fft4(data)
+
+    def t_adjoint(g):
+        return torch.roll(g, 1, 0) - g
+
+    def step():
+        """One iteration; returns ``(hx, dt)`` for the Boyd test (None where
+        that split is absent)."""
+        rhs = admm_rhs(st["z1"], st["u1"], lanes(st["z2"]), lanes(st["u2"]), rho1_l, rho2_l, scales).view(shape)
+        if temporal:
+            rhs = rhs + r1t * t_adjoint(st["zt"] - st["ut"])
+        if data_split:
+            x_hat = (r0 * torch.conj(kc_hat) * fft4(st["z0"] - st["u0"]) + fft4(rhs)) / den
+        else:
+            x_hat = (fft4(rhs) + htd_hat) / den
+        st["x"] = ifft4(x_hat).contiguous()
+        hx = dt = None
+        if data_split:
+            hx = ifft4(kc_hat * x_hat)
+            hxr = hx if al == 1.0 else al * hx + (1.0 - al) * st["z0"]
+            z0 = data_prox(hxr + st["u0"])
+            st["u0"] = st["u0"] + hxr - z0
+            st["z0"] = z0
+        xl, z2l, u2l = lanes(st["x"]), lanes(st["z2"]), lanes(st["u2"])
+        if coupling == "joint":
+            dxr, v, vmag = split_magnitude(xl, st["z1"], st["u1"], al, scales, group=nk)
+            scale = (hyperbolic_prox(vmag, mu / r1, eps) / vmag).repeat_interleave(nk, 0)
+            split_apply(xl, st["z1"], st["u1"], z2l, u2l, dxr, v, scale, al, config.positivity)
+        else:
+            admm_split_update(xl, st["z1"], st["u1"], z2l, u2l, lam, eps, al, config.positivity, scales)
+        if temporal:
+            dt = torch.roll(st["x"], -1, 0) - st["x"]
+            dtr = dt if al == 1.0 else al * dt + (1.0 - al) * st["zt"]
+            vt = dtr + st["ut"]
+            s_t = hyperbolic_prox(torch.sqrt(tmask * vt * vt + tiny), mu_t / r1t, eps_t)
+            zt = torch.where(tmask > 0, s_t * torch.sign(vt), vt)
+            st["ut"] = st["ut"] + dtr - zt
+            st["zt"] = zt
+        return hx, dt
+
+    def converged(old, hx, dt) -> bool:
+        """The Boyd test over the whole block (``admm.py:1431-1470``)."""
+        r_terms = [_circ_diffs(lanes(st["x"]), scales) - st["z1"], st["x"] - st["z2"]]
+        z_terms = [st["z1"], st["z2"]]
+        if temporal:
+            r_terms.append(dt - st["zt"])
+            z_terms.append(st["zt"])
+        if data_split:
+            r_terms.append(hx - st["z0"])
+            z_terms.append(st["z0"])
+
+        def conv_t(v):
+            return conv._irfftn(torch.conj(k_hat) * conv._rfftn(v), vol)
+
+        def dual_fn():
+            s_vec = r1 * _circ_diffs_adjoint(st["z1"] - old["z1"], scales).view(shape) + r2 * (st["z2"] - old["z2"])
+            aty = r1 * _circ_diffs_adjoint(st["u1"], scales).view(shape) + r2 * st["u2"]
+            if temporal:
+                s_vec = s_vec + r1t * t_adjoint(st["zt"] - old["zt"])
+                aty = aty + r1t * t_adjoint(st["ut"])
+            if data_split:
+                s_vec = s_vec + r0 * conv_t(st["z0"] - old["z0"])
+                aty = aty + r0 * conv_t(st["u0"])
+            return s_vec.reshape(1, -1), aty.reshape(1, -1)
+
+        n_el = float(x.numel())
+        p_el = n_el * (4.0 + data_split + temporal)
+        flat = [t.reshape(1, -1) for t in r_terms], [t.reshape(1, -1) for t in z_terms]
+        return bool(_boyd_criterion(*flat, dual_fn, p_el, n_el, abstol, reltol)[0])
+
+    iterations, status = n, 1 if use_tol else 0
+    for i in range(1, n + 1):
+        check = use_tol and i % check_every == 0
+        old = None
+        if check:  # z1 and z2 change in place; z0 and zt are replaced
+            old = {"z1": st["z1"].clone(), "z2": st["z2"].clone(), "z0": st.get("z0"), "zt": st.get("zt")}
+        hx, dt = step()
+        if track_objective:
+            hist[i] = objective(st["z2"])
+        if check and converged(old, hx, dt):
+            iterations, status = i, 0
+            break
+    out = st["z2"] if config.positivity else st["x"]
+    f_history = hist.cpu().numpy()
+    return DeconvolutionResult(out, objective(out).cpu().numpy()[()], iterations, iterations, status, f_history,
+                               np.full_like(f_history, np.nan))
+
+
+def admm_deconvolve_timeseries(
+    data: torch.Tensor,
+    psf: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    x0: torch.Tensor | None = None,
+    config: DeconvolutionConfig = DeconvolutionConfig(),
+    *,
+    mu_t: float = 0.0,
+    epsilon_t: float | None = None,
+    bleach=None,
+    rho0: float | None = None,
+    rho1: float | None = None,
+    rho1t: float | None = None,
+    rho2: float | None = None,
+    over_relax: float = 1.8,
+    track_objective: bool = True,
+) -> DeconvolutionResult:
+    """ADMM engine of the joint 4D time-series solve (``admm.py:564-863``),
+    the objective of ``jobs.timeseries.deconvolve_timeseries``: the one-channel
+    case of :func:`_admm_joint`. The T frames' spatial split update and
+    right-hand side are the two ADMM kernels over T lanes; the temporal split
+    (``rho1t``, default ``mu_t / epsilon_t``) is PyTorch operators. ``bleach``
+    gains live in the data prox, ``z = (w g d + rho0 v) / (w g^2 + rho0)``;
+    Poisson with bleach is not wired (use VMLMB). ``x`` is (T,)+vol."""
+    if config.data_term == "poisson" and bleach is not None:
+        raise ValueError("admm timeseries: poisson+bleach is not wired; use deconvolve_timeseries (VMLMB)")
+    data5, weights5, bleach5 = as_channel_block(data, weights, bleach)
+    res = _admm_joint(data5, psf, weights5, None if x0 is None else x0[:, None], config, mu_t=mu_t,
+                      epsilon_t=epsilon_t, bleach=bleach5, coupling="separate", mixing=None, rho0=rho0, rho1=rho1,
+                      rho1t=rho1t, rho2=rho2, over_relax=over_relax, track_objective=track_objective)
+    return res._replace(x=res.x[:, 0])
+
+
+def admm_deconvolve_multichannel(
+    data: torch.Tensor,
+    psfs: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    x0: torch.Tensor | None = None,
+    config: DeconvolutionConfig = DeconvolutionConfig(),
+    *,
+    coupling: str = "joint",
+    mixing=None,
+    rho0: float | None = None,
+    rho1: float | None = None,
+    rho2: float | None = None,
+    over_relax: float = 1.8,
+    track_objective: bool = True,
+) -> DeconvolutionResult:
+    """ADMM engine of the joint multichannel solve (``admm.py:866-1186``), the
+    objective of ``jobs.multichannel.deconvolve_multichannel``: the T = 1 case
+    of :func:`_admm_joint`. The x-update is per-channel circulant solves
+    batched over C; the color-TV prox takes one magnitude across channels and
+    axes a voxel (``"separate"``: the split-update kernel over the C lanes).
+    ``mixing`` (C, K), uniform Gaussian only, makes the data prox the
+    constant K x K system ``(M^T M + rho0 I) z = M^T d + rho0 v``. ``x`` is
+    (C or K,)+vol."""
+    if data.ndim != 4:
+        raise ValueError(f"expected a (C, Nz, Ny, Nx) stack, got {tuple(data.shape)}")
+    if config.data_term == "poisson" and weights is not None:
+        raise ValueError("data_term='poisson' does not compose with weights")
+    if mixing is not None and (config.data_term == "poisson" or weights is not None):
+        raise ValueError("admm multichannel: mixing composes with the uniform Gaussian data term only "
+                         "(weighted/poisson unmixing: use deconvolve_multichannel)")
+    if weights is not None and weights.ndim == 4:
+        weights = weights[None]
+    res = _admm_joint(data[None], psfs, weights, None if x0 is None else x0[None], config, mu_t=0.0, epsilon_t=None,
+                      bleach=None, coupling=coupling, mixing=mixing, rho0=rho0, rho1=rho1, rho1t=None, rho2=rho2,
+                      over_relax=over_relax, track_objective=track_objective)
+    return res._replace(x=res.x[0])
+
+
+def admm_deconvolve_timeseries_multichannel(
+    data: torch.Tensor,
+    psfs: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    x0: torch.Tensor | None = None,
+    config: DeconvolutionConfig = DeconvolutionConfig(),
+    *,
+    mu_t: float = 0.0,
+    epsilon_t: float | None = None,
+    bleach=None,
+    coupling: str = "joint",
+    mixing=None,
+    rho0: float | None = None,
+    rho1: float | None = None,
+    rho1t: float | None = None,
+    rho2: float | None = None,
+    over_relax: float = 1.8,
+    track_objective: bool = True,
+) -> DeconvolutionResult:
+    """ADMM engine of the full (T, C) 5D acquisition (``admm.py:1189-1500``),
+    the objective of ``jobs.multichannel.deconvolve_timeseries_multichannel``:
+    :func:`_admm_joint`. Not wired (use VMLMB): weighted or Poisson data
+    through ``mixing``, Poisson with bleach."""
+    poisson = config.data_term == "poisson"
+    if mixing is not None and (poisson or weights is not None):
+        raise ValueError("admm 5D: mixing composes with the uniform Gaussian data term only (weighted/poisson "
+                         "unmixing: use deconvolve_timeseries_multichannel)")
+    if poisson and bleach is not None:
+        raise ValueError("admm 5D: poisson+bleach is not wired; use deconvolve_timeseries_multichannel (VMLMB)")
+    return _admm_joint(data, psfs, weights, x0, config, mu_t=mu_t, epsilon_t=epsilon_t, bleach=bleach,
+                       coupling=coupling, mixing=mixing, rho0=rho0, rho1=rho1, rho1t=rho1t, rho2=rho2,
+                       over_relax=over_relax, track_objective=track_objective)

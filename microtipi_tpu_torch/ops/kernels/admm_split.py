@@ -26,8 +26,11 @@ them alone); a run sets them to 0 and reads them to show that its path went
 through the kernels. ``split_unaligned_launches`` counts the split update's
 4-byte instantiation (:func:`split_vectorized` is false).
 
-:func:`circ_diffs`, :func:`circ_diffs_adjoint` and :func:`hyperbolic_prox` are
-the plain building blocks, which the engine also uses outside its iteration.
+:func:`circ_diffs`, :func:`circ_diffs_adjoint`, :func:`hyperbolic_prox`,
+:func:`split_magnitude` and :func:`split_apply` are the plain building blocks,
+which the engines also use outside the kernels: the joint TV's prox takes one
+magnitude over a voxel's channels (``split_magnitude(group=...)``), which is
+not the kernel's function.
 Importing this module needs no ``nvcc`` and no card: the library is built and
 loaded at the first launch.
 """
@@ -49,6 +52,7 @@ __all__ = [
     "hyperbolic_prox",
     "per_lane",
     "reciprocals",
+    "split_apply",
     "split_magnitude",
 ]
 
@@ -118,25 +122,27 @@ def per_lane(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, 1, 1, 1)
 
 
-def split_magnitude(x, z1, u1, alpha: float = 1.0, scales=None):
+def split_magnitude(x, z1, u1, alpha: float = 1.0, scales=None, group: int = 1):
     """``(dxr, v, vmag)`` of the split update: the relaxed differences, ``v =
     dxr + u1`` and its masked magnitude (B, Nz, Ny, Nx), ``tiny`` under the
-    root. The replicate-boundary mask is applied on the trailing faces' views."""
+    root. The replicate-boundary mask is applied on the trailing faces' views.
+    ``group`` > 1 takes one magnitude over each run of ``group`` lanes (the
+    channels of the joint TV, ``admm.py:1076-1090``): vmag is then
+    (B / group, Nz, Ny, Nx)."""
     dx = circ_diffs(x, scales)
     dxr = dx if alpha == 1.0 else alpha * dx + (1.0 - alpha) * z1
     v = dxr + u1
     sq = v * v
     for a in range(3):
         _trailing_face(sq, a).zero_()
-    return dxr, v, torch.sqrt(sq[:, 0] + sq[:, 1] + sq[:, 2] + torch.finfo(x.dtype).tiny)
+    mag2 = sq[:, 0] + sq[:, 1] + sq[:, 2] if group == 1 else sq.reshape(-1, 3 * group, *x.shape[1:]).sum(1)
+    return dxr, v, torch.sqrt(mag2 + torch.finfo(x.dtype).tiny)
 
 
-def admm_split_update_plain(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float = 1.0,
-                            positivity: bool = True, scales=None) -> None:
-    """The split update with PyTorch operators, in place on ``z1, u1, z2,
-    u2``: the kernel's plain version, on any device and dtype."""
-    dxr, v, vmag = split_magnitude(x, z1, u1, alpha, scales)
-    scale = hyperbolic_prox(vmag, per_lane(lam), float(epsilon)) / vmag
+def split_apply(x, z1, u1, z2, u2, dxr, v, scale, alpha: float = 1.0, positivity: bool = True) -> None:
+    """The rest of the split update from the prox's shrinkage ``scale`` (B,
+    Nz, Ny, Nx), in place on ``z1, u1, z2, u2``: ``z1 = scale * v`` off the
+    trailing faces, the positivity clamp and the dual updates."""
     z1_new = scale[:, None] * v
     for a in range(3):  # unpenalized there: the prox is the identity
         _trailing_face(z1_new, a).copy_(_trailing_face(v, a))
@@ -146,6 +152,15 @@ def admm_split_update_plain(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float
     u2.add_(xr).sub_(z2_new)
     z1.copy_(z1_new)
     z2.copy_(z2_new)
+
+
+def admm_split_update_plain(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float = 1.0,
+                            positivity: bool = True, scales=None) -> None:
+    """The split update with PyTorch operators, in place on ``z1, u1, z2,
+    u2``: the kernel's plain version, on any device and dtype."""
+    dxr, v, vmag = split_magnitude(x, z1, u1, alpha, scales)
+    scale = hyperbolic_prox(vmag, per_lane(lam), float(epsilon)) / vmag
+    split_apply(x, z1, u1, z2, u2, dxr, v, scale, alpha, positivity)
 
 
 def admm_rhs_plain(z1, u1, z2, u2, rho1, rho2, scales=None) -> torch.Tensor:

@@ -10,16 +10,16 @@ trailing face), optionally divided by the per-axis voxel size, is the CPU
 path and the plain version the fused CUDA kernel
 (``ops/kernels/hyperbolic_tv.py``) is held against. The sparse-deconvolution
 priors :func:`smoothed_l1` and :func:`hyperbolic_hessian` (``:120-164``) are
-plain PyTorch on every device. ``joint_hyperbolic_tv`` waits for ROADMAP.md
-queue 1 item 14.
+plain PyTorch on every device, as is the channel-coupled
+:func:`joint_hyperbolic_tv` (``:71-110``), which no kernel computes.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["hessian_terms", "hyperbolic_hessian", "hyperbolic_tv", "hyperbolic_tv_and_gradient", "smoothed_l1",
-           "smoothed_l1_terms"]
+__all__ = ["hessian_terms", "hyperbolic_hessian", "hyperbolic_tv", "hyperbolic_tv_and_gradient",
+           "joint_hyperbolic_tv", "smoothed_l1", "smoothed_l1_terms"]
 
 
 def _forward_diffs(x: torch.Tensor, scales, axes) -> list[torch.Tensor]:
@@ -45,6 +45,30 @@ def hyperbolic_tv(x: torch.Tensor, epsilon: float, scales=None, axes=None) -> to
     axes = tuple(a % x.ndim for a in axes)
     diffs = _forward_diffs(x, scales, axes)
     g2 = sum(d * d for d in diffs)
+    eps = float(epsilon)
+    return torch.sum(torch.sqrt(g2 + eps * eps) - eps)
+
+
+def joint_hyperbolic_tv(x: torch.Tensor, epsilon: float, scales=None, axes=None,
+                        couple_axis: int = 0) -> torch.Tensor:
+    """Channel-coupled (color) hyperbolic TV of Bresson and Chan
+    (``regularization.py:71-110``): per voxel ONE hyperbolic norm over the
+    differences of every channel,
+
+        R(x) = sum_v ( sqrt( sum_c ||D_v x_c||^2 + eps^2 ) - eps ),
+
+    so an edge is cheap where the channels place it at the same voxel.
+    ``couple_axis`` names the channel axis; ``axes`` the differenced axes
+    (default: every axis but ``couple_axis``); ``scales`` and ``epsilon`` as
+    in :func:`hyperbolic_tv`, which it equals for one channel. Plain PyTorch,
+    differentiable twice."""
+    couple_axis = couple_axis % x.ndim
+    if axes is None:
+        axes = tuple(a for a in range(x.ndim) if a != couple_axis)
+    axes = tuple(a % x.ndim for a in axes)
+    if couple_axis in axes:
+        raise ValueError("couple_axis cannot also be a differenced axis")
+    g2 = sum(d * d for d in _forward_diffs(x, scales, axes)).sum(dim=couple_axis)
     eps = float(epsilon)
     return torch.sum(torch.sqrt(g2 + eps * eps) - eps)
 

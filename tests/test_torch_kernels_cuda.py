@@ -425,3 +425,104 @@ def test_batched_depthvar_launches_the_batched_kernel(cuda_device):
         one = deconvolve_depthvar(data[b], psfs, anchors, config=cfg)
         assert np.max(np.abs(res.f_history[b, :4] - one.f_history[:4]) / np.abs(one.f_history[:4])) < 1e-4
         assert abs(float(res.f[b]) - float(one.f)) / abs(float(one.f)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [(3, 20, 33, 48), (2, 3, 20, 33, 48)], ids=["series", "5d_view"])
+@pytest.mark.parametrize("alpha", [1.0, 1.8])
+def test_admm_kernels_on_joint_blocks_match_plain(block, alpha, cuda_device):
+    """The joint engines' lanes: a (T, Nz, Ny, Nx) series and the (T * C)
+    view of a (T, C) + vol block (the stacks (T * C, 3) + vol), bit for bit
+    against the plain versions."""
+    vol, nb = block[-3:], int(np.prod(block[:-3]))
+    st = _admm_state((nb, *vol), cuda_device, seed=8)
+    five = {k: v.view(*block[:-3], *v.shape[1:]) for k, v in st.items() if v.ndim > 1}
+    views = {k: v.view(nb, *v.shape[len(block) - 3:]) for k, v in five.items()}
+    views.update({k: st[k] for k in ("lam", "rho1", "rho2")})
+    assert views["x"].data_ptr() == st["x"].data_ptr() and views["z1"].shape == (nb, 3, *vol)
+    assert _split_and_rhs_match_plain(views, alpha, True, (2.0, 1.0, 1.0)) == 0
+
+
+@pytest.mark.cuda
+def test_batched_tv_lane_sum_is_the_plain_4d_tv(cuda_device):
+    """The time series' spatial TV, one batched launch summed over its T
+    lanes, against the plain TV of the 4D tensor over its last three axes:
+    the sum and the gradient."""
+    from microtipi_tpu_torch.ops.regularization import hyperbolic_tv
+
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal((4, 20, 32, 48), dtype=np.float32),
+                        device=cuda_device).requires_grad_(True)
+    hv.batched_launches = 0
+    f = hv.hyperbolic_tv_batched_value(x, 0.1, (2.0, 1.0, 1.0)).sum()
+    (g,) = torch.autograd.grad(f, x)
+    fp = hyperbolic_tv(x, 0.1, (2.0, 1.0, 1.0), axes=(-3, -2, -1))
+    (gp,) = torch.autograd.grad(fp, x)
+    assert hv.batched_launches == 1
+    np.testing.assert_allclose(f.item(), fp.item(), rtol=COST_RTOL)
+    torch.testing.assert_close(g, gp, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def _joint_inputs(device, t=3, c=2, vol=(8, 16, 32)):
+    """Float32 (T, C) + vol data on the card (sparse beads blurred by one
+    separable Gaussian PSF a channel, plus noise) and the PSFs."""
+    rng = np.random.default_rng(10)
+    axes = [np.minimum(np.arange(n), n - np.arange(n)) for n in vol]
+    psfs = np.stack([np.exp(-axes[0][:, None, None] ** 2 / w - axes[1][None, :, None] ** 2 / (2 * w)
+                            - axes[2][None, None, :] ** 2 / (2 * w)) for w in (1.5, 2.5)[:c]])
+    psfs /= psfs.sum(axis=(1, 2, 3), keepdims=True)
+    obj = rng.random((t, c, *vol)) * (rng.random((t, c, *vol)) > 0.98) * 300
+    data = np.fft.irfftn(np.fft.rfftn(obj, axes=(2, 3, 4)) * np.fft.rfftn(psfs, axes=(1, 2, 3)), s=vol,
+                         axes=(2, 3, 4)) + rng.standard_normal((t, c, *vol))
+    return (torch.as_tensor(data, dtype=torch.float32, device=device),
+            torch.as_tensor(psfs, dtype=torch.float32, device=device))
+
+
+@pytest.mark.cuda
+def test_joint_entry_points_run_on_the_card(cuda_device):
+    """Each joint entry point on CUDA tensors keeps them on the card and goes
+    through its kernels: one batched TV launch a VMLMB evaluation (time
+    series, separate, 5D), none for the joint TV; one split update and one
+    rhs an iteration (no split update for joint), one TV launch a tracked
+    ADMM iteration plus f0 and the final f; superres on the single-volume
+    TV kernel."""
+    from microtipi_tpu_torch.jobs import admm, multichannel, superres, timeseries
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+
+    data, psfs = _joint_inputs(cuda_device)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=5, grtol=0.0)
+
+    def counted(run):
+        hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+        ak.split_launches = ak.rhs_launches = ak.split_unaligned_launches = 0
+        res = run()
+        torch.cuda.synchronize()
+        assert res.x.device.type == "cuda" and bool(torch.isfinite(res.x).all()) and np.isfinite(res.f)
+        assert hv.unaligned_launches == ak.split_unaligned_launches == 0
+        return res, (hv.launches, hv.batched_launches, ak.split_launches, ak.rhs_launches)
+
+    bleach = torch.tensor([1.0, 0.9, 0.8], device=cuda_device)
+    res, n = counted(lambda: timeseries.deconvolve_timeseries(data[:, 0], psfs[0], config=cfg, mu_t=0.05,
+                                                              bleach=bleach))
+    assert n == (0, res.evaluations, 0, 0)
+    res, n = counted(lambda: admm.admm_deconvolve_timeseries(data[:, 0], psfs[0], config=cfg, mu_t=0.05))
+    assert n == (0, 7, 5, 5)
+    for coupling, tv in (("separate", 1), ("joint", 0)):
+        res, n = counted(lambda: multichannel.deconvolve_multichannel(data[0], psfs, config=cfg, coupling=coupling))
+        assert n == (0, tv * res.evaluations, 0, 0)
+        res, n = counted(lambda: admm.admm_deconvolve_multichannel(data[0], psfs, config=cfg, coupling=coupling))
+        assert n == (0, tv * 7, tv * 5, 5)
+    mix = torch.tensor([[0.85, 0.25], [0.15, 0.75]], device=cuda_device)
+    res, n = counted(lambda: multichannel.deconvolve_timeseries_multichannel(
+        data, psfs, config=cfg, mu_t=0.05, coupling="separate", mixing=mix))
+    assert n == (0, res.evaluations, 0, 0) and res.x.shape == data.shape
+    res, n = counted(lambda: admm.admm_deconvolve_timeseries_multichannel(
+        data, psfs, config=cfg, mu_t=0.05, bleach=torch.ones(3, 2, device=cuda_device), coupling="separate",
+        track_objective=False))
+    assert n == (0, 2, 5, 5)
+    fine = superres.upsample_psf(psfs[0], (1, 2, 2))
+    assert fine.device.type == "cuda" and fine.shape == (8, 32, 64)
+    res, n = counted(lambda: superres.deconvolve_superres(data[0, 0], fine, (1, 2, 2), config=cfg))
+    assert n == (res.evaluations, 0, 0, 0) and res.x.shape == (8, 32, 64)
+    res, n = counted(lambda: superres.admm_deconvolve_superres(data[0, 0], fine, (1, 2, 2), config=cfg))
+    assert n == (7, 0, 5, 5)
+    assert multichannel.mixing_from_controls([np.ones((2, 3, 3)), np.ones((2, 3, 3))]).device.type == "cuda"

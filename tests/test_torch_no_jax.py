@@ -31,4 +31,5 @@ def test_scan_covers_the_package():
     assert {"hyperbolic_tv.py", "vmlmb.py", "blind.py", "batch.py", "tiled.py", "admm.py", "admm_split.py",
             "updaters.py", "convert.py", "richardson_lucy.py", "autotune.py", "uncertainty.py", "regularization.py",
             "chip_smoke.py", "chip_profile.py", "chip_tv_ab.py", "confocal.py", "gibson_lanni.py", "vectorial.py",
-            "lightsheet.py", "ism.py", "fourpi.py", "sted.py", "depthconv.py", "depthvar.py"} <= names
+            "lightsheet.py", "ism.py", "fourpi.py", "sted.py", "depthconv.py", "depthvar.py", "timeseries.py",
+            "multichannel.py", "superres.py"} <= names

@@ -115,3 +115,17 @@ def test_model_defaults_to_the_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             WideFieldModel(cfg)
     assert WideFieldModel(cfg, device="cpu").device.type == "cpu"
+
+
+def test_mixing_from_controls_defaults_to_the_card():
+    """The unmixing matrix made from host data goes to the CUDA card unless
+    the caller names another device; on a host without one, it raises."""
+    from microtipi_tpu_torch.jobs.multichannel import mixing_from_controls
+
+    controls = [np.ones((2, 3, 3)), np.eye(2)[:, :, None] * np.ones((2, 2, 3))]
+    if torch.cuda.is_available():
+        assert mixing_from_controls(controls).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mixing_from_controls(controls)
+    assert mixing_from_controls(controls, device="cpu").device.type == "cpu"
