@@ -23,7 +23,12 @@ PSFs, and the joint solvers by VMLMB and ADMM: the time series
 ``jobs.admm.admm_deconvolve_timeseries``), the multichannel and 5D solves
 with color TV and spectral unmixing (``jobs.multichannel``,
 ``admm_deconvolve_multichannel``, ``admm_deconvolve_timeseries_multichannel``)
-and the finer-grid solve (``jobs.superres``);
+and the finer-grid solve (``jobs.superres``); the batched and out-of-core
+blind loops (``jobs.batch.batched_blind_deconvolve``,
+``jobs.tiled_blind.blind_deconvolve_tiled``); PSF estimation from a bead map
+or phase diversity (``jobs.phase_retrieval``, ``jobs.diversity``); SIM and ISM
+(``jobs.sim``, ``jobs.ism``); and the image ops (``ops.register``,
+``ops.metrics``, ``ops.preprocess``, ``ops.geometry``);
 ``weights.updaters.InverseVarianceWeights`` makes the data weights, ``convert``
 carries parameters and configurations between the two packages.
 """

@@ -11,6 +11,9 @@ port's config of the same class name. The solver configurations
 (``DeconvolutionConfig``, ``PsfFitConfig``, ``BlindDeconvConfig``) and the
 ``InverseVarianceWeights`` model cross over field by field, by name: the port
 keeps its own classes, and a field the port does not have is left behind.
+The streamed fit statistics of the out-of-core blind loop
+(:func:`fit_stats_to_torch`) and a retrieved pupil
+(:func:`pupil_result_to_torch`) cross over from their NumPy arrays.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import torch
 
 from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+from microtipi_tpu_torch.jobs.phase_retrieval import PupilRetrievalResult
 from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+from microtipi_tpu_torch.jobs.tiled_blind import FitStats
 from microtipi_tpu_torch.models import MODELS
 from microtipi_tpu_torch.models.fourpi import FourPiParams
 from microtipi_tpu_torch.models.gibson_lanni import GibsonLanniParams
@@ -32,8 +37,8 @@ from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldParam
 from microtipi_tpu_torch.weights.updaters import InverseVarianceWeights
 
 __all__ = ["anchors_to_torch", "blind_config_from_fields", "config_fields", "config_from_fields",
-           "deconv_config_from_fields", "family_config_from_fields", "params_to_numpy", "params_to_torch",
-           "weights_from_fields"]
+           "deconv_config_from_fields", "family_config_from_fields", "fit_stats_to_torch", "params_to_numpy",
+           "params_to_torch", "pupil_result_to_torch", "weights_from_fields"]
 
 _CONFIG_FIELDS = ("shape", "na", "wavelength", "ni", "dxy", "dz", "n_phase", "n_modulus", "radial")
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
@@ -135,3 +140,25 @@ def weights_from_fields(model) -> InverseVarianceWeights:
     """The port's weight model from one with ``gain``/``readout_variance``/
     ``saturation`` (the JAX ``InverseVarianceWeights``)."""
     return _from_fields(InverseVarianceWeights, model)
+
+
+def fit_stats_to_torch(stats, device=None) -> FitStats:
+    """The port's ``jobs.tiled_blind.FitStats`` from one with ``rho``/``b``
+    arrays, ``c`` and the three shapes (the JAX ``FitStats``), float64."""
+    def arr(a):
+        return torch.as_tensor(np.array(a), dtype=torch.float64, device=device)
+
+    return FitStats(arr(stats.rho), arr(stats.b), float(stats.c), tuple(stats.g_shape), tuple(stats.psf_shape),
+                    tuple(stats.volume_shape))
+
+
+def pupil_result_to_torch(result, device=None, dtype: torch.dtype = torch.float64) -> PupilRetrievalResult:
+    """The port's ``jobs.phase_retrieval.PupilRetrievalResult`` from one with
+    the same fields (the JAX one): maps and PSF as tensors, the counts as
+    ints."""
+    def arr(a):
+        return None if a is None else torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return PupilRetrievalResult(arr(result.phi), arr(result.rho), arr(result.mask), arr(result.psf),
+                                np.asarray(result.f)[()], int(result.iterations), int(result.evaluations),
+                                int(result.status))

@@ -32,12 +32,20 @@ import torch
 from microtipi_tpu_torch.jobs.admm import admm_deconvolve
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
 from microtipi_tpu_torch.jobs.wiener import wiener
-from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig, bead_anchor_term, fit_psf, fit_psf_joint, model_at
-from microtipi_tpu_torch.models.microscope import DEFOCUS, DEPTH, MODULUS, PHASE, SHEET
+from microtipi_tpu_torch.jobs.psf_fit import (
+    PsfFitConfig,
+    _fit_data_term,
+    _fit_joint,
+    _fit_single,
+    bead_anchor_term,
+    model_at,
+)
+from microtipi_tpu_torch.models.microscope import DEFOCUS, DEPTH, MODULUS, PHASE, SHEET, family_name
 from microtipi_tpu_torch.ops.convolution import WeightedConvolutionCost
 from microtipi_tpu_torch.utils.arrays import crop_to_shape, pad_fft_kernel, pad_to_shape
 
-__all__ = ["BlindDeconvConfig", "BlindDeconvResult", "blind_deconvolve", "run_blind_loop"]
+__all__ = ["BlindDeconvConfig", "BlindDeconvResult", "blind_deconvolve", "blind_fits", "blind_start",
+           "run_blind_loop"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,18 +129,23 @@ class BlindDeconvResult(NamedTuple):
     deconv_iters: np.ndarray  # per-round object-step iterations, (loops,)
 
 
-def run_blind_loop(config, f_dtype, x0, params0, object_step, fit_weights, fit_one, fit_joint):
+def run_blind_loop(config, f_dtype, x0, params0, object_step, fit_weights, fit_one, fit_joint,
+                   lanes: int | None = None):
     """Driver of the alternating loop (``jobs/blind.py:189-266``): round
     order, skip-refit on the last round (``BlindDeconvJob.java:116``), the
     zero-budget family skip (``:126``), per-round schedules and the joint
     dispatch. The callables are those of the JAX loop:
     ``object_step(x, params, mu) -> (x, f, iterations, psf)``,
     ``fit_weights(x, psf)``, ``fit_one(params, x, w, j, phase_active)`` and
-    ``fit_joint(params, x, w, flags)``, each fit returning ``(params, f)``."""
+    ``fit_joint(params, x, w, flags)``, each fit returning ``(params, f)``.
+    ``lanes``: the loop runs ``lanes`` independent problems in lockstep, and
+    every f and iteration count the callables return is one per lane; the
+    histories then have the lanes after the round axis."""
     nfam = len(config.families)
-    deconv_f = np.full((config.loops,), np.nan, f_dtype)
-    fit_f = np.full((config.loops, nfam), np.nan, f_dtype)
-    deconv_iters = np.zeros((config.loops,), np.int32)
+    lead = () if lanes is None else (lanes,)
+    deconv_f = np.full((config.loops,) + lead, np.nan, f_dtype)
+    fit_f = np.full((config.loops,) + lead + (nfam,), np.nan, f_dtype)
+    deconv_iters = np.zeros((config.loops,) + lead, np.int32)
     x, params = x0, params0
     for i in range(config.loops):
         mu = config.mu_schedule[i] if config.mu_schedule else None
@@ -147,15 +160,68 @@ def run_blind_loop(config, f_dtype, x0, params0, object_step, fit_weights, fit_o
             params, jf = fit_joint(params, x, w_fit, jfams)
             for j, it in enumerate(config.psf_max_iter):
                 if it > 0:
-                    fit_f[i, j] = jf
+                    fit_f[i][..., j] = jf
             continue
         fit_f[i] = 0.0
         for j, flag in enumerate(config.families):
             if config.psf_max_iter[j] <= 0:  # BlindDeconvJob.java:126
                 continue
             phase_active = config.phase_schedule[i] if (config.phase_schedule and flag == PHASE) else None
-            params, fit_f[i, j] = fit_one(params, x, w_fit, j, phase_active)
+            params, fit_f[i][..., j] = fit_one(params, x, w_fit, j, phase_active)
     return x, params, deconv_f, fit_f, deconv_iters
+
+
+def blind_start(data, model, params0, config: "BlindDeconvConfig") -> torch.Tensor:
+    """The round-1 object of one volume: the data or its Wiener estimate
+    under ``params0``, clamped at 0 and centred on ``deconv.var_shape``."""
+    var_shape = tuple(config.deconv.var_shape) if config.deconv.var_shape is not None else tuple(data.shape)
+    x0 = wiener(data, model.compute_psf(params0)) if config.init == "wiener" else data
+    return torch.clamp_min(pad_to_shape(x0, var_shape), 0.0)
+
+
+def blind_fits(model, data, config: "BlindDeconvConfig", params0, aux_terms=(), cost_of=None):
+    """``(fit_one, fit_joint)`` of :func:`run_blind_loop` (``jobs/blind.py:347-434``):
+    every family fit with ``grtol = 0`` (``BlindDeconvJob.java:124``), the
+    calibration prior anchored at ``params0``, and the auxiliary bead terms.
+    ``cost_of(x, w) -> cost(params)`` is the data term a round's fits
+    minimize; by default the object-as-kernel term of one volume ``data``
+    (``fit_psf``'s), on ``fit.fit_window``'s crop where one is set."""
+    fit_cfg = dataclasses.replace(config.fit, grtol=0.0)
+    # The calibration prior's anchor is the original params0, not the
+    # drifting estimate of each round (jobs/blind.py:347-354).
+    phase_anchor = params0.phase.detach() if config.phase_prior_weight > 0 else None
+    if cost_of is None:
+        fit_view, fit_model = _fit_window_view(model, data, config.fit.fit_window)
+
+        def cost_of(x, w):
+            fdata, fobj, fw = fit_view(x, w)
+            if fw is not None and fw.shape != fdata.shape:
+                fw = pad_to_shape(fw, tuple(fdata.shape))
+            data_cost = _fit_data_term(fobj, fdata, fw)
+            return lambda p: data_cost.cost(fit_model.compute_psf(p))
+
+    def fit_one(params, x, w_fit, j, phase_active):
+        flag = config.families[j]
+        fres = _fit_single(
+            cost_of(x, w_fit), params, family_name(flag),
+            dataclasses.replace(fit_cfg, max_iter=config.psf_max_iter[j]),
+            active=phase_active,
+            freeze_head=config.phase_freeze_head if flag == PHASE else 0,
+            # DEPTH and SHEET mix physical scales; unpreconditioned they stall.
+            precondition=flag in (DEPTH, SHEET),
+            anchor=phase_anchor if flag == PHASE else None,
+            prior_weight=config.phase_prior_weight if flag == PHASE else 0.0,
+            aux_terms=aux_terms,
+        )
+        return fres.params, fres.f
+
+    def fit_joint(params, x, w_fit, jfams):
+        fres = _fit_joint(cost_of(x, w_fit), params, tuple(family_name(f) for f in jfams),
+                          dataclasses.replace(fit_cfg, max_iter=max(config.psf_max_iter)),
+                          config.phase_freeze_head, phase_anchor, config.phase_prior_weight, aux_terms)
+        return fres.params, fres.f
+
+    return fit_one, fit_joint
 
 
 def blind_deconvolve(
@@ -183,13 +249,7 @@ def blind_deconvolve(
     # PSF fits on the data window (jobs/blind.py:294-345).
     var_shape = tuple(config.deconv.var_shape) if config.deconv.var_shape is not None else tuple(data.shape)
     if x0 is None:
-        if config.init == "wiener":
-            x0 = wiener(data, model.compute_psf(params0))
-        else:
-            x0 = data
-        x0 = torch.clamp_min(pad_to_shape(x0, var_shape), 0.0)
-
-    fit_cfg = dataclasses.replace(config.fit, grtol=0.0)  # BlindDeconvJob.java:124
+        x0 = blind_start(data, model, params0, config)
 
     def object_step(x, params, mu):
         with torch.no_grad():
@@ -216,39 +276,7 @@ def blind_deconvolve(
         full_cost = WeightedConvolutionCost.build(pad_fft_kernel(psf, var_shape), data, None, var_shape)
         return weight_updater(full_cost.model(x), data)
 
-    # The calibration prior's anchor is the original params0, not the
-    # drifting estimate of each round (jobs/blind.py:347-354).
-    phase_anchor = params0.phase.detach() if config.phase_prior_weight > 0 else None
-    aux_terms = _bead_terms(model, bead_data, config)
-    fit_view, fit_model = _fit_window_view(model, data, config.fit.fit_window)
-
-    def fit_one(params, x, w_fit, j, phase_active):
-        flag = config.families[j]
-        fdata, fobj, fw = fit_view(x, w_fit)
-        fres = fit_psf(
-            fit_model, params, flag, fdata, fobj, weights=fw,
-            config=dataclasses.replace(fit_cfg, max_iter=config.psf_max_iter[j]),
-            active=phase_active,
-            freeze_head=config.phase_freeze_head if flag == PHASE else 0,
-            # DEPTH and SHEET mix physical scales; unpreconditioned they stall.
-            precondition=flag in (DEPTH, SHEET),
-            anchor=phase_anchor if flag == PHASE else None,
-            prior_weight=config.phase_prior_weight if flag == PHASE else 0.0,
-            aux_terms=aux_terms,
-        )
-        return fres.params, fres.f
-
-    def fit_joint(params, x, w_fit, jfams):
-        fdata, fobj, fw = fit_view(x, w_fit)
-        fres = fit_psf_joint(
-            fit_model, params, jfams, fdata, fobj, weights=fw,
-            config=dataclasses.replace(fit_cfg, max_iter=max(config.psf_max_iter)),
-            phase_freeze_head=config.phase_freeze_head,
-            phase_anchor=phase_anchor,
-            phase_prior_weight=config.phase_prior_weight,
-            aux_terms=aux_terms,
-        )
-        return fres.params, fres.f
+    fit_one, fit_joint = blind_fits(model, data, config, params0, _bead_terms(model, bead_data, config))
 
     f_dtype = np.float64 if data.dtype == torch.float64 else np.float32
     x, params, deconv_f, fit_f, deconv_iters = run_blind_loop(

@@ -62,12 +62,31 @@ def _host(t: torch.Tensor):
     return t.detach().cpu().numpy()[()]
 
 
-def _scalar_bound(bound) -> float | None:
-    """Bounds are scalars broadcast to every element (None: unbounded); the
-    JAX package's per-leaf array bounds have no caller in the port yet."""
+def _leaf_bounds(bound, x) -> dict | float | None:
+    """A bound as ``vmlmb.py:111-120``'s ``_normalize_bound`` reads it: None
+    (unbounded), a scalar for every element, or a tree matching ``x`` whose
+    leaves are scalars or arrays broadcast to their leaf (per-variable
+    bounds of a dict iterate, ``-inf`` for a free one). Returns None, one
+    float, or a dict of per-leaf floats or tensors on each leaf's device."""
     if bound is None or isinstance(bound, (int, float, np.integer, np.floating)):
         return None if bound is None else float(bound)
-    raise TypeError(f"lower/upper must be scalars or None, got {type(bound).__name__}")
+    if isinstance(bound, np.ndarray) and bound.ndim == 0:
+        return float(bound)
+
+    def leaf(b, xi):
+        if isinstance(b, (int, float, np.integer, np.floating)) or np.ndim(b) == 0:
+            return float(b)
+        return torch.broadcast_to(torch.as_tensor(b, dtype=xi.dtype, device=xi.device), xi.shape)
+
+    if isinstance(x, dict):
+        if not isinstance(bound, dict) or sorted(bound) != sorted(x):
+            raise TypeError(f"a bound of a dict iterate is a scalar or a dict with its keys {sorted(x)}")
+        return {k: leaf(bound[k], x[k]) for k in sorted(x)}
+    return {None: leaf(bound, x)}
+
+
+def _bound_of(bounds, key):
+    return bounds if not isinstance(bounds, dict) else bounds[key]
 
 
 def minimize_vmlmb(fun: Callable[[Any], tuple[torch.Tensor, Any]], x0: Any, **options) -> VMLMBResult:
@@ -147,21 +166,37 @@ def vmlmb_steps(
     ``maxiter`` sizes the histories; ``maxiter_cap`` (<= maxiter, default
     ``maxiter``) bounds the iterations, for a caller continuing a budget. A
     cap <= 0 or ``maxeval <= 1`` returns after the initial evaluation with
-    status CONVERGED.
+    status CONVERGED. ``lower``/``upper``: None, a scalar for every element,
+    or (a dict iterate) a dict of per-variable scalars or arrays.
     """
     if maxeval is None:
         maxeval = 2 * maxiter
     cap = maxiter if maxiter_cap is None else int(maxiter_cap)
     maxeval = int(maxeval)
-    lo, hi = _scalar_bound(lower), _scalar_bound(upper)
-    bounded = lo is not None or hi is not None
+    lo_b, hi_b = _leaf_bounds(lower, x0), _leaf_bounds(upper, x0)
+    bounded = lo_b is not None or hi_b is not None
+
+    def leafwise(fn, x, *rest):
+        # fn(key, leaf, *rest leaves): the leaf's own bounds come by key.
+        if isinstance(x, dict):
+            return {k: fn(k, x[k], *(r[k] for r in rest)) for k in sorted(x)}
+        return fn(None, x, *rest)
+
+    def clamp(key, xi):
+        lo, hi = _bound_of(lo_b, key), _bound_of(hi_b, key)
+        if lo is not None:  # jnp.clip: min(max(x, lo), hi)
+            xi = torch.clamp_min(xi, lo) if isinstance(lo, float) else torch.maximum(xi, lo)
+        if hi is not None:
+            xi = torch.clamp_max(xi, hi) if isinstance(hi, float) else torch.minimum(xi, hi)
+        return xi
 
     def project(x):
-        return tmap(lambda xi: torch.clamp(xi, lo, hi), x) if bounded else x
+        return leafwise(clamp, x) if bounded else x
 
     def blocked_mask(x, v, sign):
         # (x <= lo & sign*v > 0) | (x >= hi & sign*v < 0): active bounds.
-        def one(xi, vi):
+        def one(key, xi, vi):
+            lo, hi = _bound_of(lo_b, key), _bound_of(hi_b, key)
             m = torch.zeros_like(xi, dtype=torch.bool)
             if lo is not None:
                 m = m | ((xi <= lo) & (sign * vi > 0))
@@ -169,7 +204,7 @@ def vmlmb_steps(
                 m = m | ((xi >= hi) & (sign * vi < 0))
             return m
 
-        return tmap(one, x, v)
+        return leafwise(one, x, v)
 
     def zero_where(mask, v):
         return twhere(mask, tmap(torch.zeros_like, v), v)

@@ -79,11 +79,15 @@ def pad_fft_kernel(kernel: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor
     return unroll(pad_to_shape(roll(kernel, axes), shape), axes)
 
 
-def median(t: torch.Tensor) -> torch.Tensor:
-    """``jnp.median`` of all elements: the mean of the two middle order
-    statistics of an even count (``torch.median`` takes the lower one, and
-    ``torch.quantile`` refuses more than 2^24 elements), a 0-dim tensor on
-    ``t``'s device."""
-    v = torch.sort(t.reshape(-1)).values
-    h = v.numel() // 2
-    return v[h] if v.numel() % 2 else (v[h - 1] + v[h]) * 0.5
+def median(t: torch.Tensor, dim: int | None = None, keepdim: bool = False) -> torch.Tensor:
+    """``jnp.median``: the mean of the two middle order statistics of an
+    even count (``torch.median`` takes the lower one, and ``torch.quantile``
+    refuses more than 2^24 elements), over all elements (``dim`` None, a
+    0-dim tensor) or along ``dim``, on ``t``'s device."""
+    if dim is None:
+        t, dim = t.reshape(-1), 0
+    v = torch.sort(t, dim=dim).values
+    n = v.shape[dim]
+    h = n // 2
+    mid = v.narrow(dim, h, 1) if n % 2 else (v.narrow(dim, h - 1, 1) + v.narrow(dim, h, 1)) * 0.5
+    return mid if keepdim else mid.squeeze(dim)

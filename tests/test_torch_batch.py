@@ -185,8 +185,10 @@ def test_unported_and_unknown_entry_points():
         batched_deconvolve(data[0], kernel, engine="admm")
     with pytest.raises(ValueError, match="unknown engine"):
         batched_deconvolve(data, kernel, engine="sgd")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tbatch.batched_blind_deconvolve(data, kernel)
+    # the batched blind loop is ported (tests/test_torch_batched_blind.py): it
+    # takes a 4D batch
+    with pytest.raises(ValueError, match="a batch of volumes is 4D"):
+        tbatch.batched_blind_deconvolve(data[0], None)
     # the depth-varying batch is ported (tests/test_torch_depthvar.py): it
     # takes a (K,)+volume anchor stack and a 4D batch
     with pytest.raises(ValueError, match=r"\(K,\)\+volume stack"):

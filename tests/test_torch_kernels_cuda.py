@@ -526,3 +526,135 @@ def test_joint_entry_points_run_on_the_card(cuda_device):
     res, n = counted(lambda: superres.admm_deconvolve_superres(data[0, 0], fine, (1, 2, 2), config=cfg))
     assert n == (7, 0, 5, 5)
     assert multichannel.mixing_from_controls([np.ones((2, 3, 3)), np.ones((2, 3, 3))]).device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 64, 256, 256), (3, 64, 256, 256), (2, 64, 256, 256), (1, 64, 256, 256),
+                                   (2, 256, 256, 256), (1, 256, 256, 256)])
+def test_batched_tv_kernel_at_the_blind_batches(shape, cuda_device):
+    """The batched blind loop's lockstep batches (4 frames of 64x256x256, and
+    fewer once lanes finish) and the tiled loop's last lanes of 256^3: costs
+    and gradient against the plain version, each lane bitwise the
+    single-volume kernel."""
+    x = torch.as_tensor(np.random.default_rng(11).standard_normal(shape, dtype=np.float32), device=cuda_device)
+    hv.batched_launches = hv.unaligned_launches = 0
+    f, g = hv.hyperbolic_tv_batched_fused(x, 1.0)
+    fp, gp = hv.hyperbolic_tv_batched_plain(x, 1.0)
+    torch.cuda.synchronize()
+    assert (hv.batched_launches, hv.unaligned_launches) == (1, 0)
+    np.testing.assert_allclose(f.cpu().numpy(), fp.cpu().numpy(), rtol=COST_RTOL)
+    torch.testing.assert_close(g, gp, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    for b in range(shape[0]):
+        assert torch.equal(g[b], hv.hyperbolic_tv_fused(x[b], 1.0)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [1.0, 1.8])
+def test_admm_kernels_at_the_blind_batch(alpha, cuda_device):
+    """The per-frame ADMM blind loop's lanes, 4 x 64x256x256, bit for bit
+    against the plain versions."""
+    assert _split_and_rhs_match_plain(_admm_state((4, 64, 256, 256), cuda_device, seed=12), alpha, True, None) == 0
+
+
+def _blind_inputs(device, frames=2, shape=(16, 64, 64)):
+    """Float32 frames of sparse beads blurred by an aberrated wide-field PSF on
+    the card, and the model."""
+    from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
+
+    model = WideFieldModel(WideFieldConfig(shape=shape, na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9, dz=200e-9,
+                                           n_phase=6, dtype=torch.float32), device)
+    params = model.init_params()._replace(phase=torch.tensor([0.15, -0.1, 0.08, 0.0, 0.05, 0.0], device=device))
+    rng = np.random.default_rng(13)
+    obj = torch.as_tensor(rng.random((frames, *shape), dtype=np.float32) * (rng.random((frames, *shape)) > 0.99)
+                          * 300, device=device)
+    with torch.no_grad():
+        k_hat = torch.fft.rfftn(model.compute_psf(params))
+        data = torch.fft.irfftn(torch.fft.rfftn(obj, dim=(1, 2, 3)) * k_hat, s=shape, dim=(1, 2, 3))
+    return data + 0.01 * data.max() * torch.as_tensor(rng.standard_normal(data.shape, dtype=np.float32),
+                                                      device=device), model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("joint_psf", [False, True])
+def test_batched_blind_runs_through_the_batched_kernel(joint_psf, cuda_device):
+    """Two rounds of ``batched_blind_deconvolve`` on the card: the object
+    steps launch the batched TV kernel (none of one volume), the result stays
+    on the card, and the object cost falls."""
+    from microtipi_tpu_torch.jobs.batch import batched_blind_deconvolve
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+
+    data, model = _blind_inputs(cuda_device)
+    cfg = BlindDeconvConfig(loops=2, families=(DEFOCUS, PHASE), psf_max_iter=(3, 3), joint_fit=True,
+                            deconv=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=5, grtol=0.0, gatol=0.0))
+    hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+    res = batched_blind_deconvolve(data, model, config=cfg, joint_psf=joint_psf)
+    torch.cuda.synchronize()
+    assert (hv.launches, hv.unaligned_launches) == (0, 0) and hv.batched_launches > 0
+    assert res.obj.device.type == "cuda" and bool(torch.isfinite(res.obj).all())
+    df = res.deconv_f if joint_psf else res.deconv_f.T
+    assert np.all(np.diff(df, axis=0) < 0)
+
+
+@pytest.mark.cuda
+def test_streamed_statistics_on_the_card(cuda_device):
+    """The streamed fit statistics default to the card: float32 blocks there
+    against the float64 CPU pass to 1e-5 of the largest value, and the
+    float64 fit on the card against the CPU one."""
+    from microtipi_tpu_torch.jobs import tiled_blind
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+    from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+    from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
+
+    rng = np.random.default_rng(14)
+    obj = (rng.random((16, 64, 64)) * (rng.random((16, 64, 64)) > 0.99) * 300).astype(np.float32)
+    data = obj + rng.random((16, 64, 64), dtype=np.float32)
+    card = tiled_blind.streamed_fit_stats(obj, data, (4, 16, 16), tile=(8, 32, 32))
+    host = tiled_blind.streamed_fit_stats(obj.astype(np.float64), data.astype(np.float64), (4, 16, 16),
+                                          tile=(8, 32, 32), device="cpu")
+    assert card.rho.device.type == "cuda" and card.rho.dtype == torch.float64
+    for a, b in ((card.rho, host.rho), (card.b, host.b)):
+        assert float(torch.max(torch.abs(a.cpu() - b)) / torch.max(torch.abs(b))) < 1e-5
+    fits = []
+    for stats, dev in ((card, cuda_device), (host, torch.device("cpu"))):
+        m = WideFieldModel(WideFieldConfig(shape=(4, 16, 16), na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9,
+                                           dz=200e-9, n_phase=6, dtype=torch.float64), dev)
+        fits.append(tiled_blind.fit_psf_streamed(m, m.init_params(), (DEFOCUS, PHASE), stats,
+                                                 PsfFitConfig(max_iter=4)))
+    assert fits[0][0].phase.device.type == "cuda"
+    np.testing.assert_allclose(fits[0][1], fits[1][1], rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_estimation_and_image_ops_stay_on_the_card(cuda_device):
+    """Every new entry point on CUDA tensors returns CUDA tensors: pupil
+    retrieval, the diversity fit and its error bars, SIM, ISM and the image
+    ops."""
+    from microtipi_tpu_torch.jobs import diversity, ism, phase_retrieval, sim
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+    from microtipi_tpu_torch.models import ISMConfig, ISMModel
+    from microtipi_tpu_torch.models.microscope import PHASE
+    from microtipi_tpu_torch.ops import geometry, metrics, preprocess, register
+
+    data, model = _blind_inputs(cuda_device, frames=2)
+    bead = phase_retrieval.retrieve_pupil(model, data[0], config=PsfFitConfig(max_iter=3), gs_iterations=2)
+    ph = diversity.defocus_diversity(model, [-2e-7, 2e-7])
+    fit = diversity.fit_psf_diversity(model, data, ph, (PHASE,), config=PsfFitConfig(max_iter=3))
+    unc = diversity.diversity_fit_uncertainty(model, fit.params, (PHASE,), data, ph)
+    otf = torch.fft.fft2(model.compute_psf(model.init_params())[0].to(torch.complex64))
+    raw = sim.simulate_sim(data[0, 0], otf, np.array([[0.2, 0.1]]), np.array([[0.0, 2.1, 4.2]]))
+    icfg = ISMConfig(shape=(16, 64, 64), na=1.4, wavelength=561e-9, wavelength_exc=488e-9, ni=1.518, dxy=80e-9,
+                     dz=200e-9, n_phase=6, dtype=torch.float32, element_pitch=80e-9, rings=1)
+    imodel = ISMModel(icfg, cuda_device)
+    elements = data[0][None].expand(7, -1, -1, -1)
+    outs = [bead.phi, bead.psf, fit.params.phase, unc.cov, raw, sim.reconstruct_sim(raw, otf, [[0.2, 0.1]],
+                                                                                      [[0.0, 2.1, 4.2]]).x,
+            ism.ism_element_gains(imodel, imodel.init_params(), elements), ism.ism_reassign(imodel, elements),
+            ism.ism_richardson_lucy(imodel, imodel.init_params(), elements, iterations=2),
+            register.register_timeseries(data)[1], metrics.fourier_shell_correlation(data[0], data[1])[1],
+            preprocess.destripe(data), preprocess.estimate_bleach(data), preprocess.remove_hot_pixels(data[0]),
+            preprocess.subtract_background(data[0], 3), geometry.deskew(data[0], 31.8, 2e-7, 80e-9)[0]]
+    torch.cuda.synchronize()
+    for i, t in enumerate(outs):
+        assert t.device.type == "cuda", i

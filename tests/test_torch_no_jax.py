@@ -32,4 +32,5 @@ def test_scan_covers_the_package():
             "updaters.py", "convert.py", "richardson_lucy.py", "autotune.py", "uncertainty.py", "regularization.py",
             "chip_smoke.py", "chip_profile.py", "chip_tv_ab.py", "confocal.py", "gibson_lanni.py", "vectorial.py",
             "lightsheet.py", "ism.py", "fourpi.py", "sted.py", "depthconv.py", "depthvar.py", "timeseries.py",
-            "multichannel.py", "superres.py"} <= names
+            "multichannel.py", "superres.py", "tiled_blind.py", "phase_retrieval.py", "diversity.py", "sim.py",
+            "register.py", "metrics.py", "preprocess.py", "geometry.py"} <= names

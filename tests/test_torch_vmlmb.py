@@ -91,3 +91,44 @@ def test_maxiter_cap(cap):
     rt = minimize_vmlmb(value_and_grad(lambda x: 0.5 * x @ (ta @ x) - tb @ x), torch.tensor(x0), **kw)
     _compare(rj, rt)
     assert rt.iterations == cap and len(rt.f_history) == 21
+
+
+@pytest.mark.parametrize("bounds", ["per_leaf_scalars", "per_leaf_array", "upper_dict"])
+def test_per_leaf_bounds_of_a_dict_iterate(bounds):
+    """Bounds as a dict matching the iterate (``_normalize_bound``): a free
+    leaf at -inf beside one bounded at 0 (``retrieve_pupil(fit_modulus=True)``),
+    an array bound a coefficient, and an upper dict."""
+    a, b = _quadratic(12, seed=3)
+    x0 = {"p": np.full(6, 0.5), "q": np.full(6, 0.5)}
+    lower = upper = None
+    if bounds == "per_leaf_scalars":
+        lower = {"p": -np.inf, "q": 0.0}
+    elif bounds == "per_leaf_array":
+        lower = {"p": np.linspace(-1.0, 0.2, 6), "q": 0.1}
+    else:
+        upper = {"p": 0.3, "q": np.inf}
+
+    def fj(x):
+        v = jnp.concatenate([x["p"], x["q"]])
+        return 0.5 * v @ (jnp.asarray(a) @ v) - jnp.asarray(b) @ v
+
+    ta, tb = torch.tensor(a), torch.tensor(b)
+
+    def ft(x):
+        v = torch.cat([x["p"], x["q"]])
+        return 0.5 * v @ (ta @ v) - tb @ v
+
+    kw = dict(maxiter=40, grtol=1e-8)
+    rj = jax_vmlmb(jax.value_and_grad(fj), {k: jnp.asarray(v) for k, v in x0.items()},
+                   lower=lower, upper=upper, **kw)
+    rt = minimize_vmlmb(value_and_grad(ft), {k: torch.tensor(v) for k, v in x0.items()},
+                        lower=lower, upper=upper, **kw)
+    _compare(rj, rt, dict_x=True)
+    # Each bound is active somewhere, and the free leaf crosses 0.
+    if bounds == "upper_dict":
+        assert float(rt.x["p"].max()) == 0.3
+    else:
+        lo_q = 0.0 if bounds == "per_leaf_scalars" else 0.1
+        assert float(rt.x["q"].min()) == lo_q
+    if bounds == "per_leaf_scalars":
+        assert float(rt.x["p"].min()) < 0.0
