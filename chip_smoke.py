@@ -152,9 +152,19 @@ raises and the script exits non-zero:
 27. the image ops: ``register_timeseries`` of phase 22's series with planted
     drifts, the FSC of two 256^3 solves, ``strehl_ratio`` (wide-field and
     confocal) and ``strehl_ratio_from_pupil``, ``deskew`` at 31.8 degrees, and
-    destriping, bleach gains, hot pixels and background on 64x512x512.
+    destriping, bleach gains, hot pixels and background on 64x512x512;
+28. a stack from file to restored file through the port at 256^3: phase 3's
+    blind scene written as OME-NGFF v2 (zlib) and read back bit for bit with
+    its pixel sizes and emission (host walls and MiB/s);
+    ``api.DeconvolutionJob`` with the true PSF against ``deconvolve`` bit for
+    bit; ``api.BlindDeconvJob`` (5 rounds, sequential defocus and phase fits
+    of 5, object steps of 20) with a model built from the metadata read
+    back; abort from ``progress`` within one slice; the state through
+    ``utils.checkpoint`` and the object back to NGFF, bit for bit. The
+    OME-TIFF half and ``StackPrefetcher`` need libtiff, which the card's
+    machine lacks: the CPU tests hold them.
 
-The main paths are phases 3, 13, 15, 17, 18, 20, 21 and 22's superres (the
+The main paths are phases 3, 13, 15, 17, 18, 20, 21, 22's superres and 28 (the
 single-volume TV kernel), phases 7-8, 14, 15, 18, 19, 22, 23 and 24 (the
 batched TV kernel) and phases 10-12, 22 and 23 (the ADMM kernels): each is driven with the
 launch counts set to 0 just before and read just after, and none may take the
@@ -446,9 +456,10 @@ def _check_object(name: str, x: torch.Tensor) -> None:
         raise AssertionError(f"{name}: object not finite and non-negative")
 
 
-def phase3_slice(card: str) -> tuple[int, float]:
-    """Returns the TV kernel's launches on the path and the objective that
-    ``deconvolve`` reached (in the residual form, for phase 10)."""
+def phase3_slice(card: str) -> tuple[int, float, float]:
+    """Returns the TV kernel's launches on the path, the objective that
+    ``deconvolve`` reached (in the residual form, for phase 10) and the blind
+    loop's wall (for phase 28)."""
     from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig, blind_deconvolve
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve, make_objective
     from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
@@ -507,7 +518,7 @@ def phase3_slice(card: str) -> tuple[int, float]:
         raise AssertionError(f"the single-volume path launched the batched kernel {hv.batched_launches} times, "
                              f"the unaligned instantiation {hv.unaligned_launches} times")
     launches = hv.launches  # the path's count, read before the evaluation below
-    return launches, float(make_objective(psf, data_vmlmb, None, cfg, accurate=True)(x_vmlmb)[0])
+    return launches, float(make_objective(psf, data_vmlmb, None, cfg, accurate=True)(x_vmlmb)[0]), bwall
 
 
 def phase4_parity() -> None:
@@ -3824,6 +3835,160 @@ def phase27_image_ops(card: str) -> None:
             f"(radius 25) of a 0-50 ramp over a 100 pedestal {t_bg:.4f} s, median left {bg_spread:.3f} (< 10)")
 
 
+IO_DXY, IO_DZ, IO_EMISSION = 80e-9, 200e-9, 561e-9  # the metadata phase 28 writes with the scene
+
+
+def _host_io(label: str, run, nbytes: int):
+    """Wall of one host-side file operation, with its rate over ``nbytes``."""
+    t0 = time.perf_counter()
+    out = run()
+    wall = time.perf_counter() - t0
+    return out, f"{label} {wall:.4f} s ({nbytes / 2**20 / wall:.1f} MiB/s)"
+
+
+def phase28_file_to_file(card: str, functional_blind_wall: float) -> int:
+    """The stack from file to restored file through the port at 256^3
+    float32: the bench scene (phase 3's optics, blurred by the bench phase)
+    written as OME-NGFF v2 with zlib and read back bit for bit with its
+    metadata; ``api.DeconvolutionJob`` with the true PSF against
+    ``deconvolve`` bit for bit, its ``get_model`` against ``convolve``;
+    ``api.BlindDeconvJob`` (5 rounds, sequential defocus and phase fits of
+    5, object steps of 20) with a ``WideFieldModel`` built from the metadata
+    read back; abort from ``progress`` after one slice; the state through
+    ``utils.checkpoint`` and the object back to NGFF, both bit for bit. The
+    card's machine has no libtiff (``ROADMAP.md``), so the OME-TIFF half of
+    the round trips and ``StackPrefetcher`` (TIFF only) are left to the CPU
+    tests. Returns the TV kernel's launches on the path."""
+    import tempfile
+
+    from microtipi_tpu_torch import api
+    from microtipi_tpu_torch.io import zarrstack
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+    from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+    from microtipi_tpu_torch.ops.convolution import convolve, convolve_spectrum
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+    from microtipi_tpu_torch.utils import checkpoint
+
+    dev, nvox = torch.device("cuda"), float(np.prod(SHAPE))
+    model, data_dev, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE)
+    truth = bead_objects(SHAPE, dev, torch.float32)[0]
+    with torch.no_grad():
+        true_psf = model.compute_psf(model.init_params()._replace(
+            phase=torch.as_tensor(BENCH_PHASE, dtype=torch.float32, device=dev)))
+    scene = data_dev.cpu().numpy()
+    nbytes = scene.nbytes
+    channels = [{"name": "bench", "emission_wavelength": IO_EMISSION}]
+    # Files go into a scratch directory inside the checkout, removed at the end.
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_io_", dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "scene.zarr")
+        _, w_line = _host_io("write", lambda: zarrstack.write_ngff_hyperstack(
+            path, scene, dxy=IO_DXY, dz=IO_DZ, channels=channels, compressor="zlib", zarr_format=2), nbytes)
+        (arr, meta), r_line = _host_io("read", lambda: zarrstack.read_ngff_hyperstack(path), nbytes)
+        if arr.shape != (1, 1, *SHAPE) or not np.array_equal(arr[0, 0], scene):
+            raise AssertionError(f"NGFF round trip: shape {arr.shape}, not bit-equal to what was written")
+        emission = meta["channels"][0]["emission_wavelength"]
+        read_back = (meta["dxy"], meta["dz"], emission)
+        if not np.allclose(read_back, (IO_DXY, IO_DZ, IO_EMISSION), rtol=1e-12, atol=0.0):
+            raise AssertionError(f"NGFF metadata read back as {read_back}")
+        log(28, f"host IO (host CPU walls, not the card's) of the {nbytes / 2**20:.0f} MiB scene as OME-NGFF v2 "
+                f"zlib level 1: {w_line}, {r_line}; bit-equal, dxy {meta['dxy']:.6g} m, dz {meta['dz']:.6g} m, "
+                f"emission {emission:.6g} m read back (rtol 1e-12: stored in micrometres)")
+
+        data = torch.as_tensor(arr[0, 0], device=dev)
+        hv.launches = hv.batched_launches = hv.unaligned_launches = 0
+        job = api.DeconvolutionJob(data, psf=true_psf, mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_api = job.deconv()
+        torch.cuda.synchronize()
+        t_api = time.perf_counter() - t0
+        ref = deconvolve(data, true_psf, config=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0))
+        if not torch.equal(x_api, ref.x) or job.get_cost() != float(ref.f):
+            raise AssertionError(f"api.DeconvolutionJob != deconvolve: max |dx| "
+                                 f"{float((x_api - ref.x).abs().max()):.3g}, f {job.get_cost()} vs {float(ref.f)}")
+        with torch.no_grad():
+            hx = convolve(x_api, convolve_spectrum(true_psf), SHAPE)
+        if not torch.equal(job.get_model(), hx):
+            raise AssertionError("api.DeconvolutionJob.get_model != convolve of its object")
+        log(28, f"[{card}] api.DeconvolutionJob (true PSF, mu 0.01, epsilon 1, 20 iterations) == deconvolve bit for "
+                f"bit (x and f {job.get_cost():.6g}), get_model == convolve bit for bit; {t_api:.4f} s")
+
+        pupil = api.WideFieldModel(SHAPE, na=1.4, wavelength=emission, ni=1.518, dxy=meta["dxy"], dz=meta["dz"],
+                                   n_phase=6, single=True)
+        est = api.PSF_Estimation(pupil)
+        est.set_data(data)
+        dec = api.DeconvolutionJob(data, mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0)
+        rounds = []
+        solve = dec.deconv
+
+        def counted(obj=None):  # each round's object step: iterations, evaluations, cost
+            x = solve(obj)
+            rounds.append((dec._result.iterations, dec._result.evaluations, dec.get_cost()))
+            return x
+
+        dec.deconv = counted
+        blind = api.BlindDeconvJob(5, [DEFOCUS, PHASE], [5, 5], est, dec)
+        before = hv.launches
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_blind = blind.blind_deconv(torch.clamp_min(data, 0.0))
+        torch.cuda.synchronize()
+        b_wall = time.perf_counter() - t0
+        b_launches = hv.launches - before
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _check_object("api.BlindDeconvJob", x_blind)
+        err_x, err_d = float(torch.linalg.norm(x_blind - truth)), float(torch.linalg.norm(data - truth))
+        iters, evals = sum(r[0] for r in rounds), sum(r[1] for r in rounds)
+        phase_err = float(np.linalg.norm(pupil.get_phase_coefs() - np.asarray(BENCH_PHASE)))
+        if len(rounds) != 5 or not err_x < err_d or b_launches == 0:
+            raise AssertionError(f"api.BlindDeconvJob: {len(rounds)} rounds, |x - truth| {err_x:.4g} against the "
+                                 f"data's {err_d:.4g}, TV launches {b_launches}")
+        log(28, f"[{card}] api.BlindDeconvJob {SHAPE} float32, 5 rounds of 20 object iterations and sequential "
+                f"defocus then phase fits of 5 (the reference loop): wall {b_wall:.3f} s (1 run), "
+                f"{nvox * iters / b_wall / 1e6:.1f} Mvox*obj_iter/s ({iters} object iterations), TV kernel launches "
+                f"{b_launches} ({evals} object-step evaluations), get_cost by round "
+                f"{[round(r[2], 4) for r in rounds]}, phase error to the truth {phase_err:.4f} (start "
+                f"{float(np.linalg.norm(BENCH_PHASE)):.4f}), |x - truth| {err_x:.7g} < |data - truth| {err_d:.7g}, "
+                f"peak device memory {peak:.3f} GiB; phase 3's functional blind_deconvolve (joint fits) took "
+                f"{functional_blind_wall:.3f} s on the same scene: the schedules differ, so the walls are not a "
+                "comparison of one loop")
+
+        calls = []
+
+        def aborting(done, f):
+            calls.append((done, f))
+            abort_job.abort()
+
+        abort_job = api.DeconvolutionJob(data, psf=true_psf, mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0,
+                                         abort_check_iters=5, progress=aborting)
+        abort_job.deconv()
+        if abort_job._result.iterations > 5 or len(calls) != 1:
+            raise AssertionError(f"abort: {abort_job._result.iterations} iterations, {len(calls)} callbacks")
+        log(28, f"abort from progress after one slice of abort_check_iters=5: {abort_job._result.iterations} "
+                f"iterations, {len(calls)} callback")
+
+        state = os.path.join(tmp, "state.npz")
+        checkpoint.save_state(state, x_blind, pupil.params, 5, cost=dec.get_cost())
+        obj2, params2, rnd, extra = checkpoint.load_state(state)
+        if not (torch.equal(obj2, x_blind) and all(torch.equal(a, b) for a, b in zip(params2, pupil.params))
+                and rnd == 5 and float(extra["cost"]) == dec.get_cost() and obj2.device == x_blind.device):
+            raise AssertionError("checkpoint round trip is not bit-equal")
+        out_path = os.path.join(tmp, "restored.zarr")
+        restored = x_blind.cpu().numpy()
+        _, w_line = _host_io("write", lambda: zarrstack.write_ngff_hyperstack(
+            out_path, restored, dxy=meta["dxy"], dz=meta["dz"], channels=channels, compressor="zlib"), nbytes)
+        (back, _), r_line = _host_io("read", lambda: zarrstack.read_ngff_hyperstack(out_path), nbytes)
+        if not np.array_equal(back[0, 0], restored):
+            raise AssertionError("the restored object's NGFF round trip is not bit-equal")
+        log(28, f"checkpoint save/load bit-equal (loaded onto the card); restored object to OME-NGFF and back "
+                f"bit-equal (host CPU walls: {w_line}, {r_line})")
+    if hv.batched_launches != 0 or hv.unaligned_launches != 0:
+        raise AssertionError(f"phase 28 launched the batched kernel {hv.batched_launches} times, the unaligned "
+                             f"instantiation {hv.unaligned_launches} times")
+    return hv.launches
+
+
 def phase4_estimation() -> None:
     """Card float32 against CPU float64 at small sizes for the new functions:
     the per-frame and joint batched blind loops (2 frames of PARITY_SHAPE, 2
@@ -3977,7 +4142,7 @@ def main() -> int:
     card = phase0_card()
     phase1_build()
     kern = phase2_kernel(card)
-    launches, f_vmlmb = phase3_slice(card)
+    launches, f_vmlmb, blind_wall = phase3_slice(card)
     if launches == 0:
         raise AssertionError("the main path never launched the TV kernel")
     phase4_parity()
@@ -4022,11 +4187,12 @@ def main() -> int:
     phase25_estimation(card)
     phase26_sim_ism(card)
     phase27_image_ops(card)
+    api_launches = phase28_file_to_file(card, blind_wall)
     tv_paths = {"deconvolve and blind (phase 3)": launches, "RL-TV (phase 13)": rl_launches,
                 "priors and auto-mu (phase 15)": prior_launches, "confocal blind (phase 17)": family_launches,
                 "depthvar and RL-TV depthvar (phase 18)": depthvar_launches,
                 **{f"blind, calibration {k} (phase 20)": v for k, v in calibration_launches.items()},
-                **ladder_launches, **joint_paths["tv_single"]}
+                **ladder_launches, **joint_paths["tv_single"], "api file to file (phase 28)": api_launches}
     batched_paths = {"batched and tiled VMLMB (phases 7-8)": batched_launches,
                      "tiled RL-TV (phase 14)": tiled_rl_launches, "batched auto-mu (phase 15)": auto_batched_launches,
                      "batched depthvar (phase 18)": depthvar_batched_launches,

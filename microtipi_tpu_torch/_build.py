@@ -1,4 +1,6 @@
-"""Build the package's CUDA kernels with ``nvcc`` at first use.
+"""Build the package's native libraries at first use: the CUDA kernels with
+``nvcc``, and the TIFF reader (``io/tiffstack.py``) with the host's C++
+compiler.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into a shared library under ``microtipi_tpu_torch/_build/`` (git-ignored),
@@ -8,7 +10,9 @@ keyed on a hash of the source and the flags, then loaded with ``ctypes``.
 :func:`build_report` returns it. Nothing here runs at import time, and
 nothing includes PyTorch's headers, so a build takes seconds. ``nvcc`` is
 found on ``PATH``, else under ``$CUDA_HOME/bin`` (default
-``/usr/local/cuda``).
+``/usr/local/cuda``). Every library is written under a temporary name and
+moved into place with ``os.replace`` (:func:`build_atomically`), so
+processes that build the same library at once each load a whole one.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_report", "library_path", "load_library", "nvcc_path"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_atomically", "build_report", "hashed_name", "library_path",
+           "load_library", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
@@ -44,11 +49,33 @@ def nvcc_path() -> str:
                        "are built at first use and need the CUDA toolkit")
 
 
+def hashed_name(name: str, src: Path, flags) -> Path:
+    """``_build/lib<name>-<key>.so``, keyed on a hash of the source and the flags."""
+    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` with these flags lies."""
-    src = CSRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    return hashed_name(name, CSRC_DIR / f"{name}.cu", NVCC_FLAGS)
+
+
+def build_atomically(lib: Path, argv, what: str) -> str:
+    """Run the compiler ``argv + [tmp]`` (its output file last) into a
+    temporary name beside ``lib`` and move it into place; returns what the
+    compiler printed. A concurrent loader sees the whole library or none."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([*argv, tmp], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{argv[0]} failed to build {what}:\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return proc.stdout + proc.stderr
 
 
 def build_report(name: str) -> str:
@@ -64,17 +91,6 @@ def load_library(name: str) -> ctypes.CDLL:
     src = CSRC_DIR / f"{name}.cu"
     lib = library_path(name)
     if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {src.name}:\n{proc.stderr}")
-            lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        report = build_atomically(lib, [nvcc_path(), *NVCC_FLAGS, str(src), "-o"], src.name)
+        lib.with_suffix(".log").write_text(report)
     return ctypes.CDLL(str(lib))

@@ -96,7 +96,10 @@ def remove_hot_pixels(data: torch.Tensor, threshold: float = 5.0) -> torch.Tenso
     """Replace impulsive outliers by the in-plane 3x3 median
     (``preprocess.py:177-204``): a voxel more than ``threshold`` robust
     sigmas (MAD * 1.4826 of the deviation map, global) from its plane's
-    edge-replicated 3x3 median is hot."""
+    edge-replicated 3x3 median is hot. Integer frames are computed and
+    returned in float32, as JAX's median promotes them."""
+    if not torch.is_floating_point(data):
+        data = data.to(torch.float32)
     vol = data if data.ndim == 3 else data[None]
     ny, nx = vol.shape[1], vol.shape[2]
     padded = F.pad(vol, (1, 1, 1, 1), mode="replicate")

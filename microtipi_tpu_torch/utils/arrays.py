@@ -83,11 +83,16 @@ def median(t: torch.Tensor, dim: int | None = None, keepdim: bool = False) -> to
     """``jnp.median``: the mean of the two middle order statistics of an
     even count (``torch.median`` takes the lower one, and ``torch.quantile``
     refuses more than 2^24 elements), over all elements (``dim`` None, a
-    0-dim tensor) or along ``dim``, on ``t``'s device."""
+    0-dim tensor) or along ``dim``, on ``t``'s device. A slice that holds
+    a NaN has the median NaN, as ``jnp.median`` (``torch.sort`` puts NaN
+    last, so the middle of the sort alone would skip it)."""
     if dim is None:
         t, dim = t.reshape(-1), 0
     v = torch.sort(t, dim=dim).values
     n = v.shape[dim]
     h = n // 2
     mid = v.narrow(dim, h, 1) if n % 2 else (v.narrow(dim, h - 1, 1) + v.narrow(dim, h, 1)) * 0.5
+    if mid.is_floating_point():
+        # Sorted NaNs come last: the slice holds one exactly where its last value is NaN.
+        mid = torch.where(torch.isnan(v.narrow(dim, n - 1, 1)), torch.nan, mid)
     return mid if keepdim else mid.squeeze(dim)

@@ -196,3 +196,59 @@ def test_median_along_an_axis_is_jnp_median(dim):
     _close(median(torch.tensor(x), dim), jnp.median(jnp.asarray(x), axis=dim))
     _close(median(torch.tensor(x), dim, keepdim=dim is not None),
            jnp.median(jnp.asarray(x), axis=dim, keepdims=dim is not None))
+
+
+@pytest.mark.parametrize("dim", [None, 0, 1, -1])
+def test_median_of_a_slice_with_nan_is_nan(dim):
+    """A slice that holds a NaN has the median NaN, as ``jnp.median``: the
+    sort puts NaN last, so its middle alone would skip it."""
+    x = np.random.default_rng(8).standard_normal((4, 6, 5))
+    x[1, 2, 3] = x[3, 0, 0] = np.nan
+    for keepdim in (False, dim is not None):
+        got = median(torch.tensor(x), dim, keepdim=keepdim).numpy()
+        want = np.asarray(jnp.median(jnp.asarray(x), axis=dim, keepdims=keepdim))
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        assert np.isnan(want).any()
+        _close(np.nan_to_num(got), np.nan_to_num(want))
+    assert np.isnan(float(median(torch.tensor([3.0, np.nan, 1.0, 2.0]))))
+
+
+def _hot_volume_with_nan():
+    """ROADMAP's probe: a uniform 4x16x16 volume with one hot voxel and one NaN."""
+    vol = np.random.default_rng(9).uniform(size=(4, 16, 16))
+    vol[1, 5, 5], vol[2, 9, 9] = 50.0, np.nan
+    return vol
+
+
+def test_remove_hot_pixels_with_a_nan_voxel_matches_jax():
+    """JAX's MAD sigma is NaN, so it changes no voxel; the port did replace
+    the hot voxel while its median skipped the NaN."""
+    vol = _hot_volume_with_nan()
+    got = preprocess.remove_hot_pixels(torch.tensor(vol)).numpy()
+    want = np.asarray(jax_pre.remove_hot_pixels(jnp.asarray(vol)))
+    np.testing.assert_array_equal(got, want)
+    assert got[1, 5, 5] == 50.0
+
+
+def test_estimate_noise_sigma_with_a_nan_voxel_matches_jax():
+    from microtipi_tpu.jobs.autotune import estimate_noise_sigma as jax_sigma
+    from microtipi_tpu_torch.jobs.autotune import estimate_noise_sigma
+
+    vol = _hot_volume_with_nan()
+    want = float(jax_sigma(jnp.asarray(vol)))
+    got = float(estimate_noise_sigma(torch.tensor(vol)))
+    assert np.isnan(want) and np.isnan(got)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint16"])
+def test_remove_hot_pixels_takes_integer_frames_as_float32(dtype):
+    """Camera frames: JAX promotes them to float32; a torch.uint16 frame
+    has no replicate padding, so the port converts first."""
+    vol = (STACK[0] * 1000).astype(np.int64)
+    vol[2, 5, 5], vol[3, 0, 0] = 50000, 40000
+    frames = vol.astype(dtype)
+    got = preprocess.remove_hot_pixels(torch.from_numpy(frames))
+    assert got.dtype == torch.float32
+    want = np.asarray(jax_pre.remove_hot_pixels(jnp.asarray(frames)))
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want)

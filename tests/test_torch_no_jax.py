@@ -33,4 +33,8 @@ def test_scan_covers_the_package():
             "chip_smoke.py", "chip_profile.py", "chip_tv_ab.py", "confocal.py", "gibson_lanni.py", "vectorial.py",
             "lightsheet.py", "ism.py", "fourpi.py", "sted.py", "depthconv.py", "depthvar.py", "timeseries.py",
             "multichannel.py", "superres.py", "tiled_blind.py", "phase_retrieval.py", "diversity.py", "sim.py",
-            "register.py", "metrics.py", "preprocess.py", "geometry.py"} <= names
+            "register.py", "metrics.py", "preprocess.py", "geometry.py", "api.py", "codecs.py", "tiffstack.py",
+            "ome.py", "zarr3.py", "zarrstack.py", "hdf5stack.py", "plate.py", "checkpoint.py", "profiling.py",
+            "phantoms.py"} <= names
+    # the io package's own __init__ (the package's top level is scanned too)
+    assert ROOT / "microtipi_tpu_torch" / "io" / "__init__.py" in FILES
