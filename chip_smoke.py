@@ -187,6 +187,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3989,6 +3990,184 @@ def phase28_file_to_file(card: str, functional_blind_wall: float) -> int:
     return hv.launches
 
 
+CLI_OPTICS = ["--na", "1.4", "--wavelength", "561e-9", "--ni", "1.518", "--n-phase", "6"]
+# phase 3's 5-round loop as flags: joint defocus+phase fits of 5, object steps of 20
+CLI_LOOP = ["--loops", "5", "--families", "defocus", "phase", "--psf-iters", "5", "--joint-fit", "--mu", "0.01",
+            "--epsilon", "1", "--iters", "20", "--grtol", "0", "--gatol", "0"]
+WATCH_FILES = 3
+
+
+def _cli(argv) -> tuple[float, list[str]]:
+    """``microtipi_tpu_torch.cli.main(argv)`` on the card, in this process
+    (so the kernels' launch counts see it): its wall and printed lines."""
+    import io
+
+    from microtipi_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, buf.getvalue().splitlines()
+
+
+def phase29_cli_serve(card: str) -> dict:
+    """The command line and the watch-folder service at 256^3, through
+    ``microtipi_tpu_torch.cli.main(argv)`` in process: ``blind`` on phase 3's
+    blind scene stored as OME-NGFF, with phase 3's loop as flags, against
+    ``jobs.blind.blind_deconvolve`` with the config the CLI built, bit for
+    bit; the same with ``--deconv-engine admm``; ``--checkpoint`` for 3
+    rounds stopped after round 1 (the save after it raises), then
+    ``--resume``, against the uninterrupted 3-round checkpointed run, bit for
+    bit; ``watch --method blind-once --max-files 3`` over three 256^3 NGFF
+    stores written before it starts (the first calibrates, the others take
+    the fixed-PSF path), every output finite and the metrics counting 3
+    files; and ``python -m microtipi_tpu_torch doctor`` as a subprocess.
+    Returns the kernels' launches on each path."""
+    import tempfile
+
+    from microtipi_tpu_torch.cli.blind import _blind_config
+    from microtipi_tpu_torch.cli.parser import build_parser
+    from microtipi_tpu_torch.cli.shared import _model, _resolve_geometry
+    from microtipi_tpu_torch.io import zarrstack
+    from microtipi_tpu_torch.jobs.blind import blind_deconvolve
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+    from microtipi_tpu_torch.utils import checkpoint
+
+    dev, nvox = torch.device("cuda"), float(np.prod(SHAPE))
+    root = os.path.dirname(os.path.abspath(__file__))
+    channels = [{"name": "bench", "emission_wavelength": IO_EMISSION}]
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_cli_", dir=root) as tmp:
+        scene = os.path.join(tmp, "scene.zarr")
+        _, data, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE)
+        zarrstack.write_ngff_hyperstack(scene, data.cpu().numpy(), dxy=IO_DXY, dz=IO_DZ, channels=channels,
+                                        compressor="zlib")
+        del data
+
+        def blind_run(label, extra):
+            out, report = os.path.join(tmp, f"{label}.zarr"), os.path.join(tmp, f"{label}.json")
+            argv = ["blind", scene, "--out", out, "--report", report, *CLI_OPTICS, *CLI_LOOP, *extra]
+            with AdmmCounts() as c:
+                wall, lines = _cli(argv)
+            with open(report) as fh:
+                rep = json.load(fh)
+            obj = zarrstack.read_ngff_hyperstack(out)[0][0, 0]
+            if obj.shape != SHAPE or not np.isfinite(obj).all() or obj.min() < 0:
+                raise AssertionError(f"blind {label}: output {obj.shape} not finite and non-negative")
+            return argv, obj, rep, wall, c
+
+        argv, obj, rep, wall, c = blind_run("vmlmb", [])
+        args = build_parser().parse_args(argv)
+        args.device = dev
+        _resolve_geometry(args, scene, log=lambda *a: None)
+        arr = zarrstack.read_ngff_hyperstack(scene)[0][0, 0]
+        direct = blind_deconvolve(torch.as_tensor(arr, device=dev), _model(args, SHAPE),
+                                  config=_blind_config(args, SHAPE))
+        if not np.array_equal(obj, direct.obj.cpu().numpy()) or rep["deconv_f"] != direct.deconv_f.tolist():
+            raise AssertionError(f"CLI blind != blind_deconvolve with the CLI's config: max |dx| "
+                                 f"{float(np.max(np.abs(obj - direct.obj.cpu().numpy()))):.3g}")
+        iters = int(sum(rep["deconv_iters"]))
+        if c.tv == 0 or c.unaligned or c.tv_batched:
+            raise AssertionError(f"CLI blind: TV launches {c.tv_single} single, {c.tv_batched} batched, "
+                                 f"unaligned {c.unaligned}")
+        launches["tv"] = {"CLI blind (phase 29)": c.tv_single}
+        log(29, f"[{card}] CLI blind {SHAPE} from OME-NGFF (phase 3's loop as flags): wall {wall:.3f} s (1 run, "
+                f"file read and write included), {nvox * iters / wall / 1e6:.1f} Mvox*obj_iter/s ({iters} object "
+                f"iterations), deconv_f {[round(f, 4) for f in rep['deconv_f']]}, TV kernel launches {c.tv_single}; "
+                f"== blind_deconvolve with the CLI's config bit for bit")
+
+        _, obj, rep, wall, c = blind_run("admm", ["--deconv-engine", "admm"])
+        iters = int(sum(rep["deconv_iters"]))
+        # the ADMM engine's objective values go through the batched TV kernel (B = 1), as in phase 11
+        if (c.split, c.rhs) != (iters, iters) or c.unaligned or not np.isfinite(rep["deconv_f"]).all():
+            raise AssertionError(f"CLI blind admm: split {c.split}, rhs {c.rhs} for {iters} iterations, "
+                                 f"unaligned {c.unaligned}, deconv_f {rep['deconv_f']}")
+        launches["split"] = launches["rhs"] = iters
+        launches["tv_batched"] = {"CLI blind --deconv-engine admm (phase 29)": c.tv_batched}
+        log(29, f"[{card}] CLI blind --deconv-engine admm: wall {wall:.3f} s, {nvox * iters / wall / 1e6:.1f} "
+                f"Mvox*obj_iter/s, deconv_f {[round(f, 4) for f in rep['deconv_f']]}, admm_split_update {c.split}, "
+                f"admm_rhs {c.rhs}, TV {c.tv_single} single and {c.tv_batched} batched launches")
+
+        three = [*CLI_OPTICS, *CLI_LOOP, "--loops", "3"]
+        whole = ["blind", scene, *three, "--out", os.path.join(tmp, "whole.zarr"),
+                 "--checkpoint", os.path.join(tmp, "whole.npz"), "--params-out", os.path.join(tmp, "whole.json")]
+        cut = ["blind", scene, *three, "--out", os.path.join(tmp, "cut.zarr"),
+               "--checkpoint", os.path.join(tmp, "cut.npz"), "--params-out", os.path.join(tmp, "cut.json")]
+
+        class Preempted(Exception):
+            pass
+
+        save = checkpoint.save_state
+
+        def save_then_stop(*a, **k):
+            save(*a, **k)
+            raise Preempted
+
+        with AdmmCounts() as c:
+            w_whole, _ = _cli(whole)
+            checkpoint.save_state = save_then_stop
+            try:
+                _cli(cut)
+                raise AssertionError("the preempted checkpointed run did not stop after round 1")
+            except Preempted:
+                pass
+            finally:
+                checkpoint.save_state = save
+            at = checkpoint.load_state(os.path.join(tmp, "cut.npz"))[2]
+            w_resume, lines = _cli([*cut, "--resume"])
+        got, want = (zarrstack.read_ngff_hyperstack(os.path.join(tmp, f"{n}.zarr"))[0] for n in ("cut", "whole"))
+        with open(os.path.join(tmp, "cut.json")) as a, open(os.path.join(tmp, "whole.json")) as b:
+            same_params = json.load(a) == json.load(b)
+        if at != 1 or not np.array_equal(got, want) or not same_params or c.tv_single == 0 or c.unaligned:
+            raise AssertionError(f"checkpoint/resume: stopped at round {at}, objects equal "
+                                 f"{np.array_equal(got, want)}, params equal {same_params}, TV {c.tv_single}")
+        launches["tv"]["CLI blind --checkpoint / --resume (phase 29)"] = c.tv_single
+        log(29, f"[{card}] CLI blind --checkpoint, 3 rounds: uninterrupted {w_whole:.3f} s; stopped after round 1, "
+                f"then --resume ({[l for l in lines if l.startswith('resumed')][0]}) {w_resume:.3f} s: object and "
+                f"params == the uninterrupted run bit for bit; TV launches {c.tv_single}")
+
+        indir, outdir = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(indir)
+        t0 = time.perf_counter()
+        for i in range(WATCH_FILES):
+            _, d, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE, seed=10 + i)
+            zarrstack.write_ngff_hyperstack(os.path.join(indir, f"s{i}.zarr"), d.cpu().numpy(), dxy=IO_DXY,
+                                            dz=IO_DZ, channels=channels, compressor="zlib")
+        setup = time.perf_counter() - t0
+        metrics = os.path.join(tmp, "m.json")
+        argv = ["watch", indir, outdir, "--method", "blind-once", "--max-files", str(WATCH_FILES), "--metrics",
+                metrics, "--poll", "0.1", *CLI_OPTICS, "--loops", "5", "--psf-iters", "5", "--iters", "20"]
+        with AdmmCounts() as c:
+            wall, lines = _cli(argv)
+        with open(metrics) as fh:
+            snap = json.load(fh)
+        outs = [zarrstack.read_ngff_hyperstack(os.path.join(outdir, f"s{i}.zarr"))[0] for i in range(WATCH_FILES)]
+        walls = [float(m.group(1)) for m in (re.search(r"done in ([0-9.]+)s", l) for l in lines) if m]
+        if (snap["processed"] != WATCH_FILES or len(walls) != WATCH_FILES or c.tv_single == 0 or c.unaligned
+                or not all(o.shape == (1, 1, *SHAPE) and np.isfinite(o).all() for o in outs)
+                or sum("calibrated pupil from first file" in l for l in lines) != 1):
+            raise AssertionError(f"watch: metrics {snap}, walls {walls}, TV {c.tv_single}, lines {lines[-6:]}")
+        launches["tv"]["watch --method blind-once (phase 29)"] = c.tv_single
+        log(29, f"[{card}] watch --method blind-once over {WATCH_FILES} NGFF stores of {SHAPE} (written in "
+                f"{setup:.2f} s before it started): wall {wall:.3f} s, per-file walls {walls} s (decode, solve, "
+                f"atomic NGFF write; the first calibrates), metrics {snap['processed']} files, "
+                f"{snap['mvox_per_second']} Mvox/s over its uptime {snap['uptime_seconds']} s, "
+                f"compute {snap['compute_seconds']:.3f} s, TV kernel launches {c.tv_single}")
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "microtipi_tpu_torch", "doctor"], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.strip().splitlines():
+        log(29, f"doctor: {line}")
+    if proc.returncode != 0 or "doctor: OK" not in proc.stdout:
+        raise AssertionError(f"python -m microtipi_tpu_torch doctor exited {proc.returncode}: {proc.stderr[-2000:]}")
+    log(29, f"python -m microtipi_tpu_torch doctor: exit 0 in {time.perf_counter() - t0:.2f} s (a process of its own)")
+    return launches
+
+
 def phase4_estimation() -> None:
     """Card float32 against CPU float64 at small sizes for the new functions:
     the per-frame and joint batched blind loops (2 frames of PARITY_SHAPE, 2
@@ -4188,21 +4367,26 @@ def main() -> int:
     phase26_sim_ism(card)
     phase27_image_ops(card)
     api_launches = phase28_file_to_file(card, blind_wall)
+    cli = phase29_cli_serve(card)
     tv_paths = {"deconvolve and blind (phase 3)": launches, "RL-TV (phase 13)": rl_launches,
                 "priors and auto-mu (phase 15)": prior_launches, "confocal blind (phase 17)": family_launches,
                 "depthvar and RL-TV depthvar (phase 18)": depthvar_launches,
                 **{f"blind, calibration {k} (phase 20)": v for k, v in calibration_launches.items()},
-                **ladder_launches, **joint_paths["tv_single"], "api file to file (phase 28)": api_launches}
+                **ladder_launches, **joint_paths["tv_single"], "api file to file (phase 28)": api_launches,
+                **cli["tv"]}
     batched_paths = {"batched and tiled VMLMB (phases 7-8)": batched_launches,
                      "tiled RL-TV (phase 14)": tiled_rl_launches, "batched auto-mu (phase 15)": auto_batched_launches,
                      "batched depthvar (phase 18)": depthvar_batched_launches,
                      "tiled depthvar (phase 19)": tiled_depthvar_launches, **joint_paths["tv_batched"],
                      **{f"batched blind, {k} (phase 23)": v for k, v in blind_batch["tv_batched"].items()},
-                     "tiled blind (phase 24)": tiled_blind_launches}
+                     "tiled blind (phase 24)": tiled_blind_launches, **cli["tv_batched"]}
     engine = "3D engine, blind, batched and tiled (phases 10-12)"
     blind_admm = "batched blind, per frame by ADMM (phase 23)"
-    split_paths = {engine: int(admm_launches[0]), **joint_paths["split"], blind_admm: blind_batch["split"]}
-    rhs_paths = {engine: int(admm_launches[1]), **joint_paths["rhs"], blind_admm: blind_batch["rhs"]}
+    cli_admm = "CLI blind --deconv-engine admm (phase 29)"
+    split_paths = {engine: int(admm_launches[0]), **joint_paths["split"], blind_admm: blind_batch["split"],
+                   cli_admm: cli["split"]}
+    rhs_paths = {engine: int(admm_launches[1]), **joint_paths["rhs"], blind_admm: blind_batch["rhs"],
+                 cli_admm: cli["rhs"]}
     source, admm_source = "microtipi_tpu_torch/csrc/hyperbolic_tv.cu", "microtipi_tpu_torch/csrc/admm_split.cu"
     fused_by_xla = "fused by XLA under jit, no Pallas kernel"
     print(json.dumps({"kernels": [

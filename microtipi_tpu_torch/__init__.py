@@ -47,8 +47,9 @@ first use), ``utils.checkpoint`` saves and loads a blind run's state, and
 Left out as TPU-only: ``ops/exactfft.py`` and every ``exact_fft`` /
 ``auto_exact_fft`` / ``fft_pair`` switch, ``mem_dtype`` /
 ``resolve_mem_dtype``, ``custom_vmap`` routing and the Pallas
-``interpret`` / BlockSpec options (``ROADMAP.md``, "Not ported"). Still to
-port: the CLI (``cli/*``, ``__main__.py``), ``serve.py`` and ``parallel/*``.
+``interpret`` / BlockSpec options (``ROADMAP.md``, "Not ported"). The
+command line is ``python -m microtipi_tpu_torch`` (``cli``), the
+watch-folder service ``serve.watch``; still to port: ``parallel/*``.
 """
 
 from microtipi_tpu_torch.models.microscope import CAVITY, DEFOCUS, DEPTH, MODULUS, PARAMETER_FLAGS, PHASE, SHEET, STED

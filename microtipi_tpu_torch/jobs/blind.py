@@ -67,10 +67,11 @@ class BlindDeconvConfig:
     as ``params0``); ``bead_weight`` weighs the bead stack's data term in
     natural intensity units (1 is the joint maximum likelihood when bead and
     sample share a noise level), ``bead_subvoxel`` centres the bead laterally
-    to a subvoxel (``jobs/blind.py:86-109``). The last round never refits
-    (``BlindDeconvJob.java:116``); the JAX ``skip_last_fit`` switch and
-    ``phase_anchor`` argument serve checkpointed per-round runs, which come
-    with ROADMAP.md item 19."""
+    to a subvoxel (``jobs/blind.py:86-109``). With ``skip_last_fit`` (the
+    default) the last round never refits (``BlindDeconvJob.java:116``);
+    False makes every round fit, for a caller that composes one-round runs
+    on the host (the CLI's checkpointed rounds) and skips the true last
+    round's fit itself (``jobs/blind.py:80-86``)."""
 
     loops: int = 5
     families: tuple[int, ...] = (DEFOCUS, PHASE, MODULUS)
@@ -81,6 +82,7 @@ class BlindDeconvConfig:
     joint_fit: bool = False
     phase_freeze_head: int = 0
     init: str = "data"
+    skip_last_fit: bool = True
     phase_prior_weight: float = 0.0
     bead_weight: float = 1.0
     bead_subvoxel: bool = True
@@ -132,7 +134,8 @@ class BlindDeconvResult(NamedTuple):
 def run_blind_loop(config, f_dtype, x0, params0, object_step, fit_weights, fit_one, fit_joint,
                    lanes: int | None = None):
     """Driver of the alternating loop (``jobs/blind.py:189-266``): round
-    order, skip-refit on the last round (``BlindDeconvJob.java:116``), the
+    order, skip-refit on the last round (``BlindDeconvJob.java:116``) unless
+    ``config.skip_last_fit`` is False (``jobs/blind.py:242``), the
     zero-budget family skip (``:126``), per-round schedules and the joint
     dispatch. The callables are those of the JAX loop:
     ``object_step(x, params, mu) -> (x, f, iterations, psf)``,
@@ -151,7 +154,7 @@ def run_blind_loop(config, f_dtype, x0, params0, object_step, fit_weights, fit_o
         mu = config.mu_schedule[i] if config.mu_schedule else None
         x, deconv_f[i], deconv_iters[i], psf = object_step(x, params, mu)
         w_fit = fit_weights(x, psf)
-        if i == config.loops - 1:
+        if i == config.loops - 1 and config.skip_last_fit:
             continue  # fit_f row stays NaN
         if config.joint_fit:
             # Zero-budget families are left out of the joint variable; the
@@ -179,17 +182,23 @@ def blind_start(data, model, params0, config: "BlindDeconvConfig") -> torch.Tens
     return torch.clamp_min(pad_to_shape(x0, var_shape), 0.0)
 
 
-def blind_fits(model, data, config: "BlindDeconvConfig", params0, aux_terms=(), cost_of=None):
+def blind_fits(model, data, config: "BlindDeconvConfig", params0, aux_terms=(), cost_of=None, phase_anchor=None):
     """``(fit_one, fit_joint)`` of :func:`run_blind_loop` (``jobs/blind.py:347-434``):
     every family fit with ``grtol = 0`` (``BlindDeconvJob.java:124``), the
-    calibration prior anchored at ``params0``, and the auxiliary bead terms.
+    calibration prior anchored at ``phase_anchor`` (by default ``params0``'s
+    phase), and the auxiliary bead terms.
     ``cost_of(x, w) -> cost(params)`` is the data term a round's fits
     minimize; by default the object-as-kernel term of one volume ``data``
     (``fit_psf``'s), on ``fit.fit_window``'s crop where one is set."""
     fit_cfg = dataclasses.replace(config.fit, grtol=0.0)
     # The calibration prior's anchor is the original params0, not the
     # drifting estimate of each round (jobs/blind.py:347-354).
-    phase_anchor = params0.phase.detach() if config.phase_prior_weight > 0 else None
+    if config.phase_prior_weight <= 0:
+        phase_anchor = None
+    elif phase_anchor is None:
+        phase_anchor = params0.phase.detach()
+    else:
+        phase_anchor = torch.as_tensor(phase_anchor, dtype=params0.phase.dtype, device=params0.phase.device)
     if cost_of is None:
         fit_view, fit_model = _fit_window_view(model, data, config.fit.fit_window)
 
@@ -233,6 +242,7 @@ def blind_deconvolve(
     weight_updater: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
     config: BlindDeconvConfig = BlindDeconvConfig(),
     bead_data: torch.Tensor | None = None,
+    phase_anchor: torch.Tensor | None = None,
 ) -> BlindDeconvResult:
     """Run the alternating blind-deconvolution loop (``jobs/blind.py:269-434``).
 
@@ -241,7 +251,11 @@ def blind_deconvolve(
     step of each round. ``bead_data``: a bead stack measured on the same
     optics (laterally square, e.g. ``psf_fit.average_beads``'s patch), which
     joins every PSF fit as a data term at its own grid, weighted by
-    ``config.bead_weight``.
+    ``config.bead_weight``. ``phase_anchor``: the calibration prior's anchor
+    (``jobs/blind.py:346-353``), by default ``params0.phase`` when
+    ``config.phase_prior_weight > 0``; a caller that runs one round at a time
+    passes the original calibration's phase, since its per-round ``params0``
+    is the drifting estimate.
     """
     if params0 is None:
         params0 = model.init_params()
@@ -276,7 +290,8 @@ def blind_deconvolve(
         full_cost = WeightedConvolutionCost.build(pad_fft_kernel(psf, var_shape), data, None, var_shape)
         return weight_updater(full_cost.model(x), data)
 
-    fit_one, fit_joint = blind_fits(model, data, config, params0, _bead_terms(model, bead_data, config))
+    fit_one, fit_joint = blind_fits(model, data, config, params0, _bead_terms(model, bead_data, config),
+                                    phase_anchor=phase_anchor)
 
     f_dtype = np.float64 if data.dtype == torch.float64 else np.float32
     x, params, deconv_f, fit_f, deconv_iters = run_blind_loop(

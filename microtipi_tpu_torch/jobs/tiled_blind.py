@@ -321,7 +321,7 @@ def blind_deconvolve_tiled(
         deconv_f.append(np.nan)
         if log:
             log(f"round {i + 1}/{n_rounds}: object step done (mu={cfg.mu:.4g}, engine={method})")
-        if i >= n_rounds - 1:
+        if i >= n_rounds - 1 and config.skip_last_fit:
             fit_f.append(np.nan)
             break
         stats = streamed_fit_stats(obj, data, psf_shape, tile=stats_tile, device=device)

@@ -35,6 +35,8 @@ def test_scan_covers_the_package():
             "multichannel.py", "superres.py", "tiled_blind.py", "phase_retrieval.py", "diversity.py", "sim.py",
             "register.py", "metrics.py", "preprocess.py", "geometry.py", "api.py", "codecs.py", "tiffstack.py",
             "ome.py", "zarr3.py", "zarrstack.py", "hdf5stack.py", "plate.py", "checkpoint.py", "profiling.py",
-            "phantoms.py"} <= names
-    # the io package's own __init__ (the package's top level is scanned too)
+            "phantoms.py", "parser.py", "shared.py", "basic.py", "deconv.py", "deconv_modes.py", "fitpsf.py",
+            "tools.py", "serve.py", "__main__.py"} <= names
+    # the io and cli packages' own __init__ (the package's top level is scanned too)
     assert ROOT / "microtipi_tpu_torch" / "io" / "__init__.py" in FILES
+    assert ROOT / "microtipi_tpu_torch" / "cli" / "__init__.py" in FILES

@@ -112,3 +112,53 @@ def test_f32_stall_continuation():
     assert np.isfinite(res.f_history[:res.iterations + 1]).all()
     assert np.isnan(res.f_history[res.iterations + 1:]).all()
     assert res.f_history[res.iterations] < raw.f_history[k]
+
+
+def test_blind_one_round_with_skip_last_fit_false_matches_jax():
+    """``skip_last_fit=False`` (``jobs/blind.py:80-86``): a 1-round loop fits
+    in its only round, so its fit row is finite where JAX's is, and the
+    params agree to 1e-6 relative as in the 2-round loop above."""
+    cfg, data, _ = _scene((8, 32, 32), phase=TRUE_PHASE)
+    kw = dict(loops=1, families=(DEFOCUS, PHASE), psf_max_iter=(5, 5), joint_fit=True, skip_last_fit=False)
+    dk = dict(mu=0.01, epsilon=1.0, max_iter=5, grtol=0.0, gatol=0.0)
+    rj = jax_blind(jnp.asarray(data), cfg, config=JaxBlindConfig(
+        **kw, deconv=JaxDeconvConfig(**dk), fit=JaxFitConfig(grtol=0.0)))
+    model = WideFieldModel(config_from_fields(cfg), device="cpu")
+    rt = blind_deconvolve(torch.tensor(data), model, config=BlindDeconvConfig(
+        **kw, deconv=DeconvolutionConfig(**dk), fit=PsfFitConfig(grtol=0.0)))
+    assert np.isfinite(np.asarray(rj.fit_f)).all() and np.isfinite(rt.fit_f).all()
+    np.testing.assert_allclose(rt.fit_f, np.asarray(rj.fit_f), rtol=1e-6)
+    np.testing.assert_allclose(rt.deconv_f, np.asarray(rj.deconv_f), rtol=1e-6)
+    for name in ("defocus", "phase"):
+        got, want = getattr(rt.params, name).numpy(), np.asarray(getattr(rj.params, name))
+        assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-6, name
+    # the default keeps the reference's skip: the same loop leaves its fit row NaN
+    skipped = blind_deconvolve(torch.tensor(data), model, config=BlindDeconvConfig(
+        **{**kw, "skip_last_fit": True}, deconv=DeconvolutionConfig(**dk), fit=PsfFitConfig(grtol=0.0)))
+    assert np.isnan(skipped.fit_f).all()
+
+
+def test_blind_phase_anchor_matches_jax():
+    """``phase_anchor`` (``jobs/blind.py:346-353``): a 2-round loop under the
+    calibration prior anchored at a phase that differs from ``params0``'s
+    agrees with JAX to the slice's 1e-6; without the argument the anchor is
+    ``params0.phase``, which moves the fit."""
+    cfg, data, _ = _scene((8, 32, 32), phase=TRUE_PHASE)
+    kw = dict(loops=2, families=(DEFOCUS, PHASE), psf_max_iter=(5, 5), joint_fit=True, phase_prior_weight=0.05)
+    dk = dict(mu=0.01, epsilon=1.0, max_iter=5, grtol=0.0, gatol=0.0)
+    anchor = np.asarray(TRUE_PHASE) * 0.5
+    start = [0.05, 0.0, 0.02, 0.0, 0.0, 0.01]
+    p0j = cfg.init_params()._replace(phase=jnp.asarray(start))
+    rj = jax_blind(jnp.asarray(data), cfg, params0=p0j, phase_anchor=jnp.asarray(anchor), config=JaxBlindConfig(
+        **kw, deconv=JaxDeconvConfig(**dk), fit=JaxFitConfig(grtol=0.0)))
+    model = WideFieldModel(config_from_fields(cfg), device="cpu")
+    p0 = model.init_params()._replace(phase=torch.tensor(start, dtype=torch.float64))
+    tcfg = BlindDeconvConfig(**kw, deconv=DeconvolutionConfig(**dk), fit=PsfFitConfig(grtol=0.0))
+    rt = blind_deconvolve(torch.tensor(data), model, params0=p0, phase_anchor=torch.tensor(anchor), config=tcfg)
+    np.testing.assert_allclose(rt.fit_f, np.asarray(rj.fit_f), rtol=1e-6)
+    np.testing.assert_allclose(rt.deconv_f, np.asarray(rj.deconv_f), rtol=1e-6)
+    for name in ("defocus", "phase"):
+        got, want = getattr(rt.params, name).numpy(), np.asarray(getattr(rj.params, name))
+        assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-6, name
+    default = blind_deconvolve(torch.tensor(data), model, params0=p0, config=tcfg)
+    assert np.max(np.abs(default.params.phase.numpy() - rt.params.phase.numpy())) > 1e-4
