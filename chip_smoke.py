@@ -163,10 +163,25 @@ raises and the script exits non-zero:
     ``utils.checkpoint`` and the object back to NGFF, bit for bit. The
     OME-TIFF half and ``StackPrefetcher`` need libtiff, which the card's
     machine lacks: the CPU tests hold them.
+30. the mesh-sharded paths (``microtipi_tpu_torch/parallel``) on meshes whose
+    entries are all ``cuda:0``: the three slab entries (the TV kernel, the
+    ADMM split update and rhs on a z-slab with its neighbours' planes)
+    against their plain versions and, put together, against the
+    whole-volume launches at 256^3 in 4 slabs and 2 x 256^3 in 2 (gradients
+    and ADMM state bit for bit), then their times at one 64-plane slab;
+    ``sharded_deconvolve`` at 256^3 on (1, 1), (1, 4) and (2, 2) (f(x0) and
+    the first iteration's f within 1e-4 of the dense run, walls beside
+    dense); phase 3's blind loop on (1, 4) (round 1's f within 1e-4 of phase
+    3's); ``sharded_admm_deconvolve`` at 256^3 on (1, 4), tracked; a blind
+    loop of 2 x 256^3 on (2, 2); RL-TV and the depth-varying step at
+    64x256x256 on (1, 4); ``blind --mesh 1 1`` through ``cli.main`` on NGFF,
+    bit for bit the sharded job; and the counterpart of
+    ``__graft_entry__.dryrun_multichip`` on (2, 2).
 
 The main paths are phases 3, 13, 15, 17, 18, 20, 21, 22's superres and 28 (the
 single-volume TV kernel), phases 7-8, 14, 15, 18, 19, 22, 23 and 24 (the
-batched TV kernel) and phases 10-12, 22 and 23 (the ADMM kernels): each is driven with the
+batched TV kernel), phases 10-12, 22 and 23 (the ADMM kernels) and phase 30's
+sharded paths (the slab entries, and no whole-volume launch): each is driven with the
 launch counts set to 0 just before and read just after, and none may take the
 TV kernel's unaligned instantiation or the split update's 4-byte one; every
 entry of the kernels line gives its launches path by path
@@ -457,10 +472,10 @@ def _check_object(name: str, x: torch.Tensor) -> None:
         raise AssertionError(f"{name}: object not finite and non-negative")
 
 
-def phase3_slice(card: str) -> tuple[int, float, float]:
+def phase3_slice(card: str) -> tuple[int, float, float, np.ndarray]:
     """Returns the TV kernel's launches on the path, the objective that
-    ``deconvolve`` reached (in the residual form, for phase 10) and the blind
-    loop's wall (for phase 28)."""
+    ``deconvolve`` reached (in the residual form, for phase 10), the blind
+    loop's wall (for phases 28 and 30) and its ``deconv_f`` (for phase 30)."""
     from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig, blind_deconvolve
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve, make_objective
     from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
@@ -519,7 +534,7 @@ def phase3_slice(card: str) -> tuple[int, float, float]:
         raise AssertionError(f"the single-volume path launched the batched kernel {hv.batched_launches} times, "
                              f"the unaligned instantiation {hv.unaligned_launches} times")
     launches = hv.launches  # the path's count, read before the evaluation below
-    return launches, float(make_objective(psf, data_vmlmb, None, cfg, accurate=True)(x_vmlmb)[0]), bwall
+    return launches, float(make_objective(psf, data_vmlmb, None, cfg, accurate=True)(x_vmlmb)[0]), bwall, df
 
 
 def phase4_parity() -> None:
@@ -4311,6 +4326,410 @@ def phase4_estimation() -> None:
            + ", ".join(f"{k} {v:.3g} (< {bounds[k]:g})" for k, v in gaps.items()))
 
 
+# Phase 30: the mesh-sharded paths (parallel/) on meshes of the one card.
+MESH_SHAPES = ((1, 1), (1, 4), (2, 2))
+SLABS = 4  # z-slabs of the 256^3 volume on a (1, 4) mesh: 64 planes each
+SLAB_F_RTOL = 1e-4  # f(x0) and the first iteration's f, sharded against dense (phase 4's float32 bound)
+DRY_SHAPE = (5, 16, 16)  # the dry run's mesh-odd volume, padded to 6 planes: 2 z-slabs of 3
+#: (batch, volume, z-slabs) of every slab launch on phase 30's paths: 256^3 on (1, 4), (1, 1) and (2, 2) (VMLMB,
+#: blind, ADMM; the batched blind loop's rows of one volume each), 64x256x256 on (1, 4) (RL-TV, depthvar) and (1, 1)
+#: (the CLI), the dry run; and 2 x 256^3 in 2 slabs of a row (the kernel's lanes on a slab).
+SLAB_CASES = ((1, SHAPE, SLABS), (1, SHAPE, 2), (1, SHAPE, 1), (2, SHAPE, 2), (1, LANE_SHAPE, SLABS),
+              (1, LANE_SHAPE, 1), (1, (DRY_SHAPE[0] + 1, *DRY_SHAPE[1:]), 2))
+
+
+class SlabCounts:
+    """The kernels' launch counts over one sharded path: every count set to 0
+    on entry and read on exit; :meth:`check` demands slab launches of the
+    kinds the path runs and no whole-volume launch at all."""
+
+    def __enter__(self):
+        from microtipi_tpu_torch.ops.kernels import admm_split as ak
+        from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+        self.ak, self.hv = ak, hv
+        hv.launches = hv.batched_launches = hv.slab_launches = hv.unaligned_launches = 0
+        ak.split_launches = ak.rhs_launches = ak.split_slab_launches = ak.rhs_slab_launches = 0
+        ak.split_unaligned_launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.tv, self.split, self.rhs = self.hv.slab_launches, self.ak.split_slab_launches, self.ak.rhs_slab_launches
+        self.whole = (self.hv.launches, self.hv.batched_launches, self.ak.split_launches, self.ak.rhs_launches)
+        self.unaligned = self.hv.unaligned_launches + self.ak.split_unaligned_launches
+        return False
+
+    def check(self, name: str, tv: bool = True, admm: bool = False) -> dict:
+        got = {"tv": self.tv, "split": self.split, "rhs": self.rhs}
+        want_zero = [k for k, on in (("tv", tv), ("split", admm), ("rhs", admm)) if not on]
+        if (any(got[k] == 0 for k, on in (("tv", tv), ("split", admm), ("rhs", admm)) if on)
+                or any(got[k] for k in want_zero) or any(self.whole) or self.unaligned):
+            raise AssertionError(f"{name}: slab launches {got}, whole-volume launches (tv, tv batched, split, rhs) "
+                                 f"{self.whole}, unaligned {self.unaligned}")
+        return got
+
+
+def card_mesh(b: int, z: int):
+    """A (b, z) mesh of b * z entries of the one card."""
+    from microtipi_tpu_torch.parallel import make_mesh
+
+    return make_mesh(b, z, devices=[torch.device("cuda", 0)] * (b * z))
+
+
+def slab_bound(nvox: int, plane: int, volumes: int, planes: int, ops: int) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of a slab launch: ``volumes``
+    slabs of ``nvox`` voxels and ``planes`` halo planes of ``plane`` voxels
+    moved once, ``ops`` float32 operations a voxel."""
+    t_bytes = (volumes * nvox + planes * plane) * 4 / HBM_BYTES_PER_S
+    t_ops = ops * nvox / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _slab_entry(t: dict, err: float) -> dict:
+    return {"max_abs_err": err, "ms": t["call_ms"], **t, "bound_share": t["bound_ms"] / t["kernel_ms"],
+            "library_ms": None}
+
+
+def phase30_slab_kernels(card: str) -> dict:
+    """The three slab entries at every slab shape the sharded paths launch
+    (SLAB_CASES). Each slab launch against its plain version (TV: phase 2's
+    tolerances; ADMM: bit for bit), the slabs put together against the
+    whole-volume launch (gradients, ADMM state and rhs bit for bit; TV costs
+    to float32 round-off), then each entry's ``kernel_ms`` (50 raw launches of
+    one 64-plane slab with both halos), ``call_ms`` (the wrapper, halo checks
+    included), the plain version's time, the halo planes' copy and the bound."""
+    from microtipi_tpu_torch.ops.kernels import admm_split as ak
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+    from microtipi_tpu_torch.parallel.mesh import send
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(30)
+    errs = {"tv": 0.0, "split": 0.0, "rhs": 0.0}
+    scales = (3.0, 1.0, 0.7)
+    for nb, vol, nslab in SLAB_CASES:
+        nz = vol[0]
+        x = torch.as_tensor(rng.standard_normal((nb, *vol), dtype=np.float32), device=dev)
+        cuts = np.linspace(0, nz, nslab + 1).astype(int)
+        whole_c, whole_g = hv.hyperbolic_tv_batched_fused(x, 1.0, (2.0, 1.0, 1.0))
+        costs, grads = 0.0, []
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            prev = x[:, a - 1].contiguous() if a > 0 else None
+            nxt = x[:, b].contiguous() if b < nz else None
+            slab = x[:, a:b].contiguous()
+            c, g = hv.hyperbolic_tv_slab_fused(slab, prev, nxt, 1.0, (2.0, 1.0, 1.0))
+            cp, gp = hv.hyperbolic_tv_slab_plain(slab, prev, nxt, 1.0, (2.0, 1.0, 1.0))
+            err = float((g - gp).abs().max())
+            errs["tv"] = max(errs["tv"], err)
+            if (float(((c - cp).abs() / cp.abs()).max()) > TV_COST_RTOL
+                    or not torch.allclose(g, gp, rtol=TV_GRAD_RTOL, atol=TV_GRAD_ATOL)):
+                raise AssertionError(f"TV slab [{a}, {b}) of {nb} x {vol} != plain: grad max abs {err:.3g}")
+            costs, grads = costs + c, grads + [g]
+        cost_rel = float(((costs - whole_c).abs() / whole_c.abs()).max())
+        if not torch.equal(torch.cat(grads, 1), whole_g) or cost_rel > TV_COST_RTOL:
+            raise AssertionError(f"TV slabs of {nb} x {vol} != the whole-volume launch: cost rel {cost_rel:.3g}")
+        log(30, f"TV slab entry at {nb} x {vol} in {nslab} slabs: each == plain; gradients put together bitwise "
+                f"the whole-volume launch's, costs summed within {cost_rel:.3g} of its cost")
+
+        st = {"z1": torch.as_tensor(rng.standard_normal((nb, 3, *vol), dtype=np.float32), device=dev),
+              "u1": 0.1 * torch.as_tensor(rng.standard_normal((nb, 3, *vol), dtype=np.float32), device=dev),
+              "z2": torch.as_tensor(rng.standard_normal((nb, *vol), dtype=np.float32), device=dev),
+              "u2": 0.1 * torch.as_tensor(rng.standard_normal((nb, *vol), dtype=np.float32), device=dev)}
+        lam, r1, r2 = (torch.full((nb,), v, device=dev) for v in (0.3, 1.5, 0.7))
+        for alpha in (1.0, 1.8):
+            whole = {k: v.clone() for k, v in st.items()}
+            ak.admm_split_update(x, whole["z1"], whole["u1"], whole["z2"], whole["u2"], lam, 0.5, alpha, True, scales)
+            whole_rhs = ak.admm_rhs(st["z1"], st["u1"], st["z2"], st["u2"], r1, r2, scales)
+            parts, rhs = [], []
+            for a, b in zip(cuts[:-1], cuts[1:]):
+                sl = [st["z1"][:, :, a:b].clone(), st["u1"][:, :, a:b].clone(), st["z2"][:, a:b].clone(),
+                      st["u2"][:, a:b].clone()]
+                pl = [t.clone() for t in sl]
+                xs, xn = x[:, a:b].clone(), x[:, b % nz].clone()
+                ak.admm_split_update_slab(xs, xn, *sl, lam, 0.5, int(a), nz, alpha, True, scales)
+                ak.admm_split_update_slab_plain(xs, xn, *pl, lam, 0.5, int(a), nz, alpha, True, scales)
+                args = (st["z1"][:, :, a:b].clone(), st["u1"][:, :, a:b].clone(), st["z2"][:, a:b].clone(),
+                        st["u2"][:, a:b].clone(), st["z1"][:, 0, a - 1].clone(), st["u1"][:, 0, a - 1].clone(),
+                        r1, r2, scales)
+                r = ak.admm_rhs_slab(*args)
+                rp = ak.admm_rhs_slab_plain(*args)
+                errs["split"] = max(errs["split"], *(float((s - p).abs().max()) for s, p in zip(sl, pl)))
+                errs["rhs"] = max(errs["rhs"], float((r - rp).abs().max()))
+                if not (all(torch.equal(s, p) for s, p in zip(sl, pl)) and torch.equal(r, rp)):
+                    raise AssertionError(f"ADMM slab [{a}, {b}) of {nb} x {vol} alpha {alpha} != plain")
+                parts.append(sl)
+                rhs.append(r)
+            got = [torch.cat([p[i] for p in parts], 2 if i < 2 else 1) for i in range(4)]
+            if not (all(torch.equal(g, whole[k]) for g, k in zip(got, ("z1", "u1", "z2", "u2")))
+                    and torch.equal(torch.cat(rhs, 1), whole_rhs)):
+                raise AssertionError(f"ADMM slabs of {nb} x {vol} alpha {alpha} != the whole-volume launches")
+        log(30, f"ADMM slab entries at {nb} x {vol} in {nslab} slabs, over-relaxation 1 and 1.8, scales {scales}: "
+                "each bitwise plain, put together bitwise the whole-volume launches (ring wrap, global z face)")
+        del x, st, whole, whole_g, grads, parts
+    torch.cuda.synchronize()
+
+    # Timing: the second of four 64-plane slabs of the 256^3 volume, both halos.
+    x = torch.as_tensor(rng.standard_normal((1, *SHAPE), dtype=np.float32), device=dev)
+    a, b = SHAPE[0] // SLABS, 2 * SHAPE[0] // SLABS
+    slab, prev, nxt = x[:, a:b].contiguous(), x[:, a - 1].contiguous(), x[:, b].contiguous()
+    nvox, plane = slab.numel(), SHAPE[1] * SHAPE[2]
+    halo_ms = _median_ms(lambda: (send(x[:, a - 1], dev), send(x[:, b], dev)))
+    t = {"kernel_ms": raw_ms(hv.prepare_launch(slab, 1.0, None, prev, nxt)[0]),
+         "call_ms": _median_ms(lambda: hv.hyperbolic_tv_slab_fused(slab, prev, nxt, 1.0)),
+         "plain_ms": _median_ms(lambda: hv.hyperbolic_tv_slab_plain(slab, prev, nxt, 1.0)), "halo_ms": halo_ms}
+    t["bound_ms"], t["bound_by"] = slab_bound(nvox, plane, 2, 2, TV_OPS_PER_VOXEL)
+    tv = _slab_entry(t, errs["tv"])
+    z1 = torch.as_tensor(rng.standard_normal((1, 3, *slab.shape[1:]), dtype=np.float32), device=dev)
+    vols = [slab, z1, 0.1 * z1, slab.clone(), 0.1 * slab]
+    lam1, r11, r21 = (torch.full((1,), v, device=dev) for v in (0.3, 1.5, 0.7))
+    t = {"kernel_ms": raw_ms(ak.prepare_split_update(*vols, lam1, 0.5, 1.0, True, None, nxt, a, SHAPE[0])),
+         "call_ms": _median_ms(lambda: ak.admm_split_update_slab(slab, nxt, *vols[1:], lam1, 0.5, a, SHAPE[0])),
+         "plain_ms": _median_ms(lambda: ak.admm_split_update_slab_plain(slab, nxt, *vols[1:], lam1, 0.5, a,
+                                                                        SHAPE[0])),
+         "halo_ms": _median_ms(lambda: send(x[:, b], dev))}
+    t["bound_ms"], t["bound_by"] = slab_bound(nvox, plane, SPLIT_VOLUMES, 1, SPLIT_OPS)
+    split = _slab_entry(t, errs["split"])
+    zp, up = z1[:, 0, -1].contiguous(), z1[:, 0, 0].contiguous()
+    rhs_args = (z1, 0.1 * z1, slab, 0.1 * slab, zp, up, r11, r21)
+    t = {"kernel_ms": raw_ms(ak.prepare_rhs(*rhs_args[:4], r11, r21, None, zp, up)[0]),
+         "call_ms": _median_ms(lambda: ak.admm_rhs_slab(*rhs_args)),
+         "plain_ms": _median_ms(lambda: ak.admm_rhs_slab_plain(*rhs_args)),
+         "halo_ms": _median_ms(lambda: (send(z1[:, 0, -1], dev), send(z1[:, 0, -1], dev)))}
+    t["bound_ms"], t["bound_by"] = slab_bound(nvox, plane, RHS_VOLUMES, 2, RHS_OPS)
+    rhs = _slab_entry(t, errs["rhs"])
+    for name, e in (("TV", tv), ("split update", split), ("rhs", rhs)):
+        log(30, f"[{card}] {name} slab entry at (1, 64, 256, 256) with its halo planes: kernel_ms "
+                f"{e['kernel_ms']:.4f} (50 raw launches), call_ms {e['call_ms']:.4f}, plain {e['plain_ms']:.4f} ms, "
+                f"halo copies {e['halo_ms']:.4f} ms; bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+                f"{e['bound_share']:.1%} of it")
+    return {"tv": tv, "split": split, "rhs": rhs}
+
+
+def _wall(fn, runs: int = 2):
+    """(median wall of ``runs`` synchronized calls after one warm-up, the last result)."""
+    fn()
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)), out
+
+
+def _rel_f(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)) / np.abs(np.asarray(b))))
+
+
+def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: float) -> dict:
+    """The sharded paths at full width on meshes of the one card, each run
+    between :class:`SlabCounts` (slab launches only); the sharded blind loop
+    beside phase 3's dense one (its ``deconv_f`` and wall). Returns each
+    path's slab launches."""
+    from microtipi_tpu_torch.jobs.admm import admm_deconvolve
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
+    from microtipi_tpu_torch.jobs.depthvar import deconvolve_depthvar, depth_anchor_psfs
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+    from microtipi_tpu_torch.jobs.richardson_lucy import richardson_lucy
+    from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+    from microtipi_tpu_torch.parallel import (
+        gather,
+        sharded_admm_deconvolve,
+        sharded_blind_deconvolve,
+        sharded_deconvolve,
+    )
+    from microtipi_tpu_torch.parallel.depthvar import sharded_deconvolve_depthvar
+    from microtipi_tpu_torch.parallel.richardson_lucy import sharded_richardson_lucy
+
+    dev, nvox = torch.device("cuda", 0), float(np.prod(SHAPE))
+    paths = {}
+    _, data, psf = bench_scene(SHAPE, dev, torch.float32)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
+    dense_wall, dense = _wall(lambda: deconvolve(data, psf, config=cfg))
+    for shape in MESH_SHAPES:
+        mesh = card_mesh(*shape)
+        with SlabCounts() as c:
+            wall, res = _wall(lambda: sharded_deconvolve(data, psf, mesh, config=cfg))
+        n = c.check(f"sharded_deconvolve {shape}")
+        _check_object(f"sharded_deconvolve {shape}", gather(res.x))
+        head = _rel_f(res.f_history[:2], dense.f_history[:2])
+        if head > SLAB_F_RTOL:
+            raise AssertionError(f"sharded_deconvolve {shape}: f(x0), f(x1) {res.f_history[:2]} vs dense "
+                                 f"{dense.f_history[:2]}: {head:.3g} rel")
+        if shape == (1, 4):
+            paths["sharded VMLMB 256^3 (1, 4)"] = {k: v // 3 for k, v in n.items()}  # a run of the 3 (warm-up, 2 timed)
+        log(30, f"[{card}] sharded_deconvolve {SHAPE} on mesh {shape} of cuda:0: {res.iterations} iterations, "
+                f"{res.evaluations} evaluations, f {float(res.f):.6g} (dense {float(dense.f):.6g}, "
+                f"{dense.iterations} iterations), f(x0), f(x1) within {head:.3g} rel of dense; wall {wall:.4f} s "
+                f"(dense {dense_wall:.4f} s, median of 2 after 1 warm-up), "
+                f"{nvox * res.iterations / wall / 1e6:.1f} Mvox*iter/s, TV slab launches {n['tv']} over 3 runs")
+
+    model, bdata, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE)
+    bcfg = BlindDeconvConfig(
+        loops=5, families=(DEFOCUS, PHASE), psf_max_iter=(5, 5), joint_fit=True,
+        deconv=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0),
+        fit=PsfFitConfig(grtol=0.0))
+    with SlabCounts() as c:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bres = sharded_blind_deconvolve(bdata, model, card_mesh(1, 4), config=bcfg)
+        torch.cuda.synchronize()
+        bwall = time.perf_counter() - t0
+    paths["sharded blind 256^3 (1, 4)"] = c.check("sharded blind (1, 4)")
+    _check_object("sharded blind", gather(bres.obj))
+    df, dense_df = bres.deconv_f, dense_blind_f
+    if not (np.isfinite(df).all() and np.all(np.diff(df) < 0) and np.isnan(bres.fit_f[-1]).all()):
+        raise AssertionError(f"sharded blind: deconv_f {df}, fit_f {bres.fit_f}")
+    first = _rel_f(df[:1], dense_df[:1])
+    if first > SLAB_F_RTOL:
+        raise AssertionError(f"sharded blind round 1 f {df[0]} vs dense {dense_df[0]}: {first:.3g} rel")
+    phase_err = float(torch.linalg.norm(bres.params.phase.cpu() - torch.tensor(BENCH_PHASE)))
+    log(30, f"[{card}] sharded_blind_deconvolve {SHAPE} on (1, 4), phase 3's loop: deconv_f {df.tolist()} (dense "
+            f"{dense_df.tolist()}; round 1 within {first:.3g} rel), phase error {phase_err:.4f} (L2), wall "
+            f"{bwall:.3f} s (dense {dense_blind_wall:.3f} s), TV slab launches "
+            f"{paths['sharded blind 256^3 (1, 4)']['tv']}")
+
+    acfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
+    dense_wall, dense = _wall(lambda: admm_deconvolve(data, psf, config=acfg))
+    mesh = card_mesh(1, 4)
+    with SlabCounts() as c:
+        wall, res = _wall(lambda: sharded_admm_deconvolve(data, psf, mesh, config=acfg))
+    n = c.check("sharded ADMM (1, 4)", admm=True)
+    paths["sharded ADMM 256^3 (1, 4)"] = {k: v // 3 for k, v in n.items()}
+    if n["split"] != 3 * SLABS * acfg.max_iter or n["rhs"] != n["split"]:
+        raise AssertionError(f"sharded ADMM: slab launches {n}, expected {SLABS * acfg.max_iter} a run of each")
+    hist = _rel_f(res.f_history, dense.f_history)
+    _check_object("sharded ADMM", gather(res.x))
+    if hist > SLAB_F_RTOL:
+        raise AssertionError(f"sharded ADMM f_history {hist:.3g} rel off the dense engine's")
+    log(30, f"[{card}] sharded_admm_deconvolve {SHAPE} on (1, 4), {acfg.max_iter} iterations tracked: f "
+            f"{float(res.f):.6g} (dense {float(dense.f):.6g}), f_history within {hist:.3g} rel, wall {wall:.4f} s "
+            f"(dense {dense_wall:.4f} s), {nvox * acfg.max_iter / wall / 1e6:.1f} Mvox*iter/s; slab launches a run "
+            f"{paths['sharded ADMM 256^3 (1, 4)']}")
+
+    scenes = [bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE, seed=s)[1] for s in (0, 1)]
+    b2 = dataclasses.replace(bcfg, loops=2)
+    with SlabCounts() as c:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res2 = sharded_blind_deconvolve(torch.stack(scenes), model, card_mesh(2, 2), config=b2)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    paths["sharded batched blind 2 x 256^3 (2, 2)"] = c.check("batched sharded blind (2, 2)")
+    _check_object("batched sharded blind", gather(res2.obj))
+    if res2.obj.shape != (2, *SHAPE) or not (np.isfinite(res2.deconv_f).all() and res2.deconv_f[1] < res2.deconv_f[0]):
+        raise AssertionError(f"batched sharded blind: obj {res2.obj.shape}, deconv_f {res2.deconv_f}")
+    log(30, f"[{card}] sharded_blind_deconvolve 2 x {SHAPE} on (2, 2), 2 rounds: deconv_f {res2.deconv_f.tolist()}, "
+            f"wall {wall2:.3f} s, TV slab launches {paths['sharded batched blind 2 x 256^3 (2, 2)']['tv']}")
+    del scenes, res2, bres
+
+    # RL-TV and the depth-varying step at LANE_SHAPE (64x256x256) on (1, 4).
+    _, ldata, lpsf = bench_scene(LANE_SHAPE, dev, torch.float32)
+    mesh = card_mesh(1, 4)
+    dense_wall, ref = _wall(lambda: richardson_lucy(ldata, lpsf, iterations=20, mu=0.002, epsilon=0.1))
+    with SlabCounts() as c:
+        wall, got = _wall(lambda: sharded_richardson_lucy(ldata, lpsf, mesh, iterations=20, mu=0.002, epsilon=0.1))
+    paths["sharded RL-TV 64x256x256 (1, 4)"] = {k: v // 3 for k, v in c.check("sharded RL-TV").items()}
+    rel = _rel_l2(gather(got), ref)
+    if rel > 1e-4 or c.tv != 3 * SLABS * 20:
+        raise AssertionError(f"sharded RL-TV: {rel:.3g} relative L2 off dense, TV slab launches {c.tv}")
+    log(30, f"[{card}] sharded_richardson_lucy {LANE_SHAPE} RL-TV, 20 iterations on (1, 4): {rel:.3g} relative L2 "
+            f"off dense, wall {wall:.4f} s (dense {dense_wall:.4f} s), TV slab launches a run "
+            f"{c.tv // 3} (one a slab and iteration)")
+
+    gl = depthvar_model(LANE_SHAPE, torch.float32, dev)
+    anchors = np.linspace(0.0, LANE_SHAPE[0] - 1.0, DEPTH_K)
+    with torch.no_grad():
+        psfs = depth_anchor_psfs(gl, gl.init_params(), anchors)
+    ddata, _ = depthvar_scene(psfs, anchors, LANE_SHAPE, dev, torch.float32)
+    dcfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
+    dense_wall, ref = _wall(lambda: deconvolve_depthvar(ddata, psfs, anchors, config=dcfg))
+    with SlabCounts() as c:
+        wall, got = _wall(lambda: sharded_deconvolve_depthvar(ddata, psfs, mesh, anchors, config=dcfg))
+    paths["sharded depthvar 64x256x256 (1, 4)"] = {k: v // 3 for k, v in c.check("sharded depthvar").items()}
+    head = _rel_f(got.f_history[:2], ref.f_history[:2])
+    _check_object("sharded depthvar", gather(got.x))
+    if head > SLAB_F_RTOL:
+        raise AssertionError(f"sharded depthvar f(x0), f(x1) {head:.3g} rel off dense")
+    log(30, f"[{card}] sharded_deconvolve_depthvar {LANE_SHAPE}, {DEPTH_K} anchors, on (1, 4): f {float(got.f):.6g} "
+            f"(dense {float(ref.f):.6g}), f(x0), f(x1) within {head:.3g} rel, wall {wall:.4f} s (dense "
+            f"{dense_wall:.4f} s), TV slab launches a run {c.tv // 3}")
+    paths.update(phase30_cli_dryrun(card, ldata))
+    return paths
+
+
+def phase30_cli_dryrun(card: str, data: torch.Tensor) -> dict:
+    """``blind --mesh 1 1`` through ``cli.main`` (``python -m
+    microtipi_tpu_torch``'s entry) on an OME-NGFF 64x256x256 store, bit for
+    bit ``sharded_blind_deconvolve`` with the model and config the CLI built
+    (``deconv --mesh`` needs a ``--psf`` file, which the CLI reads as TIFF,
+    and the card's machine has no libtiff); then the counterpart of
+    ``__graft_entry__.dryrun_multichip``: one full blind step (2 rounds,
+    joint defocus+phase fit with pin-Z4, the Wiener start) of a batch of 2
+    mesh-odd volumes on (2, 2), and a temporal-TV time series on (2, 2)."""
+    import tempfile
+
+    from microtipi_tpu_torch.cli.blind import _blind_config
+    from microtipi_tpu_torch.cli.parser import build_parser
+    from microtipi_tpu_torch.cli.shared import _model, _resolve_geometry
+    from microtipi_tpu_torch.io import zarrstack
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+    from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
+    from microtipi_tpu_torch.parallel import gather, sharded_blind_deconvolve, sharded_deconvolve
+
+    dev = torch.device("cuda", 0)
+    paths = {}
+    shape = tuple(data.shape)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_mesh_", dir=root) as tmp:
+        scene, out = os.path.join(tmp, "d.zarr"), os.path.join(tmp, "o.zarr")
+        zarrstack.write_ngff_hyperstack(scene, data.cpu().numpy(), dxy=IO_DXY, dz=IO_DZ)
+        argv = ["blind", scene, "--out", out, *CLI_OPTICS, "--loops", "2", "--families", "defocus", "phase",
+                "--psf-iters", "3", "--joint-fit", "--mu", "0.01", "--epsilon", "1", "--iters", "10", "--mesh", "1",
+                "1"]
+        with SlabCounts() as c:
+            wall, lines = _cli(argv)
+        paths["CLI blind --mesh 1 1 (NGFF)"] = c.check("CLI --mesh")
+        got = zarrstack.read_ngff_hyperstack(out)[0][0, 0]
+        args = build_parser().parse_args(argv)
+        args.device = dev
+        _resolve_geometry(args, scene, log=lambda *a: None)
+        arr = torch.as_tensor(zarrstack.read_ngff_hyperstack(scene)[0][0, 0], device=dev)
+        want = sharded_blind_deconvolve(arr, _model(args, shape), card_mesh(1, 1), config=_blind_config(args, shape))
+        if not np.array_equal(got, gather(want.obj).cpu().numpy()):
+            raise AssertionError("CLI blind --mesh 1 1 output != sharded_blind_deconvolve with the CLI's config")
+    log(30, f"[{card}] python -m microtipi_tpu_torch blind <NGFF {shape}> --mesh 1 1 (in process): {wall:.2f} s, "
+            f"output bitwise sharded_blind_deconvolve with the CLI's model and config; "
+            f"{[ln for ln in lines if ln.startswith('blind:')]}")
+
+    zp, batch = 2, 2
+    vol = DRY_SHAPE  # mesh-odd nz: the loop pads to 6 planes
+    model = WideFieldModel(WideFieldConfig(shape=vol, na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9, dz=200e-9,
+                                           n_phase=3), device=dev)
+    rng = np.random.default_rng(0)
+    d = torch.as_tensor(rng.random((batch, *vol), dtype=np.float32), device=dev)
+    cfg = BlindDeconvConfig(loops=2, families=(DEFOCUS, PHASE), psf_max_iter=(2, 2),
+                            deconv=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=2, grtol=0.0),
+                            joint_fit=True, phase_freeze_head=1, init="wiener")
+    with SlabCounts() as c:
+        res = sharded_blind_deconvolve(d, model, card_mesh(batch, zp), config=cfg)
+        ts = sharded_deconvolve(torch.as_tensor(rng.random((batch, 6, 16, 16), dtype=np.float32), device=dev),
+                                torch.as_tensor(rng.random((6, 16, 16), dtype=np.float32), device=dev),
+                                card_mesh(batch, zp), config=DeconvolutionConfig(mu=0.01, max_iter=2), mu_t=0.1)
+    paths["dry run: blind step and time series (2, 2)"] = c.check("dry run")
+    if (res.obj.shape != (batch, 2 * zp + 2, 16, 16) or not np.isfinite(res.deconv_f).all()
+            or not bool(torch.isfinite(res.params.phase).all()) or float(res.params.phase[0]) != 0.0
+            or not np.isfinite(ts.f)):
+        raise AssertionError(f"dry run: obj {res.obj.shape}, deconv_f {res.deconv_f}, phase {res.params.phase}, "
+                             f"time series f {ts.f}")
+    log(30, f"dry run on (2, 2) of cuda:0: blind step of 2 x {vol} (padded to {res.obj.shape[1:]}), deconv_f "
+            f"{res.deconv_f.tolist()}, pin-Z4 held; temporal-TV series f {float(ts.f):.6g}")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4321,7 +4740,7 @@ def main() -> int:
     card = phase0_card()
     phase1_build()
     kern = phase2_kernel(card)
-    launches, f_vmlmb, blind_wall = phase3_slice(card)
+    launches, f_vmlmb, blind_wall, blind_f = phase3_slice(card)
     if launches == 0:
         raise AssertionError("the main path never launched the TV kernel")
     phase4_parity()
@@ -4368,6 +4787,12 @@ def main() -> int:
     phase27_image_ops(card)
     api_launches = phase28_file_to_file(card, blind_wall)
     cli = phase29_cli_serve(card)
+    slab_kern = phase30_slab_kernels(card)
+    mesh_paths = phase30_sharded(card, blind_f, blind_wall)
+    slab_paths = {kind: {f"{name} (phase 30)": n[kind] for name, n in mesh_paths.items() if n[kind]}
+                  for kind in ("tv", "split", "rhs")}
+    if not all(slab_paths.values()):
+        raise AssertionError(f"a slab entry was launched on no sharded path: {mesh_paths}")
     tv_paths = {"deconvolve and blind (phase 3)": launches, "RL-TV (phase 13)": rl_launches,
                 "priors and auto-mu (phase 15)": prior_launches, "confocal blind (phase 17)": family_launches,
                 "depthvar and RL-TV depthvar (phase 18)": depthvar_launches,
@@ -4404,6 +4829,17 @@ def main() -> int:
          "replaces": f"microtipi_tpu/jobs/admm.py:330-331, the joint engines' :723, :1059 and :1348, and "
                      f"microtipi_tpu/jobs/superres.py:331-332 ({fused_by_xla})",
          "launches": sum(rhs_paths.values()), "launches_by_path": rhs_paths, **rhs_kern},
+        {"name": "hyperbolic_tv_slab", "route": "cuda", "source": source,
+         "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:80, :111 and :203 on a z-sharded mesh, with the "
+                     "halo exchanges GSPMD inserts around them (microtipi_tpu/parallel/deconv.py:9-14)",
+         "launches": sum(slab_paths["tv"].values()), "launches_by_path": slab_paths["tv"], **slab_kern["tv"]},
+        {"name": "admm_split_update_slab", "route": "cuda", "source": admm_source,
+         "replaces": f"microtipi_tpu/parallel/admm.py:184-196 with GSPMD's z-halo exchange ({fused_by_xla})",
+         "launches": sum(slab_paths["split"].values()), "launches_by_path": slab_paths["split"],
+         **slab_kern["split"]},
+        {"name": "admm_rhs_slab", "route": "cuda", "source": admm_source,
+         "replaces": f"microtipi_tpu/parallel/admm.py:170-171 with GSPMD's z-halo exchange ({fused_by_xla})",
+         "launches": sum(slab_paths["rhs"].values()), "launches_by_path": slab_paths["rhs"], **slab_kern["rhs"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

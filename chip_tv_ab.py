@@ -240,7 +240,8 @@ def main() -> int:
         else:
             print(json.dumps(admm_worker(root, args.states, args.save, args.against)))
         return 0
-    if not os.path.isfile(os.path.join(root, "microtipi_tpu_torch", "ops", "kernels", f"{args.kernel}.py")):
+    module = {"tv": "hyperbolic_tv"}.get(args.kernel, args.kernel)
+    if not os.path.isfile(os.path.join(root, "microtipi_tpu_torch", "ops", "kernels", f"{module}.py")):
         print(f"{root} is not a checkout of the repo with the {args.kernel} kernel", file=sys.stderr)
         return 2
 

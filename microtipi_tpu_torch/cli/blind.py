@@ -7,7 +7,9 @@ Port of ``microtipi_tpu/cli/blind.py`` on the ported loops
 ``args.device``. ``--checkpoint`` runs host-driven one-round dispatches with
 the loop's ``skip_last_fit`` and ``phase_anchor`` and the port's
 ``utils.checkpoint``; ``--deconv-engine admm`` reaches the ADMM kernels.
-``--mesh`` exits naming ``ROADMAP.md`` item 18 (``shared._make_mesh``).
+``--mesh`` runs ``parallel.blind.sharded_blind_deconvolve`` and, with
+``--depthvar``, ``parallel.depthvar.sharded_blind_deconvolve_depthvar``
+(``shared._make_mesh``).
 """
 
 from __future__ import annotations
@@ -206,11 +208,23 @@ def _cmd_blind_depthvar(args):
     anchors = _depthvar_anchor_array(args, args.depthvar, data.shape[0])
     bead = _bead(args)
     t0 = time.time()
-    _make_mesh(args)
-    res = blind_deconvolve_depthvar(data, model, anchors, params0=params0, weights=w, config=cfg, bead_data=bead)
+    mesh = _make_mesh(args)
+    if mesh is not None:
+        from microtipi_tpu_torch.parallel.deconv import crop_trailing
+        from microtipi_tpu_torch.parallel.depthvar import sharded_blind_deconvolve_depthvar
+        from microtipi_tpu_torch.parallel.mesh import gather
+
+        res = sharded_blind_deconvolve_depthvar(data, model, mesh, anchors, params0=params0, weights=w, config=cfg,
+                                                bead_data=bead)
+        # mesh-odd shapes auto-pad
+        res = res._replace(obj=crop_trailing(gather(res.obj, data.device), tuple(data.shape)))
+    else:
+        res = blind_deconvolve_depthvar(data, model, anchors, params0=params0, weights=w, config=cfg,
+                                        bead_data=bead)
     df = np.asarray(res.deconv_f)
     wall = time.time() - t0
-    print(f"blind[depthvar K={args.depthvar}]: {args.loops} rounds in "
+    tag = f" mesh {tuple(args.mesh)}" if mesh is not None else ""
+    print(f"blind[depthvar K={args.depthvar}{tag}]: {args.loops} rounds in "
           f"{wall:.1f}s; object cost {df[0]:.6g} -> {df[-1]:.6g}")
     print("defocus:", _np(res.params.defocus))
     if model.config.n_phase:
@@ -413,8 +427,17 @@ def cmd_blind(args):
     cfg = _blind_config(args, data.shape)
     bead = _bead(args)
     t0 = time.time()
-    _make_mesh(args)
-    if args.checkpoint:
+    mesh = _make_mesh(args)
+    if mesh is not None:
+        if args.checkpoint:
+            sys.exit("--checkpoint is not supported together with --mesh yet")
+        from microtipi_tpu_torch.parallel.blind import sharded_blind_deconvolve
+        from microtipi_tpu_torch.parallel.mesh import gather
+
+        res = sharded_blind_deconvolve(data, model, mesh, params0=params0, weights=w, config=cfg, bead_data=bead)
+        res = res._replace(obj=gather(res.obj, data.device))
+        df = np.asarray(res.deconv_f)
+    elif args.checkpoint:
         res = run_checkpointed(args, data, model, params0, w, cfg, bead)
         if res is None:
             sys.exit("nothing to do: checkpoint is already at the final round")

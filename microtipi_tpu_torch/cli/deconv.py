@@ -4,8 +4,8 @@ step driven by ``BlindDeconvJob.java:103-108``), plus the shared
 ``--uncertainty`` tail. Mode variants live in ``deconv_modes``.
 
 Port of ``microtipi_tpu/cli/deconv.py``: the jitted solves are direct calls
-of the ported jobs on ``args.device``. ``--mesh`` exits naming
-``ROADMAP.md`` item 18 (``shared._make_mesh``).
+of the ported jobs on ``args.device``; ``--mesh`` runs
+``parallel.deconv.sharded_deconvolve`` (``shared._make_mesh``).
 """
 
 from __future__ import annotations
@@ -237,7 +237,7 @@ def cmd_deconv(args):
 
     if getattr(args, "auto_mu", False) and getattr(args, "mesh", None):
         sys.exit("--auto-mu runs on one chip; drop --mesh")
-    _make_mesh(args)
+    mesh = _make_mesh(args)
     if getattr(args, "auto_mu", False):
         from microtipi_tpu_torch.jobs.autotune import deconvolve_auto_mu
 
@@ -249,6 +249,13 @@ def cmd_deconv(args):
               f"/ target {float(auto.target):.4g}"
               + ("" if np.isnan(float(auto.sigma))
                  else f", sigma={float(auto.sigma):.4g}") + ")")
+    elif mesh is not None:
+        from microtipi_tpu_torch.parallel.deconv import sharded_deconvolve
+        from microtipi_tpu_torch.parallel.mesh import gather
+
+        t0 = time.time()
+        res = sharded_deconvolve(data, psf, mesh, weights=w, config=cfg)
+        res = res._replace(x=gather(res.x, data.device))
     elif args.method in ("admm", "fista"):
         # Alternative first-order engines on the same objective
         # (jobs/admm.py). Fixed iteration count (--iters).

@@ -20,8 +20,9 @@ Dropped as TPU-only (``ROADMAP.md``, "Not ported"):
 - ``_enable_compile_cache`` (``shared.py:740-779``): JAX's persistent
   compilation cache; the port compiles its kernels once with ``nvcc``.
 
-``--mesh`` stays in the parser so that the surface matches; the sharded
-paths are ``ROADMAP.md`` item 18 and :func:`_make_mesh` exits naming it.
+``--mesh BATCH Z`` runs the sharded jobs (``parallel/``) on a mesh that
+:func:`_make_mesh` builds on ``args.device``: B*Z visible cards, or B*Z
+entries of the CPU when the command runs on the CPU.
 """
 
 from __future__ import annotations
@@ -737,9 +738,16 @@ def _write_hyperstack(args, out):
 
 
 def _make_mesh(args):
-    """None when single-device (``shared.py:730-737``); ``--mesh`` exits:
-    the sharded paths are ``ROADMAP.md`` item 18."""
+    """The (batch, z) mesh of ``--mesh BATCH Z``, None when single-device
+    (``shared.py:730-737``). On the card it takes the visible CUDA devices
+    and raises unless there are BATCH*Z of them, as the JAX mesh does; a
+    command on the CPU (``main(argv, device="cpu")``) gets BATCH*Z entries
+    of the CPU, the counterpart of the JAX suite's virtual host devices."""
     if not getattr(args, "mesh", None):
         return None
-    sys.exit("--mesh runs the sharded solvers of microtipi_tpu/parallel, which the PyTorch port does not "
-             "have yet (ROADMAP.md item 18); drop --mesh to solve on one device")
+    from microtipi_tpu_torch.parallel.mesh import make_mesh
+
+    batch, z = args.mesh
+    if args.device.type == "cpu":
+        return make_mesh(batch=batch, z=z, devices=[args.device] * (batch * z))
+    return make_mesh(batch=batch, z=z)

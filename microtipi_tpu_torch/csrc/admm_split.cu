@@ -68,6 +68,19 @@
 // the lane's base pointer 64-bit. admm_rhs keeps one thread a voxel: without
 // divisions it runs at about 90% of its bound (0.18 ms at 256^3, 9 volumes).
 //
+// Slabs. On a volume sharded in z over devices (microtipi_tpu_torch/parallel) each
+// z-slab takes the same kernels with its neighbours' planes: the split update reads
+// x's next plane (the next slab's first plane; after the last slab, the first slab's
+// first plane, around the ring), and its z trailing-face mask is the volume's last
+// plane (the slab's global z offset and the global nz); the rhs reads z1_z - u1_z at
+// the previous plane (the previous slab's last plane; before the first slab, the last
+// slab's last plane). The rhs's whole-volume entry is the slab that is its own
+// neighbour (pointers into its own tensors); the split update keeps its whole-volume
+// code path as a separate instantiation (kSlab = false), since the slab mode's
+// pointer select cost the over-relaxed instantiation time at 256^3. Either way the
+// slabs' outputs put together are the whole volume's, bit for bit.
+// GSPMD inserts these exchanges on a TPU mesh (microtipi_tpu/parallel/admm.py).
+//
 // Rounding: every operation is an explicit round-to-nearest intrinsic in the order
 // of the plain PyTorch version (ops/kernels/admm_split.py), so nvcc contracts no
 // multiply-add, flushes nothing to zero, and the two agree bit for bit on the card
@@ -158,11 +171,15 @@ __device__ __forceinline__ void store4(float* p, int at, const int (&off)[ADMM_V
     }
 }
 
-template <bool kVec, bool kRelax, bool kPositivity>
+// kSlab: x's next plane past the slab's last comes from xnext, and the z face
+// is the volume's (z_off, nz_glob); otherwise the lane wraps around itself,
+// the whole-volume code path of the kernel before slabs existed.
+template <bool kVec, bool kRelax, bool kPositivity, bool kSlab>
 __global__ void __launch_bounds__(ADMM_THREADS)
-admm_split_update_kernel(const float* __restrict__ x, float* __restrict__ z1, float* __restrict__ u1,
-                         float* __restrict__ z2, float* __restrict__ u2, const float* __restrict__ lam, int nb,
-                         int nz, int ny, int nx, float eps, float eps2, float alpha, float one_minus_alpha, float rz,
+admm_split_update_kernel(const float* __restrict__ x, const float* __restrict__ xnext, int64_t next_stride,
+                         float* __restrict__ z1, float* __restrict__ u1, float* __restrict__ z2,
+                         float* __restrict__ u2, const float* __restrict__ lam, int nb, int nz, int ny, int nx,
+                         int z_off, int nz_glob, float eps, float eps2, float alpha, float one_minus_alpha, float rz,
                          float ry, float rx) {
     const int plane = ny * nx, n = nz * plane;
     // Voxel i of this thread within its (lane, z) plane: consecutive along x (kVec,
@@ -189,14 +206,17 @@ admm_split_update_kernel(const float* __restrict__ x, float* __restrict__ z1, fl
     for (int p = blockIdx.y; p < nb * nz; p += gridDim.y) {
         const int lane = p / nz, iz = p - lane * nz;
         const int at = iz * plane;  // the plane's offset in its lane
-        const bool face_z = iz == nz - 1;
-        const int step_z = face_z ? -(nz - 1) * plane : plane;
+        const bool face_z = kSlab ? z_off + iz == nz_glob - 1 : iz == nz - 1;
         const int64_t base = (int64_t)lane * n;
         const float* xl = x + base;
 
         float xc[ADMM_VOXELS], xn[3][ADMM_VOXELS];
         load4<kVec, false>(xl, at, off, xc);
-        load4<kVec, false>(xl, at + step_z, off, xn[0]);
+        if (kSlab) {  // x's next plane: the slab's own, or past its last plane the next slab's first
+            load4<kVec, false>(iz == nz - 1 ? xnext + lane * next_stride : xl + at + plane, 0, off, xn[0]);
+        } else {
+            load4<kVec, false>(xl, at + (face_z ? -(nz - 1) * plane : plane), off, xn[0]);
+        }
         if (kVec) {
             load4<true, false>(xl, at + step_y[0], off, xn[1]);
 #pragma unroll
@@ -268,7 +288,8 @@ admm_split_update_kernel(const float* __restrict__ x, float* __restrict__ z1, fl
 
 __global__ void __launch_bounds__(ADMM_THREADS)
 admm_rhs_kernel(const float* __restrict__ z1, const float* __restrict__ u1, const float* __restrict__ z2,
-                const float* __restrict__ u2, const float* __restrict__ rho1, const float* __restrict__ rho2,
+                const float* __restrict__ u2, const float* __restrict__ z1p, const float* __restrict__ u1p,
+                int64_t prev_stride, const float* __restrict__ rho1, const float* __restrict__ rho2,
                 float* __restrict__ out, int nb, int nz, int ny, int nx, float rz, float ry, float rx) {
     const int plane = ny * nx;
     const int q = blockIdx.x * ADMM_THREADS + threadIdx.x;
@@ -281,9 +302,10 @@ admm_rhs_kernel(const float* __restrict__ z1, const float* __restrict__ u1, cons
         const int lane = p / nz, iz = p - lane * nz;
         const int64_t i = (int64_t)p * plane + q;
         const int64_t j = i + 2 * lane * n;
-        // The voxel before this one along each axis, around the volume.
+        // The voxel before this one along each axis, around the volume; before
+        // the slab's first plane, the previous slab's last (z1p, u1p).
         const int64_t back[3] = {
-            iz == 0 ? (int64_t)(nz - 1) * plane : -(int64_t)plane,
+            -(int64_t)plane,
             iy == 0 ? (int64_t)(ny - 1) * nx : -(int64_t)nx,
             ix == 0 ? (int64_t)(nx - 1) : -1,
         };
@@ -292,7 +314,8 @@ admm_rhs_kernel(const float* __restrict__ z1, const float* __restrict__ u1, cons
         for (int a = 0; a < 3; ++a) {
             const int64_t c = j + a * n;
             const float g = sub(z1[c], u1[c]);
-            const float gb = sub(z1[c + back[a]], u1[c + back[a]]);
+            const int64_t h = lane * prev_stride + q;
+            const float gb = a == 0 && iz == 0 ? sub(z1p[h], u1p[h]) : sub(z1[c + back[a]], u1[c + back[a]]);
             const float t = mul(sub(gb, g), rs[a]);
             adj = a == 0 ? t : add(adj, t);
         }
@@ -314,6 +337,48 @@ bool plane_grid(int nb, int nz, int ny, int nx, int per_thread, dim3* grid) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+int split_update(const void* x, const void* xnext, int64_t next_stride, void* z1, void* u1, void* z2, void* u2,
+                 const void* lam, int nb, int nz, int ny, int nx, int z_off, int nz_glob, float eps, float eps2,
+                 float alpha, float one_minus_alpha, int relax, int positivity, int vec, float rz, float ry, float rx,
+                 bool slab, void* stream) {
+    dim3 grid;
+    if (!plane_grid(nb, nz, ny, nx, ADMM_VOXELS, &grid) || z_off < 0 || z_off + nz > nz_glob)
+        return (int)cudaErrorInvalidConfiguration;
+    if (!relax && alpha != 1.0f) return (int)cudaErrorInvalidValue;
+    if (vec && (nx % 4 != 0 || !aligned16(x) || !aligned16(xnext) || !aligned16(z1) || !aligned16(u1) ||
+                !aligned16(z2) || !aligned16(u2)))
+        return (int)cudaErrorMisalignedAddress;
+#define ADMM_LAUNCH(V, R, P, S)                                                                                  \
+    admm_split_update_kernel<V, R, P, S><<<grid, ADMM_THREADS, 0, (cudaStream_t)stream>>>(                       \
+        (const float*)x, (const float*)xnext, next_stride, (float*)z1, (float*)u1, (float*)z2, (float*)u2,       \
+        (const float*)lam, nb, nz, ny, nx, z_off, nz_glob, eps, eps2, alpha, one_minus_alpha, rz, ry, rx)
+#define ADMM_LAUNCH_SLAB(V, R, P) \
+    if (slab) ADMM_LAUNCH(V, R, P, true); else ADMM_LAUNCH(V, R, P, false)
+#define ADMM_LAUNCH_VEC(R, P) \
+    if (vec) { ADMM_LAUNCH_SLAB(true, R, P); } else { ADMM_LAUNCH_SLAB(false, R, P); }
+    if (relax) {
+        if (positivity) { ADMM_LAUNCH_VEC(true, true); } else { ADMM_LAUNCH_VEC(true, false); }
+    } else {
+        if (positivity) { ADMM_LAUNCH_VEC(false, true); } else { ADMM_LAUNCH_VEC(false, false); }
+    }
+#undef ADMM_LAUNCH_VEC
+#undef ADMM_LAUNCH_SLAB
+#undef ADMM_LAUNCH
+    return (int)cudaGetLastError();
+}
+
+int rhs(const void* z1, const void* u1, const void* z2, const void* u2, const void* z1p, const void* u1p,
+        int64_t prev_stride, const void* rho1, const void* rho2, void* out, int nb, int nz, int ny, int nx, float rz,
+        float ry, float rx, void* stream) {
+    dim3 grid;
+    if (!plane_grid(nb, nz, ny, nx, 1, &grid)) return (int)cudaErrorInvalidConfiguration;
+    admm_rhs_kernel<<<grid, ADMM_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)z1, (const float*)u1, (const float*)z2, (const float*)u2, (const float*)z1p,
+        (const float*)u1p, prev_stride, (const float*)rho1, (const float*)rho2, (float*)out, nb, nz, ny, nx, rz, ry,
+        rx);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -330,25 +395,20 @@ extern "C" {
 int admm_split_update_f32(const void* x, void* z1, void* u1, void* z2, void* u2, const void* lam, int nb,
                           int nz, int ny, int nx, float eps, float eps2, float alpha, float one_minus_alpha,
                           int relax, int positivity, int vec, float rz, float ry, float rx, void* stream) {
-    dim3 grid;
-    if (!plane_grid(nb, nz, ny, nx, ADMM_VOXELS, &grid)) return (int)cudaErrorInvalidConfiguration;
-    if (!relax && alpha != 1.0f) return (int)cudaErrorInvalidValue;
-    if (vec && (nx % 4 != 0 || !aligned16(x) || !aligned16(z1) || !aligned16(u1) || !aligned16(z2) || !aligned16(u2)))
-        return (int)cudaErrorMisalignedAddress;
-#define ADMM_LAUNCH(V, R, P)                                                                                \
-    admm_split_update_kernel<V, R, P><<<grid, ADMM_THREADS, 0, (cudaStream_t)stream>>>(                     \
-        (const float*)x, (float*)z1, (float*)u1, (float*)z2, (float*)u2, (const float*)lam, nb, nz, ny, nx, \
-        eps, eps2, alpha, one_minus_alpha, rz, ry, rx)
-#define ADMM_LAUNCH_VEC(R, P) \
-    if (vec) ADMM_LAUNCH(true, R, P); else ADMM_LAUNCH(false, R, P)
-    if (relax) {
-        if (positivity) { ADMM_LAUNCH_VEC(true, true); } else { ADMM_LAUNCH_VEC(true, false); }
-    } else {
-        if (positivity) { ADMM_LAUNCH_VEC(false, true); } else { ADMM_LAUNCH_VEC(false, false); }
-    }
-#undef ADMM_LAUNCH_VEC
-#undef ADMM_LAUNCH
-    return (int)cudaGetLastError();
+    return split_update(x, x, (int64_t)nz * ny * nx, z1, u1, z2, u2, lam, nb, nz, ny, nx, 0, nz, eps, eps2, alpha,
+                        one_minus_alpha, relax, positivity, vec, rz, ry, rx, false, stream);
+}
+
+// The split update of z-slabs (nb, nz, ny, nx) of a volume of nz_glob planes, the
+// slab's first plane at z_off: xnext is x's plane after each slab's last (nb
+// contiguous (ny, nx) planes; around the ring after the volume's last plane), the
+// other arguments those of admm_split_update_f32.
+int admm_split_update_slab_f32(const void* x, const void* xnext, void* z1, void* u1, void* z2, void* u2,
+                               const void* lam, int nb, int nz, int ny, int nx, int z_off, int nz_glob, float eps,
+                               float eps2, float alpha, float one_minus_alpha, int relax, int positivity, int vec,
+                               float rz, float ry, float rx, void* stream) {
+    return split_update(x, xnext, (int64_t)ny * nx, z1, u1, z2, u2, lam, nb, nz, ny, nx, z_off, nz_glob, eps, eps2,
+                        alpha, one_minus_alpha, relax, positivity, vec, rz, ry, rx, true, stream);
 }
 
 // out (nb, nz, ny, nx) = rho1 * D^T(z1 - u1) + rho2 * (z2 - u2) with the circular
@@ -357,12 +417,20 @@ int admm_split_update_f32(const void* x, void* z1, void* u1, void* z2, void* u2,
 int admm_rhs_f32(const void* z1, const void* u1, const void* z2, const void* u2, const void* rho1,
                  const void* rho2, void* out, int nb, int nz, int ny, int nx, float rz, float ry, float rx,
                  void* stream) {
-    dim3 grid;
-    if (!plane_grid(nb, nz, ny, nx, 1, &grid)) return (int)cudaErrorInvalidConfiguration;
-    admm_rhs_kernel<<<grid, ADMM_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)z1, (const float*)u1, (const float*)z2, (const float*)u2, (const float*)rho1,
-        (const float*)rho2, (float*)out, nb, nz, ny, nx, rz, ry, rx);
-    return (int)cudaGetLastError();
+    // The whole volume is its own previous slab: before plane 0, the lane's last plane of z1_z, u1_z.
+    const int64_t plane = (int64_t)ny * nx, last = (int64_t)(nz - 1) * plane;
+    return rhs(z1, u1, z2, u2, (const float*)z1 + last, (const float*)u1 + last, 3 * nz * plane, rho1, rho2, out,
+               nb, nz, ny, nx, rz, ry, rx, stream);
+}
+
+// The rhs of z-slabs (nb, nz, ny, nx): z1p and u1p are the z components (a = 0) of z1
+// and u1 at the plane before each slab's first (nb contiguous (ny, nx) planes each;
+// around the ring before the volume's first plane), the other arguments those of
+// admm_rhs_f32.
+int admm_rhs_slab_f32(const void* z1, const void* u1, const void* z2, const void* u2, const void* z1p,
+                      const void* u1p, const void* rho1, const void* rho2, void* out, int nb, int nz, int ny, int nx,
+                      float rz, float ry, float rx, void* stream) {
+    return rhs(z1, u1, z2, u2, z1p, u1p, (int64_t)ny * nx, rho1, rho2, out, nb, nz, ny, nx, rz, ry, rx, stream);
 }
 
 }  // extern "C"

@@ -57,6 +57,17 @@
 //     stages the same footprint through 4-byte cp.async copies (zero-filled
 //     outside the volume) that arrive on the same mbarriers, and stores the
 //     gradient 4 bytes at a time.
+//   - Slabs. A z-slab of a volume sharded over devices (microtipi_tpu_torch/parallel)
+//     takes the same kernel with its neighbours' boundary planes: `prev`, the
+//     plane before the slab, and `next`, the plane after it, each (B, ny, nx),
+//     staged from two more tensor maps (or by the 4-byte copies) into the same
+//     ring. A missing halo is the volume's face: no incoming w_z before the
+//     first plane, d_z = 0 at the last. The slab's cost sums its own planes and
+//     its gradient is written for them only, so the costs of the slabs add up
+//     to the volume's and their gradients are the volume's gradient, bit for
+//     bit (every per-voxel term comes from the same inputs in the same order).
+//     A whole volume is the slab with no halos. This replaces the halo
+//     exchanges that GSPMD inserts around the Pallas kernel on a TPU mesh.
 // The per-voxel arithmetic keeps the operation order of the kernel's first
 // version, so the gradient is the same bit for bit.
 //
@@ -152,10 +163,12 @@ __device__ __forceinline__ double block_sum(double v, double* s_red) {
 // Grid: (x tiles, y tiles, B * z ranges); blockIdx.z = volume * nranges + range.
 template <bool kTma>
 __global__ void __launch_bounds__(TV_THREADS)
-hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const float* __restrict__ x,
+hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__ CUtensorMap tmap_prev,
+                     const __grid_constant__ CUtensorMap tmap_next, const float* __restrict__ x,
+                     const float* __restrict__ prev, const float* __restrict__ next,
                      float* __restrict__ grad, double* __restrict__ partials, float* __restrict__ costs,
-                     unsigned int* __restrict__ tickets, int nz, int ny, int nx, int nranges,
-                     float eps, float inv_sz, float inv_sy, float inv_sx) {
+                     unsigned int* __restrict__ tickets, int nz, int ny, int nx, int nranges, int has_prev,
+                     int has_next, float eps, float inv_sz, float inv_sy, float inv_sx) {
     __shared__ __align__(128) float s_ring[TV_STAGES][TV_STAGE_STRIDE];
     __shared__ __align__(16) float s_wy[2][TV_TY + 1][TV_TX];  // w_y at rows y0-1 .. y0+TY-1
     __shared__ float s_wxl[2][TV_TY][TV_TPR + 1];  // [0]: w_x at x0-1; [c+1]: thread c's last w_x
@@ -170,11 +183,12 @@ hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const float* __re
     const int vol = blockIdx.z / nranges, range = blockIdx.z - vol * nranges;
     const int z0 = range * TV_ZR, z1 = min(z0 + TV_ZR, nz);
     // Planes staged: the one before the range (to rebuild its incoming w_z),
-    // the range, and the one after it (for the last plane's d_z).
-    const int pstart = z0 > 0 ? z0 - 1 : 0, pend = min(z1 + 1, nz);
+    // the range, and the one after it (for the last plane's d_z). Plane -1 is
+    // the `prev` halo and plane nz the `next` one; [lo, hi) are those there are.
+    const int lo = has_prev ? -1 : 0, hi = has_next ? nz + 1 : nz;
+    const int pstart = max(z0 - 1, lo), pend = min(z1 + 1, hi);
     const float eps2 = eps * eps;
     const size_t plane = (size_t)ny * nx;
-    const uint64_t map_addr = reinterpret_cast<uint64_t>(&tmap);
     const float* xv = x + (size_t)vol * nz * plane;
     float* gv = grad + (size_t)vol * nz * plane;
 
@@ -193,15 +207,20 @@ hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const float* __re
         float* dst = s_ring[k % TV_STAGES];
         const uint32_t bar = smem_addr(&s_full[k % TV_STAGES]);
         if constexpr (kTma) {
+            // A halo plane is plane `vol` of its own (B, ny, nx) map.
+            const CUtensorMap* map = p < 0 ? &tmap_prev : p >= nz ? &tmap_next : &tmap;
+            const int zc = p < 0 || p >= nz ? vol : vol * nz + p;
             asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
                          "r"(TV_STAGE_BYTES) : "memory");
             asm volatile(
                 "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
                 "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
-                "l"(map_addr), "r"(bar), "r"(x0 - TV_VEC), "r"(y0 - 1),
-                "r"(vol * nz + p) : "memory");
+                "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x0 - TV_VEC), "r"(y0 - 1),
+                "r"(zc) : "memory");
         } else {
-            const float* src_plane = xv + (size_t)p * plane;
+            const float* src_plane = p < 0     ? prev + (size_t)vol * plane
+                                     : p >= nz ? next + (size_t)vol * plane
+                                               : xv + (size_t)p * plane;
             for (int i = tid; i < TV_STAGE_FLOATS; i += TV_THREADS) {
                 const int row = i / TV_SW, col = i - row * TV_SW;
                 const int gy = y0 - 1 + row, gx = x0 - TV_VEC + col;
@@ -231,7 +250,7 @@ hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const float* __re
     wait(pstart);
     for (int z = pstart; z < z1; ++z) {
         const int k = z - pstart, b = k & 1;
-        const bool hz = z + 1 < nz;
+        const bool hz = z + 1 < hi;
         if (hz) wait(z + 1);
         const float* cur = s_ring[k % TV_STAGES];
         const float* nxt = hz ? s_ring[(k + 1) % TV_STAGES] : cur;
@@ -332,46 +351,65 @@ static EncodeTiledFn encode_tiled() {
     return fn;
 }
 
+// A 3D map of `depth` planes (ny, nx) of float32 with TV_SW x TV_SH x 1 boxes.
+static bool encode_planes(CUtensorMap* map, const void* base, int nx, int ny, int64_t depth) {
+    EncodeTiledFn encode = encode_tiled();
+    if (!encode) return false;
+    const cuuint64_t dims[3] = {(cuuint64_t)nx, (cuuint64_t)ny, (cuuint64_t)depth};
+    const cuuint64_t strides[2] = {(cuuint64_t)nx * 4, (cuuint64_t)nx * ny * 4};
+    const cuuint32_t box[3] = {TV_SW, TV_SH, 1};
+    const cuuint32_t estr[3] = {1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides, box, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+static bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
 extern "C" {
 
-// One evaluation over a batch of nb contiguous float32 volumes (nz, ny, nx);
-// a single volume is nb = 1. The geometry comes from the caller, which
-// computed it with the same tile: grid (gx, gy, nb * nranges) with
+// One evaluation over z-slabs of a batch of nb volumes: x is nb contiguous
+// float32 slabs (nz, ny, nx), prev and next the planes before and after each
+// slab (nb contiguous (ny, nx) planes each), NULL where the slab starts or
+// ends the volume; a whole volume (or batch of them) is the slab with both
+// NULL. The costs are the slabs' own planes' and the gradient is
+// the volume's at the slab's planes (see the note at the top). The geometry
+// comes from the caller, which computed it with the same tile: grid (gx, gy, nb * nranges) with
 // gx = ceil(nx / 64), gy = ceil(ny / 16), nranges = ceil(nz / 32);
 // anything else, or a grid above 65535 in y or z, is refused with
 // cudaErrorInvalidConfiguration before launching. aligned = 1 takes the TMA
-// instantiation, which needs nx % 4 == 0 and x and grad 16-byte aligned
-// (else cudaErrorInvalidValue); aligned = 0 the 4-byte-copy one.
+// instantiation, which needs nx % 4 == 0 and x, grad and the halos 16-byte
+// aligned (else cudaErrorInvalidValue); aligned = 0 the 4-byte-copy one.
 // partials: float64, nb * gx * gy * nranges; costs: float32, nb; tickets:
 // uint32, nb, zero before the first launch (each launch leaves them zero).
-int hyperbolic_tv_f32(const void* x, void* grad, void* partials, void* costs, void* tickets, int nb, int nz,
-                      int ny, int nx, int gx, int gy, int nranges, int aligned, float eps,
-                      float inv_sz, float inv_sy, float inv_sx, void* stream) {
+int hyperbolic_tv_slab_f32(const void* x, const void* prev, const void* next, void* grad, void* partials,
+                           void* costs, void* tickets, int nb, int nz, int ny, int nx, int gx, int gy, int nranges,
+                           int aligned, float eps, float inv_sz, float inv_sy, float inv_sx, void* stream) {
     if (nb < 1 || nz < 1 || ny < 1 || nx < 1 || gx != (nx + TV_TX - 1) / TV_TX ||
         gy != (ny + TV_TY - 1) / TV_TY || nranges != (nz + TV_ZR - 1) / TV_ZR || gy > 65535 ||
         (int64_t)nb * nranges > 65535)
         return (int)cudaErrorInvalidConfiguration;
     const dim3 grid(gx, gy, nb * nranges);
-    CUtensorMap tmap = {};
+    CUtensorMap tmap = {}, tmap_prev = {}, tmap_next = {};
+    const int has_prev = prev != nullptr, has_next = next != nullptr;
     if (aligned) {
-        if (nx % 4 != 0 || (uintptr_t)x % 16 != 0 || (uintptr_t)grad % 16 != 0) return (int)cudaErrorInvalidValue;
-        EncodeTiledFn encode = encode_tiled();
-        if (!encode) return (int)cudaErrorSymbolNotFound;
-        const cuuint64_t dims[3] = {(cuuint64_t)nx, (cuuint64_t)ny, (cuuint64_t)nb * nz};
-        const cuuint64_t strides[2] = {(cuuint64_t)nx * 4, (cuuint64_t)nx * ny * 4};
-        const cuuint32_t box[3] = {TV_SW, TV_SH, 1};
-        const cuuint32_t estr[3] = {1, 1, 1};
-        if (encode(&tmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(x), dims, strides, box, estr,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        if (nx % 4 != 0 || !aligned16(x) || !aligned16(grad) || (has_prev && !aligned16(prev)) ||
+            (has_next && !aligned16(next)))
+            return (int)cudaErrorInvalidValue;
+        if (!encode_tiled()) return (int)cudaErrorSymbolNotFound;
+        if (!encode_planes(&tmap, x, nx, ny, (int64_t)nb * nz) ||
+            (has_prev && !encode_planes(&tmap_prev, prev, nx, ny, nb)) ||
+            (has_next && !encode_planes(&tmap_next, next, nx, ny, nb)))
             return (int)cudaErrorInvalidValue;
         hyperbolic_tv_kernel<true><<<grid, TV_THREADS, 0, (cudaStream_t)stream>>>(
-            tmap, (const float*)x, (float*)grad, (double*)partials, (float*)costs, (unsigned int*)tickets, nz, ny,
-            nx, nranges, eps, inv_sz, inv_sy, inv_sx);
+            tmap, tmap_prev, tmap_next, (const float*)x, (const float*)prev, (const float*)next, (float*)grad,
+            (double*)partials, (float*)costs, (unsigned int*)tickets, nz, ny, nx, nranges, has_prev, has_next, eps,
+            inv_sz, inv_sy, inv_sx);
     } else {
         hyperbolic_tv_kernel<false><<<grid, TV_THREADS, 0, (cudaStream_t)stream>>>(
-            tmap, (const float*)x, (float*)grad, (double*)partials, (float*)costs, (unsigned int*)tickets, nz, ny,
-            nx, nranges, eps, inv_sz, inv_sy, inv_sx);
+            tmap, tmap_prev, tmap_next, (const float*)x, (const float*)prev, (const float*)next, (float*)grad,
+            (double*)partials, (float*)costs, (unsigned int*)tickets, nz, ny, nx, nranges, has_prev, has_next, eps,
+            inv_sz, inv_sy, inv_sx);
     }
     return (int)cudaGetLastError();
 }

@@ -10,6 +10,13 @@ fuses under ``jit`` on the TPU, each one hand-written CUDA kernel here
   the Newton hyperbolic prox, the positivity clamp and the dual updates.
 - :func:`admm_rhs`: the x-update's right-hand side (``admm.py:330-331``),
   ``rho1 * D^T(z1 - u1) + rho2 * (z2 - u2)``.
+- :func:`admm_split_update_slab` and :func:`admm_rhs_slab`: the same two
+  kernels on a z-slab of a volume sharded in z (``parallel/admm.py``), with
+  the neighbouring slabs' planes: x's plane after the slab, for the split
+  update (around the ring after the volume's last plane), whose z mask is the
+  volume's last plane (``z_off``, ``nz``: the slab's global offset and the
+  volume's depth); ``z1_z``, ``u1_z`` at the plane before the slab, for the
+  rhs. The slabs' outputs put together are the whole volume's, bit for bit.
 
 Both take a batch: ``x``, ``z2``, ``u2`` are (B, Nz, Ny, Nx), ``z1`` and ``u1``
 (B, 3, Nz, Ny, Nx) with the difference axis second, and ``lam = mu / rho1``,
@@ -21,7 +28,8 @@ raises; on a CPU tensor it takes the plain version beside it
 ``torch.roll``, any dtype and device). The kernels keep the plain versions'
 operation order, and both multiply by the scales' reciprocals
 (:func:`reciprocals`), so on the card the two agree bit for bit.
-``split_launches`` and ``rhs_launches`` count kernel launches (CPU calls leave
+``split_launches`` and ``rhs_launches`` count kernel launches, and
+``split_slab_launches`` and ``rhs_slab_launches`` slab launches (CPU calls leave
 them alone); a run sets them to 0 and reads them to show that its path went
 through the kernels. ``split_unaligned_launches`` counts the split update's
 4-byte instantiation (:func:`split_vectorized` is false).
@@ -45,8 +53,12 @@ import torch
 __all__ = [
     "admm_rhs",
     "admm_rhs_plain",
+    "admm_rhs_slab",
+    "admm_rhs_slab_plain",
     "admm_split_update",
     "admm_split_update_plain",
+    "admm_split_update_slab",
+    "admm_split_update_slab_plain",
     "circ_diffs",
     "circ_diffs_adjoint",
     "hyperbolic_prox",
@@ -60,7 +72,10 @@ __all__ = [
 split_launches = 0
 #: ``admm_rhs`` kernel launches since the last reset (``rhs_launches = 0``).
 rhs_launches = 0
-#: of ``split_launches``, those of the 4-byte instantiation (nx % 4 != 0 or a base
+#: Slab launches of the split update and the rhs since the last reset.
+split_slab_launches = 0
+rhs_slab_launches = 0
+#: of ``split_launches`` and ``split_slab_launches``, those of the 4-byte instantiation (nx % 4 != 0 or a base
 #: off 16-byte alignment).
 split_unaligned_launches = 0
 
@@ -111,10 +126,33 @@ def hyperbolic_prox(vmag: torch.Tensor, lam, eps: float, newton_iters: int = NEW
     return s
 
 
-def _trailing_face(t: torch.Tensor, a: int) -> torch.Tensor:
-    """Component ``a`` of a stack (B, 3, Nz, Ny, Nx) on axis ``a``'s trailing
-    face, where the replicate-boundary TV has no difference: a view."""
-    return t[:, a].select(a + 1, -1)
+def _trailing_faces(t: torch.Tensor, z_face=-1):
+    """Each component ``a`` of a stack (B, 3, Nz, Ny, Nx) on axis ``a``'s
+    trailing face, where the replicate-boundary TV has no difference, as
+    views. ``z_face``: the z face's plane, None for a slab that does not hold
+    the volume's last plane."""
+    for a in range(3):
+        if a or z_face is not None:
+            yield t[:, a].select(a + 1, -1 if a else z_face)
+
+
+def slab_diffs(x: torch.Tensor, x_next: torch.Tensor, scales=None) -> torch.Tensor:
+    """:func:`circ_diffs` of z-slabs (B, nz, Ny, Nx), the plane after the
+    slab's last ``x_next`` (B, Ny, Nx): the same operations on the same
+    values, so the slabs' differences put together are the volume's."""
+    r = reciprocals(scales, x.dtype)
+    ahead = torch.cat([x[:, 1:], x_next[:, None]], dim=1)
+    return torch.stack([(ahead - x) * r[0]] + [(torch.roll(x, -1, dims=a + 1) - x) * r[a] for a in (1, 2)], dim=1)
+
+
+def slab_diffs_adjoint(g: torch.Tensor, g_prev: torch.Tensor, scales=None) -> torch.Tensor:
+    """:func:`circ_diffs_adjoint` of a slab stack (B, 3, nz, Ny, Nx), with
+    ``g_prev`` (B, Ny, Nx) the z component at the plane before the slab."""
+    r = reciprocals(scales, g.dtype)
+    out = 0.0 + (torch.cat([g_prev[:, None], g[:, 0, :-1]], dim=1) - g[:, 0]) * r[0]
+    for a in (1, 2):
+        out = out + (torch.roll(g[:, a], 1, dims=a + 1) - g[:, a]) * r[a]
+    return out
 
 
 def per_lane(t: torch.Tensor) -> torch.Tensor:
@@ -122,30 +160,33 @@ def per_lane(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, 1, 1, 1)
 
 
-def split_magnitude(x, z1, u1, alpha: float = 1.0, scales=None, group: int = 1):
+def split_magnitude(x, z1, u1, alpha: float = 1.0, scales=None, group: int = 1, dx=None, z_face=-1):
     """``(dxr, v, vmag)`` of the split update: the relaxed differences, ``v =
     dxr + u1`` and its masked magnitude (B, Nz, Ny, Nx), ``tiny`` under the
     root. The replicate-boundary mask is applied on the trailing faces' views.
     ``group`` > 1 takes one magnitude over each run of ``group`` lanes (the
     channels of the joint TV, ``admm.py:1076-1090``): vmag is then
-    (B / group, Nz, Ny, Nx)."""
-    dx = circ_diffs(x, scales)
+    (B / group, Nz, Ny, Nx). A slab passes its differences ``dx``
+    (:func:`slab_diffs`) and its z face's plane ``z_face`` (None: not in it)."""
+    dx = circ_diffs(x, scales) if dx is None else dx
     dxr = dx if alpha == 1.0 else alpha * dx + (1.0 - alpha) * z1
     v = dxr + u1
     sq = v * v
-    for a in range(3):
-        _trailing_face(sq, a).zero_()
+    for face in _trailing_faces(sq, z_face):
+        face.zero_()
     mag2 = sq[:, 0] + sq[:, 1] + sq[:, 2] if group == 1 else sq.reshape(-1, 3 * group, *x.shape[1:]).sum(1)
     return dxr, v, torch.sqrt(mag2 + torch.finfo(x.dtype).tiny)
 
 
-def split_apply(x, z1, u1, z2, u2, dxr, v, scale, alpha: float = 1.0, positivity: bool = True) -> None:
+def split_apply(x, z1, u1, z2, u2, dxr, v, scale, alpha: float = 1.0, positivity: bool = True,
+                z_face=-1) -> None:
     """The rest of the split update from the prox's shrinkage ``scale`` (B,
     Nz, Ny, Nx), in place on ``z1, u1, z2, u2``: ``z1 = scale * v`` off the
-    trailing faces, the positivity clamp and the dual updates."""
+    trailing faces (``z_face`` as in :func:`split_magnitude`), the positivity
+    clamp and the dual updates."""
     z1_new = scale[:, None] * v
-    for a in range(3):  # unpenalized there: the prox is the identity
-        _trailing_face(z1_new, a).copy_(_trailing_face(v, a))
+    for face, v_face in zip(_trailing_faces(z1_new, z_face), _trailing_faces(v, z_face)):
+        face.copy_(v_face)  # unpenalized there: the prox is the identity
     xr = x if alpha == 1.0 else alpha * x + (1.0 - alpha) * z2
     z2_new = torch.clamp_min(xr + u2, 0.0) if positivity else xr + u2
     u1.add_(dxr).sub_(z1_new)
@@ -161,6 +202,31 @@ def admm_split_update_plain(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float
     dxr, v, vmag = split_magnitude(x, z1, u1, alpha, scales)
     scale = hyperbolic_prox(vmag, per_lane(lam), float(epsilon)) / vmag
     split_apply(x, z1, u1, z2, u2, dxr, v, scale, alpha, positivity)
+
+
+def _z_face(z_off: int, nz: int, nz_glob: int):
+    """The slab's plane that is the volume's last, or None."""
+    return nz - 1 if z_off + nz == nz_glob else None
+
+
+def admm_split_update_slab_plain(x, x_next, z1, u1, z2, u2, lam, epsilon: float, z_off: int, nz: int,
+                                 alpha: float = 1.0, positivity: bool = True, scales=None) -> None:
+    """The split update of z-slabs with PyTorch operators, in place: the
+    slab launch's plain version. ``x_next`` (B, Ny, Nx) is x's plane after
+    the slab's last, ``z_off`` the slab's first plane in the volume of ``nz``
+    planes."""
+    z_face = _z_face(z_off, x.shape[1], nz)
+    dxr, v, vmag = split_magnitude(x, z1, u1, alpha, scales, dx=slab_diffs(x, x_next, scales), z_face=z_face)
+    scale = hyperbolic_prox(vmag, per_lane(lam), float(epsilon)) / vmag
+    split_apply(x, z1, u1, z2, u2, dxr, v, scale, alpha, positivity, z_face=z_face)
+
+
+def admm_rhs_slab_plain(z1, u1, z2, u2, z1_prev, u1_prev, rho1, rho2, scales=None) -> torch.Tensor:
+    """The rhs of z-slabs with PyTorch operators: the slab launch's plain
+    version; ``z1_prev``, ``u1_prev`` (B, Ny, Nx) are the z components at the
+    plane before the slab."""
+    return (per_lane(rho1) * slab_diffs_adjoint(z1 - u1, z1_prev - u1_prev, scales)
+            + per_lane(rho2) * (z2 - u2))
 
 
 def admm_rhs_plain(z1, u1, z2, u2, rho1, rho2, scales=None) -> torch.Tensor:
@@ -181,6 +247,14 @@ def _library() -> ctypes.CDLL:
     lib.admm_split_update_f32.restype = ctypes.c_int
     lib.admm_rhs_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     lib.admm_rhs_f32.restype = ctypes.c_int
+    lib.admm_split_update_slab_f32.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_int] * 3
+        + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    )
+    lib.admm_split_update_slab_f32.restype = ctypes.c_int
+    lib.admm_rhs_slab_f32.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                                      + [ctypes.c_void_p])
+    lib.admm_rhs_slab_f32.restype = ctypes.c_int
     return lib
 
 
@@ -220,35 +294,57 @@ def _launcher(name: str, fn, args: tuple, device: torch.device, buffers: tuple):
     return launch
 
 
-def split_vectorized(x, z1, u1, z2, u2) -> bool:
+def split_vectorized(x, z1, u1, z2, u2, x_next=None) -> bool:
     """Whether the split update takes its 16-byte instantiation on these
     tensors: nx % 4 == 0 and every base 16-byte aligned."""
-    return x.shape[-1] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, z1, u1, z2, u2))
+    return x.shape[-1] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, z1, u1, z2, u2, x_next)
+                                        if t is not None)
+
+
+def _check_planes(name: str, x: torch.Tensor, planes) -> None:
+    """Halo planes of slabs ``x`` (B, nz, Ny, Nx): float32 contiguous (B, Ny, Nx) on its device."""
+    want = (x.shape[0], *x.shape[2:])
+    for t in planes:
+        if t.dtype != torch.float32 or t.device != x.device or tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"the CUDA {name} kernel takes contiguous float32 halo planes {want} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def prepare_split_update(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float = 1.0, positivity: bool = True,
-                         scales=None):
+                         scales=None, x_next=None, z_off: int = 0, nz=None):
     """A callable that launches the split-update kernel on these tensors (in
     place, on the current stream), for timing back-to-back launches. It counts
-    nothing."""
+    nothing. With ``x_next`` it is the slab launch (:func:`admm_split_update_slab`)."""
     _check("admm_split_update", x, stacks=(z1, u1), volumes=(z2, u2), lanes=(lam,))
     eps, alpha = float(epsilon), float(alpha)
-    args = (x.data_ptr(), z1.data_ptr(), u1.data_ptr(), z2.data_ptr(), u2.data_ptr(), lam.data_ptr(), *x.shape,
-            eps, eps * eps, alpha, 1.0 - alpha, int(alpha != 1.0), int(bool(positivity)),
-            int(split_vectorized(x, z1, u1, z2, u2)), *reciprocals(scales))
-    return _launcher("admm_split_update", _library().admm_split_update_f32, args, x.device,
-                     (x, z1, u1, z2, u2, lam))
+    tail = (eps, eps * eps, alpha, 1.0 - alpha, int(alpha != 1.0), int(bool(positivity)),
+            int(split_vectorized(x, z1, u1, z2, u2, x_next)), *reciprocals(scales))
+    ptrs = (z1.data_ptr(), u1.data_ptr(), z2.data_ptr(), u2.data_ptr(), lam.data_ptr())
+    if x_next is None:
+        return _launcher("admm_split_update", _library().admm_split_update_f32, (x.data_ptr(), *ptrs, *x.shape,
+                         *tail), x.device, (x, z1, u1, z2, u2, lam))
+    _check_planes("admm_split_update", x, (x_next,))
+    args = (x.data_ptr(), x_next.data_ptr(), *ptrs, *x.shape, int(z_off), int(nz), *tail)
+    return _launcher("admm_split_update", _library().admm_split_update_slab_f32, args, x.device,
+                     (x, x_next, z1, u1, z2, u2, lam))
 
 
-def prepare_rhs(z1, u1, z2, u2, rho1, rho2, scales=None):
+def prepare_rhs(z1, u1, z2, u2, rho1, rho2, scales=None, z1_prev=None, u1_prev=None):
     """``(launch, out)``: the output allocated once and a callable that
     launches the rhs kernel into it, for timing back-to-back launches. It
-    counts nothing."""
+    counts nothing. With ``z1_prev``, ``u1_prev`` it is the slab launch
+    (:func:`admm_rhs_slab`)."""
     _check("admm_rhs", z2, stacks=(z1, u1), volumes=(u2,), lanes=(rho1, rho2))
     out = torch.empty_like(z2)
-    args = (z1.data_ptr(), u1.data_ptr(), z2.data_ptr(), u2.data_ptr(), rho1.data_ptr(), rho2.data_ptr(),
-            out.data_ptr(), *z2.shape, *reciprocals(scales))
-    return _launcher("admm_rhs", _library().admm_rhs_f32, args, z2.device, (z1, u1, z2, u2, rho1, rho2, out)), out
+    tail = (rho1.data_ptr(), rho2.data_ptr(), out.data_ptr(), *z2.shape, *reciprocals(scales))
+    if z1_prev is None:
+        args = (z1.data_ptr(), u1.data_ptr(), z2.data_ptr(), u2.data_ptr(), *tail)
+        return _launcher("admm_rhs", _library().admm_rhs_f32, args, z2.device,
+                         (z1, u1, z2, u2, rho1, rho2, out)), out
+    _check_planes("admm_rhs", z2, (z1_prev, u1_prev))
+    args = (z1.data_ptr(), u1.data_ptr(), z2.data_ptr(), u2.data_ptr(), z1_prev.data_ptr(), u1_prev.data_ptr(), *tail)
+    return _launcher("admm_rhs", _library().admm_rhs_slab_f32, args, z2.device,
+                     (z1, u1, z2, u2, z1_prev, u1_prev, rho1, rho2, out)), out
 
 
 def admm_split_update(x, z1, u1, z2, u2, lam, epsilon: float, alpha: float = 1.0, positivity: bool = True,
@@ -279,3 +375,37 @@ def admm_rhs(z1, u1, z2, u2, rho1, rho2, scales=None) -> torch.Tensor:
     if z2.device.type == "cpu":
         return admm_rhs_plain(z1, u1, z2, u2, rho1, rho2, scales)
     raise ValueError(f"admm_rhs runs on CUDA or CPU tensors, got {z2.device}")
+
+
+def admm_split_update_slab(x, x_next, z1, u1, z2, u2, lam, epsilon: float, z_off: int, nz: int, alpha: float = 1.0,
+                           positivity: bool = True, scales=None) -> None:
+    """The split update of z-slabs (B, nz_slab, Ny, Nx) in place: one slab
+    launch for CUDA tensors, :func:`admm_split_update_slab_plain` for CPU
+    ones. ``x_next`` (B, Ny, Nx) is x's plane after the slab's last (after the
+    volume's last plane, its first), ``z_off`` the slab's first plane in the
+    volume of ``nz`` planes."""
+    global split_slab_launches, split_unaligned_launches
+    if x.device.type == "cuda":
+        prepare_split_update(x, z1, u1, z2, u2, lam, epsilon, alpha, positivity, scales, x_next, z_off, nz)()
+        split_slab_launches += 1
+        split_unaligned_launches += not split_vectorized(x, z1, u1, z2, u2, x_next)
+    elif x.device.type == "cpu":
+        admm_split_update_slab_plain(x, x_next, z1, u1, z2, u2, lam, epsilon, z_off, nz, alpha, positivity, scales)
+    else:
+        raise ValueError(f"admm_split_update_slab runs on CUDA or CPU tensors, got {x.device}")
+
+
+def admm_rhs_slab(z1, u1, z2, u2, z1_prev, u1_prev, rho1, rho2, scales=None) -> torch.Tensor:
+    """The rhs of z-slabs: one slab launch for CUDA tensors,
+    :func:`admm_rhs_slab_plain` for CPU ones. ``z1_prev``, ``u1_prev`` (B, Ny,
+    Nx) are the z components at the plane before the slab's first (before the
+    volume's first plane, at its last)."""
+    global rhs_slab_launches
+    if z2.device.type == "cuda":
+        launch, out = prepare_rhs(z1, u1, z2, u2, rho1, rho2, scales, z1_prev, u1_prev)
+        launch()
+        rhs_slab_launches += 1
+        return out
+    if z2.device.type == "cpu":
+        return admm_rhs_slab_plain(z1, u1, z2, u2, z1_prev, u1_prev, rho1, rho2, scales)
+    raise ValueError(f"admm_rhs_slab runs on CUDA or CPU tensors, got {z2.device}")

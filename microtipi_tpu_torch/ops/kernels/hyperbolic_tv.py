@@ -14,11 +14,18 @@ why it is shaped as it is.
   batch (B, Nz, Ny, Nx), no difference crossing a volume boundary: one launch
   of the same kernel with the batch on its grid (float32, contiguous, 4D), or
   :func:`hyperbolic_tv_batched_plain` for a CPU tensor.
+- :func:`hyperbolic_tv_slab_fused` returns ``(costs (B,), grad)`` of z-slabs
+  (B, nz, Ny, Nx) of a volume sharded in z (``parallel/``): the same kernel
+  with the plane before the slab and the plane after it (B, Ny, Nx), None
+  where the slab starts or ends the volume. The costs are the slab's own
+  planes' and the gradient is the whole volume's at the slab's planes, so the
+  slabs' costs add up to the volume's and their gradients put together are
+  its gradient; :func:`hyperbolic_tv_slab_plain` is its plain version.
 - :class:`HyperbolicTV` and :class:`HyperbolicTVBatched` are the
   ``torch.autograd.Function``s: the forward runs the sweep once and keeps the
   gradient, the backward is ``g * grad`` (per volume for the batch).
 - ``launches`` counts single-volume launches and ``batched_launches`` batched
-  ones (CPU calls leave both alone); a run sets them to 0 and reads them to
+  ones and ``slab_launches`` slab ones (CPU calls leave them alone); a run sets them to 0 and reads them to
   show which kernel its path went through. ``unaligned_launches`` counts the
   launches of either kind that took the kernel's 4-byte-copy instantiation
   (nx % 4 != 0, or data not 16-byte aligned) instead of its TMA one.
@@ -42,7 +49,7 @@ from typing import NamedTuple
 
 import torch
 
-from microtipi_tpu_torch.ops.regularization import hyperbolic_tv
+from microtipi_tpu_torch.ops.regularization import _forward_diffs, hyperbolic_tv
 
 __all__ = [
     "HyperbolicTV",
@@ -52,6 +59,8 @@ __all__ = [
     "hyperbolic_tv_batched_value",
     "hyperbolic_tv_fused",
     "hyperbolic_tv_plain",
+    "hyperbolic_tv_slab_fused",
+    "hyperbolic_tv_slab_plain",
     "hyperbolic_tv_value",
 ]
 
@@ -59,6 +68,8 @@ __all__ = [
 launches = 0
 #: Batched kernel launches since the last reset (``batched_launches = 0``).
 batched_launches = 0
+#: Slab launches (a z-slab with its halo planes) since the last reset.
+slab_launches = 0
 #: Launches (of either kind) that took the 4-byte-copy instantiation because
 #: nx % 4 != 0 or the data is not 16-byte aligned.
 unaligned_launches = 0
@@ -93,15 +104,37 @@ def hyperbolic_tv_batched_plain(x: torch.Tensor, epsilon: float, scales=None):
     return costs.detach(), grad
 
 
+def hyperbolic_tv_slab_plain(x: torch.Tensor, prev, next_, epsilon: float, scales=None):
+    """(costs (B,), grad) of z-slabs ``x`` (B, nz, Ny, Nx) with their halo
+    planes ``prev`` and ``next_`` (B, Ny, Nx, or None at the volume's faces),
+    by autograd of the plain definition — the slab launch's plain version, on
+    any device and dtype. The costs sum the slab's own planes; the gradient is
+    that of the plane before the slab and the slab's own planes together,
+    which is the whole volume's gradient at the slab's planes."""
+    if x.ndim != 4:
+        raise ValueError(f"slabs are 4D (B, nz, Ny, Nx), got shape {tuple(x.shape)}")
+    lo = int(prev is not None)
+    with torch.enable_grad():
+        xv = x.detach().requires_grad_(True)
+        ext = torch.cat([h.detach()[:, None] for h in (prev,) if h is not None] + [xv]
+                        + [h.detach()[:, None] for h in (next_,) if h is not None], dim=1)
+        g2 = sum(d * d for d in _forward_diffs(ext, scales, (1, 2, 3)))
+        eps = float(epsilon)
+        terms = torch.sqrt(g2 + eps * eps) - eps
+        costs = terms[:, lo:lo + x.shape[1]].sum(dim=(1, 2, 3))
+        (grad,) = torch.autograd.grad(terms[:, :lo + x.shape[1]].sum(), xv)
+    return costs.detach(), grad
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     from microtipi_tpu_torch._build import load_library
 
     lib = load_library("hyperbolic_tv")
-    lib.hyperbolic_tv_f32.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+    lib.hyperbolic_tv_slab_f32.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
     )
-    lib.hyperbolic_tv_f32.restype = ctypes.c_int
+    lib.hyperbolic_tv_slab_f32.restype = ctypes.c_int
     return lib
 
 
@@ -149,28 +182,45 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError("the CUDA hyperbolic-TV kernel takes a contiguous tensor")
 
 
-def prepare_launch(x: torch.Tensor, epsilon: float, scales=None):
+def _check_halo(h, x: torch.Tensor) -> None:
+    if h is None:
+        return
+    want = (x.shape[0], *x.shape[2:])
+    if h.dtype != torch.float32 or h.device != x.device or tuple(h.shape) != want or not h.is_contiguous():
+        raise ValueError(f"a halo plane of slabs {tuple(x.shape)} is a contiguous float32 {want} on {x.device}, "
+                         f"got {h.dtype} {tuple(h.shape)} on {h.device}")
+
+
+def prepare_launch(x: torch.Tensor, epsilon: float, scales=None, prev=None, next_=None):
     """``(launch, costs, grad, geometry)``: the outputs allocated once and a
     callable that launches the kernel into them on ``x``'s device's current
     stream, for timing back-to-back launches. It counts nothing; ``costs`` is (B,), or
-    (1,) for a 3D volume."""
+    (1,) for a 3D volume. ``prev``/``next_``: the halo planes of slabs ``x``
+    (B, nz, Ny, Nx), each (B, Ny, Nx) or None."""
     _check(x)
+    if prev is not None or next_ is not None:
+        if x.ndim != 4:
+            raise ValueError(f"slabs are 4D (B, nz, Ny, Nx), got shape {tuple(x.shape)}")
+        for h in (prev, next_):
+            _check_halo(h, x)
     nb, nz, ny, nx = x.shape if x.ndim == 4 else (1, *x.shape)
     geo = tv_launch(x.shape, x.data_ptr())
+    geo = geo._replace(aligned=geo.aligned and all(h is None or h.data_ptr() % 16 == 0 for h in (prev, next_)))
     grad = torch.empty_like(x)
     costs = torch.empty(nb, dtype=torch.float32, device=x.device)
     partials = torch.empty(nb * geo.partials, dtype=torch.float64, device=x.device)
     inv_sz, inv_sy, inv_sx = (1.0 / float(s) for s in (scales or (1.0, 1.0, 1.0)))
-    fn = _library().hyperbolic_tv_f32
+    fn = _library().hyperbolic_tv_slab_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream()
         tickets = _tickets(x.device, stream, nb)
-    args = (x.data_ptr(), grad.data_ptr(), partials.data_ptr(), costs.data_ptr(), tickets.data_ptr(), nb, nz, ny,
-            nx, *geo.grid[:2], geo.ranges, int(geo.aligned), float(epsilon), inv_sz, inv_sy, inv_sx,
+    halos = [None if h is None else h.data_ptr() for h in (prev, next_)]
+    args = (x.data_ptr(), *halos, grad.data_ptr(), partials.data_ptr(), costs.data_ptr(), tickets.data_ptr(), nb,
+            nz, ny, nx, *geo.grid[:2], geo.ranges, int(geo.aligned), float(epsilon), inv_sz, inv_sy, inv_sx,
             stream.cuda_stream)
 
     # The default keeps the buffers alive as long as the launcher: it writes through their pointers.
-    def launch(_buffers=(x, grad, costs, partials, tickets)) -> None:
+    def launch(_buffers=(x, prev, next_, grad, costs, partials, tickets)) -> None:
         with torch.cuda.device(x.device):  # the stream's device must be current at the launch
             err = fn(*args)
         if err != 0:
@@ -203,6 +253,24 @@ def hyperbolic_tv_fused(x: torch.Tensor, epsilon: float, scales=None):
     if x.device.type == "cpu":
         return hyperbolic_tv_plain(x, epsilon, scales)
     raise ValueError(f"hyperbolic_tv_fused runs on CUDA or CPU tensors, got {x.device}")
+
+
+def hyperbolic_tv_slab_fused(x: torch.Tensor, prev, next_, epsilon: float, scales=None):
+    """(costs (B,), gradient) of z-slabs ``x`` (B, nz, Ny, Nx) with their
+    halo planes (B, Ny, Nx, None at the volume's faces): one slab launch for a
+    CUDA tensor, :func:`hyperbolic_tv_slab_plain` for a CPU one."""
+    global slab_launches, unaligned_launches
+    if x.device.type == "cuda":
+        if x.ndim != 4:
+            raise ValueError(f"slabs are 4D (B, nz, Ny, Nx), got shape {tuple(x.shape)}")
+        launch, costs, grad, geo = prepare_launch(x, epsilon, scales, prev, next_)
+        launch()
+        slab_launches += 1
+        unaligned_launches += not geo.aligned
+        return costs, grad
+    if x.device.type == "cpu":
+        return hyperbolic_tv_slab_plain(x, prev, next_, epsilon, scales)
+    raise ValueError(f"hyperbolic_tv_slab_fused runs on CUDA or CPU tensors, got {x.device}")
 
 
 def hyperbolic_tv_batched_fused(x: torch.Tensor, epsilon: float, scales=None):

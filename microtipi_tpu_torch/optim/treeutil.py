@@ -4,7 +4,8 @@ Port of ``microtipi_tpu/optim/treeutil.py``: the optimizer's vocabulary
 (dot, norm, axpy, select) over its variable, which is one tensor for the
 object step and a dict of families for the joint PSF fit. Dict leaves are
 visited in sorted-key order, as ``jax.tree`` does, so sums accumulate in the
-same order as in the JAX package.
+same order as in the JAX package. A sharded volume's tiles are a dict
+keyed (batch, z) (``parallel/mesh.py``), summed batch-major.
 """
 
 from __future__ import annotations
@@ -31,9 +32,13 @@ def tmap(fn: Callable, a: Tree, *rest: Tree) -> Tree:
 
 
 def tdot(a: Tree, b: Tree) -> torch.Tensor:
-    """Sum of elementwise products over all leaves, a 0-dim tensor."""
+    """Sum of elementwise products over all leaves, a 0-dim tensor on the
+    first leaf's device: each leaf's dot is taken on its own device and
+    added there in leaf order, so a variable sharded over devices
+    (``parallel/``, keyed (batch, z)) sums in a fixed order."""
     parts = [torch.dot(x.reshape(-1), y.reshape(-1)) for x, y in zip(leaves(a), leaves(b))]
-    return sum(parts[1:], parts[0])
+    first = parts[0].device
+    return sum((t.to(first) for t in parts[1:]), parts[0])
 
 
 def tnorm(a: Tree) -> torch.Tensor:

@@ -658,3 +658,72 @@ def test_estimation_and_image_ops_stay_on_the_card(cuda_device):
     torch.cuda.synchronize()
     for i, t in enumerate(outs):
         assert t.device.type == "cuda", i
+
+
+SLAB_CUTS = [(0, 64), (0, 16, 32, 48, 64), (0, 1, 31, 63, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 64, 96), (1, 64, 45, 67)])
+@pytest.mark.parametrize("cuts", SLAB_CUTS)
+def test_tv_slab_launches_match_plain_and_the_volume(shape, cuts, cuda_device):
+    """Each slab launch (the TMA instantiation, and the 4-byte one at nx =
+    67) against its plain version; the slabs' gradients put together are the
+    whole-volume launch's bit for bit, their costs its cost to float32
+    round-off."""
+    x = torch.as_tensor(np.random.default_rng(11).standard_normal(shape, dtype=np.float32), device=cuda_device)
+    whole_c, whole_g = hv.hyperbolic_tv_batched_fused(x, 1.0, (2.0, 1.0, 1.0))
+    hv.slab_launches = 0
+    costs, grads = 0.0, []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        prev = x[:, a - 1].contiguous() if a > 0 else None
+        nxt = x[:, b].contiguous() if b < shape[1] else None
+        slab = x[:, a:b].contiguous()
+        c, g = hv.hyperbolic_tv_slab_fused(slab, prev, nxt, 1.0, (2.0, 1.0, 1.0))
+        cp, gp = hv.hyperbolic_tv_slab_plain(slab, prev, nxt, 1.0, (2.0, 1.0, 1.0))
+        torch.cuda.synchronize()
+        assert torch.allclose(c, cp, rtol=COST_RTOL) and torch.allclose(g, gp, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+        costs, grads = costs + c, grads + [g]
+    assert hv.slab_launches == len(cuts) - 1
+    assert torch.equal(torch.cat(grads, 1), whole_g)
+    assert torch.allclose(costs, whole_c, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 64, 64, 96), (2, 64, 45, 67)])
+@pytest.mark.parametrize("cuts", SLAB_CUTS)
+@pytest.mark.parametrize("alpha", [1.0, 1.8])
+def test_admm_slab_launches_match_plain_and_the_volume(shape, cuts, alpha, cuda_device):
+    """The split update's and the rhs's slab launches against their plain
+    versions, and put together against the whole-volume launches, bit for
+    bit: the ring wrap (x's first plane after the last slab, z1_z - u1_z's
+    last plane before the first) and the volume's trailing z face."""
+    st = _admm_state(shape, cuda_device, seed=12)
+    scales = (3.0, 1.0, 0.7)
+    whole = {k: st[k].clone() for k in ("z1", "u1", "z2", "u2")}
+    ak.admm_split_update(st["x"], whole["z1"], whole["u1"], whole["z2"], whole["u2"], st["lam"], 0.3, alpha, True,
+                         scales)
+    whole_rhs = ak.admm_rhs(st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"], scales)
+    nz = shape[1]
+    ak.split_slab_launches = ak.rhs_slab_launches = 0
+    parts, rhs = [], []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        sl = [st["z1"][:, :, a:b].clone(), st["u1"][:, :, a:b].clone(), st["z2"][:, a:b].clone(),
+              st["u2"][:, a:b].clone()]
+        pl = [t.clone() for t in sl]
+        x, x_next = st["x"][:, a:b].clone(), st["x"][:, b % nz].clone()
+        ak.admm_split_update_slab(x, x_next, *sl, st["lam"], 0.3, a, nz, alpha, True, scales)
+        ak.admm_split_update_slab_plain(x, x_next, *pl, st["lam"], 0.3, a, nz, alpha, True, scales)
+        args = (st["z1"][:, :, a:b].clone(), st["u1"][:, :, a:b].clone(), st["z2"][:, a:b].clone(),
+                st["u2"][:, a:b].clone(), st["z1"][:, 0, a - 1].clone(), st["u1"][:, 0, a - 1].clone(), st["rho1"],
+                st["rho2"], scales)
+        r = ak.admm_rhs_slab(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(s, p) for s, p in zip(sl, pl))
+        assert torch.equal(r, ak.admm_rhs_slab_plain(*args))
+        parts.append(sl)
+        rhs.append(r)
+    assert (ak.split_slab_launches, ak.rhs_slab_launches) == (len(cuts) - 1,) * 2
+    for i, k in enumerate(("z1", "u1", "z2", "u2")):
+        assert torch.equal(torch.cat([p[i] for p in parts], 2 if i < 2 else 1), whole[k]), k
+    assert torch.equal(torch.cat(rhs, 1), whole_rhs)

@@ -40,3 +40,23 @@ def test_scan_covers_the_package():
     # the io and cli packages' own __init__ (the package's top level is scanned too)
     assert ROOT / "microtipi_tpu_torch" / "io" / "__init__.py" in FILES
     assert ROOT / "microtipi_tpu_torch" / "cli" / "__init__.py" in FILES
+    # every module of the sharded paths
+    assert {ROOT / "microtipi_tpu_torch" / "parallel" / p.name
+            for p in (ROOT / "microtipi_tpu" / "parallel").glob("*.py")} <= set(FILES)
+
+
+def _all_names(path: pathlib.Path) -> set[str]:
+    """The names a module's ``__all__`` lists, read from its source."""
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            return {elt.value for elt in node.value.elts}
+    return set()
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in (ROOT / "microtipi_tpu" / "parallel").glob("*.py")))
+def test_parallel_ports_every_name_of_the_jax_module(name):
+    """Each ``microtipi_tpu/parallel`` module's ``__all__`` has a
+    counterpart of each of its names in the port's module of that name."""
+    jax_names = _all_names(ROOT / "microtipi_tpu" / "parallel" / name)
+    assert jax_names, f"microtipi_tpu/parallel/{name} has no __all__"
+    assert jax_names <= _all_names(ROOT / "microtipi_tpu_torch" / "parallel" / name)
