@@ -4341,31 +4341,38 @@ SLAB_CASES = ((1, SHAPE, SLABS), (1, SHAPE, 2), (1, SHAPE, 1), (2, SHAPE, 2), (1
 class SlabCounts:
     """The kernels' launch counts over one sharded path: every count set to 0
     on entry and read on exit; :meth:`check` demands slab launches of the
-    kinds the path runs and no whole-volume launch at all."""
+    kinds the path runs and no whole-volume launch at all, and on these
+    meshes of the one card one grouped TV launch over all of an evaluation's
+    ``slabs`` with no halo copy."""
 
     def __enter__(self):
         from microtipi_tpu_torch.ops.kernels import admm_split as ak
         from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+        from microtipi_tpu_torch.parallel import deconv as pd
 
-        self.ak, self.hv = ak, hv
-        hv.launches = hv.batched_launches = hv.slab_launches = hv.unaligned_launches = 0
+        self.ak, self.hv, self.pd = ak, hv, pd
+        hv.launches = hv.batched_launches = hv.slab_launches = hv.slabs_launched = hv.unaligned_launches = 0
         ak.split_launches = ak.rhs_launches = ak.split_slab_launches = ak.rhs_slab_launches = 0
-        ak.split_unaligned_launches = 0
+        ak.split_unaligned_launches = pd.halo_sends = 0
         return self
 
     def __exit__(self, *exc):
         self.tv, self.split, self.rhs = self.hv.slab_launches, self.ak.split_slab_launches, self.ak.rhs_slab_launches
+        self.tv_slabs, self.sends = self.hv.slabs_launched, self.pd.halo_sends
         self.whole = (self.hv.launches, self.hv.batched_launches, self.ak.split_launches, self.ak.rhs_launches)
         self.unaligned = self.hv.unaligned_launches + self.ak.split_unaligned_launches
         return False
 
-    def check(self, name: str, tv: bool = True, admm: bool = False) -> dict:
-        got = {"tv": self.tv, "split": self.split, "rhs": self.rhs}
+    def check(self, name: str, slabs: int, tv: bool = True, admm: bool = False) -> dict:
+        got = {"tv": self.tv, "tv_slabs": self.tv_slabs, "halo_sends": self.sends, "split": self.split,
+               "rhs": self.rhs}
         want_zero = [k for k, on in (("tv", tv), ("split", admm), ("rhs", admm)) if not on]
         if (any(got[k] == 0 for k, on in (("tv", tv), ("split", admm), ("rhs", admm)) if on)
-                or any(got[k] for k in want_zero) or any(self.whole) or self.unaligned):
-            raise AssertionError(f"{name}: slab launches {got}, whole-volume launches (tv, tv batched, split, rhs) "
-                                 f"{self.whole}, unaligned {self.unaligned}")
+                or any(got[k] for k in want_zero) or any(self.whole) or self.unaligned
+                or self.tv_slabs != slabs * self.tv or self.sends):
+            raise AssertionError(f"{name}: slab launches {got} ({slabs} slabs a TV launch expected, no halo copy), "
+                                 f"whole-volume launches (tv, tv batched, split, rhs) {self.whole}, unaligned "
+                                 f"{self.unaligned}")
         return got
 
 
@@ -4390,16 +4397,53 @@ def _slab_entry(t: dict, err: float) -> dict:
             "library_ms": None}
 
 
+def _group(x: torch.Tensor, cuts):
+    """The slabs of ``x`` cut at ``cuts`` (contiguous copies) and their halo
+    planes as the sharded paths hand them to one grouped launch on one card:
+    views of the neighbouring slabs' boundary planes."""
+    slabs = [x[:, a:b].contiguous() for a, b in zip(cuts[:-1], cuts[1:])]
+    return slabs, [None] + [t[:, -1] for t in slabs[:-1]], [t[:, 0] for t in slabs[1:]] + [None]
+
+
+def _tv_slab_times(x: torch.Tensor, a: int, b: int, dev: torch.device) -> dict:
+    """``kernel_ms`` (50 raw launches), ``call_ms``, plain time, halo copies
+    and bound of the TV slab entry on planes [a, b) of ``x`` with both halos,
+    the slab launched on its own."""
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+    from microtipi_tpu_torch.parallel.mesh import send
+
+    slab, prev, nxt = x[:, a:b].contiguous(), x[:, a - 1].contiguous(), x[:, b].contiguous()
+    launch, _, _, geo = hv.prepare_slabs([slab], [prev], [nxt], 1.0)
+    t = {"kernel_ms": raw_ms(launch),
+         "call_ms": _median_ms(lambda: hv.hyperbolic_tv_slab_fused(slab, prev, nxt, 1.0)),
+         "plain_ms": _median_ms(lambda: hv.hyperbolic_tv_slab_plain(slab, prev, nxt, 1.0)),
+         "halo_ms": _median_ms(lambda: (send(x[:, a - 1], dev), send(x[:, b], dev))),
+         "grid": list(geo.grid), "z_range": geo.slabs[0].z_range}
+    t["bound_ms"], t["bound_by"] = slab_bound(slab.numel(), slab.shape[2] * slab.shape[3], 2, 2, TV_OPS_PER_VOXEL)
+    t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+    return t
+
+
 def phase30_slab_kernels(card: str) -> dict:
     """The three slab entries at every slab shape the sharded paths launch
-    (SLAB_CASES). Each slab launch against its plain version (TV: phase 2's
-    tolerances; ADMM: bit for bit), the slabs put together against the
-    whole-volume launch (gradients, ADMM state and rhs bit for bit; TV costs
-    to float32 round-off), then each entry's ``kernel_ms`` (50 raw launches of
-    one 64-plane slab with both halos), ``call_ms`` (the wrapper, halo checks
-    included), the plain version's time, the halo planes' copy and the bound."""
+    (SLAB_CASES). The TV slabs of each case go through one grouped launch as
+    the sharded paths make it (neighbours read in place): each slab against
+    its plain version (phase 2's tolerances) and bitwise against the same slab
+    launched alone with copied halos, the slabs put together against the
+    whole-volume launch (gradients bit for bit, costs to float32 round-off);
+    the ADMM slab launches against their plain versions and put together
+    against the whole-volume launches, bit for bit. Then each entry's
+    ``kernel_ms`` (50 raw launches of one 64-plane slab with both halos),
+    ``call_ms`` (the wrapper, halo checks included), the plain version's time,
+    the halo planes' copy and the bound; for the TV entry also the 16-plane
+    slab of 64x256x256, the grouped launch of the 256^3 volume in SLABS
+    slabs beside the whole-volume launch, and one TV evaluation of that
+    volume on a (1, SLABS) mesh of the card (``parallel.deconv._slab_tv``)
+    with its launches, slabs and halo copies counted."""
     from microtipi_tpu_torch.ops.kernels import admm_split as ak
     from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+    from microtipi_tpu_torch.parallel import deconv as pd
+    from microtipi_tpu_torch.parallel import shard
     from microtipi_tpu_torch.parallel.mesh import send
 
     dev = torch.device("cuda", 0)
@@ -4411,24 +4455,25 @@ def phase30_slab_kernels(card: str) -> dict:
         x = torch.as_tensor(rng.standard_normal((nb, *vol), dtype=np.float32), device=dev)
         cuts = np.linspace(0, nz, nslab + 1).astype(int)
         whole_c, whole_g = hv.hyperbolic_tv_batched_fused(x, 1.0, (2.0, 1.0, 1.0))
-        costs, grads = 0.0, []
-        for a, b in zip(cuts[:-1], cuts[1:]):
-            prev = x[:, a - 1].contiguous() if a > 0 else None
-            nxt = x[:, b].contiguous() if b < nz else None
-            slab = x[:, a:b].contiguous()
-            c, g = hv.hyperbolic_tv_slab_fused(slab, prev, nxt, 1.0, (2.0, 1.0, 1.0))
+        slabs, prevs, nexts = _group(x, cuts)
+        costs, grads = hv.hyperbolic_tv_slab_group(slabs, prevs, nexts, 1.0, (2.0, 1.0, 1.0))
+        for a, b, slab, prev, nxt, c, g in zip(cuts[:-1], cuts[1:], slabs, prevs, nexts, costs, grads):
             cp, gp = hv.hyperbolic_tv_slab_plain(slab, prev, nxt, 1.0, (2.0, 1.0, 1.0))
             err = float((g - gp).abs().max())
             errs["tv"] = max(errs["tv"], err)
             if (float(((c - cp).abs() / cp.abs()).max()) > TV_COST_RTOL
                     or not torch.allclose(g, gp, rtol=TV_GRAD_RTOL, atol=TV_GRAD_ATOL)):
                 raise AssertionError(f"TV slab [{a}, {b}) of {nb} x {vol} != plain: grad max abs {err:.3g}")
-            costs, grads = costs + c, grads + [g]
-        cost_rel = float(((costs - whole_c).abs() / whole_c.abs()).max())
+            c1, g1 = hv.hyperbolic_tv_slab_fused(slab, None if prev is None else prev.contiguous(),
+                                                 None if nxt is None else nxt.contiguous(), 1.0, (2.0, 1.0, 1.0))
+            if not (torch.equal(c, c1) and torch.equal(g, g1)):
+                raise AssertionError(f"TV slab [{a}, {b}) of {nb} x {vol}: the grouped launch != the slab alone")
+        cost_rel = float(((sum(costs) - whole_c).abs() / whole_c.abs()).max())
         if not torch.equal(torch.cat(grads, 1), whole_g) or cost_rel > TV_COST_RTOL:
             raise AssertionError(f"TV slabs of {nb} x {vol} != the whole-volume launch: cost rel {cost_rel:.3g}")
-        log(30, f"TV slab entry at {nb} x {vol} in {nslab} slabs: each == plain; gradients put together bitwise "
-                f"the whole-volume launch's, costs summed within {cost_rel:.3g} of its cost")
+        log(30, f"TV slab entry at {nb} x {vol} in {nslab} slabs, one grouped launch: each == plain and bitwise "
+                f"the slab launched alone; gradients put together bitwise the whole-volume launch's, costs summed "
+                f"within {cost_rel:.3g} of its cost")
 
         st = {"z1": torch.as_tensor(rng.standard_normal((nb, 3, *vol), dtype=np.float32), device=dev),
               "u1": 0.1 * torch.as_tensor(rng.standard_normal((nb, 3, *vol), dtype=np.float32), device=dev),
@@ -4464,20 +4509,41 @@ def phase30_slab_kernels(card: str) -> dict:
                 raise AssertionError(f"ADMM slabs of {nb} x {vol} alpha {alpha} != the whole-volume launches")
         log(30, f"ADMM slab entries at {nb} x {vol} in {nslab} slabs, over-relaxation 1 and 1.8, scales {scales}: "
                 "each bitwise plain, put together bitwise the whole-volume launches (ring wrap, global z face)")
-        del x, st, whole, whole_g, grads, parts
+        del x, st, whole, whole_g, grads, parts, slabs, prevs, nexts
     torch.cuda.synchronize()
 
-    # Timing: the second of four 64-plane slabs of the 256^3 volume, both halos.
+    # Timing: the second of four 64-plane slabs of the 256^3 volume and the second of four 16-plane slabs of
+    # 64x256x256 (RL-TV's and depthvar's), each alone with both halos; the 256^3 volume as one grouped launch of its
+    # SLABS slabs beside its whole-volume launch.
     x = torch.as_tensor(rng.standard_normal((1, *SHAPE), dtype=np.float32), device=dev)
     a, b = SHAPE[0] // SLABS, 2 * SHAPE[0] // SLABS
-    slab, prev, nxt = x[:, a:b].contiguous(), x[:, a - 1].contiguous(), x[:, b].contiguous()
-    nvox, plane = slab.numel(), SHAPE[1] * SHAPE[2]
-    halo_ms = _median_ms(lambda: (send(x[:, a - 1], dev), send(x[:, b], dev)))
-    t = {"kernel_ms": raw_ms(hv.prepare_launch(slab, 1.0, None, prev, nxt)[0]),
-         "call_ms": _median_ms(lambda: hv.hyperbolic_tv_slab_fused(slab, prev, nxt, 1.0)),
-         "plain_ms": _median_ms(lambda: hv.hyperbolic_tv_slab_plain(slab, prev, nxt, 1.0)), "halo_ms": halo_ms}
-    t["bound_ms"], t["bound_by"] = slab_bound(nvox, plane, 2, 2, TV_OPS_PER_VOXEL)
-    tv = _slab_entry(t, errs["tv"])
+    tv = _slab_entry(_tv_slab_times(x, a, b, dev), errs["tv"])
+    xl = torch.as_tensor(rng.standard_normal((1, *LANE_SHAPE), dtype=np.float32), device=dev)
+    tv["slab_16"] = _tv_slab_times(xl, LANE_SHAPE[0] // SLABS, 2 * LANE_SHAPE[0] // SLABS, dev)
+    slabs, prevs, nexts = _group(x, np.linspace(0, SHAPE[0], SLABS + 1).astype(int))
+    launch, _, _, geo = hv.prepare_slabs(slabs, prevs, nexts, 1.0)
+    whole = hv.prepare_launch(x[0], 1.0)[0]
+    group = {"kernel_ms": raw_ms(launch), "whole_kernel_ms": raw_ms(whole), "grid": list(geo.grid),
+             "call_ms": _median_ms(lambda: hv.hyperbolic_tv_slab_group(slabs, prevs, nexts, 1.0)),
+             "whole_call_ms": _median_ms(lambda: hv.hyperbolic_tv_fused(x[0], 1.0))}
+    # One TV evaluation of the same volume as the sharded paths make it, on a (1, SLABS) mesh of the card: its
+    # launches, slabs and halo copies counted, then its call timed.
+    xs = shard(x[0], card_mesh(1, SLABS))
+    hv.slab_launches = hv.slabs_launched = pd.halo_sends = 0
+    pd._slab_tv(xs, 1.0, None)
+    group.update(eval_launches=hv.slab_launches, eval_slabs=hv.slabs_launched, halo_copies=pd.halo_sends,
+                 eval_call_ms=_median_ms(lambda: pd._slab_tv(xs, 1.0, None)))
+    if (group["eval_launches"], group["eval_slabs"], group["halo_copies"]) != (1, SLABS, 0):
+        raise AssertionError(f"a TV evaluation of {SHAPE} on a (1, {SLABS}) mesh of the card: {group['eval_launches']} "
+                             f"launches of {group['eval_slabs']} slabs and {group['halo_copies']} halo copies, "
+                             f"not one launch of {SLABS} slabs and none")
+    group["bound_ms"], group["bound_by"] = slab_bound(x.numel(), SHAPE[1] * SHAPE[2], 2, 2 * (SLABS - 1),
+                                                      TV_OPS_PER_VOXEL)
+    group["bound_share"] = group["bound_ms"] / group["kernel_ms"]
+    tv["group"] = group
+    del launch, whole, slabs, prevs, nexts, xl, xs
+    nvox, plane = (b - a) * SHAPE[1] * SHAPE[2], SHAPE[1] * SHAPE[2]
+    slab, nxt = x[:, a:b].contiguous(), x[:, b].contiguous()
     z1 = torch.as_tensor(rng.standard_normal((1, 3, *slab.shape[1:]), dtype=np.float32), device=dev)
     vols = [slab, z1, 0.1 * z1, slab.clone(), 0.1 * slab]
     lam1, r11, r21 = (torch.full((1,), v, device=dev) for v in (0.3, 1.5, 0.7))
@@ -4496,11 +4562,19 @@ def phase30_slab_kernels(card: str) -> dict:
          "halo_ms": _median_ms(lambda: (send(z1[:, 0, -1], dev), send(z1[:, 0, -1], dev)))}
     t["bound_ms"], t["bound_by"] = slab_bound(nvox, plane, RHS_VOLUMES, 2, RHS_OPS)
     rhs = _slab_entry(t, errs["rhs"])
-    for name, e in (("TV", tv), ("split update", split), ("rhs", rhs)):
-        log(30, f"[{card}] {name} slab entry at (1, 64, 256, 256) with its halo planes: kernel_ms "
+    for name, shape, e in (("TV", 64, tv), ("split update", 64, split), ("rhs", 64, rhs), ("TV", 16, tv["slab_16"])):
+        geometry = f"; grid {e['grid']}, z range {e['z_range']}" if "grid" in e else ""
+        log(30, f"[{card}] {name} slab entry at (1, {shape}, 256, 256) with its halo planes: kernel_ms "
                 f"{e['kernel_ms']:.4f} (50 raw launches), call_ms {e['call_ms']:.4f}, plain {e['plain_ms']:.4f} ms, "
                 f"halo copies {e['halo_ms']:.4f} ms; bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
-                f"{e['bound_share']:.1%} of it")
+                f"{e['bound_share']:.1%} of it{geometry}")
+    log(30, f"[{card}] TV of {SHAPE} in {SLABS} slabs, one grouped launch reading its neighbours in place (grid "
+            f"{group['grid']}): kernel_ms {group['kernel_ms']:.4f}, call_ms {group['call_ms']:.4f}; as a TV "
+            f"evaluation on a (1, {SLABS}) mesh of the card {group['eval_launches']} launch of "
+            f"{group['eval_slabs']} slabs, {group['halo_copies']} halo copies, call_ms {group['eval_call_ms']:.4f}; "
+            f"the whole-volume launch kernel_ms {group['whole_kernel_ms']:.4f}, call_ms "
+            f"{group['whole_call_ms']:.4f}; bound {group['bound_ms']:.4f} ms, {group['bound_share']:.1%} of it, "
+            f"{group['kernel_ms'] / group['whole_kernel_ms'] - 1:+.1%} against the whole-volume launch")
     return {"tv": tv, "split": split, "rhs": rhs}
 
 
@@ -4551,7 +4625,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
         mesh = card_mesh(*shape)
         with SlabCounts() as c:
             wall, res = _wall(lambda: sharded_deconvolve(data, psf, mesh, config=cfg))
-        n = c.check(f"sharded_deconvolve {shape}")
+        n = c.check(f"sharded_deconvolve {shape}", slabs=shape[1])  # an unbatched volume: row 0's slabs
         _check_object(f"sharded_deconvolve {shape}", gather(res.x))
         head = _rel_f(res.f_history[:2], dense.f_history[:2])
         if head > SLAB_F_RTOL:
@@ -4576,7 +4650,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
         bres = sharded_blind_deconvolve(bdata, model, card_mesh(1, 4), config=bcfg)
         torch.cuda.synchronize()
         bwall = time.perf_counter() - t0
-    paths["sharded blind 256^3 (1, 4)"] = c.check("sharded blind (1, 4)")
+    paths["sharded blind 256^3 (1, 4)"] = c.check("sharded blind (1, 4)", slabs=SLABS)
     _check_object("sharded blind", gather(bres.obj))
     df, dense_df = bres.deconv_f, dense_blind_f
     if not (np.isfinite(df).all() and np.all(np.diff(df) < 0) and np.isnan(bres.fit_f[-1]).all()):
@@ -4595,7 +4669,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
     mesh = card_mesh(1, 4)
     with SlabCounts() as c:
         wall, res = _wall(lambda: sharded_admm_deconvolve(data, psf, mesh, config=acfg))
-    n = c.check("sharded ADMM (1, 4)", admm=True)
+    n = c.check("sharded ADMM (1, 4)", slabs=SLABS, admm=True)
     paths["sharded ADMM 256^3 (1, 4)"] = {k: v // 3 for k, v in n.items()}
     if n["split"] != 3 * SLABS * acfg.max_iter or n["rhs"] != n["split"]:
         raise AssertionError(f"sharded ADMM: slab launches {n}, expected {SLABS * acfg.max_iter} a run of each")
@@ -4616,7 +4690,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
         res2 = sharded_blind_deconvolve(torch.stack(scenes), model, card_mesh(2, 2), config=b2)
         torch.cuda.synchronize()
         wall2 = time.perf_counter() - t0
-    paths["sharded batched blind 2 x 256^3 (2, 2)"] = c.check("batched sharded blind (2, 2)")
+    paths["sharded batched blind 2 x 256^3 (2, 2)"] = c.check("batched sharded blind (2, 2)", slabs=4)
     _check_object("batched sharded blind", gather(res2.obj))
     if res2.obj.shape != (2, *SHAPE) or not (np.isfinite(res2.deconv_f).all() and res2.deconv_f[1] < res2.deconv_f[0]):
         raise AssertionError(f"batched sharded blind: obj {res2.obj.shape}, deconv_f {res2.deconv_f}")
@@ -4630,13 +4704,13 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
     dense_wall, ref = _wall(lambda: richardson_lucy(ldata, lpsf, iterations=20, mu=0.002, epsilon=0.1))
     with SlabCounts() as c:
         wall, got = _wall(lambda: sharded_richardson_lucy(ldata, lpsf, mesh, iterations=20, mu=0.002, epsilon=0.1))
-    paths["sharded RL-TV 64x256x256 (1, 4)"] = {k: v // 3 for k, v in c.check("sharded RL-TV").items()}
+    paths["sharded RL-TV 64x256x256 (1, 4)"] = {k: v // 3 for k, v in c.check("sharded RL-TV", SLABS).items()}
     rel = _rel_l2(gather(got), ref)
-    if rel > 1e-4 or c.tv != 3 * SLABS * 20:
+    if rel > 1e-4 or c.tv != 3 * 20:
         raise AssertionError(f"sharded RL-TV: {rel:.3g} relative L2 off dense, TV slab launches {c.tv}")
     log(30, f"[{card}] sharded_richardson_lucy {LANE_SHAPE} RL-TV, 20 iterations on (1, 4): {rel:.3g} relative L2 "
             f"off dense, wall {wall:.4f} s (dense {dense_wall:.4f} s), TV slab launches a run "
-            f"{c.tv // 3} (one a slab and iteration)")
+            f"{c.tv // 3} (one an iteration, of {SLABS} slabs)")
 
     gl = depthvar_model(LANE_SHAPE, torch.float32, dev)
     anchors = np.linspace(0.0, LANE_SHAPE[0] - 1.0, DEPTH_K)
@@ -4647,7 +4721,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
     dense_wall, ref = _wall(lambda: deconvolve_depthvar(ddata, psfs, anchors, config=dcfg))
     with SlabCounts() as c:
         wall, got = _wall(lambda: sharded_deconvolve_depthvar(ddata, psfs, mesh, anchors, config=dcfg))
-    paths["sharded depthvar 64x256x256 (1, 4)"] = {k: v // 3 for k, v in c.check("sharded depthvar").items()}
+    paths["sharded depthvar 64x256x256 (1, 4)"] = {k: v // 3 for k, v in c.check("sharded depthvar", SLABS).items()}
     head = _rel_f(got.f_history[:2], ref.f_history[:2])
     _check_object("sharded depthvar", gather(got.x))
     if head > SLAB_F_RTOL:
@@ -4692,7 +4766,7 @@ def phase30_cli_dryrun(card: str, data: torch.Tensor) -> dict:
                 "1"]
         with SlabCounts() as c:
             wall, lines = _cli(argv)
-        paths["CLI blind --mesh 1 1 (NGFF)"] = c.check("CLI --mesh")
+        paths["CLI blind --mesh 1 1 (NGFF)"] = c.check("CLI --mesh", slabs=1)
         got = zarrstack.read_ngff_hyperstack(out)[0][0, 0]
         args = build_parser().parse_args(argv)
         args.device = dev
@@ -4719,7 +4793,7 @@ def phase30_cli_dryrun(card: str, data: torch.Tensor) -> dict:
         ts = sharded_deconvolve(torch.as_tensor(rng.random((batch, 6, 16, 16), dtype=np.float32), device=dev),
                                 torch.as_tensor(rng.random((6, 16, 16), dtype=np.float32), device=dev),
                                 card_mesh(batch, zp), config=DeconvolutionConfig(mu=0.01, max_iter=2), mu_t=0.1)
-    paths["dry run: blind step and time series (2, 2)"] = c.check("dry run")
+    paths["dry run: blind step and time series (2, 2)"] = c.check("dry run", slabs=batch * zp)
     if (res.obj.shape != (batch, 2 * zp + 2, 16, 16) or not np.isfinite(res.deconv_f).all()
             or not bool(torch.isfinite(res.params.phase).all()) or float(res.params.phase[0]) != 0.0
             or not np.isfinite(ts.f)):
@@ -4793,6 +4867,7 @@ def main() -> int:
                   for kind in ("tv", "split", "rhs")}
     if not all(slab_paths.values()):
         raise AssertionError(f"a slab entry was launched on no sharded path: {mesh_paths}")
+    tv_slabs = {f"{name} (phase 30)": n["tv_slabs"] for name, n in mesh_paths.items() if n["tv"]}
     tv_paths = {"deconvolve and blind (phase 3)": launches, "RL-TV (phase 13)": rl_launches,
                 "priors and auto-mu (phase 15)": prior_launches, "confocal blind (phase 17)": family_launches,
                 "depthvar and RL-TV depthvar (phase 18)": depthvar_launches,
@@ -4832,7 +4907,9 @@ def main() -> int:
         {"name": "hyperbolic_tv_slab", "route": "cuda", "source": source,
          "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:80, :111 and :203 on a z-sharded mesh, with the "
                      "halo exchanges GSPMD inserts around them (microtipi_tpu/parallel/deconv.py:9-14)",
-         "launches": sum(slab_paths["tv"].values()), "launches_by_path": slab_paths["tv"], **slab_kern["tv"]},
+         "launches": sum(slab_paths["tv"].values()), "launches_by_path": slab_paths["tv"],
+         "slabs_launched": sum(tv_slabs.values()), "slabs_launched_by_path": tv_slabs,
+         "halo_sends": sum(n["halo_sends"] for n in mesh_paths.values()), **slab_kern["tv"]},
         {"name": "admm_split_update_slab", "route": "cuda", "source": admm_source,
          "replaces": f"microtipi_tpu/parallel/admm.py:184-196 with GSPMD's z-halo exchange ({fused_by_xla})",
          "launches": sum(slab_paths["split"].values()), "launches_by_path": slab_paths["split"],

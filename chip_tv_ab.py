@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A CUDA kernel of this checkout against another checkout's, on one card.
 
-    python3 chip_tv_ab.py OTHER [--kernel tv|admm_split]
+    python3 chip_tv_ab.py OTHER [--kernel tv|tv_slab|tv_sweep|tv_depth|admm_split]
 
 ``OTHER`` is the root of another checkout of the repo, for example an
 earlier commit unpacked into a git-ignored directory:
@@ -26,6 +26,40 @@ unit scales):
 
 and the host time of one wrapper call at 8x16x64 (mean of 2000).
 
+``--kernel tv_slab``: the TV kernel's slab entry through
+``hyperbolic_tv_slab_fused`` at a 64-plane slab of 256^3 and a 16-plane
+slab of 64x256x256 (both halo planes; ``kernel_ms``, ``device_ms``,
+``call_ms`` as above), then one TV evaluation of 256^3 in four z-slabs on a
+(1, 4) mesh of the one card through ``parallel.deconv._slab_tv`` (whatever
+launches each tree makes: per-slab launches and halo copies, or one grouped
+launch), with the device time of its TV kernels, of its copies and of all
+its work per evaluation, its kernel launches per evaluation and its
+``call_ms``, beside the whole-volume launch at 256^3 in the same process.
+Costs and gradients are compared in ulp as above.
+
+``--kernel tv_sweep``: OTHER's TV source only, no turns. Scratch copies of
+its ``csrc/hyperbolic_tv.cu`` are built in a temporary directory with the
+sweep's ``-D`` defines (the copy's ``#define``s of those it has become
+``#ifndef``), all builds started together: the z range ``TV_ZR`` (4, 8, 16,
+32), the ring depth ``TV_STAGES`` (4, 6) and, in a source with the grouped
+slab launch, its resident blocks ``TV_GROUP_BLOCKS_PER_SM`` (3, 4). Each is loaded in place of the
+tree's library, its wrapper's z ranges set to match, and timed by
+``kernel_ms`` (CUDA events around 50 raw launches): the slab entry at the two
+slabs above, the whole-volume launch at 256^3 and, where the tree has it,
+the grouped launch of 256^3 in four slabs; with whether each output is
+bitwise the first variant's. The copies also carry a timer of
+``cuTensorMapEncodeTiled`` alone on the host (mean of 10000 encodes of the
+64-plane slab's map).
+
+``--kernel tv_depth``: OTHER's grouped slab launch alone, no turns (``.``
+for this checkout): one slab of 256^2 planes with both halos at depths of
+16 to 512 planes, each at z ranges 8 and 32 (the wrapper's z ranges set to
+that one), ``kernel_ms`` by the profiler's device time of 50 launches and by
+CUDA events; then, per z range, the least-squares line ``a + b * planes``
+through the depths whose grid fills the card (``SLAB_BLOCKS`` blocks or
+more): ``a`` the device time a launch costs whatever its depth, ``b`` a
+plane's, beside the bytes bound of a plane (read once, written once).
+
 ``--kernel admm_split``: ``admm_split_update`` with over-relaxation 1.8 and
 1 on the random states of ``chip_smoke.py`` phase 9 at 256^3, 4x64x256x256
 and 4x256^3 and on the 256^3 bench solve's iteration-10 states, captured
@@ -42,8 +76,11 @@ last. Without a CUDA card it exits 2.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -60,6 +97,30 @@ CALLS = 50
 ADMM_SHAPES = ((1, *SHAPES[0]), SHAPES[1], SHAPES[2])
 ADMM_LAUNCHES = 20
 SOLVE_ITERATION = 10
+#: (volume, first plane, end plane) of the slabs the tv_slab and tv_sweep modes time: a 64-plane slab of 256^3 (the
+#: (1, 4) mesh's) and a 16-plane slab of 64x256x256 (RL-TV's and depthvar's on (1, 4)), both with their halo planes.
+SLAB_AB = (((1, 256, 256, 256), 64, 128), ((1, 64, 256, 256), 16, 32))
+GROUP_SLABS = 4  # z-slabs of the 256^3 evaluation on a (1, GROUP_SLABS) mesh of the one card
+SWEEP_Z_RANGES, SWEEP_STAGES, SWEEP_BLOCKS_PER_SM = (4, 8, 16, 32), (4, 6), (3, 4)
+#: The source's defines a sweep sets where the source has them: the z range of the whole-volume launch (and of a slab,
+#: then a compile-time constant), the ring depth, the grouped kernel's resident blocks.
+SWEEP_DEFINES = ("TV_ZR", "TV_STAGES", "TV_GROUP_BLOCKS_PER_SM")
+ENCODE_REPS = 10000
+#: Slab depths (planes of 256^2, both halos) and z ranges of the tv_depth mode.
+DEPTH_PLANES, DEPTH_Z_RANGES = (16, 32, 64, 128, 256, 384, 512), (8, 32)
+#: Appended to each sweep copy: cuTensorMapEncodeTiled alone, through the source's own encode_planes.
+ENCODE_TIMER = r"""
+#include <time.h>
+extern "C" double tv_encode_ns(const void* base, int nx, int ny, long long depth, int reps) {
+    CUtensorMap m;
+    if (!encode_planes(&m, base, nx, ny, depth)) return -1.0;
+    timespec t0, t1;
+    clock_gettime(CLOCK_MONOTONIC, &t0);
+    for (int i = 0; i < reps; ++i) encode_planes(&m, base, nx, ny, depth);
+    clock_gettime(CLOCK_MONOTONIC, &t1);
+    return ((t1.tv_sec - t0.tv_sec) * 1e9 + (t1.tv_nsec - t0.tv_nsec)) / reps;
+}
+"""
 
 
 def import_tree(root: str, module: str):
@@ -83,6 +144,231 @@ def device_us(prof, name: str) -> tuple[float, float]:
     if kernel == 0.0:
         raise RuntimeError(f"the trace holds no {name} kernel")
     return kernel, total
+
+
+def device_classes(prof, name: str, calls: int) -> dict:
+    """Per call: device ms of the kernels whose name holds ``name``, of
+    copies (memcpy and copy kernels), of all device work, and how many
+    ``name`` kernels ran."""
+    kernel = copies = total = 0.0
+    count = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        total += ev.device_time_total
+        if name in ev.name:
+            kernel += ev.device_time_total
+            count += 1
+        elif "memcpy" in ev.name.lower() or "copy" in ev.name.lower():
+            copies += ev.device_time_total
+    if kernel == 0.0:
+        raise RuntimeError(f"the trace holds no {name} kernel")
+    return {"kernel_ms": kernel / calls / 1e3, "copy_ms": copies / calls / 1e3, "device_ms": total / calls / 1e3,
+            "kernel_launches": count / calls}
+
+
+def traced(fn, name: str = "hyperbolic_tv") -> dict:
+    """:func:`device_classes` of CALLS back-to-back calls of ``fn`` after 5
+    warm-up calls; a trace that comes back without the kernel is retaken."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(CALLS):
+                fn()
+            torch.cuda.synchronize()
+        try:
+            return device_classes(prof, name, CALLS)
+        except RuntimeError:
+            if attempt == 2:
+                raise
+
+
+def _save(save: str | None, i: int, costs: torch.Tensor, grad: torch.Tensor) -> None:
+    if save:
+        os.makedirs(save, exist_ok=True)
+        np.save(os.path.join(save, f"{i}_costs.npy"), costs.reshape(-1).cpu().numpy())
+        np.save(os.path.join(save, f"{i}_grad.npy"), grad.cpu().numpy())
+
+
+def slab_worker(root: str, save: str | None) -> dict:
+    """The slab numbers of the tree at ``root`` (``--kernel tv_slab``); the
+    outputs go to ``save`` as in :func:`worker`, the two slabs as 0 and 1,
+    the four-slab evaluation as 2."""
+    hv = import_tree(root, "hyperbolic_tv")
+    from microtipi_tpu_torch.parallel import deconv as pd
+    from microtipi_tpu_torch.parallel import make_mesh, shard
+
+    dev = torch.device("cuda", 0)
+    out = {"root": root, "slabs": []}
+    for i, (vol, a, b) in enumerate(SLAB_AB):
+        x = torch.as_tensor(np.random.default_rng(i).standard_normal(vol, dtype=np.float32), device=dev)
+        slab, prev, nxt = x[:, a:b].contiguous(), x[:, a - 1].contiguous(), x[:, b].contiguous()
+
+        def call():
+            return hv.hyperbolic_tv_slab_fused(slab, prev, nxt, 1.0)
+
+        row = {"slab": list(slab.shape), **traced(call), "call_ms": cs._median_ms(call)}
+        hv.slab_launches = 0
+        costs, grad = call()
+        row["slab_launches"], row["slabs_launched"] = hv.slab_launches, getattr(hv, "slabs_launched", None)
+        out["slabs"].append(row)
+        _save(save, i, costs, grad)
+        del x, slab, prev, nxt, costs, grad
+
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(SLAB_AB[0][0][1:], dtype=np.float32), device=dev)
+    xs = shard(x, make_mesh(1, GROUP_SLABS, devices=[dev] * GROUP_SLABS))
+
+    def evaluate():
+        return pd._slab_tv(xs, 1.0, None)
+
+    row = {"volume": list(x.shape), "slabs": GROUP_SLABS, **traced(evaluate), "call_ms": cs._median_ms(evaluate)}
+    hv.slab_launches = 0
+    total, grads = evaluate()
+    row["slab_launches"], row["slabs_launched"] = hv.slab_launches, getattr(hv, "slabs_launched", None)
+    whole = traced(lambda: hv.hyperbolic_tv_fused(x, 1.0))
+    row["whole_kernel_ms"] = whole["kernel_ms"]
+    row["whole_call_ms"] = cs._median_ms(lambda: hv.hyperbolic_tv_fused(x, 1.0))
+    out["group"] = row
+    _save(save, 2, total, torch.cat(grads, 0))
+    return out
+
+
+def _sweep_cases(hv, dev):
+    """(label, prepare) of the sweep's launches in the tree whose wrapper
+    module is ``hv``: the two slabs of SLAB_AB with both halos, the 256^3
+    volume whole, and (where the tree has a grouped slab launch) the 256^3
+    volume as GROUP_SLABS slabs of one launch reading each other's planes.
+    ``prepare()`` returns (launch, read, grid): ``read()`` gives the costs and
+    the gradient from the buffers the launch writes."""
+    grouped = hasattr(hv, "prepare_slabs")
+    cases = []
+    for i, (vol, a, b) in enumerate(SLAB_AB):
+        x = torch.as_tensor(np.random.default_rng(i).standard_normal(vol, dtype=np.float32), device=dev)
+        t, prev, nxt = x[:, a:b].contiguous(), x[:, a - 1].contiguous(), x[:, b].contiguous()
+        if grouped:
+            def prepare(t=t, prev=prev, nxt=nxt):
+                launch, costs, grads, geo = hv.prepare_slabs([t], [prev], [nxt], 1.0)
+                return launch, lambda: (costs[0], grads[0]), geo.grid
+        else:
+            def prepare(t=t, prev=prev, nxt=nxt):
+                launch, costs, grad, geo = hv.prepare_launch(t, 1.0, None, prev, nxt)
+                return launch, lambda: (costs, grad), geo.grid
+        cases.append((f"slab {list(t.shape)}", prepare))
+    whole = torch.as_tensor(np.random.default_rng(2).standard_normal(SLAB_AB[0][0][1:], dtype=np.float32),
+                            device=dev)
+
+    def prepare_whole():
+        launch, costs, grad, geo = hv.prepare_launch(whole, 1.0)
+        return launch, lambda: (costs, grad), geo.grid
+
+    cases.append((f"whole {list(whole.shape)}", prepare_whole))
+    if grouped:
+        slabs = list(whole[None].chunk(GROUP_SLABS, 1))
+        slabs = [t.contiguous() for t in slabs]
+
+        def prepare_group():
+            launch, costs, grads, geo = hv.prepare_slabs(slabs, [None] + [t[:, -1] for t in slabs[:-1]],
+                                                         [t[:, 0] for t in slabs[1:]] + [None], 1.0)
+            return launch, lambda: (torch.cat(costs), torch.cat(grads, 1)), geo.grid
+
+        cases.append((f"group of {GROUP_SLABS} slabs of {list(whole.shape)}", prepare_group))
+    return cases
+
+
+def sweep_worker(root: str) -> dict:
+    """``--kernel tv_sweep`` on the tree at ``root``: its TV source built
+    with every variant of the sweep's defines (those the source has), each
+    timed through the tree's own wrapper."""
+    hv = import_tree(root, "hyperbolic_tv")
+    import microtipi_tpu_torch._build as build
+
+    text = (build.CSRC_DIR / "hyperbolic_tv.cu").read_text()
+    names = [n for n in SWEEP_DEFINES if re.search(rf"^#define {n} ", text, flags=re.M)]
+    for name in names:
+        text = re.sub(rf"^#define {name} (\S+)", rf"#ifndef {name}\n#define {name} \1\n#endif", text, flags=re.M)
+    grouped = "TV_GROUP_BLOCKS_PER_SM" in names
+    variants = [{"TV_ZR": zr, "TV_STAGES": st, **({"TV_GROUP_BLOCKS_PER_SM": bps} if grouped else {})}
+                for bps in (SWEEP_BLOCKS_PER_SM if grouped else (None,)) for st in SWEEP_STAGES
+                for zr in SWEEP_Z_RANGES]
+    dev = torch.device("cuda", 0)
+    out = {"root": root, "variants": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "hyperbolic_tv.cu")
+        with open(src, "w") as f:
+            f.write(text + ENCODE_TIMER)
+
+        def nvcc(i):
+            lib = os.path.join(tmp, f"libtv_{i}.so")
+            proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS,
+                                   *(f"-D{k}={v}" for k, v in variants[i].items()), src, "-o", lib],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {variants[i]}:\n{proc.stderr[-3000:]}")
+            return lib, [ln for ln in proc.stderr.splitlines() if "registers" in ln or "spill" in ln]
+
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            libs = list(pool.map(nvcc, range(len(variants))))
+        cases = _sweep_cases(hv, dev)
+        first = {}
+        default_ranges = hv.Z_RANGE, getattr(hv, "SLAB_Z_RANGES", None)
+        for variant, (lib, ptxas) in zip(variants, libs):
+            build.load_library = lambda name, _lib=lib: ctypes.CDLL(_lib)
+            hv._library.cache_clear()
+            hv.Z_RANGE = variant["TV_ZR"]
+            if grouped:
+                hv.SLAB_Z_RANGES = (variant["TV_ZR"],)
+            row = {"defines": variant, "ptxas": ptxas, "cases": []}
+            for label, prepare in cases:
+                launch, read, grid = prepare()
+                ms = cs.raw_ms(launch)
+                launch()
+                torch.cuda.synchronize()
+                costs, grad = read()
+                same = None
+                if label in first:
+                    same = bool(torch.equal(grad, first[label][1])) and bool(torch.equal(costs, first[label][0]))
+                else:
+                    first[label] = (costs.clone(), grad.clone())
+                row["cases"].append({"case": label, "kernel_ms": ms, "grid": list(grid), "bitwise_first": same})
+                del launch, read, costs, grad
+            lib_h = ctypes.CDLL(lib)
+            lib_h.tv_encode_ns.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_int]
+            lib_h.tv_encode_ns.restype = ctypes.c_double
+            slab = torch.empty(SLAB_AB[0][0][0], SLAB_AB[0][2] - SLAB_AB[0][1], *SLAB_AB[0][0][2:], device=dev)
+            row["encode_us"] = lib_h.tv_encode_ns(slab.data_ptr(), slab.shape[-1], slab.shape[-2],
+                                                  slab.shape[0] * slab.shape[1], ENCODE_REPS) / 1e3
+            out["variants"].append(row)
+        hv.Z_RANGE, slab_ranges = default_ranges
+        if grouped:
+            hv.SLAB_Z_RANGES = slab_ranges
+    return out
+
+
+def depth_worker(root: str) -> dict:
+    """``--kernel tv_depth`` on the tree at ``root``: its grouped slab launch
+    of one slab at DEPTH_PLANES and DEPTH_Z_RANGES."""
+    hv = import_tree(root, "hyperbolic_tv")
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((1, max(DEPTH_PLANES) + 2, 256, 256),
+                                                                 dtype=np.float32), device="cuda")
+    out, default = {"root": root, "rows": []}, hv.SLAB_Z_RANGES
+    try:
+        for zr in DEPTH_Z_RANGES:
+            hv.SLAB_Z_RANGES = (zr,)
+            for d in DEPTH_PLANES:
+                slab, prev, nxt = x[:, 1:d + 1].contiguous(), x[:, 0].contiguous(), x[:, d + 1].contiguous()
+                launch, _, _, geo = hv.prepare_slabs([slab], [prev], [nxt], 1.0)
+                out["rows"].append({"z_range": zr, "planes": d, "grid": list(geo.grid),
+                                    "kernel_ms": traced(launch)["kernel_ms"], "events_ms": cs.raw_ms(launch)})
+                del slab, prev, nxt, launch
+    finally:
+        hv.SLAB_Z_RANGES = default
+    out["slab_blocks"] = hv.SLAB_BLOCKS
+    return out
 
 
 def worker(root: str, save: str | None) -> dict:
@@ -217,10 +503,82 @@ def compare(a_dir: str, b_dir: str, i: int) -> dict:
             "cost_max_rel": float(np.max(np.abs(fa.astype(np.float64) - fb) / np.abs(fb)))}
 
 
+def report_sweep(card: str, run: dict) -> int:
+    for v in run["variants"]:
+        cases = "; ".join(f"{c['case']} grid {c['grid']} {c['kernel_ms']:.4f} ms"
+                          + ("" if c["bitwise_first"] is None else f" (bitwise: {c['bitwise_first']})")
+                          for c in v["cases"])
+        print(f"[sweep] [{card}] {v['defines']}: kernel_ms {cases}; "
+              f"cuTensorMapEncodeTiled {v['encode_us']:.3f} us; {' | '.join(v['ptxas'])}", flush=True)
+    print(json.dumps({"card": card, "kernel": "tv_sweep", **run}))
+    return 0
+
+
+def report_depth(card: str, run: dict) -> int:
+    plane_ms = cs.slab_bound(256 * 256, 0, 2, 0, cs.TV_OPS_PER_VOXEL)[0]  # a plane read once and written once
+    fits = []
+    for r in run["rows"]:
+        blocks = r["grid"][0] * r["grid"][1] * r["grid"][2]
+        bound = cs.slab_bound(r["planes"] * 256 * 256, 256 * 256, 2, 2, cs.TV_OPS_PER_VOXEL)[0]
+        print(f"[depth] [{card}] slab (1, {r['planes']}, 256, 256), z range {r['z_range']}, grid {r['grid']} "
+              f"({blocks} blocks): kernel_ms {r['kernel_ms']:.5f} by the profiler, {r['events_ms']:.5f} by events; "
+              f"bound {bound:.5f} ms, {bound / r['kernel_ms']:.1%} of it",
+              flush=True)
+    for zr in DEPTH_Z_RANGES:
+        full = [r for r in run["rows"] if r["z_range"] == zr
+                and r["grid"][0] * r["grid"][1] * r["grid"][2] >= run["slab_blocks"]]
+        for key in ("kernel_ms", "events_ms"):
+            b, a = np.polyfit([r["planes"] for r in full], [r[key] for r in full], 1)
+            fits.append({"z_range": zr, "by": key, "planes": [r["planes"] for r in full], "a_ms": float(a),
+                         "b_ms": float(b), "plane_bound_ms": plane_ms, "b_bound_share": plane_ms / float(b)})
+            print(f"[depth] [{card}] z range {zr}, {key} over {fits[-1]['planes']} planes: {a * 1e3:.2f} us a "
+                  f"launch + {b * 1e3:.4f} us a plane; a plane's bound {plane_ms * 1e3:.4f} us, "
+                  f"{plane_ms / b:.1%} of it", flush=True)
+    print(json.dumps({"card": card, "kernel": "tv_depth", **run, "fits": fits}))
+    return 0
+
+
+def report_slab(card: str, root: str, runs: dict, diffs: list) -> int:
+    result = {"card": card, "other": root, "kernel": "tv_slab", "slabs": [], "group": {}}
+    keys = ("kernel_ms", "device_ms", "call_ms", "kernel_launches", "slab_launches", "slabs_launched")
+    for i, (vol, a, b) in enumerate(SLAB_AB):
+        nvox, plane = (b - a) * vol[2] * vol[3], vol[2] * vol[3]
+        row = {"slab": [1, b - a, *vol[2:]], **diffs[i],
+               "bound_ms": cs.slab_bound(nvox, plane, 2, 2, cs.TV_OPS_PER_VOXEL)[0]}
+        for key in keys:
+            row[key] = {who: [r["slabs"][i][key] for r in rs] for who, rs in runs.items()}
+        result["slabs"].append(row)
+        t = {k: ", ".join(f"{who} {row[k][who]}" for who in ("other", "this")) for k in keys}
+        print(f"[ab] [{card}] slab {row['slab']} with both halos: kernel_ms {t['kernel_ms']}; device_ms "
+              f"{t['device_ms']}; call_ms {t['call_ms']} (turns other, this, this, other); kernels a call "
+              f"{t['kernel_launches']}; gradients: {row['grad_elements_differing']} elements differ, largest "
+              f"{row['grad_max_ulp']} ulp; costs {row['cost_max_rel']:.3g} rel; bound {row['bound_ms']:.4f} ms, "
+              f"this at {row['bound_ms'] / min(row['kernel_ms']['this']):.1%}, other at "
+              f"{row['bound_ms'] / min(row['kernel_ms']['other']):.1%}", flush=True)
+    vol = SLAB_AB[0][0][1:]
+    nvox, plane = int(np.prod(vol)), vol[1] * vol[2]
+    row = {"volume": list(vol), "slabs": GROUP_SLABS, **diffs[len(SLAB_AB)],
+           "bound_ms": cs.slab_bound(nvox, plane, 2, 2 * (GROUP_SLABS - 1), cs.TV_OPS_PER_VOXEL)[0]}
+    keys = (*keys, "copy_ms", "whole_kernel_ms", "whole_call_ms")
+    for key in keys:
+        row[key] = {who: [r["group"][key] for r in rs] for who, rs in runs.items()}
+    result["group"] = row
+    t = {k: ", ".join(f"{who} {row[k][who]}" for who in ("other", "this")) for k in keys}
+    print(f"[ab] [{card}] TV of {vol} in {GROUP_SLABS} slabs on (1, {GROUP_SLABS}) of the one card, an evaluation: "
+          f"TV kernel_ms {t['kernel_ms']}; copies {t['copy_ms']} ms; device_ms {t['device_ms']}; call_ms "
+          f"{t['call_ms']}; TV kernels {t['kernel_launches']}, slab_launches {t['slab_launches']}, slabs_launched "
+          f"{t['slabs_launched']}; whole-volume kernel_ms {t['whole_kernel_ms']}, call_ms {t['whole_call_ms']}; "
+          f"costs {row['cost_max_rel']:.3g} rel, gradients {row['grad_elements_differing']} elements differ "
+          f"(largest {row['grad_max_ulp']} ulp); bound {row['bound_ms']:.4f} ms, this at "
+          f"{row['bound_ms'] / min(row['kernel_ms']['this']):.1%}", flush=True)
+    print(json.dumps(result))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("root", help="the other checkout's root (with --worker: the tree to measure)")
-    ap.add_argument("--kernel", choices=("tv", "admm_split"), default="tv")
+    ap.add_argument("--kernel", choices=("tv", "tv_slab", "tv_sweep", "tv_depth", "admm_split"), default="tv")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--save", help=argparse.SUPPRESS)
     ap.add_argument("--against", help=argparse.SUPPRESS)
@@ -237,10 +595,16 @@ def main() -> int:
     if args.worker:
         if args.kernel == "tv":
             print(json.dumps(worker(root, args.save)))
+        elif args.kernel == "tv_slab":
+            print(json.dumps(slab_worker(root, args.save)))
+        elif args.kernel == "tv_sweep":
+            print(json.dumps(sweep_worker(root)))
+        elif args.kernel == "tv_depth":
+            print(json.dumps(depth_worker(root)))
         else:
             print(json.dumps(admm_worker(root, args.states, args.save, args.against)))
         return 0
-    module = {"tv": "hyperbolic_tv"}.get(args.kernel, args.kernel)
+    module = "admm_split" if args.kernel == "admm_split" else "hyperbolic_tv"
     if not os.path.isfile(os.path.join(root, "microtipi_tpu_torch", "ops", "kernels", f"{module}.py")):
         print(f"{root} is not a checkout of the repo with the {args.kernel} kernel", file=sys.stderr)
         return 2
@@ -258,6 +622,11 @@ def main() -> int:
             raise RuntimeError(f"{cmd} failed:\n{proc.stderr[-4000:]}")
         return proc.stdout
 
+    if args.kernel == "tv_sweep":
+        return report_sweep(card, json.loads(run([root, "--worker"]).strip().splitlines()[-1]))
+    if args.kernel == "tv_depth":
+        return report_depth(card, json.loads(run([root, "--worker"]).strip().splitlines()[-1]))
+
     with tempfile.TemporaryDirectory() as tmp:
         states = os.path.join(tmp, "states")
         if args.kernel == "admm_split":
@@ -265,13 +634,17 @@ def main() -> int:
         for who in ("other", "this", "this", "other"):
             cmd = [root if who == "other" else here, "--worker", "--states", states]
             if not runs[who]:
-                if args.kernel == "tv" or who == "other":
+                if args.kernel != "admm_split" or who == "other":
                     cmd += ["--save", os.path.join(tmp, who)]
                 else:
                     cmd += ["--against", os.path.join(tmp, "other")]
             runs[who].append(json.loads(run(cmd).strip().splitlines()[-1]))
-        if args.kernel == "tv":
-            diffs = [compare(os.path.join(tmp, "this"), os.path.join(tmp, "other"), i) for i in range(len(SHAPES))]
+        if args.kernel != "admm_split":
+            outputs = len(SHAPES) if args.kernel == "tv" else len(SLAB_AB) + 1
+            diffs = [compare(os.path.join(tmp, "this"), os.path.join(tmp, "other"), i) for i in range(outputs)]
+
+    if args.kernel == "tv_slab":
+        return report_slab(card, root, runs, diffs)
 
     if args.kernel == "admm_split":
         result = {"card": card, "other": root, "kernel": args.kernel, "cases": []}

@@ -23,7 +23,7 @@
 //     and walks a range of TV_ZR = 32 z planes in a loop, the TPU's
 //     sequential z grid turned into a loop inside the block: long enough
 //     that the two planes it re-reads (below) cost 6%, short enough that 256^3
-//     still gives 512 blocks, all resident at once on 132 SMs. Each thread
+//     still gives 512 blocks (3 resident an SM at its 72 registers). Each thread
 //     owns 4 consecutive x of one row, so its shared loads and its gradient
 //     stores are 16 bytes.
 //   - Staging. Each x plane's footprint of the tile, rows y0-1 .. y0+TY and
@@ -58,16 +58,38 @@
 //     outside the volume) that arrive on the same mbarriers, and stores the
 //     gradient 4 bytes at a time.
 //   - Slabs. A z-slab of a volume sharded over devices (microtipi_tpu_torch/parallel)
-//     takes the same kernel with its neighbours' boundary planes: `prev`, the
-//     plane before the slab, and `next`, the plane after it, each (B, ny, nx),
-//     staged from two more tensor maps (or by the 4-byte copies) into the same
-//     ring. A missing halo is the volume's face: no incoming w_z before the
-//     first plane, d_z = 0 at the last. The slab's cost sums its own planes and
-//     its gradient is written for them only, so the costs of the slabs add up
-//     to the volume's and their gradients are the volume's gradient, bit for
-//     bit (every per-voxel term comes from the same inputs in the same order).
-//     A whole volume is the slab with no halos. This replaces the halo
-//     exchanges that GSPMD inserts around the Pallas kernel on a TPU mesh.
+//     takes the same walk with its neighbours' boundary planes: `prev`, the
+//     plane before the slab, and `next`, the plane after it. A missing one is
+//     the volume's face: no incoming w_z before the first plane, d_z = 0 at
+//     the last. The slab's cost sums its own planes and its gradient is
+//     written for them only, so the costs of the slabs add up to the volume's
+//     and their gradients are the volume's gradient, bit for bit (every
+//     per-voxel term comes from the same inputs in the same order). This
+//     replaces the halo exchanges that GSPMD inserts around the Pallas kernel
+//     on a TPU mesh.
+//   - Grouped slab launch. Slabs have an entry of their own: one grid whose
+//     blockIdx.z runs over the z ranges of up to TV_GROUP_SLABS slabs of one
+//     device, with a __grid_constant__ table of each slab's tensor map (its
+//     base pointer for the 4-byte copies), outputs and z range, and of where
+//     its prev and next planes lie: plane z0 + volume * zstep of any map of
+//     the table. So a neighbouring slab of the same launch is read in place
+//     through its own map, and only a neighbour on another device needs a
+//     halo buffer (a map of its own). Each slab keeps its own partials and
+//     tickets, so its cost and gradient do not depend on the group.
+//   - Slab geometry. The grouped launch's z range is a launch parameter that
+//     the wrapper chooses from all its slabs' shapes: the longest of 32, 16,
+//     8 and 4 planes that still gives the launch about 4 blocks an SM (512).
+//     A 64-plane slab of 256^2 walked 32 planes in 128 blocks, one block an
+//     SM, and took the latency of one block's walk (25% of its bound); alone
+//     it walks 8 planes in 512 blocks, and four such slabs in one launch walk
+//     32, as the whole volume does. Each slab's cost is summed in chunks of
+//     TV_COST_PLANES planes (a partial a tile and chunk), so neither its cost
+//     nor its gradient depends on the z range or on the group it is in.
+//     Short ranges make the work beside a block's own voxels count: the plane
+//     before each range, walked for its w_z, and the halo points. Three or
+//     four resident blocks an SM time the same, so the grouped walk cuts
+//     that work instead (see tv_walk), in its own instantiation; the
+//     whole-volume launch keeps its own: TV_ZR planes, its halo spread.
 // The per-voxel arithmetic keeps the operation order of the kernel's first
 // version, so the gradient is the same bit for bit.
 //
@@ -86,8 +108,13 @@
 #define TV_TPR (TV_TX / TV_VEC)        // threads per tile row: 16
 #define TV_THREADS (TV_TPR * TV_TY)    // 256
 #define TV_WARPS (TV_THREADS / 32)
-#define TV_ZR 32                       // z planes a block walks
+#define TV_ZR 32                       // z planes a block of the whole-volume launch walks
 #define TV_STAGES 4                    // ring depth: 3 planes in flight
+#define TV_GROUP_BLOCKS_PER_SM 4       // its resident blocks (a register cap)
+#define TV_GROUP_SLABS 8               // slabs a grouped launch covers
+#define TV_GROUP_MAPS 24               // maps in its table: the slabs' and up to two halo buffers each
+#define TV_COST_PLANES 4               // planes of a grouped launch's cost partial; its z ranges are multiples
+#define TV_GROUP_CHUNKS 8              // cost partials a block of it writes at most: z ranges up to 32 planes
 #define TV_SW (TV_TX + 2 * TV_VEC)     // staged columns x0-4 .. x0+TX+3: 72
 #define TV_SH (TV_TY + 2)              // staged rows y0-1 .. y0+TY: 18
 #define TV_STAGE_FLOATS (TV_SH * TV_SW)
@@ -99,6 +126,7 @@
 static_assert(TV_HALO % TV_WARPS == 0, "halo points must spread evenly over the warps");
 static_assert(TV_HALO_LANES <= 32, "one halo point per lane");
 static_assert(TV_STAGES >= 2, "the ring holds a plane and the one above it");
+static_assert(TV_GROUP_MAPS >= 3 * TV_GROUP_SLABS, "every slab of a group may have two halo buffers");
 
 // CUresult cuTensorMapEncodeTiled(...), the signature of <cudaTypedefs.h>'
 // PFN_cuTensorMapEncodeTiled (v12000).
@@ -160,37 +188,39 @@ __device__ __forceinline__ double block_sum(double v, double* s_red) {
     return s_red[TV_WARPS];
 }
 
-// Grid: (x tiles, y tiles, B * z ranges); blockIdx.z = volume * nranges + range.
-template <bool kTma>
-__global__ void __launch_bounds__(TV_THREADS)
-hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_constant__ CUtensorMap tmap_prev,
-                     const __grid_constant__ CUtensorMap tmap_next, const float* __restrict__ x,
-                     const float* __restrict__ prev, const float* __restrict__ next,
-                     float* __restrict__ grad, double* __restrict__ partials, float* __restrict__ costs,
-                     unsigned int* __restrict__ tickets, int nz, int ny, int nx, int nranges, int has_prev,
-                     int has_next, float eps, float inv_sz, float inv_sy, float inv_sx) {
+// One block's walk: the (y, x) tile (blockIdx.y, blockIdx.x) of planes
+// [z0, z1) of a volume of nz planes, of which planes lo .. hi-1 exist (plane
+// -1 is `prev`, plane nz is `next`). `locate(p, map, zc, src)` says where
+// plane p lies: its tensor map and coordinate there (TMA), its first element
+// (4-byte copies). The gradient goes to gv, the volume's planes; returns the
+// thread's sum of D - eps. kGroup is the grouped slab launch's walk, whose
+// ranges are short, so it spends fewer instructions on what is not a voxel
+// of its own: the 80 halo points go to 2.5 warps (lanes 0-31 of warps 0-1,
+// 0-15 of warp 2) instead of 10 lanes of each of the 8, so 5 warps skip the
+// halo branch, and the plane before the range, walked for its w_z alone,
+// computes no halo point. It sums the cost by chunks of TV_COST_PLANES
+// planes instead (z0 is a multiple): each warp's sum of a chunk goes to
+// s_chunk[chunk - z0 / TV_COST_PLANES][warp], so a chunk's sum does not
+// depend on the z range that walked it.
+template <bool kTma, bool kGroup, typename Locate>
+__device__ __forceinline__ double tv_walk(const Locate& locate, float* __restrict__ gv, int nz, int ny, int nx,
+                                          int z0, int z1, int lo, int hi, float eps, float inv_sz, float inv_sy,
+                                          float inv_sx, double (*s_chunk)[TV_WARPS] = nullptr) {
+    constexpr int kHaloLanes = kGroup ? 32 : TV_HALO_LANES;
     __shared__ __align__(128) float s_ring[TV_STAGES][TV_STAGE_STRIDE];
     __shared__ __align__(16) float s_wy[2][TV_TY + 1][TV_TX];  // w_y at rows y0-1 .. y0+TY-1
     __shared__ float s_wxl[2][TV_TY][TV_TPR + 1];  // [0]: w_x at x0-1; [c+1]: thread c's last w_x
     __shared__ __align__(8) uint64_t s_full[TV_STAGES];
-    __shared__ double s_red[TV_WARPS + 1];
-    __shared__ int s_last;
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int r = tid / TV_TPR, c = tid - r * TV_TPR;  // tile row, 4-column group
     const int x0 = blockIdx.x * TV_TX, y0 = blockIdx.y * TV_TY;
     const int y = y0 + r, xs = x0 + TV_VEC * c;
-    const int vol = blockIdx.z / nranges, range = blockIdx.z - vol * nranges;
-    const int z0 = range * TV_ZR, z1 = min(z0 + TV_ZR, nz);
     // Planes staged: the one before the range (to rebuild its incoming w_z),
-    // the range, and the one after it (for the last plane's d_z). Plane -1 is
-    // the `prev` halo and plane nz the `next` one; [lo, hi) are those there are.
-    const int lo = has_prev ? -1 : 0, hi = has_next ? nz + 1 : nz;
+    // the range, and the one after it (for the last plane's d_z).
     const int pstart = max(z0 - 1, lo), pend = min(z1 + 1, hi);
     const float eps2 = eps * eps;
     const size_t plane = (size_t)ny * nx;
-    const float* xv = x + (size_t)vol * nz * plane;
-    float* gv = grad + (size_t)vol * nz * plane;
 
     if (tid == 0) {
         for (int s = 0; s < TV_STAGES; ++s)
@@ -206,10 +236,11 @@ hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_cons
         const int k = p - pstart;
         float* dst = s_ring[k % TV_STAGES];
         const uint32_t bar = smem_addr(&s_full[k % TV_STAGES]);
+        const CUtensorMap* map;
+        int zc;
+        const float* src_plane;
+        locate(p, map, zc, src_plane);
         if constexpr (kTma) {
-            // A halo plane is plane `vol` of its own (B, ny, nx) map.
-            const CUtensorMap* map = p < 0 ? &tmap_prev : p >= nz ? &tmap_next : &tmap;
-            const int zc = p < 0 || p >= nz ? vol : vol * nz + p;
             asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
                          "r"(TV_STAGE_BYTES) : "memory");
             asm volatile(
@@ -218,14 +249,11 @@ hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_cons
                 "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x0 - TV_VEC), "r"(y0 - 1),
                 "r"(zc) : "memory");
         } else {
-            const float* src_plane = p < 0     ? prev + (size_t)vol * plane
-                                     : p >= nz ? next + (size_t)vol * plane
-                                               : xv + (size_t)p * plane;
             for (int i = tid; i < TV_STAGE_FLOATS; i += TV_THREADS) {
                 const int row = i / TV_SW, col = i - row * TV_SW;
                 const int gy = y0 - 1 + row, gx = x0 - TV_VEC + col;
                 const bool ok = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
-                const float* src = ok ? src_plane + (size_t)gy * nx + gx : xv;
+                const float* src = ok ? src_plane + (size_t)gy * nx + gx : src_plane;
                 asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst + i)),
                              "l"(src), "r"(ok ? 4 : 0) : "memory");
             }
@@ -242,8 +270,8 @@ hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_cons
 
     // The halo point this lane computes, if any: h < TV_TX is the halo row
     // (y0-1, x0+h), else the halo column (y0+h-TV_TX, x0-1).
-    const int h = warp * TV_HALO_LANES + lane;
-    const bool has_halo = lane < TV_HALO_LANES;
+    const int h = warp * kHaloLanes + lane;
+    const bool has_halo = lane < kHaloLanes && (!kGroup || h < TV_HALO);
 
     float wz_prev[TV_VEC] = {0.0f, 0.0f, 0.0f, 0.0f};
     double acc = 0.0;
@@ -271,7 +299,7 @@ hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_cons
                      wz[j], wy[j], wx[j]);
         *reinterpret_cast<float4*>(&s_wy[b][r + 1][TV_VEC * c]) = make_float4(wy[0], wy[1], wy[2], wy[3]);
         s_wxl[b][r][c + 1] = wx[TV_VEC - 1];
-        if (has_halo) {
+        if (has_halo && (!kGroup || z >= z0)) {
             float hd, hwz, hwy, hwx;
             if (h < TV_TX) {  // w_y at (y0-1, x0+h): stage row 0, column 4+h; 0 at the leading face
                 const int q = TV_VEC + h;
@@ -315,28 +343,147 @@ hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const __grid_cons
         }
 #pragma unroll
         for (int j = 0; j < TV_VEC; ++j) wz_prev[j] = wz[j];
-    }
-
-    // The block's partial, then the volume's cost from the last block to finish.
-    const double part = block_sum(acc, s_red);
-    const int per_vol = gridDim.x * gridDim.y * nranges;
-    double* pv = partials + (size_t)vol * per_vol;
-    if (tid == 0) {
-        pv[(range * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = part;
-        __threadfence();
-        s_last = atomicAdd(&tickets[vol], 1u) == (unsigned)per_vol - 1;
-    }
-    __syncthreads();
-    if (s_last) {
-        __threadfence();
-        double t = 0.0;
-        for (int i = tid; i < per_vol; i += TV_THREADS) t += __ldcg(pv + i);
-        t = block_sum(t, s_red);
-        if (tid == 0) {
-            costs[vol] = (float)t;
-            tickets[vol] = 0u;
+        if constexpr (kGroup) {
+            if (z >= z0 && ((z + 1) % TV_COST_PLANES == 0 || z + 1 == z1)) {
+                for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+                if (lane == 0) s_chunk[(z - z0) / TV_COST_PLANES][warp] = acc;
+                acc = 0.0;
+            }
         }
     }
+    return acc;
+}
+
+// The volume's cost, by the last of its blocks to take a ticket (`last`):
+// its n partials summed in index order. That block leaves the ticket 0 for
+// the next launch on the stream.
+__device__ __forceinline__ void tv_cost(bool last, const double* __restrict__ pv, int n,
+                                        unsigned int* __restrict__ ticket, float* __restrict__ cost, double* s_red) {
+    if (last) {
+        __threadfence();
+        double t = 0.0;
+        for (int i = threadIdx.x; i < n; i += TV_THREADS) t += __ldcg(pv + i);
+        t = block_sum(t, s_red);
+        if (threadIdx.x == 0) {
+            *cost = (float)t;
+            *ticket = 0u;
+        }
+    }
+}
+
+// The block's partial into slot `slot` of its volume's `per_vol` partials,
+// then an atomic ticket after __threadfence: the last block to finish sums
+// the volume's cost.
+__device__ __forceinline__ void tv_finish(double acc, double* __restrict__ pv, int slot, int per_vol,
+                                          unsigned int* __restrict__ ticket, float* __restrict__ cost) {
+    __shared__ double s_red[TV_WARPS + 1];
+    __shared__ int s_last;
+    const double part = block_sum(acc, s_red);
+    if (threadIdx.x == 0) {
+        pv[slot] = part;
+        __threadfence();
+        s_last = atomicAdd(ticket, 1u) == (unsigned)per_vol - 1;
+    }
+    __syncthreads();
+    tv_cost(s_last, pv, per_vol, ticket, cost, s_red);
+}
+
+// Whole volumes: grid (x tiles, y tiles, B * z ranges of TV_ZR planes);
+// blockIdx.z = volume * nranges + range.
+template <bool kTma>
+__global__ void __launch_bounds__(TV_THREADS)
+hyperbolic_tv_kernel(const __grid_constant__ CUtensorMap tmap, const float* __restrict__ x,
+                     float* __restrict__ grad, double* __restrict__ partials, float* __restrict__ costs,
+                     unsigned int* __restrict__ tickets, int nz, int ny, int nx, int nranges, float eps,
+                     float inv_sz, float inv_sy, float inv_sx) {
+    const int vol = blockIdx.z / nranges, range = blockIdx.z - vol * nranges;
+    const int z0 = range * TV_ZR, z1 = min(z0 + TV_ZR, nz);
+    const size_t plane = (size_t)ny * nx;
+    auto locate = [&](int p, const CUtensorMap*& map, int& zc, const float*& src) {
+        map = &tmap;
+        zc = vol * nz + p;
+        src = x + (size_t)zc * plane;
+    };
+    const double acc = tv_walk<kTma, false>(locate, grad + (size_t)vol * nz * plane, nz, ny, nx, z0, z1, 0, nz, eps,
+                                            inv_sz, inv_sy, inv_sx);
+    const int per_vol = gridDim.x * gridDim.y * nranges;
+    tv_finish(acc, partials + (size_t)vol * per_vol, (range * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x,
+              per_vol, tickets + vol, costs + vol);
+}
+
+// Where a slab's prev or next plane of volume v lies: plane z0 + v * zstep
+// of the table's map `map`; map < 0: none (the volume's face).
+struct TvSource {
+    int map, z0, zstep;
+};
+
+struct TvSlab {
+    float* grad;             // (nb, nz, ny, nx)
+    double* partials;        // nb * gx * gy * ceil(nz / TV_COST_PLANES)
+    float* costs;            // nb
+    unsigned int* tickets;   // nb
+    int nz, ranges, block0;  // block0: the slab's first blockIdx.z
+    TvSource prev, next;
+};
+
+// A grouped launch's table: map s < nslabs holds slab s's nb * nz planes,
+// the maps after them the halo buffers.
+struct TvGroup {
+    CUtensorMap maps[TV_GROUP_MAPS];
+    const float* planes[TV_GROUP_MAPS];  // each map's first element, for the 4-byte copies
+    TvSlab slabs[TV_GROUP_SLABS];
+    int nslabs, ny, nx, z_range;
+    float eps, inv_sz, inv_sy, inv_sx;
+};
+static_assert(sizeof(TvGroup) <= 4096, "a launch's parameters stay within 4 KB");
+
+// Grouped slabs: grid (x tiles, y tiles, the slabs' B * z ranges in table
+// order); blockIdx.z - block0 = volume * ranges + range within its slab.
+// Each slab's volume has a cost partial per tile and chunk of TV_COST_PLANES
+// planes, index (chunk, y tile, x tile); its last block sums them in index
+// order, so the cost does not depend on the z range either.
+template <bool kTma>
+__global__ void __launch_bounds__(TV_THREADS, TV_GROUP_BLOCKS_PER_SM)
+hyperbolic_tv_group_kernel(const __grid_constant__ TvGroup g) {
+    __shared__ double s_chunk[TV_GROUP_CHUNKS][TV_WARPS];
+    __shared__ double s_red[TV_WARPS + 1];
+    __shared__ int s_last;
+    int s = 0;
+    while (s + 1 < g.nslabs && (int)blockIdx.z >= g.slabs[s + 1].block0) ++s;
+    const TvSlab& sl = g.slabs[s];
+    const int local = blockIdx.z - sl.block0, nz = sl.nz;
+    const int vol = local / sl.ranges, range = local - vol * sl.ranges;
+    const int z0 = range * g.z_range, z1 = min(z0 + g.z_range, nz);
+    const size_t plane = (size_t)g.ny * g.nx;
+    auto locate = [&](int p, const CUtensorMap*& map, int& zc, const float*& src) {
+        int m = s;
+        zc = vol * nz + p;
+        if (p < 0) {
+            m = sl.prev.map;
+            zc = sl.prev.z0 + vol * sl.prev.zstep;
+        } else if (p >= nz) {
+            m = sl.next.map;
+            zc = sl.next.z0 + vol * sl.next.zstep;
+        }
+        map = &g.maps[m];
+        src = g.planes[m] + (size_t)zc * plane;
+    };
+    tv_walk<kTma, true>(locate, sl.grad + (size_t)vol * nz * plane, nz, g.ny, g.nx, z0, z1,
+                        sl.prev.map >= 0 ? -1 : 0, sl.next.map >= 0 ? nz + 1 : nz, g.eps, g.inv_sz, g.inv_sy,
+                        g.inv_sx, s_chunk);
+    __syncthreads();  // every warp's chunk sums are in s_chunk
+    const int tid = threadIdx.x, tiles = gridDim.x * gridDim.y, chunks = (nz + TV_COST_PLANES - 1) / TV_COST_PLANES;
+    double* pv = sl.partials + (size_t)vol * tiles * chunks;
+    if (tid < (z1 - z0 + TV_COST_PLANES - 1) / TV_COST_PLANES) {
+        double t = 0.0;
+        for (int w = 0; w < TV_WARPS; ++w) t += s_chunk[tid][w];
+        pv[(z0 / TV_COST_PLANES + tid) * tiles + blockIdx.y * gridDim.x + blockIdx.x] = t;
+        __threadfence();
+    }
+    __syncthreads();
+    if (tid == 0) s_last = atomicAdd(&sl.tickets[vol], 1u) == (unsigned)(tiles * sl.ranges) - 1;
+    __syncthreads();
+    tv_cost(s_last, pv, tiles * chunks, &sl.tickets[vol], &sl.costs[vol], s_red);
 }
 
 static EncodeTiledFn encode_tiled() {
@@ -366,50 +513,118 @@ static bool encode_planes(CUtensorMap* map, const void* base, int nx, int ny, in
 
 static bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
+static int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
 extern "C" {
 
-// One evaluation over z-slabs of a batch of nb volumes: x is nb contiguous
-// float32 slabs (nz, ny, nx), prev and next the planes before and after each
-// slab (nb contiguous (ny, nx) planes each), NULL where the slab starts or
-// ends the volume; a whole volume (or batch of them) is the slab with both
-// NULL. The costs are the slabs' own planes' and the gradient is
-// the volume's at the slab's planes (see the note at the top). The geometry
-// comes from the caller, which computed it with the same tile: grid (gx, gy, nb * nranges) with
-// gx = ceil(nx / 64), gy = ceil(ny / 16), nranges = ceil(nz / 32);
-// anything else, or a grid above 65535 in y or z, is refused with
-// cudaErrorInvalidConfiguration before launching. aligned = 1 takes the TMA
-// instantiation, which needs nx % 4 == 0 and x, grad and the halos 16-byte
-// aligned (else cudaErrorInvalidValue); aligned = 0 the 4-byte-copy one.
-// partials: float64, nb * gx * gy * nranges; costs: float32, nb; tickets:
-// uint32, nb, zero before the first launch (each launch leaves them zero).
-int hyperbolic_tv_slab_f32(const void* x, const void* prev, const void* next, void* grad, void* partials,
-                           void* costs, void* tickets, int nb, int nz, int ny, int nx, int gx, int gy, int nranges,
-                           int aligned, float eps, float inv_sz, float inv_sy, float inv_sx, void* stream) {
-    if (nb < 1 || nz < 1 || ny < 1 || nx < 1 || gx != (nx + TV_TX - 1) / TV_TX ||
-        gy != (ny + TV_TY - 1) / TV_TY || nranges != (nz + TV_ZR - 1) / TV_ZR || gy > 65535 ||
-        (int64_t)nb * nranges > 65535)
+// One evaluation of a batch of nb whole volumes: x is nb contiguous float32
+// volumes (nz, ny, nx). The geometry comes from the caller, which computed
+// it with the same tile: grid (gx, gy, nb * nranges) with gx = ceil(nx / 64),
+// gy = ceil(ny / 16), nranges = ceil(nz / TV_ZR); anything else, or a grid
+// above 65535 in y or z, is refused with cudaErrorInvalidConfiguration
+// before launching. aligned = 1 takes the TMA instantiation, which needs
+// nx % 4 == 0 and x and grad 16-byte aligned (else cudaErrorInvalidValue);
+// aligned = 0 the 4-byte-copy one. partials: float64, nb * gx * gy *
+// nranges; costs: float32, nb; tickets: uint32, nb, zero before the first
+// launch (each launch leaves them zero).
+int hyperbolic_tv_f32(const void* x, void* grad, void* partials, void* costs, void* tickets, int nb, int nz, int ny,
+                      int nx, int gx, int gy, int nranges, int aligned, float eps, float inv_sz, float inv_sy,
+                      float inv_sx, void* stream) {
+    if (nb < 1 || nz < 1 || ny < 1 || nx < 1 || gx != ceil_div(nx, TV_TX) || gy != ceil_div(ny, TV_TY) ||
+        nranges != ceil_div(nz, TV_ZR) || gy > 65535 || (int64_t)nb * nranges > 65535)
         return (int)cudaErrorInvalidConfiguration;
     const dim3 grid(gx, gy, nb * nranges);
-    CUtensorMap tmap = {}, tmap_prev = {}, tmap_next = {};
-    const int has_prev = prev != nullptr, has_next = next != nullptr;
+    CUtensorMap tmap = {};
     if (aligned) {
-        if (nx % 4 != 0 || !aligned16(x) || !aligned16(grad) || (has_prev && !aligned16(prev)) ||
-            (has_next && !aligned16(next)))
-            return (int)cudaErrorInvalidValue;
+        if (nx % 4 != 0 || !aligned16(x) || !aligned16(grad)) return (int)cudaErrorInvalidValue;
         if (!encode_tiled()) return (int)cudaErrorSymbolNotFound;
-        if (!encode_planes(&tmap, x, nx, ny, (int64_t)nb * nz) ||
-            (has_prev && !encode_planes(&tmap_prev, prev, nx, ny, nb)) ||
-            (has_next && !encode_planes(&tmap_next, next, nx, ny, nb)))
-            return (int)cudaErrorInvalidValue;
+        if (!encode_planes(&tmap, x, nx, ny, (int64_t)nb * nz)) return (int)cudaErrorInvalidValue;
         hyperbolic_tv_kernel<true><<<grid, TV_THREADS, 0, (cudaStream_t)stream>>>(
-            tmap, tmap_prev, tmap_next, (const float*)x, (const float*)prev, (const float*)next, (float*)grad,
-            (double*)partials, (float*)costs, (unsigned int*)tickets, nz, ny, nx, nranges, has_prev, has_next, eps,
-            inv_sz, inv_sy, inv_sx);
+            tmap, (const float*)x, (float*)grad, (double*)partials, (float*)costs, (unsigned int*)tickets, nz, ny,
+            nx, nranges, eps, inv_sz, inv_sy, inv_sx);
     } else {
         hyperbolic_tv_kernel<false><<<grid, TV_THREADS, 0, (cudaStream_t)stream>>>(
-            tmap, tmap_prev, tmap_next, (const float*)x, (const float*)prev, (const float*)next, (float*)grad,
-            (double*)partials, (float*)costs, (unsigned int*)tickets, nz, ny, nx, nranges, has_prev, has_next, eps,
-            inv_sz, inv_sy, inv_sx);
+            tmap, (const float*)x, (float*)grad, (double*)partials, (float*)costs, (unsigned int*)tickets, nz, ny,
+            nx, nranges, eps, inv_sz, inv_sy, inv_sx);
+    }
+    return (int)cudaGetLastError();
+}
+
+// One grouped launch over nslabs z-slabs of one device (1 .. TV_GROUP_SLABS),
+// each nb contiguous float32 slabs (nz[s], ny, nx): planes[s] (s < nslabs)
+// is slab s, of depths[s] = nb * nz[s] planes; planes[s] for nslabs <= s <
+// nmaps (<= TV_GROUP_MAPS) are further sources of halo planes, of depths[s]
+// planes (ny, nx) each. sources holds 6 ints a slab, (map, z0, zstep) of its
+// prev plane and of its next one: volume v's plane is plane z0 + v * zstep
+// of map `map`, map = -1 where the slab starts or ends the volume. The costs
+// are each slab's own planes' and the gradients the volume's at the slab's
+// planes (see the note at the top). The geometry comes from the caller: a
+// block walks z_range planes (a multiple of TV_COST_PLANES, at most
+// TV_COST_PLANES * TV_GROUP_CHUNKS), so slab s has ceil(nz[s] / z_range) z
+// ranges; grid (gx, gy, gz) with gx = ceil(nx / 64), gy = ceil(ny / 16), gz
+// the sum over the slabs of nb * their z ranges; anything else, or a grid
+// above 65535 in y or z, is refused with cudaErrorInvalidConfiguration before
+// launching, as is a source outside its map (cudaErrorInvalidValue).
+// aligned = 1 takes the TMA instantiation, which needs nx % 4 == 0 and every
+// map and gradient 16-byte aligned; aligned = 0 the 4-byte-copy one.
+// partials: float64, nb * gx * gy * ceil(nz[s] / TV_COST_PLANES), slab after slab;
+// costs: float32, nslabs * nb, slab-major; tickets: uint32, nslabs * nb,
+// zero before the first launch (each launch leaves them zero).
+int hyperbolic_tv_group_f32(int nslabs, int nmaps, const void* const* planes, const long long* depths,
+                            void* const* grads, const int* nz, const int* sources, void* partials, void* costs,
+                            void* tickets, int nb, int ny, int nx, int z_range, int gx, int gy, int gz, int aligned,
+                            float eps, float inv_sz, float inv_sy, float inv_sx, void* stream) {
+    if (nslabs < 1 || nslabs > TV_GROUP_SLABS || nmaps < nslabs || nmaps > TV_GROUP_MAPS || nb < 1 || ny < 1 ||
+        nx < 1 || z_range < 1 || z_range % TV_COST_PLANES != 0 || z_range > TV_COST_PLANES * TV_GROUP_CHUNKS ||
+        gx != ceil_div(nx, TV_TX) || gy != ceil_div(ny, TV_TY) || gy > 65535 || gz > 65535)
+        return (int)cudaErrorInvalidConfiguration;
+    TvGroup g = {};
+    g.nslabs = nslabs;
+    g.ny = ny;
+    g.nx = nx;
+    g.z_range = z_range;
+    g.eps = eps;
+    g.inv_sz = inv_sz;
+    g.inv_sy = inv_sy;
+    g.inv_sx = inv_sx;
+    int64_t block0 = 0, partial0 = 0;
+    for (int s = 0; s < nslabs; ++s) {
+        if (nz[s] < 1 || depths[s] != (int64_t)nb * nz[s]) return (int)cudaErrorInvalidConfiguration;
+        TvSlab& sl = g.slabs[s];
+        sl.nz = nz[s];
+        sl.ranges = (int)ceil_div(nz[s], z_range);
+        sl.block0 = (int)block0;
+        sl.grad = (float*)grads[s];
+        sl.partials = (double*)partials + partial0;
+        sl.costs = (float*)costs + (int64_t)s * nb;
+        sl.tickets = (unsigned int*)tickets + (int64_t)s * nb;
+        block0 += (int64_t)nb * sl.ranges;
+        partial0 += (int64_t)nb * gx * gy * ceil_div(nz[s], TV_COST_PLANES);
+        if (block0 > gz) return (int)cudaErrorInvalidConfiguration;
+        TvSource* src[2] = {&sl.prev, &sl.next};
+        for (int i = 0; i < 2; ++i) {
+            const int* q = sources + 6 * s + 3 * i;
+            *src[i] = TvSource{q[0], q[1], q[2]};
+            if (q[0] == -1) continue;
+            if (q[0] < 0 || q[0] >= nmaps || q[1] < 0 || q[2] < 0 || q[1] + (int64_t)(nb - 1) * q[2] >= depths[q[0]])
+                return (int)cudaErrorInvalidValue;
+        }
+    }
+    if (block0 != gz) return (int)cudaErrorInvalidConfiguration;
+    for (int m = 0; m < nmaps; ++m) g.planes[m] = (const float*)planes[m];
+    const dim3 grid(gx, gy, gz);
+    if (aligned) {
+        if (nx % 4 != 0) return (int)cudaErrorInvalidValue;
+        for (int m = 0; m < nmaps; ++m)
+            if (!aligned16(planes[m])) return (int)cudaErrorInvalidValue;
+        for (int s = 0; s < nslabs; ++s)
+            if (!aligned16(grads[s])) return (int)cudaErrorInvalidValue;
+        if (!encode_tiled()) return (int)cudaErrorSymbolNotFound;
+        for (int m = 0; m < nmaps; ++m)
+            if (!encode_planes(&g.maps[m], planes[m], nx, ny, depths[m])) return (int)cudaErrorInvalidValue;
+        hyperbolic_tv_group_kernel<true><<<grid, TV_THREADS, 0, (cudaStream_t)stream>>>(g);
+    } else {
+        hyperbolic_tv_group_kernel<false><<<grid, TV_THREADS, 0, (cudaStream_t)stream>>>(g);
     }
     return (int)cudaGetLastError();
 }

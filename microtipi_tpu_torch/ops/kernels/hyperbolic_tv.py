@@ -14,28 +14,41 @@ why it is shaped as it is.
   batch (B, Nz, Ny, Nx), no difference crossing a volume boundary: one launch
   of the same kernel with the batch on its grid (float32, contiguous, 4D), or
   :func:`hyperbolic_tv_batched_plain` for a CPU tensor.
-- :func:`hyperbolic_tv_slab_fused` returns ``(costs (B,), grad)`` of z-slabs
-  (B, nz, Ny, Nx) of a volume sharded in z (``parallel/``): the same kernel
-  with the plane before the slab and the plane after it (B, Ny, Nx), None
-  where the slab starts or ends the volume. The costs are the slab's own
-  planes' and the gradient is the whole volume's at the slab's planes, so the
-  slabs' costs add up to the volume's and their gradients put together are
-  its gradient; :func:`hyperbolic_tv_slab_plain` is its plain version.
+- :func:`hyperbolic_tv_slab_group` returns ``(costs, grads)`` of up to
+  ``GROUP_SLABS`` z-slabs (B, nz_s, Ny, Nx) of volumes sharded in z
+  (``parallel/``), each with the plane before it and the plane after it (B,
+  Ny, Nx), None where the slab starts or ends the volume: one grouped launch
+  of the kernel's slab entry. A halo plane that is a view into one of the
+  group's slabs (a neighbouring slab on the same device) is read in place
+  through that slab's tensor map; any other (a copy from another device) is
+  a map of its own. The costs are each slab's own planes' and each gradient
+  is the whole volume's at the slab's planes, so the slabs' costs add up to
+  the volume's and their gradients put together are its gradient; how the
+  slabs are grouped changes no bit. :func:`hyperbolic_tv_slab_group_plain` is
+  its plain version. :func:`hyperbolic_tv_slab_fused` is the group of one
+  slab, :func:`hyperbolic_tv_slab_plain` its plain version.
 - :class:`HyperbolicTV` and :class:`HyperbolicTVBatched` are the
   ``torch.autograd.Function``s: the forward runs the sweep once and keeps the
   gradient, the backward is ``g * grad`` (per volume for the batch).
-- ``launches`` counts single-volume launches and ``batched_launches`` batched
-  ones and ``slab_launches`` slab ones (CPU calls leave them alone); a run sets them to 0 and reads them to
-  show which kernel its path went through. ``unaligned_launches`` counts the
-  launches of either kind that took the kernel's 4-byte-copy instantiation
-  (nx % 4 != 0, or data not 16-byte aligned) instead of its TMA one.
+- ``launches`` counts single-volume launches, ``batched_launches`` batched
+  ones, ``slab_launches`` grouped slab launches and ``slabs_launched`` the
+  slabs they covered (CPU calls leave them alone); a run sets them to 0 and
+  reads them to show which kernel its path went through.
+  ``unaligned_launches`` counts the launches of any kind that took the
+  kernel's 4-byte-copy instantiation (nx % 4 != 0, or data not 16-byte
+  aligned) instead of its TMA one.
 - :func:`tv_launch` is the one place the launch geometry is decided (tile,
-  z range, grid, partials per volume, instantiation); the C launcher refuses
-  a grid that disagrees with its tile. :func:`prepare_launch` allocates the
-  outputs once and returns a launcher for timing back-to-back launches.
-- The kernel sums each volume's cost itself (the last block of the volume),
-  so one evaluation is one launch; its per-volume tickets are allocated once
-  per device and stream.
+  z range, grid, partials per volume, instantiation): whole volumes walk
+  ``Z_RANGE`` planes a block, the slabs of a grouped launch the longest of
+  ``SLAB_Z_RANGES`` that gives the launch ``SLAB_BLOCKS`` blocks, their costs
+  summed in chunks of ``COST_PLANES`` planes so that no result depends on
+  the z range; the C launchers refuse a grid that disagrees with the tile
+  and the z range they are given.
+  :func:`prepare_launch` and :func:`prepare_slabs` allocate the outputs once
+  and return a launcher for timing back-to-back launches.
+- The kernel sums each volume's (or slab's) cost itself (its last block),
+  so one evaluation is one launch; the tickets are allocated once per device
+  and stream.
 
 Importing this module needs no ``nvcc`` and no card: the library is built
 and loaded at the first launch.
@@ -60,6 +73,8 @@ __all__ = [
     "hyperbolic_tv_fused",
     "hyperbolic_tv_plain",
     "hyperbolic_tv_slab_fused",
+    "hyperbolic_tv_slab_group",
+    "hyperbolic_tv_slab_group_plain",
     "hyperbolic_tv_slab_plain",
     "hyperbolic_tv_value",
 ]
@@ -68,16 +83,26 @@ __all__ = [
 launches = 0
 #: Batched kernel launches since the last reset (``batched_launches = 0``).
 batched_launches = 0
-#: Slab launches (a z-slab with its halo planes) since the last reset.
+#: Grouped slab launches (z-slabs with their halo planes) since the last reset.
 slab_launches = 0
+#: Slabs those launches covered.
+slabs_launched = 0
 #: Launches (of either kind) that took the 4-byte-copy instantiation because
 #: nx % 4 != 0 or the data is not 16-byte aligned.
 unaligned_launches = 0
 
-# The kernel's tile and the planes a block walks (TV_TX, TV_TY, TV_ZR in
-# csrc/hyperbolic_tv.cu, whose launcher refuses a grid built with any
-# others), and CUDA's limit on grid y and z.
+# The kernel's tile and the planes a block of the whole-volume launch walks
+# (TV_TX, TV_TY, TV_ZR in csrc/hyperbolic_tv.cu, whose launcher refuses a
+# grid built with any others), and CUDA's limit on grid y and z.
 TILE_X, TILE_Y, Z_RANGE, GRID_LIMIT = 64, 16, 32, 65535
+#: The z ranges the blocks of a grouped slab launch may walk, longest first
+#: (multiples of COST_PLANES, TV_COST_PLANES: the planes of a cost partial),
+#: and the blocks a launch should reach: about 4 resident an SM on the H100's
+#: 132 (the grouped kernel's register cap, TV_GROUP_BLOCKS_PER_SM).
+SLAB_Z_RANGES, SLAB_BLOCKS, COST_PLANES = (32, 16, 8, 4), 512, 4
+#: Slabs that one grouped launch's table holds (TV_GROUP_SLABS; its
+#: TV_GROUP_MAPS tensor maps take every slab's and two halo buffers a slab).
+GROUP_SLABS = 8
 _TICKETS: dict = {}
 
 
@@ -102,6 +127,13 @@ def hyperbolic_tv_batched_plain(x: torch.Tensor, epsilon: float, scales=None):
         costs = torch.stack([hyperbolic_tv(v, epsilon, scales, axes=(-3, -2, -1)) for v in xv.unbind(0)])
         (grad,) = torch.autograd.grad(costs.sum(), xv)
     return costs.detach(), grad
+
+
+def hyperbolic_tv_slab_group_plain(slabs, prevs, nexts, epsilon: float, scales=None):
+    """(costs, grads) lists of :func:`hyperbolic_tv_slab_plain` over the
+    slabs and their halo planes: the grouped launch's plain version."""
+    out = [hyperbolic_tv_slab_plain(x, p, n, epsilon, scales) for x, p, n in zip(slabs, prevs, nexts, strict=True)]
+    return [c for c, _ in out], [g for _, g in out]
 
 
 def hyperbolic_tv_slab_plain(x: torch.Tensor, prev, next_, epsilon: float, scales=None):
@@ -131,36 +163,61 @@ def _library() -> ctypes.CDLL:
     from microtipi_tpu_torch._build import load_library
 
     lib = load_library("hyperbolic_tv")
-    lib.hyperbolic_tv_slab_f32.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
-    )
-    lib.hyperbolic_tv_slab_f32.restype = ctypes.c_int
+    lib.hyperbolic_tv_f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
+                                      + [ctypes.c_void_p])
+    lib.hyperbolic_tv_f32.restype = ctypes.c_int
+    lib.hyperbolic_tv_group_f32.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                                            + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    lib.hyperbolic_tv_group_f32.restype = ctypes.c_int
     return lib
 
 
 class TvLaunch(NamedTuple):
-    """One launch's geometry: the grid (x tiles, y tiles, B * z ranges), the
-    z ranges and the cost partials (one per block) of each volume, and
-    whether the TMA instantiation (16-byte staging and stores) takes it."""
+    """One volume's (or slab's) geometry: its grid (x tiles, y tiles, B * z
+    ranges), the z ranges and the cost partials (one a block; a slab's one
+    a tile and COST_PLANES planes) of each volume, whether the TMA
+    instantiation (16-byte staging and stores) takes it, and the planes a
+    block walks."""
 
     grid: tuple[int, int, int]
     ranges: int
     partials: int
     aligned: bool
+    z_range: int
 
 
-def tv_launch(shape, data_ptr: int) -> TvLaunch:
+def tv_launch(shape, data_ptr: int, group=None) -> TvLaunch:
     """The launch geometry of a volume (nz, ny, nx) or a batch (B, nz, ny,
-    nx) whose data starts at ``data_ptr``. Raises ``ValueError`` where the
-    grid does not fit (more than 65535 blocks in y or z)."""
+    nx) whose data starts at ``data_ptr``: ``Z_RANGE`` planes a block, or, as
+    one of the z-slabs (B, nz_s, ny, nx) of a grouped launch whose shapes are
+    ``group``, the longest of ``SLAB_Z_RANGES`` that gives the launch at
+    least ``SLAB_BLOCKS`` blocks, else the shortest. Raises ``ValueError``
+    where the grid does not fit (more than 65535 blocks in y or z)."""
     nb, nz, ny, nx = shape if len(shape) == 4 else (1, *shape)
-    ranges = -(-nz // Z_RANGE)
-    grid = (-(-nx // TILE_X), -(-ny // TILE_Y), nb * ranges)
+    gx, gy = -(-nx // TILE_X), -(-ny // TILE_Y)
+    z_range = Z_RANGE
+    if group is not None:
+        z_range = next((zr for zr in SLAB_Z_RANGES
+                        if sum(g[0] * gx * gy * -(-g[1] // zr) for g in group) >= SLAB_BLOCKS), SLAB_Z_RANGES[-1])
+    ranges = -(-nz // z_range)
+    grid = (gx, gy, nb * ranges)
     if grid[1] > GRID_LIMIT or grid[2] > GRID_LIMIT:
         raise ValueError(f"shape {tuple(shape)} needs {grid[1]} blocks in grid y and {grid[2]} in grid z "
-                         f"(B * ceil(Nz / {Z_RANGE})); the limit is {GRID_LIMIT}")
+                         f"(B * ceil(Nz / {z_range})); the limit is {GRID_LIMIT}")
     aligned = nx % 4 == 0 and data_ptr % 16 == 0
-    return TvLaunch(grid, ranges, grid[0] * grid[1] * ranges, aligned)
+    partials = gx * gy * (ranges if group is None else -(-nz // COST_PLANES))
+    return TvLaunch(grid, ranges, partials, aligned, z_range)
+
+
+class TvGroupLaunch(NamedTuple):
+    """A grouped slab launch's geometry: the grid (x tiles, y tiles, the
+    slabs' grid z summed), each slab's :class:`TvLaunch`, the tensor maps of
+    its table, and whether the TMA instantiation takes it."""
+
+    grid: tuple[int, int, int]
+    slabs: tuple
+    maps: int
+    aligned: bool
 
 
 def _tickets(device: torch.device, stream, nb: int) -> torch.Tensor:
@@ -183,50 +240,122 @@ def _check(x: torch.Tensor) -> None:
 
 
 def _check_halo(h, x: torch.Tensor) -> None:
+    """A halo plane of slabs ``x``: float32 (B, Ny, Nx) on x's device, each
+    plane's rows contiguous and its planes a whole number of planes apart."""
     if h is None:
         return
-    want = (x.shape[0], *x.shape[2:])
-    if h.dtype != torch.float32 or h.device != x.device or tuple(h.shape) != want or not h.is_contiguous():
-        raise ValueError(f"a halo plane of slabs {tuple(x.shape)} is a contiguous float32 {want} on {x.device}, "
-                         f"got {h.dtype} {tuple(h.shape)} on {h.device}")
+    want, plane = (x.shape[0], *x.shape[2:]), x.shape[2] * x.shape[3]
+    if (h.dtype != torch.float32 or h.device != x.device or tuple(h.shape) != want or h.stride(2) != 1
+            or h.stride(1) != x.shape[3] or (want[0] > 1 and h.stride(0) % plane)):
+        raise ValueError(f"a halo plane of slabs {tuple(x.shape)} is a float32 {want} of whole planes on {x.device}, "
+                         f"got {h.dtype} {tuple(h.shape)}, strides {h.stride()}, on {h.device}")
 
 
-def prepare_launch(x: torch.Tensor, epsilon: float, scales=None, prev=None, next_=None):
-    """``(launch, costs, grad, geometry)``: the outputs allocated once and a
-    callable that launches the kernel into them on ``x``'s device's current
-    stream, for timing back-to-back launches. It counts nothing; ``costs`` is (B,), or
-    (1,) for a 3D volume. ``prev``/``next_``: the halo planes of slabs ``x``
-    (B, nz, Ny, Nx), each (B, Ny, Nx) or None."""
-    _check(x)
-    if prev is not None or next_ is not None:
-        if x.ndim != 4:
-            raise ValueError(f"slabs are 4D (B, nz, Ny, Nx), got shape {tuple(x.shape)}")
-        for h in (prev, next_):
-            _check_halo(h, x)
-    nb, nz, ny, nx = x.shape if x.ndim == 4 else (1, *x.shape)
-    geo = tv_launch(x.shape, x.data_ptr())
-    geo = geo._replace(aligned=geo.aligned and all(h is None or h.data_ptr() % 16 == 0 for h in (prev, next_)))
-    grad = torch.empty_like(x)
-    costs = torch.empty(nb, dtype=torch.float32, device=x.device)
-    partials = torch.empty(nb * geo.partials, dtype=torch.float64, device=x.device)
-    inv_sz, inv_sy, inv_sx = (1.0 / float(s) for s in (scales or (1.0, 1.0, 1.0)))
-    fn = _library().hyperbolic_tv_slab_f32
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream()
-        tickets = _tickets(x.device, stream, nb)
-    halos = [None if h is None else h.data_ptr() for h in (prev, next_)]
-    args = (x.data_ptr(), *halos, grad.data_ptr(), partials.data_ptr(), costs.data_ptr(), tickets.data_ptr(), nb,
-            nz, ny, nx, *geo.grid[:2], geo.ranges, int(geo.aligned), float(epsilon), inv_sz, inv_sy, inv_sx,
-            stream.cuda_stream)
+def _launcher(fn, args, buffers, device):
+    """A callable that launches ``fn(*args)`` on ``device``; it keeps
+    ``buffers`` alive as long as itself, since it writes through their pointers."""
 
-    # The default keeps the buffers alive as long as the launcher: it writes through their pointers.
-    def launch(_buffers=(x, prev, next_, grad, costs, partials, tickets)) -> None:
-        with torch.cuda.device(x.device):  # the stream's device must be current at the launch
+    def launch(_buffers=buffers) -> None:
+        with torch.cuda.device(device):  # the stream's device must be current at the launch
             err = fn(*args)
         if err != 0:
             raise RuntimeError(f"hyperbolic-TV kernel launch failed: cudaError {err}")
 
+    return launch
+
+
+def _inverse_scales(scales):
+    return tuple(1.0 / float(s) for s in (scales or (1.0, 1.0, 1.0)))
+
+
+def prepare_launch(x: torch.Tensor, epsilon: float, scales=None):
+    """``(launch, costs, grad, geometry)`` of whole volumes: the outputs
+    allocated once and a callable that launches the kernel into them on
+    ``x``'s device's current stream, for timing back-to-back launches. It
+    counts nothing; ``costs`` is (B,), or (1,) for a 3D volume."""
+    _check(x)
+    nb, nz, ny, nx = x.shape if x.ndim == 4 else (1, *x.shape)
+    geo = tv_launch(x.shape, x.data_ptr())
+    grad = torch.empty_like(x)
+    costs = torch.empty(nb, dtype=torch.float32, device=x.device)
+    partials = torch.empty(nb * geo.partials, dtype=torch.float64, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream()
+        tickets = _tickets(x.device, stream, nb)
+    args = (x.data_ptr(), grad.data_ptr(), partials.data_ptr(), costs.data_ptr(), tickets.data_ptr(), nb, nz, ny,
+            nx, *geo.grid[:2], geo.ranges, int(geo.aligned), float(epsilon), *_inverse_scales(scales),
+            stream.cuda_stream)
+    launch = _launcher(_library().hyperbolic_tv_f32, args, (x, grad, costs, partials, tickets), x.device)
     return launch, costs, grad, geo
+
+
+def _source(h, slabs, maps: list) -> tuple[int, int, int]:
+    """(map, z0, zstep) of halo plane ``h`` in a grouped launch's table: a
+    view into one of ``slabs`` is read in place through that slab's map;
+    any other plane gets a map of its own, appended to ``maps`` as (tensor,
+    base pointer, planes). (-1, 0, 0) for None, the volume's face."""
+    if h is None:
+        return -1, 0, 0
+    nb, ny, nx = h.shape
+    pbytes = ny * nx * 4
+    for j, t in enumerate(slabs):
+        nz, off = t.shape[1], h.data_ptr() - t.data_ptr()
+        if 0 <= off and off % pbytes == 0 and off // pbytes < nz and (nb == 1 or h.stride(0) == nz * ny * nx):
+            return j, off // pbytes, nz
+    zstep = h.stride(0) // (ny * nx) if nb > 1 else 1
+    maps.append((h, h.data_ptr(), (nb - 1) * zstep + 1))
+    return len(maps) - 1, 0, zstep
+
+
+def prepare_slabs(slabs, prevs, nexts, epsilon: float, scales=None):
+    """``(launch, costs, grads, geometry)`` of one grouped slab launch over
+    ``slabs`` (1 to ``GROUP_SLABS`` contiguous float32 (B, nz_s, Ny, Nx) on
+    one device) with their halo planes ``prevs``/``nexts`` (each (B, Ny, Nx)
+    or None): the outputs allocated once (``costs`` a (B,) tensor a slab)
+    and a launcher as :func:`prepare_launch`'s. It counts nothing."""
+    slabs, prevs, nexts = list(slabs), list(prevs), list(nexts)
+    if not 1 <= len(slabs) <= GROUP_SLABS or len(prevs) != len(slabs) or len(nexts) != len(slabs):
+        raise ValueError(f"a grouped slab launch takes 1 to {GROUP_SLABS} slabs with a prev and a next halo "
+                         f"plane (or None) each, got {len(slabs)}, {len(prevs)} and {len(nexts)}")
+    first = slabs[0]
+    for t in slabs:
+        _check(t)
+        if t.ndim != 4 or t.device != first.device or (t.shape[0], *t.shape[2:]) != (first.shape[0],
+                                                                                       *first.shape[2:]):
+            raise ValueError(f"the slabs of a grouped launch are 4D (B, nz, Ny, Nx) of one B, Ny, Nx on one "
+                             f"device, got {tuple(t.shape)} on {t.device} beside {tuple(first.shape)} on "
+                             f"{first.device}")
+    for h in prevs + nexts:
+        _check_halo(h, first)
+    nb, _, ny, nx = first.shape
+    geos = tuple(tv_launch(t.shape, t.data_ptr(), [tuple(u.shape) for u in slabs]) for t in slabs)
+    maps = [(t, t.data_ptr(), nb * t.shape[1]) for t in slabs]
+    sources = [v for p, n in zip(prevs, nexts) for h in (p, n) for v in _source(h, slabs, maps)]
+    grid = (*geos[0].grid[:2], sum(g.grid[2] for g in geos))
+    if grid[2] > GRID_LIMIT:
+        raise ValueError(f"slabs {[tuple(t.shape) for t in slabs]} need {grid[2]} blocks in grid z together; "
+                         f"the limit is {GRID_LIMIT}")
+    aligned = nx % 4 == 0 and all(ptr % 16 == 0 for _, ptr, _ in maps)
+    geo = TvGroupLaunch(grid, geos, len(maps), aligned)
+    dev = first.device
+    grads = [torch.empty_like(t) for t in slabs]
+    costs = torch.empty((len(slabs), nb), dtype=torch.float32, device=dev)
+    partials = torch.empty(nb * sum(g.partials for g in geos), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream()
+        tickets = _tickets(dev, stream, len(slabs) * nb)
+
+    def array(ctype, values):
+        return (ctype * len(values))(*values)
+
+    args = (len(slabs), len(maps), array(ctypes.c_void_p, [ptr for _, ptr, _ in maps]),
+            array(ctypes.c_longlong, [depth for _, _, depth in maps]),
+            array(ctypes.c_void_p, [g.data_ptr() for g in grads]), array(ctypes.c_int, [t.shape[1] for t in slabs]),
+            array(ctypes.c_int, sources), partials.data_ptr(), costs.data_ptr(), tickets.data_ptr(), nb, ny, nx,
+            geos[0].z_range, *grid, int(aligned), float(epsilon), *_inverse_scales(scales), stream.cuda_stream)
+    buffers = ([m for m, _, _ in maps], grads, costs, partials, tickets)
+    launch = _launcher(_library().hyperbolic_tv_group_f32, args, buffers, dev)
+    return launch, list(costs.unbind(0)), grads, geo
 
 
 def _launch(x: torch.Tensor, epsilon: float, scales, batched: bool):
@@ -255,22 +384,34 @@ def hyperbolic_tv_fused(x: torch.Tensor, epsilon: float, scales=None):
     raise ValueError(f"hyperbolic_tv_fused runs on CUDA or CPU tensors, got {x.device}")
 
 
-def hyperbolic_tv_slab_fused(x: torch.Tensor, prev, next_, epsilon: float, scales=None):
-    """(costs (B,), gradient) of z-slabs ``x`` (B, nz, Ny, Nx) with their
-    halo planes (B, Ny, Nx, None at the volume's faces): one slab launch for a
-    CUDA tensor, :func:`hyperbolic_tv_slab_plain` for a CPU one."""
-    global slab_launches, unaligned_launches
-    if x.device.type == "cuda":
-        if x.ndim != 4:
-            raise ValueError(f"slabs are 4D (B, nz, Ny, Nx), got shape {tuple(x.shape)}")
-        launch, costs, grad, geo = prepare_launch(x, epsilon, scales, prev, next_)
+def hyperbolic_tv_slab_group(slabs, prevs, nexts, epsilon: float, scales=None):
+    """(costs, gradients) lists of z-slabs (B, nz_s, Ny, Nx) with their halo
+    planes (B, Ny, Nx, None at the volume's faces), a (B,) cost a slab: one
+    grouped launch for CUDA tensors (1 to ``GROUP_SLABS`` slabs of one
+    device), :func:`hyperbolic_tv_slab_group_plain` for CPU ones."""
+    global slab_launches, slabs_launched, unaligned_launches
+    kinds = {t.device.type for t in slabs}
+    if kinds == {"cuda"}:
+        launch, costs, grads, geo = prepare_slabs(slabs, prevs, nexts, epsilon, scales)
         launch()
         slab_launches += 1
+        slabs_launched += len(grads)
         unaligned_launches += not geo.aligned
-        return costs, grad
-    if x.device.type == "cpu":
-        return hyperbolic_tv_slab_plain(x, prev, next_, epsilon, scales)
-    raise ValueError(f"hyperbolic_tv_slab_fused runs on CUDA or CPU tensors, got {x.device}")
+        return costs, grads
+    if kinds == {"cpu"}:
+        return hyperbolic_tv_slab_group_plain(slabs, prevs, nexts, epsilon, scales)
+    raise ValueError(f"hyperbolic_tv_slab_group runs on CUDA or CPU tensors of one kind, got {kinds}")
+
+
+def hyperbolic_tv_slab_fused(x: torch.Tensor, prev, next_, epsilon: float, scales=None):
+    """(costs (B,), gradient) of z-slabs ``x`` (B, nz, Ny, Nx) with their
+    halo planes (B, Ny, Nx, None at the volume's faces): the grouped launch
+    of one slab for a CUDA tensor, :func:`hyperbolic_tv_slab_plain` for a CPU
+    one."""
+    if x.ndim != 4:
+        raise ValueError(f"slabs are 4D (B, nz, Ny, Nx), got shape {tuple(x.shape)}")
+    (costs,), (grad,) = hyperbolic_tv_slab_group([x], [prev], [next_], epsilon, scales)
+    return costs, grad
 
 
 def hyperbolic_tv_batched_fused(x: torch.Tensor, epsilon: float, scales=None):

@@ -4,9 +4,12 @@ Port of ``microtipi_tpu/parallel/deconv.py``. The division of labour:
 
 - the FFT convolution goes through the distributed transpose FFT
   (``parallel/fft.py``);
-- the hyperbolic TV goes through the TV kernel's slab mode, one launch a
-  z-slab with its neighbours' boundary planes (:func:`sharded_tv`; on a TPU
-  mesh GSPMD inserts these halo exchanges around the Pallas kernel); the
+- the hyperbolic TV goes through the TV kernel's grouped slab launch: one
+  launch over the z-slabs a device holds (up to the kernel's cap), which
+  reads a neighbouring slab's boundary plane in place where that slab lies on
+  the same device and takes a copy of it from another device
+  (:func:`sharded_tv`, :func:`plan_slab_launches`; on a TPU mesh GSPMD
+  inserts these halo exchanges around the Pallas kernel); the
   other priors, the temporal TV across the batch rows and the channel-coupled
   TV are plain PyTorch on each tile with the halo planes or frames they need,
   copied differentiably from the neighbouring tiles;
@@ -20,10 +23,12 @@ across the batch unless ``psf`` is a (B,) + volume stack.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, DeconvolutionResult, has_regularizer
-from microtipi_tpu_torch.ops.kernels.hyperbolic_tv import hyperbolic_tv_slab_fused
+from microtipi_tpu_torch.ops.kernels.hyperbolic_tv import GROUP_SLABS, hyperbolic_tv_slab_group
 from microtipi_tpu_torch.ops.regularization import _forward_diffs, hessian_terms, smoothed_l1_terms
 from microtipi_tpu_torch.optim.treeutil import value_and_grad
 from microtipi_tpu_torch.optim.vmlmb import minimize_vmlmb
@@ -46,6 +51,7 @@ __all__ = [
     "make_sharded_objective",
     "sharded_objective",
     "pad_trailing",
+    "plan_slab_launches",
     "sharded_deconvolve",
     "sharded_regularization",
     "sharded_tv",
@@ -97,23 +103,82 @@ def _with_after(x: ShardedVolume, b: int, z: int, k: int) -> torch.Tensor:
     return t if after is None else torch.cat([t, after], dim=-3)
 
 
+#: Halo planes that TV evaluations copied between devices since the last reset.
+halo_sends = 0
+
+
+class SlabLaunch(NamedTuple):
+    """One grouped TV slab launch: its device, its cells (mesh order), and
+    per cell its neighbouring cells in z before and after it (None at the
+    volume's faces)."""
+
+    device: torch.device
+    cells: tuple
+    prev: tuple
+    next: tuple
+
+
+def plan_slab_launches(mesh: Mesh, cells) -> list[SlabLaunch]:
+    """The TV slab launches of one evaluation over ``cells`` (batch-major):
+    the cells grouped by device in order of first appearance, at most
+    ``GROUP_SLABS`` a launch, each with its neighbours in z. Where a halo
+    plane is read from is decided once, from the tensors: :func:`_halo_plane`
+    copies a plane from another device, and the kernel's wrapper reads any
+    other plane in place (``hyperbolic_tv_slab_group``)."""
+    nz, by_dev = mesh.shape[Z_AXIS], {}
+    for c in cells:
+        by_dev.setdefault(mesh.device(*c), []).append(c)
+
+    def neighbour(b, z):
+        return (b, z) if 0 <= z < nz else None
+
+    launches = []
+    for dev, group in by_dev.items():
+        for i in range(0, len(group), GROUP_SLABS):
+            part = tuple(group[i:i + GROUP_SLABS])
+            launches.append(SlabLaunch(dev, part, tuple(neighbour(b, z - 1) for b, z in part),
+                                       tuple(neighbour(b, z + 1) for b, z in part)))
+    return launches
+
+
+def _halo_plane(mesh: Mesh, by: dict, cell, at: int, device: torch.device):
+    """Plane ``at`` of the slab of ``cell`` (None: none) for a launch on
+    ``device``: a view of its tile where the cell lies on ``device``, else a
+    copy of it sent there."""
+    global halo_sends
+    if cell is None:
+        return None
+    plane = by[cell][:, at]
+    if mesh.device(*cell) == device:
+        return plane
+    halo_sends += 1
+    return send(plane, device)
+
+
+def _launch_inputs(mesh: Mesh, by: dict, launch: SlabLaunch):
+    """(slabs, prevs, nexts) of one planned launch over the tiles ``by``
+    (cell: (B, nz_s, Ny, Nx)), as :func:`hyperbolic_tv_slab_group` takes them."""
+    return ([by[c] for c in launch.cells], [_halo_plane(mesh, by, c, -1, launch.device) for c in launch.prev],
+            [_halo_plane(mesh, by, c, 0, launch.device) for c in launch.next])
+
+
 def _slab_tv(x: ShardedVolume, epsilon: float, scales):
     """(cost, per-tile gradients) of the hyperbolic TV of each volume of
-    ``x``: one slab launch a tile with its neighbours' boundary planes
-    (copies), the slabs' costs added on the mesh's first device batch-major,
-    then by z. A slab's gradient is the whole volume's at its planes."""
-    nz, cells = x.mesh.shape[Z_AXIS], x.cells()
-    by = {c: (x.tiles[c] if x.batched else x.tiles[c][None]).detach() for c in cells}
-    total, grads = None, []
-    for b, z in cells:
-        t, dev = by[(b, z)], x.mesh.device(b, z)
-        prev = send(by[(b, z - 1)][:, -1], dev) if z > 0 else None
-        nxt = send(by[(b, z + 1)][:, 0], dev) if z < nz - 1 else None
-        costs, g = hyperbolic_tv_slab_fused(t.contiguous(), prev, nxt, epsilon, scales)
-        grads.append(g if x.batched else g[0])
-        part = costs.sum().to(x.mesh.first)
+    ``x``: the grouped slab launches of :func:`plan_slab_launches`, the
+    slabs' costs added on the mesh's first device batch-major, then by z. A
+    slab's gradient is the whole volume's at its planes."""
+    cells = x.cells()
+    by = {c: (x.tiles[c] if x.batched else x.tiles[c][None]).detach().contiguous() for c in cells}
+    costs, grads = {}, {}
+    for launch in plan_slab_launches(x.mesh, cells):
+        c, g = hyperbolic_tv_slab_group(*_launch_inputs(x.mesh, by, launch), epsilon, scales)
+        costs.update(zip(launch.cells, c))
+        grads.update(zip(launch.cells, g))
+    total = None
+    for c in cells:
+        part = costs[c].sum().to(x.mesh.first)
         total = part if total is None else total + part
-    return total, grads
+    return total, [grads[c] if x.batched else grads[c][0] for c in cells]
 
 
 class _SlabTV(torch.autograd.Function):

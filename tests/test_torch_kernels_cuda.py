@@ -689,6 +689,107 @@ def test_tv_slab_launches_match_plain_and_the_volume(shape, cuts, cuda_device):
     assert torch.allclose(costs, whole_c, rtol=1e-6)
 
 
+def _group_inputs(x, cuts):
+    """The slabs of ``x`` cut at ``cuts`` (contiguous copies) and their halo
+    planes as a grouped launch on one device takes them: views of the
+    neighbouring slabs' boundary planes, read in place."""
+    slabs = [x[:, a:b].contiguous() for a, b in zip(cuts[:-1], cuts[1:])]
+    prevs = [None] + [t[:, -1] for t in slabs[:-1]]
+    nexts = [t[:, 0] for t in slabs[1:]] + [None]
+    return slabs, prevs, nexts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 64, 96), (1, 64, 45, 67)])
+@pytest.mark.parametrize("cuts", SLAB_CUTS)
+def test_tv_slab_group_is_its_slabs_one_at_a_time_and_the_volume(shape, cuts, cuda_device):
+    """One grouped launch over the slabs (neighbours read in place) against
+    the same slabs launched one at a time with copied halos: costs and
+    gradients bit for bit; put together, the whole-volume launch's gradient
+    bit for bit and its cost within 1e-6; each slab against its plain
+    version. Both instantiations (nx = 67 takes the 4-byte copies) and a
+    batch of 2."""
+    x = torch.as_tensor(np.random.default_rng(13).standard_normal(shape, dtype=np.float32), device=cuda_device)
+    scales = (2.0, 1.0, 1.0)
+    whole_c, whole_g = hv.hyperbolic_tv_batched_fused(x, 1.0, scales)
+    slabs, prevs, nexts = _group_inputs(x, cuts)
+    hv.slab_launches = hv.slabs_launched = hv.unaligned_launches = 0
+    costs, grads = hv.hyperbolic_tv_slab_group(slabs, prevs, nexts, 1.0, scales)
+    assert (hv.slab_launches, hv.slabs_launched, hv.unaligned_launches) == (1, len(slabs), int(shape[-1] % 4 != 0))
+    plain_c, plain_g = hv.hyperbolic_tv_slab_group_plain(slabs, prevs, nexts, 1.0, scales)
+    for t, p, n, c, g, cp, gp in zip(slabs, prevs, nexts, costs, grads, plain_c, plain_g):
+        c1, g1 = hv.hyperbolic_tv_slab_fused(t, None if p is None else p.contiguous(),
+                                             None if n is None else n.contiguous(), 1.0, scales)
+        torch.cuda.synchronize()
+        assert torch.equal(c, c1) and torch.equal(g, g1)
+        assert torch.allclose(c, cp, rtol=COST_RTOL) and torch.allclose(g, gp, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    assert hv.slab_launches == 1 + len(slabs)
+    assert torch.equal(torch.cat(grads, 1), whole_g)
+    assert torch.allclose(sum(costs), whole_c, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 64, 96), (1, 64, 45, 67)])
+def test_tv_slab_group_with_a_neighbour_on_another_device(shape, cuda_device):
+    """Four slabs in two groups, as on a mesh of two devices: within a group
+    the neighbour is read in place, across the groups it comes as a halo
+    buffer (a copy). Put together: the whole-volume launch's gradient bit for
+    bit; each group equal to its slabs launched alone."""
+    x = torch.as_tensor(np.random.default_rng(14).standard_normal(shape, dtype=np.float32), device=cuda_device)
+    whole_c, whole_g = hv.hyperbolic_tv_batched_fused(x, 0.5)
+    slabs, prevs, nexts = _group_inputs(x, (0, 16, 32, 48, 64))
+    nexts[1], prevs[2] = nexts[1].clone(), prevs[2].clone()  # the halo buffers sent across the two groups
+    hv.slab_launches = hv.slabs_launched = 0
+    c01, g01 = hv.hyperbolic_tv_slab_group(slabs[:2], prevs[:2], nexts[:2], 0.5)
+    c23, g23 = hv.hyperbolic_tv_slab_group(slabs[2:], prevs[2:], nexts[2:], 0.5)
+    assert (hv.slab_launches, hv.slabs_launched) == (2, 4)
+    for i, (c, g) in enumerate(zip(c01 + c23, g01 + g23)):
+        p, n = (None if h is None else h.contiguous() for h in (prevs[i], nexts[i]))
+        c1, g1 = hv.hyperbolic_tv_slab_fused(slabs[i], p, n, 0.5)
+        assert torch.equal(c, c1) and torch.equal(g, g1)
+    assert torch.equal(torch.cat(g01 + g23, 1), whole_g)
+    assert torch.allclose(sum(c01 + c23), whole_c, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_tv_slab_group_twice_bitwise_and_its_cap(cuda_device):
+    """Two grouped launches give bitwise-equal outputs (tickets reset, costs
+    summed in index order); a group above the cap is refused before any
+    launch."""
+    x = torch.as_tensor(np.random.default_rng(15).standard_normal((1, 40, 37, 68), dtype=np.float32),
+                        device=cuda_device)
+    slabs, prevs, nexts = _group_inputs(x, (0, 5, 10, 15, 20, 25, 30, 35, 40))
+    c1, g1 = hv.hyperbolic_tv_slab_group(slabs, prevs, nexts, 0.1, (3.0, 1.0, 0.7))
+    c2, g2 = hv.hyperbolic_tv_slab_group(slabs, prevs, nexts, 0.1, (3.0, 1.0, 0.7))
+    assert all(torch.equal(a, b) for a, b in zip(c1 + g1, c2 + g2))
+    nine, p9, n9 = _group_inputs(x, tuple(range(0, 37, 4)))
+    hv.slab_launches = 0
+    with pytest.raises(ValueError, match="1 to 8 slabs"):
+        hv.hyperbolic_tv_slab_group(nine, p9, n9, 0.1)
+    assert hv.slab_launches == 0
+
+
+@pytest.mark.cuda
+def test_sharded_tv_on_one_card_is_one_launch(cuda_device):
+    """The sharded TV on a (1, 4) mesh of the one card: one grouped launch of
+    4 slabs and no halo copy, its gradient the whole volume's bit for bit."""
+    from microtipi_tpu_torch.parallel import deconv as pd
+    from microtipi_tpu_torch.parallel import make_mesh, shard
+
+    x = torch.as_tensor(np.random.default_rng(16).standard_normal((64, 32, 96), dtype=np.float32),
+                        device=cuda_device)
+    mesh = make_mesh(1, 4, devices=[torch.device("cuda", 0)] * 4)
+    hv.slab_launches = hv.slabs_launched = pd.halo_sends = 0
+    total, grads = pd._slab_tv(shard(x, mesh), 1.0, None)
+    assert (hv.slab_launches, hv.slabs_launched, pd.halo_sends) == (1, 4, 0)
+    whole_c, whole_g = hv.hyperbolic_tv_fused(x, 1.0)
+    assert torch.equal(torch.cat(grads, 0), whole_g)
+    assert torch.allclose(total, whole_c, rtol=1e-6)
+    (launch,) = pd.plan_slab_launches(mesh, mesh.cells())
+    by = {c: t[None].contiguous() for c, t in zip(mesh.cells(), grads)}
+    assert hv.prepare_slabs(*pd._launch_inputs(mesh, by, launch), 1.0)[3].maps == 4  # no map of a halo buffer
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 64, 64, 96), (2, 64, 45, 67)])
 @pytest.mark.parametrize("cuts", SLAB_CUTS)

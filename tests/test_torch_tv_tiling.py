@@ -10,9 +10,11 @@ the halo row's w_y and the halo column's w_x from the staged planes, sum
 one cost partial per block and the volume's partials in index order. At
 awkward shapes it must give the plain versions' cost and gradient, which
 tests/test_torch_tv.py and tests/test_torch_batched_tv.py hold to the JAX
-package. The kernel's z range is a compile-time constant (``hv.Z_RANGE``,
-32 planes); the walk also takes shorter ones, so that volumes this small
-still have z ranges that end mid-volume.
+package. The whole-volume launch's z range is a compile-time constant
+(``hv.Z_RANGE``, 32 planes); the walk also takes shorter ones, so that
+volumes this small still have z ranges that end mid-volume. It also walks a
+z-slab with its halo planes as the slab entry stages them
+(tests/test_torch_tv_slabs.py).
 """
 
 import numpy as np
@@ -35,18 +37,34 @@ def _weights(v0, vz, vy, vx, hz, hy, hx, inv, eps):
     return den, dz / den * inv[0], dy / den * inv[1], dx / den * inv[2]
 
 
-def kernel_walk(x: np.ndarray, eps: float, scales=None, z_range: int = hv.Z_RANGE):
+def kernel_walk(x: np.ndarray, eps: float, scales=None, z_range: int | None = None, prev=None, next_=None,
+                group=None):
     """(costs (B,), grad) of a batch (B, nz, ny, nx) computed block by block
     as the kernel's geometry cuts it, from staged planes only, with z ranges
-    of ``z_range`` planes (the kernel's own by default)."""
+    of ``z_range`` planes (by default the launch's own). With ``group`` (the
+    shapes of a grouped slab launch, ``x``'s among them) ``x`` is a z-slab:
+    ``prev``/``next_`` (B, ny, nx, or None at the volume's faces) are its
+    halo planes, staged as its planes -1 and nz, the costs are the slab's own
+    planes' (a partial a tile and COST_PLANES planes) and the gradient the
+    volume's at them."""
     nb, nz, ny, nx = x.shape
     inv = [1.0 / s for s in (scales or (1.0, 1.0, 1.0))]
-    geo = hv.tv_launch(x.shape, 0)
+    geo = hv.tv_launch(x.shape, 0, group)
+    z_range = geo.z_range if z_range is None else z_range
     gx, gy = geo.grid[:2]
     ranges = -(-nz // z_range)
-    gz, per_vol = nb * ranges, gx * gy * ranges
-    if z_range == hv.Z_RANGE:
+    gz, per_vol = nb * ranges, gx * gy * (ranges if group is None else -(-nz // hv.COST_PLANES))
+    if z_range == geo.z_range:
         assert (geo.grid[2], geo.ranges, geo.partials) == (gz, ranges, per_vol)
+    lo, hi = -1 if prev is not None else 0, nz + 1 if next_ is not None else nz
+
+    def slot(rz, by, bx, z):
+        """The cost partial that plane z of block (rz, by, bx) adds to."""
+        return (rz * gy + by) * gx + bx if group is None else (z // hv.COST_PLANES * gy + by) * gx + bx
+
+    def plane(vol, p):
+        return prev[vol] if p < 0 else next_[vol] if p >= nz else x[vol, p]
+
     grad = np.full(x.shape, np.nan)
     writes = np.zeros(x.shape, int)
     partials = np.zeros((nb, per_vol))
@@ -55,7 +73,7 @@ def kernel_walk(x: np.ndarray, eps: float, scales=None, z_range: int = hv.Z_RANG
     for bz in range(gz):
         vol, rz = divmod(bz, ranges)
         z0, z1 = rz * z_range, min(rz * z_range + z_range, nz)
-        pstart, pend = (z0 - 1 if z0 > 0 else 0), min(z1 + 1, nz)
+        pstart, pend = max(z0 - 1, lo), min(z1 + 1, hi)
         for by in range(gy):
             for bx in range(gx):
                 y0, x0 = by * TY, bx * TX
@@ -64,7 +82,7 @@ def kernel_walk(x: np.ndarray, eps: float, scales=None, z_range: int = hv.Z_RANG
 
                 def stage(p):
                     st = np.zeros((TY + 2, TX + 2 * HALO_X))
-                    st[np.ix_(oky, okx)] = x[vol, p][np.ix_(ys[oky], xs[okx])]
+                    st[np.ix_(oky, okx)] = plane(vol, p)[np.ix_(ys[oky], xs[okx])]
                     return st
 
                 ring = {p: stage(p) for p in range(pstart, pend)}
@@ -72,10 +90,10 @@ def kernel_walk(x: np.ndarray, eps: float, scales=None, z_range: int = hv.Z_RANG
                 # the tile, its halo row (first row) and halo column (first column).
                 py, px = ys[:TY + 1, None], xs[None, HALO_X - 1:HALO_X + TX]
                 hy, hx = py + 1 < ny, px + 1 < nx
-                wz_prev, acc = np.zeros((TY, TX)), 0.0
+                wz_prev = np.zeros((TY, TX))
                 ye, xe = min(y0 + TY, ny) - y0, min(x0 + TX, nx) - x0
                 for z in range(pstart, z1):
-                    hz = z + 1 < nz
+                    hz = z + 1 < hi
                     cur = ring[z]
                     nxt = ring[z + 1] if hz else cur
                     sl = (slice(0, TY + 1), slice(HALO_X - 1, HALO_X + TX))
@@ -92,9 +110,8 @@ def kernel_walk(x: np.ndarray, eps: float, scales=None, z_range: int = hv.Z_RANG
                         g = wz_prev - wz_own + wy_up - wy_own + wx_left - wx_own
                         grad[vol, z, y0:y0 + ye, x0:x0 + xe] = g[:ye, :xe]
                         writes[vol, z, y0:y0 + ye, x0:x0 + xe] += 1
-                        acc += float(np.sum(den[1:, 1:][:ye, :xe] - eps))
+                        partials[vol, slot(rz, by, bx, z)] += float(np.sum(den[1:, 1:][:ye, :xe] - eps))
                     wz_prev = wz_own
-                partials[vol, (rz * gy + by) * gx + bx] = acc
     assert (writes == 1).all(), "every voxel's gradient is written by exactly one block"
     costs = np.array([sum(partials[v]) for v in range(nb)])  # index order
     return costs, grad
