@@ -177,11 +177,26 @@ raises and the script exits non-zero:
     64x256x256 on (1, 4); ``blind --mesh 1 1`` through ``cli.main`` on NGFF,
     bit for bit the sharded job; and the counterpart of
     ``__graft_entry__.dryrun_multichip`` on (2, 2).
+31. the sharded paths on a mesh over processes (``make_mesh(...,
+    group=pg)``, the counterpart of ``__graft_entry__.dryrun_multiprocess``):
+    two spawned ranks on cuda:0 in a gloo group (CUDA tensors staged through
+    the host) run phase 30's 256^3 VMLMB and blind loop on (1, 4), two slabs
+    a rank; their f against phase 30's one-process run (bit for bit the aim,
+    else the largest relative gap), each rank's first TV slab launch, which
+    took a plane from the other rank, against its plain version (and timed
+    here once the ranks have exited), and which collectives gloo takes on
+    CUDA tensors; then NCCL: the same two ranks, or, where NCCL refuses two
+    ranks on one card (its refusal printed), a group of one rank running the
+    same jobs, which reaches NCCL's all-gather and broadcast but sends
+    nothing between ranks (``chip_nccl_mesh.py`` runs one rank a card);
+    walls beside the one-process run's, bytes exchanged in an evaluation,
+    TV slab launches by rank.
 
 The main paths are phases 3, 13, 15, 17, 18, 20, 21, 22's superres and 28 (the
 single-volume TV kernel), phases 7-8, 14, 15, 18, 19, 22, 23 and 24 (the
-batched TV kernel), phases 10-12, 22 and 23 (the ADMM kernels) and phase 30's
-sharded paths (the slab entries, and no whole-volume launch): each is driven with the
+batched TV kernel), phases 10-12, 22 and 23 (the ADMM kernels) and phases 30's
+and 31's sharded paths (the slab entries, and no whole-volume launch; phase
+31's counted on each rank and summed): each is driven with the
 launch counts set to 0 just before and read just after, and none may take the
 TV kernel's unaligned instantiation or the split update's 4-byte one; every
 entry of the kernels line gives its launches path by path
@@ -4595,18 +4610,29 @@ def _rel_f(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)) / np.abs(np.asarray(b))))
 
 
-def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: float) -> dict:
+def mesh_blind_config():
+    """Phase 3's blind loop, as phases 30 and 31 run it on a mesh."""
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+    from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+
+    return BlindDeconvConfig(
+        loops=5, families=(DEFOCUS, PHASE), psf_max_iter=(5, 5), joint_fit=True,
+        deconv=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0),
+        fit=PsfFitConfig(grtol=0.0))
+
+
+def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: float) -> tuple[dict, dict]:
     """The sharded paths at full width on meshes of the one card, each run
     between :class:`SlabCounts` (slab launches only); the sharded blind loop
     beside phase 3's dense one (its ``deconv_f`` and wall). Returns each
-    path's slab launches."""
+    path's slab launches, and the (1, 4) VMLMB's and blind loop's costs and
+    walls (phase 31's references)."""
     from microtipi_tpu_torch.jobs.admm import admm_deconvolve
-    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
     from microtipi_tpu_torch.jobs.depthvar import deconvolve_depthvar, depth_anchor_psfs
-    from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
     from microtipi_tpu_torch.jobs.richardson_lucy import richardson_lucy
-    from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
     from microtipi_tpu_torch.parallel import (
         gather,
         sharded_admm_deconvolve,
@@ -4617,7 +4643,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
     from microtipi_tpu_torch.parallel.richardson_lucy import sharded_richardson_lucy
 
     dev, nvox = torch.device("cuda", 0), float(np.prod(SHAPE))
-    paths = {}
+    paths, refs = {}, {}
     _, data, psf = bench_scene(SHAPE, dev, torch.float32)
     cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
     dense_wall, dense = _wall(lambda: deconvolve(data, psf, config=cfg))
@@ -4633,6 +4659,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
                                  f"{dense.f_history[:2]}: {head:.3g} rel")
         if shape == (1, 4):
             paths["sharded VMLMB 256^3 (1, 4)"] = {k: v // 3 for k, v in n.items()}  # a run of the 3 (warm-up, 2 timed)
+            refs["vmlmb"] = {"f_history": res.f_history, "wall": wall}
         log(30, f"[{card}] sharded_deconvolve {SHAPE} on mesh {shape} of cuda:0: {res.iterations} iterations, "
                 f"{res.evaluations} evaluations, f {float(res.f):.6g} (dense {float(dense.f):.6g}, "
                 f"{dense.iterations} iterations), f(x0), f(x1) within {head:.3g} rel of dense; wall {wall:.4f} s "
@@ -4640,10 +4667,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
                 f"{nvox * res.iterations / wall / 1e6:.1f} Mvox*iter/s, TV slab launches {n['tv']} over 3 runs")
 
     model, bdata, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE)
-    bcfg = BlindDeconvConfig(
-        loops=5, families=(DEFOCUS, PHASE), psf_max_iter=(5, 5), joint_fit=True,
-        deconv=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0),
-        fit=PsfFitConfig(grtol=0.0))
+    bcfg = mesh_blind_config()
     with SlabCounts() as c:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4651,6 +4675,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
         torch.cuda.synchronize()
         bwall = time.perf_counter() - t0
     paths["sharded blind 256^3 (1, 4)"] = c.check("sharded blind (1, 4)", slabs=SLABS)
+    refs["blind"] = {"deconv_f": bres.deconv_f, "wall": bwall}
     _check_object("sharded blind", gather(bres.obj))
     df, dense_df = bres.deconv_f, dense_blind_f
     if not (np.isfinite(df).all() and np.all(np.diff(df) < 0) and np.isnan(bres.fit_f[-1]).all()):
@@ -4730,7 +4755,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
             f"(dense {float(ref.f):.6g}), f(x0), f(x1) within {head:.3g} rel, wall {wall:.4f} s (dense "
             f"{dense_wall:.4f} s), TV slab launches a run {c.tv // 3}")
     paths.update(phase30_cli_dryrun(card, ldata))
-    return paths
+    return paths, refs
 
 
 def phase30_cli_dryrun(card: str, data: torch.Tensor) -> dict:
@@ -4804,6 +4829,313 @@ def phase30_cli_dryrun(card: str, data: torch.Tensor) -> dict:
     return paths
 
 
+# Phase 31: the sharded paths on a mesh over processes (torch.distributed), ranks on the one card.
+MP_RANKS = 2  # ranks of phase 31, each with SLABS // MP_RANKS cells of the (1, SLABS) mesh
+MP_GROUP_TIMEOUT_S = 60  # every process group's timeout: a rank that diverges or dies fails the others within it
+MP_DEADLINE_S = 240  # the spawned ranks' whole run; past it they are killed and the phase fails
+#: The collectives probed with CUDA tensors under gloo. Not send/recv: gloo's point-to-point path hands the tensor's
+#: pointer to its transport as host memory, and a fault there would take the rank down.
+GLOO_OPS = ("all_gather", "all_to_all_single", "broadcast")
+
+
+def _gloo_cuda_ops(rank: int, world: int) -> dict:
+    """Which of :data:`GLOO_OPS` a gloo group takes on CUDA tensors (True, or
+    the error it raised); the mesh's collectives stage every CUDA tensor
+    through the host under gloo whatever this finds."""
+    import torch.distributed as dist
+
+    dev, out = torch.device("cuda", 0), {}
+    t = torch.full((4,), float(rank + 1), device=dev)
+    calls = {"all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(world)], t),
+             "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(t), t),
+             "broadcast": lambda: dist.broadcast(t.clone(), 0)}
+    for name in GLOO_OPS:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = True
+        except Exception as e:  # noqa: BLE001  (the finding is the error itself)
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    dist.barrier()
+    return out
+
+
+def _mp_jobs(group, devices) -> dict:
+    """Phase 30's (1, SLABS) 256^3 VMLMB (a warm-up, then a timed run) and
+    blind loop on a mesh over ``group``'s ranks, this rank holding
+    ``devices``; with each run's TV slab launches on this rank (counts set to
+    0 just before, read just after), bytes sent to other ranks, wall, and
+    the first TV launch of the warm-up (inputs and outputs) with the planes
+    it took from other ranks, for the parent to check and time alone on the
+    card once the ranks have exited."""
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+    from microtipi_tpu_torch.parallel import collectives
+    from microtipi_tpu_torch.parallel import deconv as pd
+    from microtipi_tpu_torch.parallel import gather, make_mesh, sharded_blind_deconvolve, sharded_deconvolve
+
+    dev = devices[0]
+    mesh = make_mesh(1, SLABS, devices=devices, group=group)
+    _, data, psf = bench_scene(SHAPE, dev, torch.float32)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
+    first, launch = {}, pd.hyperbolic_tv_slab_group
+
+    def capture(slabs, prevs, nexts, epsilon, scales=None):
+        costs, grads = launch(slabs, prevs, nexts, epsilon, scales)
+        if not first:
+            first.update(inputs=([t.clone() for t in slabs], [None if t is None else t.clone() for t in prevs],
+                                 [None if t is None else t.clone() for t in nexts], epsilon, scales),
+                         outputs=([c.clone() for c in costs], [g.clone() for g in grads]))
+        return costs, grads
+
+    pd.hyperbolic_tv_slab_group = capture
+    try:
+        sharded_deconvolve(data, psf, mesh, config=cfg)
+    finally:
+        pd.hyperbolic_tv_slab_group = launch
+    out = {"cells": mesh.local(mesh.cells()), "first_launch": first}
+
+    def run(name, job):
+        hv.slab_launches = hv.slabs_launched = hv.launches = hv.batched_launches = pd.halo_sends = 0
+        collectives.sent.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = job()
+        torch.cuda.synchronize()
+        out[name] = {"wall": time.perf_counter() - t0, "tv": hv.slab_launches, "tv_slabs": hv.slabs_launched,
+                     "whole": hv.launches + hv.batched_launches, "halo_sends": pd.halo_sends,
+                     "sent": dict(collectives.sent)}
+        return res
+
+    res = run("vmlmb", lambda: sharded_deconvolve(data, psf, mesh, config=cfg))
+    out["vmlmb"].update(f_history=res.f_history, evaluations=res.evaluations,
+                        finite=bool(torch.isfinite(gather(res.x)).all()))
+    model, bdata, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE)
+    bres = run("blind", lambda: sharded_blind_deconvolve(bdata, model, mesh, config=mesh_blind_config()))
+    obj = gather(bres.obj)
+    out["blind"].update(deconv_f=bres.deconv_f, fit_f=bres.fit_f, phase=bres.params.phase.cpu(),
+                        finite=bool(torch.isfinite(obj).all()) and float(obj.min()) >= 0)
+    # One objective evaluation's traffic: the halo planes, the transposes' blocks, the reductions' values.
+    fun = pd.make_sharded_objective(psf, data, None, cfg, mesh)
+    x0 = pd.sharded_start(data, SHAPE, mesh)
+    collectives.sent.clear()
+    fun(x0.variable())
+    out["per_evaluation"] = dict(collectives.sent)
+    return out
+
+
+def phase31_rank(rank: int, world: int, tmp: str) -> None:
+    """Rank ``rank`` of phase 31 (a spawned process on cuda:0): a gloo group
+    (file rendezvous in ``tmp``) and the jobs of :func:`_mp_jobs`, saved to
+    ``gloo<rank>.pt``; then an NCCL group of the same ranks, saved to
+    ``nccl<rank>.pt`` (its refusal, or the same jobs). A failure leaves its
+    traceback in ``rank<rank>.err``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    timeout = datetime.timedelta(seconds=MP_GROUP_TIMEOUT_S)
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/gloo", world_size=world, rank=rank,
+                                timeout=timeout)
+        out = {"gloo_cuda_ops": _gloo_cuda_ops(rank, world)}
+        out.update(_mp_jobs(dist.group.WORLD, [torch.device("cuda", 0)] * (SLABS // world)))
+        torch.save(out, os.path.join(tmp, f"gloo{rank}.pt"))
+        nccl = {}
+        try:
+            pg = dist.new_group(backend="nccl", timeout=timeout)
+            t = torch.full((1,), float(rank), device="cuda")
+            dist.all_gather([torch.empty_like(t) for _ in range(world)], t, group=pg)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001  (NCCL refusing ranks that share a card is the finding)
+            nccl["refused"] = f"{type(e).__name__}: {' '.join(str(e).split())[:400]}"
+        else:
+            nccl.update(_mp_jobs(pg, [torch.device("cuda", 0)] * (SLABS // world)))
+        torch.save(nccl, os.path.join(tmp, f"nccl{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _mp_check(name: str, ranks: list, refs: dict, card: str) -> dict:
+    """Hold every rank's VMLMB and blind costs against phase 30's (1, SLABS)
+    run on one process (bit for bit the aim, else the largest relative gap,
+    within SLAB_F_RTOL), the ranks against each other bit for bit, the paths'
+    launches (TV slab launches on every rank, no whole-volume launch); log
+    the walls, the traffic and the launches. Returns, by job and summed over
+    the ranks, the TV slab launches ("tv"), the slabs they covered
+    ("tv_slabs") and the bytes of halo planes sent between ranks ("halo")."""
+    counts = {}
+    for job, key, ref in (("vmlmb", "f_history", refs["vmlmb"]["f_history"]),
+                          ("blind", "deconv_f", refs["blind"]["deconv_f"])):
+        got = [np.asarray(r[job][key]) for r in ranks]
+        if not all(np.array_equal(g, got[0], equal_nan=True) for g in got):
+            raise AssertionError(f"{name} {job}: the ranks' {key} differ: {got}")
+        bitwise = np.array_equal(got[0], np.asarray(ref), equal_nan=True)
+        gap = _rel_f(got[0], ref)
+        if not bitwise and not gap <= SLAB_F_RTOL:
+            raise AssertionError(f"{name} {job}: {key} {got[0].tolist()} vs one process {np.asarray(ref).tolist()}: "
+                                 f"{gap:.3g} rel")
+        if not all(r[job]["finite"] for r in ranks) or any(r[job]["whole"] for r in ranks):
+            raise AssertionError(f"{name} {job}: an object not finite, or a whole-volume TV launch: "
+                                 f"{[(r[job]['finite'], r[job]['whole']) for r in ranks]}")
+        if any(r[job]["tv"] == 0 or r[job]["tv_slabs"] != r[job]["tv"] * len(r["cells"]) for r in ranks):
+            raise AssertionError(f"{name} {job}: TV slab launches {[r[job]['tv'] for r in ranks]} of slabs "
+                                 f"{[r[job]['tv_slabs'] for r in ranks]}")
+        walls = [r[job]["wall"] for r in ranks]
+        sent = {k: sum(r[job]["sent"].get(k, 0) for r in ranks) for k in ("halo", "transpose", "values", "cells")}
+        counts[job] = {"tv": sum(r[job]["tv"] for r in ranks), "tv_slabs": sum(r[job]["tv_slabs"] for r in ranks),
+                       "halo": sent["halo"]}
+        log(31, f"[{card}] {name}, {job} {SHAPE} on (1, {SLABS}) = {len(ranks)} ranks x {SLABS // len(ranks)} "
+                f"slabs: {key} {'bit for bit' if bitwise else f'within {gap:.3g} rel of'} the "
+                f"one-process run's; wall {max(walls):.3f} s (ranks {[round(w, 3) for w in walls]}; one process "
+                f"{refs[job]['wall']:.3f} s); TV slab launches {[r[job]['tv'] for r in ranks]} by rank; bytes sent "
+                f"between ranks {sent}")
+    per_eval = {k: sum(r["per_evaluation"].get(k, 0) for r in ranks) for k in ("halo", "transpose", "values")}
+    log(31, f"[{card}] {name}: one objective evaluation at x0 moved {per_eval} bytes between ranks (halo planes, "
+            f"the distributed FFT's transposes, the reductions' gathered values)")
+    return counts
+
+
+def _mp_first_launch(ranks: list, data_x0: torch.Tensor) -> tuple[float, list]:
+    """Each rank's first TV slab launch (it took a plane from the other rank)
+    against its plain version on the same inputs; the plane it took equals
+    the other rank's boundary plane of x0. Then each launch timed here, in
+    this process alone on the card (50 raw launches; the wrapper's call and
+    the plain version's, medians of 20), with its own neighbours' planes read
+    in place as on the rank. Returns the largest gradient error and, by rank,
+    (kernel_ms, bound_ms, bound_by, call_ms, plain_ms)."""
+    from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
+
+    err, times = 0.0, []
+    for r in ranks:
+        slabs, prevs, nexts, eps, scales = r["first_launch"]["inputs"]
+        costs, grads = r["first_launch"]["outputs"]
+        cells = r["cells"]
+        took, at_ = [], {c: k for k, c in enumerate(cells)}
+        for (b, z), prev, nxt in zip(cells, prevs, nexts):
+            for nbr, plane, at in (((b, z - 1), prev, -1), ((b, z + 1), nxt, 0)):
+                if plane is not None and nbr not in cells:
+                    lo = nbr[1] * (SHAPE[0] // SLABS)
+                    want = data_x0[lo + (SHAPE[0] // SLABS - 1 if at == -1 else 0)]
+                    if not torch.equal(plane[0], want):
+                        raise AssertionError(f"the halo plane of cell {nbr} that cell {(b, z)} took != that plane")
+                    took.append(nbr)
+        if not took:
+            raise AssertionError(f"rank of cells {cells}: its first TV launch took no plane from another rank")
+        cp, gp = hv.hyperbolic_tv_slab_group_plain(slabs, prevs, nexts, eps, scales)
+        for c, g, c0, g0 in zip(costs, grads, cp, gp):
+            err = max(err, float((g - g0).abs().max()))
+            if (float(((c - c0).abs() / c0.abs()).max()) > TV_COST_RTOL
+                    or not torch.allclose(g, g0, rtol=TV_GRAD_RTOL, atol=TV_GRAD_ATOL)):
+                raise AssertionError(f"the TV slab launch of cells {cells} with planes from cells {took} != plain")
+        # A neighbour in this launch is read in place from its slab, as the rank's launch read it; the bound
+        # counts the slabs read and written and the planes received from the other rank read.
+        received = sum(p is not None and (b, z + d) not in at_
+                       for d, planes in ((-1, prevs), (1, nexts)) for (b, z), p in zip(cells, planes))
+        prevs = [slabs[at_[(b, z - 1)]][:, -1] if (b, z - 1) in at_ else p for (b, z), p in zip(cells, prevs)]
+        nexts = [slabs[at_[(b, z + 1)]][:, 0] if (b, z + 1) in at_ else p for (b, z), p in zip(cells, nexts)]
+        ms = raw_ms(hv.prepare_slabs(slabs, prevs, nexts, eps, scales)[0])
+        call_ms = _median_ms(lambda: hv.hyperbolic_tv_slab_group(slabs, prevs, nexts, eps, scales))
+        plain_ms = _median_ms(lambda: hv.hyperbolic_tv_slab_group_plain(slabs, prevs, nexts, eps, scales))
+        times.append((ms, *slab_bound(sum(t.numel() for t in slabs), slabs[0].shape[-2] * slabs[0].shape[-1], 2,
+                                      received, TV_OPS_PER_VOXEL), call_ms, plain_ms))
+    return err, times
+
+
+def phase31_processes(card: str, refs: dict) -> dict:
+    """The sharded VMLMB and blind loop of phase 30 on a (1, SLABS) mesh over
+    MP_RANKS spawned processes on cuda:0 (gloo, every CUDA tensor staged
+    through the host), against phase 30's one-process run (``refs``); one
+    cross-rank TV slab launch a rank against its plain version; which gloo
+    operations take CUDA tensors; then NCCL: MP_RANKS ranks on the card, or,
+    where NCCL refuses ranks that share a card, a group of one rank (this
+    process) running the same jobs through the NCCL calls. Returns the TV
+    slab launches by path, summed over the ranks, and the cross-rank launch's
+    entry (error, time, bound, the gloo paths' launches)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_ranks_", dir=root) as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=phase31_rank, args=(r, MP_RANKS, tmp)) for r in range(MP_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        end = time.monotonic() + MP_DEADLINE_S
+        try:
+            for p in procs:
+                p.join(max(0.0, end - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        spawn_wall = time.perf_counter() - t0
+        errors = "".join(open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp)) if f.endswith(".err"))
+        codes = [p.exitcode for p in procs]
+        gloo_files = [os.path.join(tmp, f"gloo{r}.pt") for r in range(MP_RANKS)]
+        if not all(os.path.exists(f) for f in gloo_files):
+            raise AssertionError(f"phase 31 ranks: exit codes {codes}\n{errors}")
+        gloo = [torch.load(f, weights_only=False) for f in gloo_files]
+        nccl_files = [os.path.join(tmp, f"nccl{r}.pt") for r in range(MP_RANKS)]
+        nccl = [torch.load(f, weights_only=False) for f in nccl_files if os.path.exists(f)]
+    log(31, f"{MP_RANKS} spawned ranks ran {spawn_wall:.1f} s (start-up and both groups), exit codes {codes}")
+    ops = gloo[0]["gloo_cuda_ops"]
+    log(31, f"gloo on CUDA tensors (torch {torch.__version__}): "
+            + ", ".join(f"{k} {'takes them' if v is True else 'refuses: ' + v}" for k, v in ops.items()))
+    name = f"gloo, {MP_RANKS} processes"
+    n = _mp_check(name, gloo, refs, card)
+    paths[f"sharded VMLMB 256^3 (1, {SLABS}), {name} (phase 31)"] = n["vmlmb"]
+    paths[f"sharded blind 256^3 (1, {SLABS}), {name} (phase 31)"] = n["blind"]
+    _, data, _ = bench_scene(SHAPE, torch.device("cuda", 0), torch.float32)
+    err, times = _mp_first_launch(gloo, torch.clamp_min(data, 0.0))
+    ms, bound, by, call_ms, plain_ms = max(times)
+    cross = {"max_abs_err": err, "launches": sum(c["tv"] for c in paths.values()), "kernel_ms": ms,
+             "ms": call_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound, "bound_by": by,
+             "bound_share": bound / ms}
+    log(31, f"[{card}] each rank's first TV slab launch, which took a plane from the other rank (equal to that "
+            f"rank's boundary plane of x0), against its plain version: gradient max abs err {err:.3g}; timed in "
+            f"this process alone on the card after the ranks exited, 50 raw launches of "
+            f"{len(gloo[0]['first_launch']['inputs'][0])} slabs with the received planes: kernel_ms "
+            f"{[round(t[0], 4) for t in times]} by rank, call_ms {[round(t[3], 4) for t in times]}, plain "
+            f"{[round(t[4], 4) for t in times]} ms; bound {bound:.4f} ms ({by}), {cross['bound_share']:.1%} of it "
+            f"(the slower rank's)")
+
+    if len(nccl) == MP_RANKS and not any("refused" in r for r in nccl):
+        name = f"NCCL, {MP_RANKS} processes"
+        n = _mp_check(name, nccl, refs, card)
+    else:
+        refusal = next((r["refused"] for r in nccl if "refused" in r), f"no result (exit codes {codes})")
+        log(31, f"NCCL refused {MP_RANKS} ranks on one card: {refusal}")
+        name = "NCCL, 1 process"
+        torch.cuda.set_device(0)
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke_nccl_", dir=root) as tmp:
+            dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", world_size=1, rank=0,
+                                    timeout=datetime.timedelta(seconds=MP_GROUP_TIMEOUT_S))
+            try:
+                one = _mp_jobs(dist.group.WORLD, [torch.device("cuda", 0)] * SLABS)
+            finally:
+                dist.destroy_process_group()
+        n = _mp_check(name, [one], refs, card)
+        log(31, "NCCL, 1 process: every cell is this rank's, so no send or receive reached NCCL (the halo planes and "
+                "the transposes stay copies on the card); its calls were the reductions' all-gathers and gather's "
+                "broadcasts, of one rank")
+    paths[f"sharded VMLMB 256^3 (1, {SLABS}), {name} (phase 31)"] = n["vmlmb"]
+    paths[f"sharded blind 256^3 (1, {SLABS}), {name} (phase 31)"] = n["blind"]
+    return paths, cross
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4862,12 +5194,17 @@ def main() -> int:
     api_launches = phase28_file_to_file(card, blind_wall)
     cli = phase29_cli_serve(card)
     slab_kern = phase30_slab_kernels(card)
-    mesh_paths = phase30_sharded(card, blind_f, blind_wall)
+    mesh_paths, mesh_refs = phase30_sharded(card, blind_f, blind_wall)
     slab_paths = {kind: {f"{name} (phase 30)": n[kind] for name, n in mesh_paths.items() if n[kind]}
                   for kind in ("tv", "split", "rhs")}
     if not all(slab_paths.values()):
         raise AssertionError(f"a slab entry was launched on no sharded path: {mesh_paths}")
+    process_paths, cross_rank = phase31_processes(card, mesh_refs)
+    if not all(n["tv"] for n in process_paths.values()):
+        raise AssertionError(f"a path over processes launched no TV slab kernel: {process_paths}")
+    slab_paths["tv"].update({name: n["tv"] for name, n in process_paths.items()})
     tv_slabs = {f"{name} (phase 30)": n["tv_slabs"] for name, n in mesh_paths.items() if n["tv"]}
+    tv_slabs.update({name: n["tv_slabs"] for name, n in process_paths.items()})
     tv_paths = {"deconvolve and blind (phase 3)": launches, "RL-TV (phase 13)": rl_launches,
                 "priors and auto-mu (phase 15)": prior_launches, "confocal blind (phase 17)": family_launches,
                 "depthvar and RL-TV depthvar (phase 18)": depthvar_launches,
@@ -4909,7 +5246,10 @@ def main() -> int:
                      "halo exchanges GSPMD inserts around them (microtipi_tpu/parallel/deconv.py:9-14)",
          "launches": sum(slab_paths["tv"].values()), "launches_by_path": slab_paths["tv"],
          "slabs_launched": sum(tv_slabs.values()), "slabs_launched_by_path": tv_slabs,
-         "halo_sends": sum(n["halo_sends"] for n in mesh_paths.values()), **slab_kern["tv"]},
+         "halo_sends_phase30": sum(n["halo_sends"] for n in mesh_paths.values()),
+         "halo_bytes_between_ranks_by_path": {name: n["halo"] for name, n in process_paths.items()},
+         "cross_rank_launch": cross_rank,
+         **slab_kern["tv"]},
         {"name": "admm_split_update_slab", "route": "cuda", "source": admm_source,
          "replaces": f"microtipi_tpu/parallel/admm.py:184-196 with GSPMD's z-halo exchange ({fused_by_xla})",
          "launches": sum(slab_paths["split"].values()), "launches_by_path": slab_paths["split"],

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from microtipi_tpu_torch.optim.linesearch import drive, more_thuente_steps
-from microtipi_tpu_torch.optim.treeutil import taxpy, tdot, tmap, tnorm, tscale, tsub, twhere
+from microtipi_tpu_torch.optim.treeutil import like, taxpy, tdot, tmap, tnorm, tscale, tsub, twhere
 
 __all__ = ["minimize_vmlmb", "minimize_vmlmb_batched", "vmlmb_steps", "VMLMBResult", "VMLMBStatus"]
 
@@ -179,7 +179,7 @@ def vmlmb_steps(
     def leafwise(fn, x, *rest):
         # fn(key, leaf, *rest leaves): the leaf's own bounds come by key.
         if isinstance(x, dict):
-            return {k: fn(k, x[k], *(r[k] for r in rest)) for k in sorted(x)}
+            return like((x, *rest), {k: fn(k, x[k], *(r[k] for r in rest)) for k in sorted(x)})
         return fn(None, x, *rest)
 
     def clamp(key, xi):

@@ -3,9 +3,14 @@
 Port of ``microtipi_tpu/parallel``. One process drives a (batch, z) grid of
 devices (``mesh.make_mesh``); a sharded volume is a grid of per-device
 tensors (``mesh.ShardedVolume``), and the collectives are explicit copies.
+With a process group (``make_mesh(..., group=pg)``) the mesh spans one
+process a rank, and the collectives are ``torch.distributed`` calls
+(``parallel/collectives.py``): VMLMB, the PSF fits and the blind loop run
+there; ADMM, RL and the depth-varying solvers raise.
 """
 from microtipi_tpu_torch.parallel.admm import sharded_admm_deconvolve
 from microtipi_tpu_torch.parallel.blind import sharded_blind_deconvolve
+from microtipi_tpu_torch.parallel.collectives import all_cells, cell_values, exchange
 from microtipi_tpu_torch.parallel.deconv import make_sharded_objective, sharded_deconvolve
 from microtipi_tpu_torch.parallel.fft import (
     sharded_convolve,
@@ -16,9 +21,11 @@ from microtipi_tpu_torch.parallel.fft import (
 from microtipi_tpu_torch.parallel.mesh import (
     BATCH_AXIS,
     Z_AXIS,
+    Mesh,
     ShardedVolume,
     gather,
     make_mesh,
+    one_process,
     shard,
     volume_sharding,
 )
@@ -30,4 +37,5 @@ __all__ = [
     "make_sharded_objective", "sharded_deconvolve", "sharded_fit_psf",
     "sharded_blind_deconvolve", "sharded_admm_deconvolve",
     "ShardedVolume", "shard", "gather",
+    "Mesh", "one_process", "exchange", "all_cells", "cell_values",
 ]

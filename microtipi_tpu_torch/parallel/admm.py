@@ -43,7 +43,7 @@ from microtipi_tpu_torch.ops.kernels.admm_split import (
 )
 from microtipi_tpu_torch.parallel.deconv import _abs2, sharded_objective
 from microtipi_tpu_torch.parallel.fft import sharded_irfftn, sharded_rfftn, sharded_spectrum
-from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, ShardedVolume, send, shard
+from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, ShardedVolume, one_process, send, shard
 
 __all__ = ["sharded_admm_deconvolve"]
 
@@ -105,6 +105,7 @@ def sharded_admm_deconvolve(
     / ``admm_reltol`` turn on the Boyd residual test every
     ``admm_check_every`` iterations. The result's ``x`` is a sharded volume.
     """
+    one_process(mesh, "sharded_admm_deconvolve")
     _check_config(config, "admm")
     if len(data.shape) != 3:
         raise ValueError("sharded_admm_deconvolve takes one (Nz, Ny, Nx) volume; use the sharded VMLMB path "

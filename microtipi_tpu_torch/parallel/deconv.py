@@ -12,9 +12,19 @@ Port of ``microtipi_tpu/parallel/deconv.py``. The division of labour:
   inserts these halo exchanges around the Pallas kernel); the
   other priors, the temporal TV across the batch rows and the channel-coupled
   TV are plain PyTorch on each tile with the halo planes or frames they need,
-  copied differentiably from the neighbouring tiles;
+  put together with ``collectives.assemble``, whose backward returns each
+  piece's gradient to its tile;
 - everything else is elementwise tile by tile, and every sum is each tile's
-  sum added on the mesh's first device in a fixed order.
+  sum added on the mesh's first device in a fixed order (``Mesh.add``).
+
+The same code runs on a mesh driven by one process and on a mesh over
+processes, where each rank evaluates its own tiles: there a slab's halo plane
+from another rank's slab comes in one exchange before the TV launches
+(:func:`_remote_halos`), the assembled pieces and the FFT's transposes cross
+between the ranks, and every sum gathers the cells' parts and adds them alike
+on every rank. Only unmixing takes another path over processes (each row
+contracts the mixing matrix with its own channels instead of row 0 with
+them all), so its results there agree with one process's to rounding.
 
 VMLMB (``optim/vmlmb.py``) runs unchanged on the sharded variable, a dict of
 tiles keyed (batch, z) (``ShardedVolume.variable``). The same PSF is shared
@@ -32,6 +42,7 @@ from microtipi_tpu_torch.ops.kernels.hyperbolic_tv import GROUP_SLABS, hyperboli
 from microtipi_tpu_torch.ops.regularization import _forward_diffs, hessian_terms, smoothed_l1_terms
 from microtipi_tpu_torch.optim.treeutil import value_and_grad
 from microtipi_tpu_torch.optim.vmlmb import minimize_vmlmb
+from microtipi_tpu_torch.parallel.collectives import assemble, exchange
 from microtipi_tpu_torch.parallel.fft import sharded_irfftn, sharded_rfftn, sharded_spectrum
 from microtipi_tpu_torch.parallel.mesh import (
     BATCH_AXIS,
@@ -81,26 +92,47 @@ def crop_trailing(a, vol_shape):
     return crop_to_shape(a, tuple(vol_shape))
 
 
-def _planes_after(x: ShardedVolume, b: int, z: int, k: int):
-    """Up to ``k`` z planes that follow slab (b, z), from the next slabs, on
-    its device (differentiable copies); None at the volume's end."""
-    out, need, nz = [], k, x.mesh.shape[Z_AXIS]
-    dev = x.mesh.device(b, z)
-    for j in range(z + 1, nz):
-        t = x.tiles[(b, j)]
-        take = min(need, t.shape[-3])
-        out.append(t.narrow(-3, 0, take).to(dev))
-        need -= take
-        if need == 0:
-            break
-    return torch.cat(out, dim=-3) if out else None
+def _after_plan(x: ShardedVolume, k: int) -> list:
+    """``collectives.assemble``'s plan that gives every cell up to ``k``
+    planes of the slabs after it (none at the volume's end)."""
+    nz = x.mesh.shape[Z_AXIS]
+    nzs, plan = x.shape[-3] // nz, []
+    for b, z in x.cells():
+        need = k
+        for j in range(z + 1, nz):
+            if need == 0:
+                break
+            take = min(need, nzs)
+            plan.append(((b, z), (b, j), 0, take))
+            need -= take
+    return plan
 
 
-def _with_after(x: ShardedVolume, b: int, z: int, k: int) -> torch.Tensor:
-    """Slab (b, z) with up to ``k`` following planes appended along z."""
-    after = _planes_after(x, b, z, k)
-    t = x.tiles[(b, z)]
-    return t if after is None else torch.cat([t, after], dim=-3)
+def _assembled(x: ShardedVolume, plan: list, dim: int) -> dict:
+    """This rank's cells' tensors of ``plan`` over ``x``'s tiles."""
+    local = x.local_cells()
+    return assemble(x.mesh, local, [x.tiles[c] for c in local], plan, dim)
+
+
+def _with_halo(x: ShardedVolume, plan: list, dim: int) -> dict:
+    """Per cell of this rank, its tile with the pieces ``plan`` lists for it
+    appended along ``dim``, and a tie to add to the cell's cost. The tile is
+    used itself, so that autograd adds the gradients of its uses into it one
+    by one; a tile without pieces is used as it is, and its tie (a zero: the
+    sum of its empty pieces) keeps it in the exchange's backward, which every
+    rank must reach. Any other tie is 0.0."""
+    out = {}
+    for c, h in _assembled(x, plan, dim).items():
+        t = x.tiles[c]
+        out[c] = (torch.cat([t, h], dim), 0.0) if h.shape[dim] else (t, h.sum())
+    return out
+
+
+def _column_plan(x: ShardedVolume) -> list:
+    """The plan that gives each cell its z column's tiles, row by row, along
+    the leading (frame) axis."""
+    rows = x.shape[0] // x.mesh.shape[BATCH_AXIS]
+    return [((b, z), (r, z), 0, rows) for b, z in x.cells() for r in range(x.mesh.shape[BATCH_AXIS])]
 
 
 #: Halo planes that TV evaluations copied between devices since the last reset.
@@ -141,13 +173,30 @@ def plan_slab_launches(mesh: Mesh, cells) -> list[SlabLaunch]:
     return launches
 
 
-def _halo_plane(mesh: Mesh, by: dict, cell, at: int, device: torch.device):
+def _remote_halos(mesh: Mesh, by: dict, cells) -> dict:
+    """The halo planes this rank's slabs read from other ranks' slabs, keyed
+    (cell, plane): one exchange, its moves listed alike on every rank (each
+    cell of ``cells`` with its z neighbours before and after). Empty on a
+    mesh driven by one process."""
+    like, nz, moves, keys = next(iter(by.values())), mesh.shape[Z_AXIS], [], []
+    for b, z in cells:
+        for nbr, at in (((b, z - 1), -1), ((b, z + 1), 0)):
+            if 0 <= nbr[1] < nz and mesh.owner(*nbr) != mesh.owner(b, z):
+                plane = by[nbr][:, at] if nbr in by else None
+                moves.append((nbr, (b, z), plane, (like.shape[0], *like.shape[-2:]), like.dtype))
+                keys.append((nbr, at))
+    return {k: t for k, t in zip(keys, exchange(mesh, moves, "halo")) if t is not None}
+
+
+def _halo_plane(mesh: Mesh, by: dict, cell, at: int, device: torch.device, remote: dict):
     """Plane ``at`` of the slab of ``cell`` (None: none) for a launch on
-    ``device``: a view of its tile where the cell lies on ``device``, else a
-    copy of it sent there."""
+    ``device``: the plane received from another rank, a view of its tile
+    where the cell lies on ``device``, else a copy of it sent there."""
     global halo_sends
     if cell is None:
         return None
+    if (cell, at) in remote:
+        return remote[(cell, at)]
     plane = by[cell][:, at]
     if mesh.device(*cell) == device:
         return plane
@@ -155,29 +204,31 @@ def _halo_plane(mesh: Mesh, by: dict, cell, at: int, device: torch.device):
     return send(plane, device)
 
 
-def _launch_inputs(mesh: Mesh, by: dict, launch: SlabLaunch):
+def _launch_inputs(mesh: Mesh, by: dict, launch: SlabLaunch, remote: dict | None = None):
     """(slabs, prevs, nexts) of one planned launch over the tiles ``by``
-    (cell: (B, nz_s, Ny, Nx)), as :func:`hyperbolic_tv_slab_group` takes them."""
-    return ([by[c] for c in launch.cells], [_halo_plane(mesh, by, c, -1, launch.device) for c in launch.prev],
-            [_halo_plane(mesh, by, c, 0, launch.device) for c in launch.next])
+    (cell: (B, nz_s, Ny, Nx)), as :func:`hyperbolic_tv_slab_group` takes them;
+    ``remote``: the planes of :func:`_remote_halos`."""
+    remote = {} if remote is None else remote
+    return ([by[c] for c in launch.cells],
+            [_halo_plane(mesh, by, c, -1, launch.device, remote) for c in launch.prev],
+            [_halo_plane(mesh, by, c, 0, launch.device, remote) for c in launch.next])
 
 
 def _slab_tv(x: ShardedVolume, epsilon: float, scales):
-    """(cost, per-tile gradients) of the hyperbolic TV of each volume of
-    ``x``: the grouped slab launches of :func:`plan_slab_launches`, the
-    slabs' costs added on the mesh's first device batch-major, then by z. A
-    slab's gradient is the whole volume's at its planes."""
-    cells = x.cells()
+    """(cost, gradients of this rank's tiles) of the hyperbolic TV of each
+    volume of ``x``: the grouped slab launches of :func:`plan_slab_launches`
+    over this rank's slabs, the slabs' costs added on the mesh's first device
+    batch-major, then by z. A slab's gradient is the whole volume's at its
+    planes."""
+    cells = x.local_cells()
     by = {c: (x.tiles[c] if x.batched else x.tiles[c][None]).detach().contiguous() for c in cells}
+    remote = _remote_halos(x.mesh, by, x.cells())
     costs, grads = {}, {}
     for launch in plan_slab_launches(x.mesh, cells):
-        c, g = hyperbolic_tv_slab_group(*_launch_inputs(x.mesh, by, launch), epsilon, scales)
+        c, g = hyperbolic_tv_slab_group(*_launch_inputs(x.mesh, by, launch, remote), epsilon, scales)
         costs.update(zip(launch.cells, c))
         grads.update(zip(launch.cells, g))
-    total = None
-    for c in cells:
-        part = costs[c].sum().to(x.mesh.first)
-        total = part if total is None else total + part
+    total = x.mesh.add({c: costs[c].sum() for c in cells}, x.sum_cells(), x.dtype)
     return total, [grads[c] if x.batched else grads[c][0] for c in cells]
 
 
@@ -187,7 +238,7 @@ class _SlabTV(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, like, epsilon, scales, *tiles):
-        total, grads = _slab_tv(like.with_tiles(dict(zip(like.cells(), tiles))), epsilon, scales)
+        total, grads = _slab_tv(like.with_tiles(dict(zip(like.local_cells(), tiles))), epsilon, scales)
         ctx.save_for_backward(*grads)
         return total
 
@@ -199,23 +250,20 @@ class _SlabTV(torch.autograd.Function):
 def sharded_tv(x: ShardedVolume, epsilon: float, scales=None) -> torch.Tensor:
     """The hyperbolic TV of each volume of ``x``, summed, through the TV
     kernel's slab mode (its plain version on CPU tiles); differentiable."""
-    return _SlabTV.apply(x, float(epsilon), scales, *(x.tiles[c] for c in x.cells()))
+    return _SlabTV.apply(x, float(epsilon), scales, *(x.tiles[c] for c in x.local_cells()))
 
 
 def sharded_tv_gradient(x: ShardedVolume, epsilon: float, scales=None) -> ShardedVolume:
     """The TV's gradient (RL-TV's denominator), one slab launch a tile."""
-    return x.with_tiles(dict(zip(x.cells(), _slab_tv(x, float(epsilon), scales)[1])))
+    return x.with_tiles(dict(zip(x.local_cells(), _slab_tv(x, float(epsilon), scales)[1])))
 
 
 def _own_terms(x: ShardedVolume, halo: int, terms) -> torch.Tensor:
     """``sum`` of ``terms(slab with halo following planes)`` over each slab's
     own planes, added on the mesh's first device."""
-    total = None
-    for b, z in x.cells():
-        t = terms(_with_after(x, b, z, halo))
-        part = t.narrow(-3, 0, x.tiles[(b, z)].shape[-3]).sum().to(x.mesh.first)
-        total = part if total is None else total + part
-    return total
+    parts = {c: terms(ext).narrow(-3, 0, x.tiles[c].shape[-3]).sum() + tie
+             for c, (ext, tie) in _with_halo(x, _after_plan(x, halo), -3).items()}
+    return x.mesh.add(parts, x.cells(), x.dtype)
 
 
 def _extra_priors(x: ShardedVolume, config: DeconvolutionConfig):
@@ -247,32 +295,32 @@ def _temporal_tv(x: ShardedVolume, epsilon: float) -> torch.Tensor:
     """``hyperbolic_tv(x, eps, axes=(0,))`` across the batch rows: each tile
     reads the next row's first frame (the t halo)."""
     eps, nb = float(epsilon), x.mesh.shape[BATCH_AXIS]
-    total = None
-    for b, z in x.cells():
-        t = x.tiles[(b, z)]
-        ext = t if b == nb - 1 else torch.cat([t, x.tiles[(b + 1, z)][:1].to(t.device)])
+    rows, parts = x.shape[0] // nb, {}
+    plan = [((b, z), (b + 1, z), 0, 1) for b, z in x.cells() if b < nb - 1]
+    for c, (ext, tie) in _with_halo(x, plan, 0).items():
         (d,) = _forward_diffs(ext, None, (0,))
-        part = (torch.sqrt(d * d + eps * eps) - eps)[:t.shape[0]].sum().to(x.mesh.first)
-        total = part if total is None else total + part
-    return total
+        parts[c] = (torch.sqrt(d * d + eps * eps) - eps)[:rows].sum() + tie
+    return x.mesh.add(parts, x.cells(), x.dtype)
 
 
 def _joint_tv(x: ShardedVolume, epsilon: float, scales) -> torch.Tensor:
     """``joint_hyperbolic_tv(x, couple_axis=0)`` with the channels over the
-    batch rows: each slab's squared differences (one z plane of halo) are
-    summed over its channels, then over the rows on row 0's device."""
-    eps, mesh = float(epsilon), x.mesh
-    total = None
-    for z in range(mesh.shape[Z_AXIS]):
-        dev, g2 = mesh.device(0, z), None
-        for b in range(mesh.shape[BATCH_AXIS]):
-            ext = _with_after(x, b, z, 1)
-            s = sum(d * d for d in _forward_diffs(ext, scales, (-3, -2, -1))).sum(dim=0)
-            s = s[:x.tiles[(b, z)].shape[-3]].to(dev)
-            g2 = s if g2 is None else g2 + s
-        part = (torch.sqrt(g2 + eps * eps) - eps).sum().to(mesh.first)
-        total = part if total is None else total + part
-    return total
+    batch rows: each slab's squared differences (one z plane of halo) summed
+    over its channels, then every cell of a z column adds the column's in row
+    order, and row 0's cells count the cost (every cell computes its part, so
+    that over processes every rank's backward reaches the column's exchange)."""
+    eps, mesh, nzs = float(epsilon), x.mesh, x.shape[-3] // x.mesh.shape[Z_AXIS]
+    sq, ties = {}, {}
+    for c, (ext, tie) in _with_halo(x, _after_plan(x, 1), -3).items():
+        sq[c] = sum(d * d for d in _forward_diffs(ext, scales, (-3, -2, -1))).sum(dim=0)[None, :nzs]
+        ties[c] = tie
+    sums = ShardedVolume(mesh, (mesh.shape[BATCH_AXIS], *x.shape[-3:]), sq, True)
+    parts = {}
+    for c, s in _assembled(sums, _column_plan(sums), 0).items():
+        frames = s.unbind(0)
+        g2 = sum(frames[1:], frames[0])
+        parts[c] = (torch.sqrt(g2 + eps * eps) - eps).sum() + ties[c]
+    return mesh.add(parts, mesh.cells((0,)), x.dtype)
 
 
 def _kl_terms(m: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -295,11 +343,11 @@ class _QuadraticCost(torch.autograd.Function):
     @staticmethod
     def forward(ctx, meta, *tiles):
         like, kernel_sq, g2, b, c = meta
-        x = like.with_tiles(dict(zip(like.cells(), tiles)))
+        x = like.with_tiles(dict(zip(like.local_cells(), tiles)))
         ax = sharded_irfftn(sharded_rfftn(x, like.mesh) * kernel_sq, like.shape[-3:], like.mesh)
         gax = ax * g2
         grad = gax - b
-        ctx.save_for_backward(*(grad.tiles[k] for k in like.cells()))
+        ctx.save_for_backward(*(grad.tiles[k] for k in like.local_cells()))
         return 0.5 * (x * gax).sum() - (x * b).sum() + c
 
     @staticmethod
@@ -315,6 +363,10 @@ def _mixer(mixm: torch.Tensor, mesh: Mesh):
         nb = mesh.shape[BATCH_AXIS]
         cr = mixm.shape[0] // nb
         tiles = {}
+        if mesh.distributed:
+            for (b, z), full in _assembled(hx, _column_plan(hx), 0).items():
+                tiles[(b, z)] = torch.einsum("ck,k...->c...", mixm.to(full.device), full)[b * cr:(b + 1) * cr]
+            return ShardedVolume(mesh, (mixm.shape[0], *hx.shape[1:]), tiles, True, "z")
         for z in range(mesh.shape[Z_AXIS]):
             dev = mesh.device(0, z)
             full = torch.cat([hx.tiles[(b, z)].to(dev) for b in range(nb)])
@@ -490,7 +542,7 @@ def sharded_objective(psf, data, weights, config: DeconvolutionConfig, mesh: Mes
         c = 0.5 * (data * data).sum()
 
         def data_term(x):
-            return _QuadraticCost.apply((x, kernel_sq, g2, b, c), *(x.tiles[k] for k in x.cells()))
+            return _QuadraticCost.apply((x, kernel_sq, g2, b, c), *(x.tiles[k] for k in x.local_cells()))
     else:
         if weights is None:
             weights = 1.0  # mixing without weights: the explicit residual

@@ -16,7 +16,12 @@ JAX transforms are through ``all_to_all``. Nz and Ny must divide the z axis
 
 :func:`rfft3_local` and :func:`irfft3_local` are one mesh row's transforms
 (the counterparts of the bodies the JAX module runs inside ``shard_map``);
-:func:`sharded_rfftn` and the rest run them over every row. There is no
+:func:`sharded_rfftn` and the rest run the same code over every row. The
+transpose of every row is one ``collectives.transpose`` (the JAX module's
+``all_to_all``), whose backward is the inverse exchange: copies between the
+devices of one process, and sends and receives between the ranks of a mesh
+over processes, in the same slices and order, so the spectra are the same
+bits either way. There is no
 ``exact`` switch: the exact matmul DFT stood in for the TPU's FFT, and cuFFT
 float32 is float32-exact.
 """
@@ -25,7 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from microtipi_tpu_torch.parallel.mesh import BATCH_AXIS, Z_AXIS, Mesh, ShardedVolume, constrain_volume, shard
+from microtipi_tpu_torch.parallel.collectives import transpose
+from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, ShardedVolume, constrain_volume, shard
 
 __all__ = [
     "irfft3_local",
@@ -37,42 +43,40 @@ __all__ = [
 ]
 
 
+def _forward(slabs: list[torch.Tensor], mesh: Mesh, cells, local) -> list[torch.Tensor]:
+    """Forward transform of the rows of ``cells``: ``local``'s z-slabs
+    (..., Nz/p, Ny, Nx) in, their spectrum's y-slabs (..., Nz, Ny/p, Nx//2+1)
+    out. The transpose gathers z and scatters y (``collectives.transpose``)."""
+    planes = transpose(mesh, cells, local, [torch.fft.rfft2(s) for s in slabs], -2, -3)
+    return [torch.fft.fft(t, dim=-3) for t in planes]
+
+
+def _inverse(slabs: list[torch.Tensor], ny: int, nx: int, mesh: Mesh, cells, local) -> list[torch.Tensor]:
+    """Inverse of :func:`_forward`; ``ny``, ``nx`` the global sizes."""
+    cols = transpose(mesh, cells, local, [torch.fft.ifft(s, dim=-3) for s in slabs], -3, -2)
+    return [torch.fft.irfft2(t, s=(ny, nx)) for t in cols]
+
+
 def rfft3_local(slabs: list[torch.Tensor], devices: list[torch.device]) -> list[torch.Tensor]:
     """Forward transform of one mesh row: its z-slabs (..., Nz/p, Ny, Nx), on
     ``devices``, in; the spectrum's y-slabs (..., Nz, Ny/p, Nx//2+1) out."""
-    p = len(slabs)
-    planes = [torch.fft.rfft2(s) for s in slabs]
-    nyl = planes[0].shape[-2] // p
-    out = []
-    for j, dev in enumerate(devices):
-        parts = [t[..., j * nyl:(j + 1) * nyl, :].to(dev) for t in planes]
-        out.append(torch.fft.fft(torch.cat(parts, dim=-3), dim=-3))
-    return out
+    row = Mesh([devices])
+    return _forward(slabs, row, row.cells(), row.cells())
 
 
 def irfft3_local(slabs: list[torch.Tensor], ny: int, nx: int, devices: list[torch.device]) -> list[torch.Tensor]:
     """Inverse of :func:`rfft3_local`: y-slabs (..., Nz, Ny/p, Nx//2+1) in,
     z-slabs (..., Nz/p, Ny, Nx) out; ``ny``, ``nx`` the global sizes."""
-    p = len(slabs)
-    cols = [torch.fft.ifft(s, dim=-3) for s in slabs]
-    nzl = cols[0].shape[-3] // p
-    out = []
-    for j, dev in enumerate(devices):
-        parts = [t[..., j * nzl:(j + 1) * nzl, :, :].to(dev) for t in cols]
-        out.append(torch.fft.irfft2(torch.cat(parts, dim=-2), s=(ny, nx)))
-    return out
+    row = Mesh([devices])
+    return _inverse(slabs, ny, nx, row, row.cells(), row.cells())
 
 
 def _rows(v: ShardedVolume, fn, shape, layout: str) -> ShardedVolume:
-    """``fn`` over each mesh row's tiles, in z order."""
-    mesh, nz = v.mesh, v.mesh.shape[Z_AXIS]
-    rows = range(mesh.shape[BATCH_AXIS]) if v.batched else (0,)
-    tiles = {}
-    for b in rows:
-        devs = [mesh.device(b, z) for z in range(nz)]
-        for z, t in enumerate(fn([v.tiles[(b, z)] for z in range(nz)], devs)):
-            tiles[(b, z)] = t
-    return ShardedVolume(mesh, shape, tiles, v.batched, layout)
+    """``fn(tiles, mesh, cells, local)`` over this rank's tiles of ``v``, the
+    transforms of every mesh row that holds ``v``."""
+    local = v.local_cells()
+    out = fn([v.tiles[c] for c in local], v.mesh, v.cells(), local)
+    return ShardedVolume(v.mesh, shape, dict(zip(local, out)), v.batched, layout)
 
 
 def _check(shape, mesh: Mesh) -> None:
@@ -89,14 +93,14 @@ def sharded_rfftn(x, mesh: Mesh) -> ShardedVolume:
     if not isinstance(x, ShardedVolume):
         raise ValueError(f"shape {tuple(x.shape)} does not divide the mesh {mesh}")
     _check(x.shape, mesh)
-    return _rows(x, rfft3_local, (*x.shape[:-1], x.shape[-1] // 2 + 1), "y")
+    return _rows(x, _forward, (*x.shape[:-1], x.shape[-1] // 2 + 1), "y")
 
 
 def sharded_irfftn(y: ShardedVolume, shape, mesh: Mesh) -> ShardedVolume:
     """Distributed irfftn of a y-sharded spectrum; ``shape`` is the global
     (Nz, Ny, Nx)."""
     nz, ny, nx = shape
-    return _rows(y, lambda s, d: irfft3_local(s, ny, nx, d), (*y.shape[:-3], nz, ny, nx), "z")
+    return _rows(y, lambda s, *where: _inverse(s, ny, nx, *where), (*y.shape[:-3], nz, ny, nx), "z")
 
 
 def sharded_spectrum(kernel, mesh: Mesh) -> ShardedVolume:

@@ -1,18 +1,18 @@
-"""Device mesh and sharded volumes, driven by one process.
+"""Device mesh and sharded volumes, driven by one process or spanning several.
 
 Port of ``microtipi_tpu/parallel/mesh.py``. The JAX package builds one
 program over global arrays on a ``Mesh`` of devices, and GSPMD inserts the
-collectives. Here the mesh is a (batch, z) grid of ``torch.device``s that one
-process drives, and a sharded volume is a grid of per-device tensors:
+collectives. Here the mesh is a (batch, z) grid of ``torch.device``s, and a
+sharded volume is a grid of per-device tensors:
 
 - ``batch`` (:data:`BATCH_AXIS`): the frames or channels of a stack
   (B, Nz, Ny, Nx), a contiguous run of them on each row of the mesh;
 - ``z`` (:data:`Z_AXIS`): each volume's z planes, a contiguous slab on each
   column; the distributed FFT (``parallel/fft.py``) transposes over it.
 
-A collective is an explicit copy between devices (:func:`send`). A device
-list may repeat a device: ``[cuda:0] * 4`` runs every slab, halo exchange and
-transpose on one card, as the JAX suite runs its mesh on virtual host
+A move between cells is an explicit copy between devices (:func:`send`,
+``collectives.exchange``). A device list may repeat a device:
+``[cuda:0] * 4`` runs every slab, halo exchange and transpose on one card, as the JAX suite runs its mesh on virtual host
 devices, and a list of CPU entries runs the same code on the host.
 
 :class:`ShardedVolume` is the grid: its tiles, keyed ``(b, z)``, and the
@@ -24,18 +24,45 @@ mesh's first device in a fixed order (batch-major, then z), so a run is
 reproducible. The optimizer sees the tiles as a dict (:meth:`variable`):
 ``optim/treeutil.tdot`` sums the per-tile dots the same way.
 
-No exchange hands a tile a view of another tile: :func:`send` always copies,
-since the ADMM split update writes its state in place.
+No tile is a view of another tile: :func:`send` always copies, and what
+the collectives move is concatenated or added into new tensors, since the
+ADMM split update writes its state in place.
+
+A mesh over processes (``make_mesh(..., group=pg)``, the counterpart of a JAX
+mesh under ``jax.distributed``): every rank runs the same program, one OS
+process a rank. The global device list is every rank's local devices in rank
+order, the cells are numbered batch-major over it, and each cell belongs to
+the rank whose device it is (:meth:`Mesh.owner`). A sharded volume holds the
+tiles of this rank's cells only (:meth:`ShardedVolume.local_cells`). The
+solvers run the same code on both kinds of mesh: the moves between cells go
+through ``parallel/collectives.py``, which copies between two cells of one
+rank and sends and receives between cells of different ranks. Where the two
+kinds differ:
+
+- :func:`shard` of a tensor that every rank holds whole cuts this rank's
+  tiles (``make_array_from_callback``); its gradient, where the tensor has
+  one, is the sum over every rank's tiles (:class:`_Cut`);
+- :func:`gather` gives every rank the whole (``process_allgather``);
+- a sum or maximum gathers the cells' parts and adds them on every rank in
+  the order above, so every rank gets the same bits (:meth:`Mesh.add`), and
+  the optimizer's variable is a ``treeutil.Shares`` that sums its dots so;
+- an unbatched volume has a replica on every mesh row, computed there (JAX
+  replicates it over the batch axis too), instead of copies of row 0's.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
+
+from microtipi_tpu_torch.optim.treeutil import Shares
+from microtipi_tpu_torch.parallel.collectives import all_cells, cell_values, exchange
 
 __all__ = ["BATCH_AXIS", "Z_AXIS", "Mesh", "ShardedVolume", "VolumeSharding", "constrain_volume", "gather",
-           "make_mesh", "send", "shard", "shard_rows", "volume_sharding"]
+           "make_mesh", "one_process", "send", "shard", "shard_rows", "volume_sharding"]
 
 BATCH_AXIS = "batch"
 Z_AXIS = "z"
@@ -43,30 +70,91 @@ Z_AXIS = "z"
 
 class Mesh:
     """A (batch, z) grid of devices; ``shape[BATCH_AXIS]``, ``shape[Z_AXIS]``
-    as on a JAX mesh."""
+    as on a JAX mesh. ``owners``: the rank of ``group`` each cell belongs to
+    (a mesh over processes); this process is rank ``rank``."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, owners=None, group=None, rank: int = 0):
         rows = tuple(tuple(torch.device(d) for d in row) for row in devices)
         if not rows or not rows[0] or any(len(r) != len(rows[0]) for r in rows):
             raise ValueError("a mesh is a non-empty rectangular grid of devices")
         self.devices = rows
         self.shape = {BATCH_AXIS: len(rows), Z_AXIS: len(rows[0])}
+        self.owners = tuple(tuple(0 for _ in r) for r in rows) if owners is None else tuple(map(tuple, owners))
+        self.group, self.rank = group, rank
+        self.backend = None if group is None else dist.get_backend(group)
+        self.size = 1 if group is None else dist.get_world_size(group)
+        self._peers = None if group is None else dist.get_process_group_ranks(group)
+        self._first = self.device(*self.local(self.cells())[0])
+
+    @property
+    def distributed(self) -> bool:
+        """Whether the mesh spans the processes of a group."""
+        return self.group is not None
 
     @property
     def first(self) -> torch.device:
-        """Where reductions land: the device of cell (0, 0)."""
-        return self.devices[0][0]
+        """Where reductions land: the device of this rank's first cell, (0, 0)
+        on a mesh driven by one process."""
+        return self._first
 
     def device(self, b: int, z: int) -> torch.device:
         return self.devices[b][z]
+
+    def owner(self, b: int, z: int) -> int:
+        return self.owners[b][z]
+
+    def is_local(self, b: int, z: int) -> bool:
+        return self.owners[b][z] == self.rank
+
+    def peer(self, b: int, z: int) -> int:
+        """The global rank of cell (b, z)'s owner, as point-to-point calls take it."""
+        return self._peers[self.owners[b][z]]
 
     def cells(self, rows=None) -> list[tuple[int, int]]:
         """The cells (b, z), batch-major; ``rows`` restricts to those rows."""
         rows = range(self.shape[BATCH_AXIS]) if rows is None else rows
         return [(b, z) for b in rows for z in range(self.shape[Z_AXIS])]
 
+    def local(self, cells) -> list[tuple[int, int]]:
+        """Those of ``cells`` that this rank owns, in their order."""
+        return [c for c in cells if self.is_local(*c)]
+
+    def volume_cells(self, batched: bool) -> list[tuple[int, int]]:
+        """The cells that hold a volume's tiles: every cell for a batched one;
+        row 0's for an unbatched one, or every row's replica on a mesh over
+        processes."""
+        return self.cells(None if batched or self.distributed else (0,))
+
+    def add(self, parts: dict, cells, dtype: torch.dtype) -> torch.Tensor:
+        """The sum of ``parts`` (cell: 0-dim tensor) over ``cells``, added in
+        their order on :attr:`first`, differentiable. Over processes ``parts``
+        holds this rank's cells, and every rank gets the same bits."""
+        vals = self._values(parts, cells, dtype)
+        return sum(vals[1:], vals[0])
+
+    def max(self, parts: dict, cells, dtype: torch.dtype) -> torch.Tensor:
+        """The largest of ``parts`` over ``cells``, on :attr:`first`."""
+        return torch.stack(self._values(parts, cells, dtype)).amax()
+
+    def _values(self, parts: dict, cells, dtype) -> list:
+        if self.distributed:
+            return list(cell_values(self, parts, cells, dtype).unbind())
+        return [parts[c].to(self.first) for c in cells]
+
     def __repr__(self) -> str:
-        return f"Mesh({self.shape[BATCH_AXIS]}x{self.shape[Z_AXIS]}, {[[str(d) for d in r] for r in self.devices]})"
+        devs = [[str(d) for d in r] for r in self.devices]
+        if not self.distributed:
+            return f"Mesh({self.shape[BATCH_AXIS]}x{self.shape[Z_AXIS]}, {devs})"
+        return (f"Mesh({self.shape[BATCH_AXIS]}x{self.shape[Z_AXIS]}, {devs}, owners={[list(r) for r in self.owners]}, "
+                f"rank={self.rank} of {self.size}, {self.backend})")
+
+
+def one_process(mesh: Mesh, what: str) -> None:
+    """Raise for a mesh over processes where ``what`` runs only on a mesh
+    driven by one process."""
+    if mesh.distributed:
+        raise ValueError(f"{what} runs on a mesh driven by one process; this mesh spans {mesh.size} processes "
+                         "(a mesh over processes runs parallel.deconv, parallel.psf_fit and parallel.blind)")
 
 
 def _visible_cuda() -> list[torch.device]:
@@ -76,11 +164,31 @@ def _visible_cuda() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def make_mesh(batch: int = 1, z: int | None = None, devices=None) -> Mesh:
+def make_mesh(batch: int = 1, z: int | None = None, devices=None, group=None) -> Mesh:
     """A (batch, z) mesh (``mesh.py:28-40``). ``devices=None`` takes the
     visible CUDA devices; with ``z=None`` all that are left go to the z axis.
-    An explicit list may repeat a device."""
-    devices = _visible_cuda() if devices is None else [torch.device(d) for d in devices]
+    An explicit list may repeat a device.
+
+    With a process group ``group`` (``torch.distributed``; its backend is the
+    one the mesh's collectives use) the mesh spans the group's processes, and
+    every rank calls this with its own ``devices`` (default: the current CUDA
+    device). The global device list is every rank's in rank order; cell
+    (b, z) is its entry ``b * z_size + z`` and belongs to that entry's rank."""
+    if group is None:
+        devices = _visible_cuda() if devices is None else [torch.device(d) for d in devices]
+        owners = [0] * len(devices)
+    else:
+        if devices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("make_mesh over processes with devices=None takes the current CUDA device and "
+                                   "there is none; pass this rank's devices (e.g. [torch.device('cpu')])")
+            devices = [torch.device("cuda", torch.cuda.current_device())]
+        every = [None] * dist.get_world_size(group)
+        dist.all_gather_object(every, [str(torch.device(d)) for d in devices], group=group)
+        if not all(every):
+            raise ValueError(f"every rank of a mesh over processes needs a device; the ranks hold {every}")
+        devices = [torch.device(d) for ds in every for d in ds]
+        owners = [r for r, ds in enumerate(every) for _ in ds]
     n = len(devices)
     if z is None:
         if n % batch:
@@ -88,7 +196,10 @@ def make_mesh(batch: int = 1, z: int | None = None, devices=None) -> Mesh:
         z = n // batch
     if batch * z != n:
         raise ValueError(f"mesh {batch}x{z} != {n} devices")
-    return Mesh([devices[b * z:(b + 1) * z] for b in range(batch)])
+    cut = [slice(b * z, (b + 1) * z) for b in range(batch)]
+    if group is None:
+        return Mesh([devices[s] for s in cut])
+    return Mesh([devices[s] for s in cut], [owners[s] for s in cut], group, dist.get_rank(group))
 
 
 class VolumeSharding(NamedTuple):
@@ -132,19 +243,31 @@ class ShardedVolume:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.tiles[(0, 0)].dtype
+        return next(iter(self.tiles.values())).dtype
 
     @property
     def ndim(self) -> int:
         return len(self.shape)
 
     def cells(self) -> list[tuple[int, int]]:
+        """The cells that hold tiles (``Mesh.volume_cells``), every rank's."""
+        return self.mesh.volume_cells(self.batched)
+
+    def local_cells(self) -> list[tuple[int, int]]:
+        """The cells whose tiles this rank holds (all of them on a mesh
+        driven by one process)."""
+        return self.mesh.local(self.cells())
+
+    def sum_cells(self) -> list[tuple[int, int]]:
+        """The cells whose tiles a sum adds: row 0's of an unbatched volume
+        (its other rows' tiles are replicas)."""
         return self.mesh.cells(None if self.batched else (0,))
 
     def tile(self, b: int, z: int) -> torch.Tensor:
         """Cell (b, z)'s tile; of an unbatched volume, row 0's tile on that
-        cell's device (cached for a constant, a differentiable copy else)."""
-        if self.batched or b == 0:
+        cell's device (cached for a constant, a differentiable copy else), or
+        over processes the row's own replica."""
+        if self.batched or b == 0 or self.mesh.distributed:
             return self.tiles[(b, z)]
         t = self.tiles[(0, z)]
         dev = self.mesh.device(b, z)
@@ -163,7 +286,7 @@ class ShardedVolume:
         batched = any(o.batched for o in sharded)
         shape = max((o.shape for o in sharded if o.layout == self.layout), key=len)
         tiles = {}
-        for b, z in self.mesh.cells(None if batched else (0,)):
+        for b, z in self.mesh.local(self.mesh.volume_cells(batched)):
             dev = self.mesh.device(b, z)
             args = [o.tile(b, z) if isinstance(o, ShardedVolume)
                     else o.to(dev) if isinstance(o, torch.Tensor) else o for o in (self, *others)]
@@ -173,29 +296,44 @@ class ShardedVolume:
     def sum(self) -> torch.Tensor:
         """The sum of every element, a 0-dim tensor on the mesh's first device:
         each tile's sum, added batch-major then by z."""
-        first = self.mesh.first
-        parts = [self.tiles[c].sum().to(first) for c in self.cells()]
-        return sum(parts[1:], parts[0])
+        cells = self.sum_cells()
+        return self.mesh.add({c: self.tiles[c].sum() for c in self.mesh.local(cells)}, cells, self.dtype)
 
     def sum_frames(self) -> "ShardedVolume":
         """The sum over the leading (frame) axis of a batched volume, an
-        unbatched one: each z column's frames added on row 0's device."""
-        tiles = {}
-        for z in range(self.mesh.shape[Z_AXIS]):
-            dev, acc = self.mesh.device(0, z), None
-            for b in range(self.mesh.shape[BATCH_AXIS]):
-                part = self.tiles[(b, z)].sum(dim=0).to(dev)
-                acc = part if acc is None else acc + part
-            tiles[(0, z)] = acc
-        return ShardedVolume(self.mesh, self.shape[1:], tiles, False, self.layout)
+        unbatched one: each z column's frame sums added in row order on the
+        cells that hold the result (row 0's; over processes every row's, and
+        not differentiable there)."""
+        mesh, nb = self.mesh, self.mesh.shape[BATCH_AXIS]
+        if mesh.distributed and torch.is_grad_enabled() and any(t.requires_grad for t in self.tiles.values()):
+            raise ValueError("sum_frames over processes is not differentiable")
+        parts = {c: t.sum(dim=0) for c, t in self.tiles.items()}
+        like, cells = next(iter(parts.values())), mesh.volume_cells(False)
+        moves = [((b, z), (r, z), parts.get((b, z)), like.shape, like.dtype) for r, z in cells for b in range(nb)]
+        got, tiles = exchange(mesh, moves, "cells"), {}
+        for k, (r, z) in enumerate(cells):
+            if mesh.is_local(r, z):
+                frames = got[k * nb:(k + 1) * nb]
+                tiles[(r, z)] = sum(frames[1:], frames[0])
+        return ShardedVolume(mesh, self.shape[1:], tiles, False, self.layout)
 
     def amax(self) -> torch.Tensor:
         """The largest element, a 0-dim tensor on the mesh's first device."""
-        return torch.stack([self.tiles[c].amax().to(self.mesh.first) for c in self.cells()]).amax()
+        cells = self.sum_cells()
+        return self.mesh.max({c: self.tiles[c].amax() for c in self.mesh.local(cells)}, cells, self.dtype)
 
     def variable(self) -> dict:
-        """The tiles the optimizer moves, as a dict keyed (b, z)."""
-        return {c: self.tiles[c] for c in self.cells()}
+        """The tiles the optimizer moves, as a dict keyed (b, z); over
+        processes this rank's, as a ``treeutil.Shares`` whose dots every rank
+        sums alike."""
+        tiles = {c: self.tiles[c] for c in self.local_cells()}
+        if not self.mesh.distributed:
+            return tiles
+        if not self.batched and self.mesh.shape[BATCH_AXIS] > 1:
+            raise ValueError("an unbatched variable on a mesh over processes needs one mesh row (batch=1): on "
+                             f"{self.mesh.shape[BATCH_AXIS]} rows each row would move a replica of it")
+        cells, mesh, dtype = self.cells(), self.mesh, self.dtype
+        return Shares(tiles, lambda parts: mesh.add(parts, cells, dtype))
 
     def with_tiles(self, tiles: dict) -> "ShardedVolume":
         """This layout with other tiles (a dict of :meth:`variable`'s keys)."""
@@ -245,32 +383,70 @@ def shard(a, mesh: Mesh, batched: bool | None = None, layout: str = "z") -> Shar
     axis = a.ndim - (3 if layout == "z" else 2)
     step = _split(a.shape[axis], nz, f"axis {axis - a.ndim} of shape {tuple(a.shape)}")
     rows = _split(a.shape[0], nb, f"the batch of shape {tuple(a.shape)}") if batched else None
-    tiles = {}
-    for b, z in mesh.cells(None if batched else (0,)):
-        t = a if rows is None else a[b * rows:(b + 1) * rows]
-        tiles[(b, z)] = send(t.narrow(axis, z * step, step), mesh.device(b, z))
+    cut = functools.partial(_part, axis=axis, step=step, rows=rows)
+    cells = mesh.volume_cells(batched)
+    local = mesh.local(cells)
+    if mesh.distributed and a.requires_grad and torch.is_grad_enabled():
+        tiles = dict(zip(local, _Cut.apply(mesh, cells, cut, a)))
+    else:
+        tiles = {(b, z): send(cut(a, b, z), mesh.device(b, z)) for b, z in local}
     return ShardedVolume(mesh, a.shape, tiles, batched, layout)
+
+
+def _part(a: torch.Tensor, b: int, z: int, axis: int, step: int, rows: int | None) -> torch.Tensor:
+    """Cell (b, z)'s part of ``a``, a view (``rows`` None: every row's is the whole batch)."""
+    t = a if rows is None else a[b * rows:(b + 1) * rows]
+    return t.narrow(axis, z * step, step)
+
+
+class _Cut(torch.autograd.Function):
+    """This rank's tiles of a tensor that every rank holds whole, over
+    processes. The whole's gradient is every cell's tile gradient added into
+    its place, in the order of the cells, on every rank alike (one
+    broadcast a cell): the sum over the ranks, taken once."""
+
+    @staticmethod
+    def forward(ctx, mesh, cells, cut, a):
+        ctx.args, ctx.like = (mesh, cells, cut), (a.shape, a.dtype, a.device)
+        return tuple(send(cut(a, b, z), mesh.device(b, z)) for b, z in mesh.local(cells))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, cells, cut = ctx.args
+        shape, dtype, device = ctx.like
+        every = all_cells(mesh, dict(zip(mesh.local(cells), grads)), cells)
+        g = torch.zeros(shape, dtype=dtype, device=device)
+        for b, z in cells:
+            cut(g, b, z).add_(every[(b, z)].to(device))
+        return None, None, None, g
 
 
 def shard_rows(a: torch.Tensor, mesh: Mesh) -> ShardedVolume:
     """Per-frame values (B, 1, 1, 1) split over the mesh rows only, each row's
     run on every cell of the row (layout "rows")."""
     rows = _split(a.shape[0], mesh.shape[BATCH_AXIS], f"the batch of shape {tuple(a.shape)}")
-    tiles = {(b, z): send(a[b * rows:(b + 1) * rows], mesh.device(b, z)) for b, z in mesh.cells()}
+    tiles = {(b, z): send(a[b * rows:(b + 1) * rows], mesh.device(b, z)) for b, z in mesh.local(mesh.cells())}
     return ShardedVolume(mesh, a.shape, tiles, True, "rows")
 
 
 def gather(s, device=None) -> torch.Tensor:
     """The global tensor of a sharded volume on ``device`` (default: the
-    mesh's first device); a tensor passes through. Differentiable."""
+    mesh's first device); a tensor passes through. Differentiable on a mesh
+    driven by one process; over processes every rank gets the whole, and
+    nothing flows back."""
     if not isinstance(s, ShardedVolume):
         return s
     device = s.mesh.first if device is None else device
     nb, nz = s.mesh.shape[BATCH_AXIS], s.mesh.shape[Z_AXIS]
     axis = s.ndim - (3 if s.layout == "z" else 2)
+    tiles = s.tiles
+    if s.mesh.distributed:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tiles.values()):
+            raise ValueError("gather over processes is not differentiable")
+        tiles = all_cells(s.mesh, tiles, [(b, 0) for b in range(nb)] if s.layout == "rows" else s.sum_cells())
     if s.layout == "rows":
-        return torch.cat([s.tiles[(b, 0)].to(device) for b in range(nb)])
-    rows = [torch.cat([s.tiles[(b, z)].to(device) for z in range(nz)], dim=axis)
+        return torch.cat([tiles[(b, 0)].to(device) for b in range(nb)])
+    rows = [torch.cat([tiles[(b, z)].to(device) for z in range(nz)], dim=axis)
             for b in range(nb if s.batched else 1)]
     return torch.cat(rows) if s.batched else rows[0]
 

@@ -14,7 +14,7 @@ import torch
 
 from microtipi_tpu_torch.parallel.deconv import sharded_tv_gradient
 from microtipi_tpu_torch.parallel.fft import sharded_irfftn, sharded_rfftn, sharded_spectrum
-from microtipi_tpu_torch.parallel.mesh import Mesh, ShardedVolume, gather, shard
+from microtipi_tpu_torch.parallel.mesh import Mesh, ShardedVolume, gather, one_process, shard
 
 __all__ = ["sharded_multiview_richardson_lucy", "sharded_richardson_lucy"]
 
@@ -38,6 +38,7 @@ def sharded_richardson_lucy(data, psf, mesh: Mesh, iterations: int = 50, backgro
     ``psf`` corner-origin at the volume grid, ``data`` (Nz, Ny, Nx) or
     batched (B, Nz, Ny, Nx), a tensor or a sharded volume. Returns the
     sharded estimate."""
+    one_process(mesh, "sharded_richardson_lucy")
     vol_shape = tuple(data.shape[-3:])
     if tuple(psf.shape) != vol_shape:
         raise ValueError("richardson_lucy requires psf shape == volume shape")
@@ -65,6 +66,7 @@ def sharded_multiview_richardson_lucy(views, psfs, mesh: Mesh, iterations: int =
     the views (K,) + volume ride the mesh's batch axis, each z-sharded; the
     sum over views adds the rows' back-projections on row 0, where the
     estimate lives (one unbatched volume)."""
+    one_process(mesh, "sharded_multiview_richardson_lucy")
     if tuple(views.shape) != tuple(psfs.shape) or len(views.shape) != 4:
         raise ValueError("views and psfs must share a (K,)+volume shape")
     vol = tuple(views.shape[1:])

@@ -1,5 +1,6 @@
-"""The PyTorch port, chip_smoke.py, chip_profile.py and chip_tv_ab.py
-import neither jax nor the JAX package."""
+"""The PyTorch port, chip_smoke.py, chip_profile.py, chip_tv_ab.py,
+chip_nccl_mesh.py and the ranks that tests/test_torch_multiprocess.py
+spawns (tests/torch_mp_worker.py) import neither jax nor the JAX package."""
 
 import ast
 import pathlib
@@ -8,7 +9,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "microtipi_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_tv_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_tv_ab.py", ROOT / "chip_nccl_mesh.py",
+    ROOT / "tests" / "torch_mp_worker.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -36,7 +38,7 @@ def test_scan_covers_the_package():
             "register.py", "metrics.py", "preprocess.py", "geometry.py", "api.py", "codecs.py", "tiffstack.py",
             "ome.py", "zarr3.py", "zarrstack.py", "hdf5stack.py", "plate.py", "checkpoint.py", "profiling.py",
             "phantoms.py", "parser.py", "shared.py", "basic.py", "deconv.py", "deconv_modes.py", "fitpsf.py",
-            "tools.py", "serve.py", "__main__.py"} <= names
+            "tools.py", "serve.py", "__main__.py", "collectives.py", "torch_mp_worker.py", "chip_nccl_mesh.py"} <= names
     # the io and cli packages' own __init__ (the package's top level is scanned too)
     assert ROOT / "microtipi_tpu_torch" / "io" / "__init__.py" in FILES
     assert ROOT / "microtipi_tpu_torch" / "cli" / "__init__.py" in FILES

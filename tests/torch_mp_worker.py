@@ -1,0 +1,200 @@
+"""The ranks of ``tests/test_torch_multiprocess.py``.
+
+Each child is one rank of a gloo group (``torch.distributed``, a file
+rendezvous): it runs the port's sharded jobs on meshes over the ranks and
+saves what it got for the parent to compare. The same :func:`run_cases` on
+meshes driven by one process gives the parent its reference. Imports torch
+and the port only (a child never loads JAX).
+"""
+
+import datetime
+import pathlib
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
+from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
+from microtipi_tpu_torch.ops.convolution import convolve, convolve_spectrum
+from microtipi_tpu_torch.parallel import gather, make_mesh, sharded_blind_deconvolve, sharded_deconvolve
+
+#: ``tests/test_torch_parallel_jobs.py``'s scene and optics.
+SHAPE = (16, 32, 32)
+KW = dict(na=1.2, wavelength=500e-9, ni=1.33, dxy=100e-9, dz=250e-9)
+CFG = dict(mu=0.002, epsilon=1.0, grtol=0.0)
+BLIND = dict(loops=2, families=(DEFOCUS, PHASE), psf_max_iter=(4, 4), joint_fit=True, phase_freeze_head=1,
+             init="wiener")
+#: ``tests/test_multiprocess.py``'s case (``__graft_entry__._mp_worker``) on
+#: a (2, 2) mesh: Nz = 2 * 2 + 1 (the zero-weight padding), 16 x 16, in float64.
+ODD_SHAPE = (5, 16, 16)
+ODD_KW = dict(na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9, dz=200e-9, n_phase=3, n_modulus=1)
+ODD_BLIND = dict(loops=2, families=(DEFOCUS, PHASE), psf_max_iter=(2, 2), joint_fit=True, phase_freeze_head=1,
+                 init="wiener")
+ODD_CFG = dict(mu=0.01, epsilon=1.0, max_iter=2, grtol=0.0)
+#: A rank that waits on a dead peer gives up after this many seconds.
+TIMEOUT_S = 30
+#: The cases a spawn of four ranks (one cell each) runs.
+FEW = ("deconv_1x4", "odd_2x2")
+#: The options it runs: on them a rank whose cell reads no other cell's
+#: planes or frames (the last slab, the last row) still takes part in the
+#: exchange that sends its own to the others.
+FEW_OPTIONS = ("priors_1x4", "series_2x2", "joint_2x2")
+
+
+def scene():
+    """(model, psf, data, stack): the parallel jobs test's scene (made from
+    numpy, the same in every process) and a 2-frame stack of it."""
+    model = WideFieldModel(WideFieldConfig(shape=SHAPE, n_phase=3, radial=True, dtype=torch.float64, **KW),
+                           device="cpu")
+    true = model.init_params()._replace(phase=torch.tensor([0.4, -0.2, 0.1], dtype=torch.float64))
+    obj = np.zeros(SHAPE)
+    obj[4:10, 8:20, 8:20] = 60.0
+    obj[10:14, 20:28, 4:12] = 90.0
+    obj = torch.as_tensor(obj)
+    with torch.no_grad():
+        psf = model.compute_psf(true)
+        data = convolve(obj, convolve_spectrum(psf), SHAPE)
+    data = data + 0.01 * torch.as_tensor(np.random.default_rng(0).standard_normal(SHAPE))
+    return model, psf, data, torch.stack([data, 1.1 * data])
+
+
+def odd_scene():
+    """(model, data) of the odd-Nz batched case."""
+    model = WideFieldModel(WideFieldConfig(shape=ODD_SHAPE, dtype=torch.float64, **ODD_KW), device="cpu")
+    return model, torch.as_tensor(np.random.default_rng(0).random((2, *ODD_SHAPE)))
+
+
+def _deconv(res) -> dict:
+    return {"x": gather(res.x), "f": res.f, "f_history": res.f_history}
+
+
+def _blind(res) -> dict:
+    return {"obj": gather(res.obj), "phase": res.params.phase.detach(), "defocus": res.params.defocus.detach(),
+            "deconv_f": res.deconv_f, "fit_f": res.fit_f}
+
+
+def run_cases(mesh_of, only=None) -> dict:
+    """Every case (or those named in ``only``) on the meshes ``mesh_of(batch,
+    z)`` makes."""
+    model, psf, data, stack = scene()
+    cfg = DeconvolutionConfig(max_iter=15, **CFG)
+    blind = BlindDeconvConfig(deconv=DeconvolutionConfig(max_iter=5, **CFG), **BLIND)
+    odd_model, odd = odd_scene()
+    runs = {
+        "deconv_1x4": lambda: _deconv(sharded_deconvolve(data, psf, mesh_of(1, 4), config=cfg)),
+        "deconv_2x2": lambda: _deconv(sharded_deconvolve(stack, psf, mesh_of(2, 2), config=cfg)),
+        "blind_1x4": lambda: _blind(sharded_blind_deconvolve(data, model, mesh_of(1, 4), config=blind)),
+        "blind_2x2": lambda: _blind(sharded_blind_deconvolve(stack, model, mesh_of(2, 2), config=blind)),
+        "odd_2x2": lambda: _blind(sharded_blind_deconvolve(odd, odd_model, mesh_of(2, 2), config=BlindDeconvConfig(
+            deconv=DeconvolutionConfig(**ODD_CFG), **ODD_BLIND))),
+    }
+    return {name: run() for name, run in runs.items() if only is None or name in only}
+
+
+def run_options(mesh_of, only=None) -> dict:
+    """``sharded_deconvolve``'s options (or those named in ``only``) over the
+    meshes ``mesh_of(batch, z)`` makes: ``tests/test_torch_parallel_jobs.py``'s
+    priors, weights with a NaN at a zero weight, Poisson deviance, and the
+    row-coupled frames (temporal TV with bleaching gains, channel-coupled TV,
+    unmixing)."""
+    _, psf, data, stack = scene()
+    cfg = DeconvolutionConfig(max_iter=10, **CFG)
+    w = torch.as_tensor(0.5 + np.random.default_rng(1).random((2, *SHAPE)))
+    w[0, 0, 0, 0] = 0.0
+    bad = stack.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    psfs = torch.stack([psf, psf.roll(1, 1)])
+    mix = torch.tensor([[0.85, 0.25], [0.15, 0.75]], dtype=torch.float64)
+    runs = {
+        "priors_1x4": lambda: sharded_deconvolve(data, psf, mesh_of(1, 4), config=DeconvolutionConfig(
+            max_iter=12, sparsity=0.01, sparsity_epsilon=0.05, hessian=0.05, **CFG)),
+        "weighted_2x2": lambda: sharded_deconvolve(bad, psf, mesh_of(2, 2), weights=w, x0=torch.clamp_min(stack, 0.0),
+                                                   config=cfg),
+        "poisson_1x4": lambda: sharded_deconvolve(torch.clamp_min(data, 0.0) + 1.0, psf, mesh_of(1, 4),
+                                                  config=DeconvolutionConfig(max_iter=10, data_term="poisson",
+                                                                             background=0.5, **CFG)),
+        "series_2x2": lambda: sharded_deconvolve(stack, psf, mesh_of(2, 2), config=cfg, mu_t=0.01,
+                                                 bleach=torch.tensor([1.0, 0.9], dtype=torch.float64)),
+        "joint_2x2": lambda: sharded_deconvolve(stack, psfs, mesh_of(2, 2), config=cfg, joint_channels=True),
+        "mixing_2x2": lambda: sharded_deconvolve(stack, psfs, mesh_of(2, 2), config=cfg, mixing=mix),
+    }
+    return {name: _deconv(run()) for name, run in runs.items() if only is None or name in only}
+
+
+def run_reductions(mesh_of) -> dict:
+    """A stack's reductions on a (2, 2) mesh from ``mesh_of``: ``sum``,
+    ``amax``, ``sum_frames`` and the per-frame values' ``gather``."""
+    from microtipi_tpu_torch.parallel import shard
+    from microtipi_tpu_torch.parallel.mesh import shard_rows
+
+    _, _, _, stack = scene()
+    mesh = mesh_of(2, 2)
+    v = shard(stack, mesh)
+    gains = torch.tensor([1.0, 0.9], dtype=torch.float64).reshape(2, 1, 1, 1)
+    return {"sum": v.sum(), "amax": v.amax(), "sum_frames": gather(v.sum_frames()),
+            "rows": gather(shard_rows(gains, mesh))}
+
+
+def guards(mesh_of) -> dict:
+    """What each solver that a mesh over processes does not run raised
+    (name: message)."""
+    from microtipi_tpu_torch.parallel import sharded_admm_deconvolve
+    from microtipi_tpu_torch.parallel.depthvar import sharded_deconvolve_depthvar
+    from microtipi_tpu_torch.parallel.richardson_lucy import sharded_richardson_lucy
+
+    _, psf, data, stack = scene()
+    cfg = DeconvolutionConfig(max_iter=2, **CFG)
+    calls = {
+        "admm": lambda: sharded_admm_deconvolve(data, psf, mesh_of(1, 4), config=cfg),
+        "richardson_lucy": lambda: sharded_richardson_lucy(data, psf, mesh_of(1, 4), iterations=2),
+        "depthvar": lambda: sharded_deconvolve_depthvar(data, torch.stack([psf, psf]), mesh_of(1, 4), config=cfg),
+        "unbatched_2x2": lambda: sharded_deconvolve(data, psf, mesh_of(2, 2), config=cfg),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def one_process_mesh(batch: int, z: int):
+    return make_mesh(batch, z, devices=[torch.device("cpu")] * (batch * z))
+
+
+def child(rank: int, world: int, init: str, out: str, case: str) -> None:
+    """Rank ``rank`` of ``world``: ``case`` "jobs" runs :func:`run_cases`,
+    :func:`run_options` and :func:`guards` on meshes over the ranks and saves
+    ``rank<r>.pt`` in ``out``; "few" runs :data:`FEW` of the cases and
+    :data:`FEW_OPTIONS` of the options; "fail"
+    makes rank 1 raise before its first collective. A failure leaves its
+    traceback in ``rank<r>.err`` and exits non-zero."""
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
+                                timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        try:
+            if case == "fail" and rank == 1:
+                raise RuntimeError("rank 1 fails before its first collective")
+
+            def mesh_of(batch, z):
+                return make_mesh(batch, z, devices=[torch.device("cpu")] * (batch * z // world),
+                                 group=dist.group.WORLD)
+
+            if case == "few":
+                got = {**run_cases(mesh_of, FEW), **run_options(mesh_of, FEW_OPTIONS)}
+            else:
+                got = run_cases(mesh_of)
+                got.update(run_options(mesh_of), reductions=run_reductions(mesh_of), guards=guards(mesh_of))
+            torch.save(got, pathlib.Path(out) / f"rank{rank}.pt")
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        (pathlib.Path(out) / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
