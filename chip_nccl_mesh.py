@@ -7,17 +7,19 @@ Run from the root of a checkout on a host with CUDA cards (H100s). It builds
 the kernels (``chip_smoke.py`` phase 1), then spawns one process a card (as
 many as divide ``chip_smoke.SLABS``, at most that many), each a rank of an
 NCCL group (file rendezvous, ``chip_smoke.MP_GROUP_TIMEOUT_S``), which run
-``chip_smoke.py`` phase 31's jobs (the 256^3 VMLMB and blind loop) on the
-(1, SLABS) mesh over the ranks: the halo planes and the distributed FFT's
-transposes go through NCCL's sends and receives between the cards, the
+``chip_smoke.py`` phase 31's jobs (``chip_smoke.MP_JOBS``: the 256^3 VMLMB,
+blind loop, ADMM and blind loop by ADMM, RL-TV and depthvar at 64x256x256 on
+the (1, SLABS) mesh over the ranks, and VMLMB of one 256^3 volume on (2,
+SLABS // 2)): the halo planes, the ADMM slabs' planes and the distributed
+FFT's transposes go through NCCL's sends and receives between the cards, the
 reductions through its all-gather. This process then runs the same jobs on
 one process over the same cards, and over cuda:0 alone, and holds every rank
 against each (bit for bit the aim, else within ``chip_smoke.SLAB_F_RTOL``;
-a reference that fails is reported and fails the script at the end), checks each rank's first
-TV slab launch, which took planes from other ranks, against its plain
-version and times it here alone, and prints the walls, the bytes sent
-between ranks by kind and the TV slab launches (lines tagged as phase 31's),
-then one JSON line. On one card it runs one rank, where nothing crosses
+a reference that fails is reported and fails the script at the end), checks
+each rank's first TV slab launch, ADMM split update and rhs that took planes
+from other ranks against their plain versions and times them here alone,
+and prints the walls, the bytes sent between ranks by kind and the slab
+launches (lines tagged as phase 31's), then one JSON line. On one card it runs one rank, where nothing crosses
 ranks. Any failure exits non-zero.
 """
 
@@ -108,10 +110,7 @@ def main() -> int:
             traceback.print_exc()
             failures.append(f"one process over {label}: {type(e).__name__}: {e}")
             continue
-        line[label] = {job: {"wall": max(r[job]["wall"] for r in ranks), "one_process_wall": refs[job]["wall"],
-                             "sent": {k: sum(r[job]["sent"].get(k, 0) for r in ranks)
-                                      for k in ("halo", "transpose", "values", "cells")}, **counts[job]}
-                       for job in ("vmlmb", "blind")}
+        line[label] = counts
     if world > 1:
         _, data, _ = cs.bench_scene(cs.SHAPE, torch.device("cuda", 0), torch.float32)
         err, times = cs._mp_first_launch(ranks, torch.clamp_min(data, 0.0))
@@ -122,6 +121,11 @@ def main() -> int:
         cs.log(31, f"[{card}] {name}: each rank's first TV slab launch, with planes from other ranks, against its "
                    f"plain version: gradient max abs err {err:.3g}; kernel_ms {[round(t[0], 4) for t in times]} by "
                    f"rank (timed here alone), bound {bound:.4f} ms ({by})")
+        line["cross_rank_admm_launches"] = cs._mp_first_admm_launches(ranks)
+        for kind, e in line["cross_rank_admm_launches"].items():
+            cs.log(31, f"[{card}] {name}: each rank's first ADMM {kind} slab launch with a plane from another rank, "
+                       f"bit for bit its plain version; kernel_ms {[round(t, 4) for t in e['kernel_ms_by_rank']]} "
+                       f"by rank (timed here alone), bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
     print(json.dumps({"nccl_mesh": line}))
     if failures:
         print("\n".join(failures), file=sys.stderr)

@@ -1358,20 +1358,28 @@ def phase10_admm(card: str, f_vmlmb: float) -> tuple[int, int]:
     return int(launched[0]), int(launched[1])
 
 
-def phase11_blind_admm(card: str) -> tuple[int, int]:
+def blind_admm_config():
     """The blind loop with the ADMM engine, the recommended recipe of
-    ``bench.py:243-251`` on phase 3's blind scene."""
-    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig, blind_deconvolve
+    ``bench.py:243-251``, as phases 11, 30 and 31 run it."""
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
     from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
     from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
 
-    nvox = float(np.prod(SHAPE))
-    model, data, _ = bench_scene(SHAPE, torch.device("cuda"), torch.float32, phase=[0.15, -0.1, 0.08, 0.0, 0.05, 0.0])
-    bcfg = BlindDeconvConfig.recommended(
+    return BlindDeconvConfig.recommended(
         loops=5, families=(DEFOCUS, PHASE), psf_max_iter=(5, 5), deconv_engine="admm",
         deconv=DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0),
         fit=PsfFitConfig(grtol=0.0))
+
+
+def phase11_blind_admm(card: str) -> tuple[int, int]:
+    """The blind loop with the ADMM engine (:func:`blind_admm_config`) on
+    phase 3's blind scene."""
+    from microtipi_tpu_torch.jobs.blind import blind_deconvolve
+
+    nvox = float(np.prod(SHAPE))
+    model, data, _ = bench_scene(SHAPE, torch.device("cuda"), torch.float32, phase=[0.15, -0.1, 0.08, 0.0, 0.05, 0.0])
+    bcfg = blind_admm_config()
     torch.cuda.reset_peak_memory_stats()
     with AdmmCounts() as c:
         torch.cuda.synchronize()
@@ -4627,8 +4635,10 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
     """The sharded paths at full width on meshes of the one card, each run
     between :class:`SlabCounts` (slab launches only); the sharded blind loop
     beside phase 3's dense one (its ``deconv_f`` and wall). Returns each
-    path's slab launches, and the (1, 4) VMLMB's and blind loop's costs and
-    walls (phase 31's references)."""
+    path's slab launches, and the costs (RL-TV: the estimate) and walls of
+    the jobs phase 31 runs over processes, its references: VMLMB, the blind
+    loop, ADMM, the blind loop by ADMM, RL-TV and depthvar on (1, 4), and
+    VMLMB of one volume on (2, 2)."""
     from microtipi_tpu_torch.jobs.admm import admm_deconvolve
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
     from microtipi_tpu_torch.jobs.depthvar import deconvolve_depthvar, depth_anchor_psfs
@@ -4660,6 +4670,8 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
         if shape == (1, 4):
             paths["sharded VMLMB 256^3 (1, 4)"] = {k: v // 3 for k, v in n.items()}  # a run of the 3 (warm-up, 2 timed)
             refs["vmlmb"] = {"f_history": res.f_history, "wall": wall}
+        if shape == (2, 2):
+            refs["vmlmb_2x2"] = {"f_history": res.f_history, "wall": wall}
         log(30, f"[{card}] sharded_deconvolve {SHAPE} on mesh {shape} of cuda:0: {res.iterations} iterations, "
                 f"{res.evaluations} evaluations, f {float(res.f):.6g} (dense {float(dense.f):.6g}, "
                 f"{dense.iterations} iterations), f(x0), f(x1) within {head:.3g} rel of dense; wall {wall:.4f} s "
@@ -4702,10 +4714,30 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
     _check_object("sharded ADMM", gather(res.x))
     if hist > SLAB_F_RTOL:
         raise AssertionError(f"sharded ADMM f_history {hist:.3g} rel off the dense engine's")
+    refs["admm"] = {"f_history": res.f_history, "wall": wall}
     log(30, f"[{card}] sharded_admm_deconvolve {SHAPE} on (1, 4), {acfg.max_iter} iterations tracked: f "
             f"{float(res.f):.6g} (dense {float(dense.f):.6g}), f_history within {hist:.3g} rel, wall {wall:.4f} s "
             f"(dense {dense_wall:.4f} s), {nvox * acfg.max_iter / wall / 1e6:.1f} Mvox*iter/s; slab launches a run "
             f"{paths['sharded ADMM 256^3 (1, 4)']}")
+
+    # Phase 11's blind loop by the ADMM engine on (1, 4): the object steps' slab launches, one TV launch a round.
+    with SlabCounts() as c:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ares = sharded_blind_deconvolve(bdata, model, card_mesh(1, 4), config=blind_admm_config())
+        torch.cuda.synchronize()
+        awall = time.perf_counter() - t0
+    n = paths["sharded blind by ADMM 256^3 (1, 4)"] = c.check("sharded blind by ADMM (1, 4)", SLABS, admm=True)
+    _check_object("sharded blind by ADMM", gather(ares.obj))
+    iters = int(ares.deconv_iters.sum())
+    if (not (np.isfinite(ares.deconv_f).all() and np.isnan(ares.fit_f[-1]).all()) or iters != 100
+            or n["split"] != SLABS * iters or n["rhs"] != n["split"]):
+        raise AssertionError(f"sharded blind by ADMM: deconv_f {ares.deconv_f}, fit_f {ares.fit_f}, object "
+                             f"iterations {iters}, slab launches {n}")
+    refs["blind_admm"] = {"deconv_f": ares.deconv_f, "wall": awall}
+    log(30, f"[{card}] sharded_blind_deconvolve {SHAPE} on (1, 4) by the ADMM engine, phase 11's loop: deconv_f "
+            f"{ares.deconv_f.tolist()}, wall {awall:.3f} s (1 run); slab launches {n}")
+    del ares
 
     scenes = [bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE, seed=s)[1] for s in (0, 1)]
     b2 = dataclasses.replace(bcfg, loops=2)
@@ -4733,6 +4765,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
     rel = _rel_l2(gather(got), ref)
     if rel > 1e-4 or c.tv != 3 * 20:
         raise AssertionError(f"sharded RL-TV: {rel:.3g} relative L2 off dense, TV slab launches {c.tv}")
+    refs["rl_tv"] = {"x": gather(got), "wall": wall}
     log(30, f"[{card}] sharded_richardson_lucy {LANE_SHAPE} RL-TV, 20 iterations on (1, 4): {rel:.3g} relative L2 "
             f"off dense, wall {wall:.4f} s (dense {dense_wall:.4f} s), TV slab launches a run "
             f"{c.tv // 3} (one an iteration, of {SLABS} slabs)")
@@ -4751,6 +4784,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
     _check_object("sharded depthvar", gather(got.x))
     if head > SLAB_F_RTOL:
         raise AssertionError(f"sharded depthvar f(x0), f(x1) {head:.3g} rel off dense")
+    refs["depthvar"] = {"f_history": got.f_history, "wall": wall}
     log(30, f"[{card}] sharded_deconvolve_depthvar {LANE_SHAPE}, {DEPTH_K} anchors, on (1, 4): f {float(got.f):.6g} "
             f"(dense {float(ref.f):.6g}), f(x0), f(x1) within {head:.3g} rel, wall {wall:.4f} s (dense "
             f"{dense_wall:.4f} s), TV slab launches a run {c.tv // 3}")
@@ -4860,22 +4894,91 @@ def _gloo_cuda_ops(rank: int, world: int) -> dict:
     return out
 
 
+#: Phase 31's jobs: (name, path label, the key of the result held against phase 30's one-process run, the ADMM
+#: slab kernels launched). Each launches the TV slab kernel: VMLMB and depthvar each evaluation, RL-TV each
+#: iteration, the ADMM engine for its tracked objective (a solve's f in the blind loop).
+MP_JOBS = (("vmlmb", "VMLMB 256^3 (1, 4)", "f_history", False), ("blind", "blind 256^3 (1, 4)", "deconv_f", False),
+           ("admm", "ADMM 256^3 (1, 4)", "f_history", True),
+           ("blind_admm", "blind by ADMM 256^3 (1, 4)", "deconv_f", True),
+           ("rl_tv", "RL-TV 64x256x256 (1, 4)", "x", False), ("depthvar", "depthvar 64x256x256 (1, 4)", "f_history", False),
+           ("vmlmb_2x2", "VMLMB 256^3 (2, 2)", "f_history", False))
+SENT_KINDS = ("halo", "transpose", "values", "cells", "rows")
+
+
+def _capture_admm_launches(mesh, run) -> dict:
+    """Run ``run`` with the ADMM slab entries, as ``parallel.admm`` calls
+    them, recording this rank's first split update and first rhs that take
+    a plane from another rank's slab: the inputs before the launch, the
+    outputs after it, the cell and the neighbour. A call's cell is the
+    solve's loop order over this rank's cells."""
+    from microtipi_tpu_torch.parallel import admm as padmm
+
+    local, p = mesh.local(mesh.volume_cells(False)), mesh.shape["z"]
+    first, calls = {}, {"split": 0, "rhs": 0}
+    split, rhs = padmm.admm_split_update_slab, padmm.admm_rhs_slab
+
+    def received(kind: str, step: int):
+        b, z = local[calls[kind] % len(local)]
+        calls[kind] += 1
+        nbr = (b, (z + step) % p)
+        return kind not in first and not mesh.is_local(*nbr), {"cell": (b, z), "from": nbr}
+
+    def copies(args):
+        return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+
+    def split_capture(*args):
+        take, where = received("split", 1)
+        before = copies(args) if take else None
+        split(*args)
+        if take:
+            first["split"] = {"inputs": before, "outputs": copies(args[2:6]), **where}
+
+    def rhs_capture(*args):
+        take, where = received("rhs", -1)
+        out = rhs(*args)
+        if take:
+            first["rhs"] = {"inputs": copies(args), "outputs": out.clone(), **where}
+        return out
+
+    padmm.admm_split_update_slab, padmm.admm_rhs_slab = split_capture, rhs_capture
+    try:
+        run()
+    finally:
+        padmm.admm_split_update_slab, padmm.admm_rhs_slab = split, rhs
+    return first
+
+
 def _mp_jobs(group, devices) -> dict:
-    """Phase 30's (1, SLABS) 256^3 VMLMB (a warm-up, then a timed run) and
-    blind loop on a mesh over ``group``'s ranks, this rank holding
-    ``devices``; with each run's TV slab launches on this rank (counts set to
-    0 just before, read just after), bytes sent to other ranks, wall, and
-    the first TV launch of the warm-up (inputs and outputs) with the planes
-    it took from other ranks, for the parent to check and time alone on the
-    card once the ranks have exited."""
+    """Phase 30's jobs of :data:`MP_JOBS` on meshes over ``group``'s ranks
+    ((1, SLABS), and (2, SLABS // 2) for one volume a replica a row), this
+    rank holding ``devices``: each run once with its slab launches on this
+    rank (counts set to 0 just before, read just after), bytes sent to other
+    ranks by kind, and wall; VMLMB after a warm-up, whose first TV launch
+    (inputs and outputs) with the planes it took from other ranks is kept for
+    the parent to check and time alone on the card once the ranks have
+    exited, and likewise the first ADMM split update and rhs with a plane
+    from another rank, from a 2-iteration warm-up at over-relaxation 1.
+    Then one objective evaluation's traffic, and one depth-varying PSF fit
+    evaluation's (cost and gradient)."""
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+    from microtipi_tpu_torch.jobs.depthvar import depth_anchor_psfs
+    from microtipi_tpu_torch.ops.kernels import admm_split as ak
     from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
     from microtipi_tpu_torch.parallel import collectives
     from microtipi_tpu_torch.parallel import deconv as pd
-    from microtipi_tpu_torch.parallel import gather, make_mesh, sharded_blind_deconvolve, sharded_deconvolve
+    from microtipi_tpu_torch.parallel import (
+        gather,
+        make_mesh,
+        sharded_admm_deconvolve,
+        sharded_blind_deconvolve,
+        sharded_deconvolve,
+    )
+    from microtipi_tpu_torch.parallel import depthvar as sdv
+    from microtipi_tpu_torch.parallel.richardson_lucy import sharded_richardson_lucy
 
     dev = devices[0]
     mesh = make_mesh(1, SLABS, devices=devices, group=group)
+    rows = make_mesh(2, SLABS // 2, devices=devices, group=group)
     _, data, psf = bench_scene(SHAPE, dev, torch.float32)
     cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
     first, launch = {}, pd.hyperbolic_tv_slab_group
@@ -4893,28 +4996,64 @@ def _mp_jobs(group, devices) -> dict:
         sharded_deconvolve(data, psf, mesh, config=cfg)
     finally:
         pd.hyperbolic_tv_slab_group = launch
-    out = {"cells": mesh.local(mesh.cells()), "first_launch": first}
+    out = {"cells": mesh.local(mesh.cells()), "first_launch": first, "first_admm_launch": _capture_admm_launches(
+        mesh, lambda: sharded_admm_deconvolve(data, psf, mesh, config=dataclasses.replace(cfg, max_iter=2),
+                                              over_relax=1.0))}
 
     def run(name, job):
         hv.slab_launches = hv.slabs_launched = hv.launches = hv.batched_launches = pd.halo_sends = 0
+        ak.split_launches = ak.rhs_launches = ak.split_slab_launches = ak.rhs_slab_launches = 0
+        hv.unaligned_launches = ak.split_unaligned_launches = 0
         collectives.sent.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = job()
         torch.cuda.synchronize()
         out[name] = {"wall": time.perf_counter() - t0, "tv": hv.slab_launches, "tv_slabs": hv.slabs_launched,
-                     "whole": hv.launches + hv.batched_launches, "halo_sends": pd.halo_sends,
+                     "split": ak.split_slab_launches, "rhs": ak.rhs_slab_launches,
+                     "whole": hv.launches + hv.batched_launches + ak.split_launches + ak.rhs_launches,
+                     "unaligned": hv.unaligned_launches + ak.split_unaligned_launches, "halo_sends": pd.halo_sends,
                      "sent": dict(collectives.sent)}
         return res
 
+    def finite(x) -> bool:
+        return bool(torch.isfinite(x).all()) and float(x.min()) >= 0
+
     res = run("vmlmb", lambda: sharded_deconvolve(data, psf, mesh, config=cfg))
-    out["vmlmb"].update(f_history=res.f_history, evaluations=res.evaluations,
-                        finite=bool(torch.isfinite(gather(res.x)).all()))
+    out["vmlmb"].update(f_history=res.f_history, finite=finite(gather(res.x)))
     model, bdata, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE)
     bres = run("blind", lambda: sharded_blind_deconvolve(bdata, model, mesh, config=mesh_blind_config()))
-    obj = gather(bres.obj)
     out["blind"].update(deconv_f=bres.deconv_f, fit_f=bres.fit_f, phase=bres.params.phase.cpu(),
-                        finite=bool(torch.isfinite(obj).all()) and float(obj.min()) >= 0)
+                        finite=finite(gather(bres.obj)))
+    res = run("admm", lambda: sharded_admm_deconvolve(data, psf, mesh, config=cfg))
+    out["admm"].update(f_history=res.f_history, finite=finite(gather(res.x)), iterations=res.iterations)
+    bres = run("blind_admm", lambda: sharded_blind_deconvolve(bdata, model, mesh, config=blind_admm_config()))
+    out["blind_admm"].update(deconv_f=bres.deconv_f, finite=finite(gather(bres.obj)),
+                             iterations=int(bres.deconv_iters.sum()))
+    del model, bdata, bres
+    _, ldata, lpsf = bench_scene(LANE_SHAPE, dev, torch.float32)
+    x = gather(run("rl_tv", lambda: sharded_richardson_lucy(ldata, lpsf, mesh, iterations=20, mu=0.002,
+                                                            epsilon=0.1)))
+    out["rl_tv"].update(x=x, finite=finite(x))
+    gl = depthvar_model(LANE_SHAPE, torch.float32, dev)
+    anchors = np.linspace(0.0, LANE_SHAPE[0] - 1.0, DEPTH_K)
+    with torch.no_grad():
+        psfs = depth_anchor_psfs(gl, gl.init_params(), anchors)
+    ddata, _ = depthvar_scene(psfs, anchors, LANE_SHAPE, dev, torch.float32)
+    res = run("depthvar", lambda: sdv.sharded_deconvolve_depthvar(ddata, psfs, mesh, anchors, config=cfg))
+    out["depthvar"].update(f_history=res.f_history, finite=finite(gather(res.x)))
+    # One depth-varying PSF fit evaluation (cost and DEPTH gradient): the K anchor PSFs cut with gradient.
+    cost = sdv.sharded_depthvar_fit_cost(gl, ddata, res.x, None, mesh, anchors)
+    p = gl.init_params()
+    p = p._replace(depth=p.depth.clone().requires_grad_(True))
+    collectives.sent.clear()
+    cost(p).backward()
+    out["depthvar_fit_evaluation"] = dict(collectives.sent)
+    del ldata, ddata, psfs, res, cost
+    res = run("vmlmb_2x2", lambda: sharded_deconvolve(data, psf, rows, config=cfg))
+    whole, nzs = gather(res.x), SHAPE[0] // rows.shape["z"]
+    out["vmlmb_2x2"].update(f_history=res.f_history, finite=finite(whole), replicas_are_row0=all(
+        torch.equal(t, whole[z * nzs:(z + 1) * nzs].to(t.device)) for (_, z), t in res.x.tiles.items()))
     # One objective evaluation's traffic: the halo planes, the transposes' blocks, the reductions' values.
     fun = pd.make_sharded_objective(psf, data, None, cfg, mesh)
     x0 = pd.sharded_start(data, SHAPE, mesh)
@@ -4961,43 +5100,65 @@ def phase31_rank(rank: int, world: int, tmp: str) -> None:
         raise
 
 
+def _same_bits(a, b) -> bool:
+    if isinstance(b, torch.Tensor):
+        return torch.equal(torch.as_tensor(a).cpu(), b.cpu())
+    return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
+
+
+def _gap(a, b) -> float:
+    return _rel_l2(torch.as_tensor(a), b) if isinstance(b, torch.Tensor) else _rel_f(a, b)
+
+
 def _mp_check(name: str, ranks: list, refs: dict, card: str) -> dict:
-    """Hold every rank's VMLMB and blind costs against phase 30's (1, SLABS)
-    run on one process (bit for bit the aim, else the largest relative gap,
-    within SLAB_F_RTOL), the ranks against each other bit for bit, the paths'
-    launches (TV slab launches on every rank, no whole-volume launch); log
-    the walls, the traffic and the launches. Returns, by job and summed over
-    the ranks, the TV slab launches ("tv"), the slabs they covered
-    ("tv_slabs") and the bytes of halo planes sent between ranks ("halo")."""
+    """Hold every rank's result of each job of :data:`MP_JOBS` against phase
+    30's run of it on one process (bit for bit the aim, else the largest
+    relative gap, within SLAB_F_RTOL), the ranks against each other bit for
+    bit, the jobs' launches (TV slab launches on every rank, of all its
+    cells; the ADMM jobs' split and rhs slab launches, one a cell and an
+    iteration; no whole-volume or unaligned launch), the (2, 2) job's
+    replicas (each rank's tiles row 0's); log the walls, the traffic and the
+    launches. Returns, by job and summed over the ranks, the TV slab
+    launches ("tv"), the slabs they covered ("tv_slabs"), the split and rhs
+    slab launches, the bytes of halo planes sent between ranks ("halo"),
+    whether the result is the one-process run's bit for bit, and the walls."""
     counts = {}
-    for job, key, ref in (("vmlmb", "f_history", refs["vmlmb"]["f_history"]),
-                          ("blind", "deconv_f", refs["blind"]["deconv_f"])):
-        got = [np.asarray(r[job][key]) for r in ranks]
-        if not all(np.array_equal(g, got[0], equal_nan=True) for g in got):
-            raise AssertionError(f"{name} {job}: the ranks' {key} differ: {got}")
-        bitwise = np.array_equal(got[0], np.asarray(ref), equal_nan=True)
-        gap = _rel_f(got[0], ref)
+    for job, label, key, admm in MP_JOBS:
+        ref = refs[job][key]
+        got = [r[job][key] for r in ranks]
+        if not all(_same_bits(g, got[0]) for g in got):
+            raise AssertionError(f"{name} {job}: the ranks' {key} differ")
+        bitwise, gap = _same_bits(got[0], ref), _gap(got[0], ref)
         if not bitwise and not gap <= SLAB_F_RTOL:
-            raise AssertionError(f"{name} {job}: {key} {got[0].tolist()} vs one process {np.asarray(ref).tolist()}: "
-                                 f"{gap:.3g} rel")
-        if not all(r[job]["finite"] for r in ranks) or any(r[job]["whole"] for r in ranks):
-            raise AssertionError(f"{name} {job}: an object not finite, or a whole-volume TV launch: "
-                                 f"{[(r[job]['finite'], r[job]['whole']) for r in ranks]}")
+            raise AssertionError(f"{name} {job}: {key} {gap:.3g} rel off the one-process run's")
+        if not all(r[job]["finite"] for r in ranks) or any(r[job]["whole"] or r[job]["unaligned"] for r in ranks):
+            raise AssertionError(f"{name} {job}: an object not finite or negative, or a whole-volume or unaligned "
+                                 f"launch: {[(r[job]['finite'], r[job]['whole'], r[job]['unaligned']) for r in ranks]}")
         if any(r[job]["tv"] == 0 or r[job]["tv_slabs"] != r[job]["tv"] * len(r["cells"]) for r in ranks):
             raise AssertionError(f"{name} {job}: TV slab launches {[r[job]['tv'] for r in ranks]} of slabs "
                                  f"{[r[job]['tv_slabs'] for r in ranks]}")
+        slab = [(r[job]["split"], r[job]["rhs"]) for r in ranks]
+        want = [(len(r["cells"]) * r[job]["iterations"],) * 2 if admm else (0, 0) for r in ranks]
+        if slab != want or (admm and not all(s for s, _ in slab)):
+            raise AssertionError(f"{name} {job}: split, rhs slab launches {slab} by rank, expected {want}")
+        if job == "vmlmb_2x2" and not all(r[job]["replicas_are_row0"] for r in ranks):
+            raise AssertionError(f"{name} {job}: a rank's replica of the volume is not row 0's")
         walls = [r[job]["wall"] for r in ranks]
-        sent = {k: sum(r[job]["sent"].get(k, 0) for r in ranks) for k in ("halo", "transpose", "values", "cells")}
-        counts[job] = {"tv": sum(r[job]["tv"] for r in ranks), "tv_slabs": sum(r[job]["tv_slabs"] for r in ranks),
-                       "halo": sent["halo"]}
-        log(31, f"[{card}] {name}, {job} {SHAPE} on (1, {SLABS}) = {len(ranks)} ranks x {SLABS // len(ranks)} "
-                f"slabs: {key} {'bit for bit' if bitwise else f'within {gap:.3g} rel of'} the "
-                f"one-process run's; wall {max(walls):.3f} s (ranks {[round(w, 3) for w in walls]}; one process "
-                f"{refs[job]['wall']:.3f} s); TV slab launches {[r[job]['tv'] for r in ranks]} by rank; bytes sent "
-                f"between ranks {sent}")
-    per_eval = {k: sum(r["per_evaluation"].get(k, 0) for r in ranks) for k in ("halo", "transpose", "values")}
+        sent = {k: sum(r[job]["sent"].get(k, 0) for r in ranks) for k in SENT_KINDS}
+        counts[job] = {"label": label, "admm": admm, "tv": sum(r[job]["tv"] for r in ranks),
+                       "tv_slabs": sum(r[job]["tv_slabs"] for r in ranks), "split": sum(s for s, _ in slab),
+                       "rhs": sum(h for _, h in slab), "halo": sent["halo"], "sent": sent, "bit_for_bit": bitwise,
+                       "wall": max(walls), "one_process_wall": refs[job]["wall"]}
+        log(31, f"[{card}] {name}, {job} on {label} ({len(ranks)} ranks x {len(ranks[0]['cells'])} cells): {key} "
+                f"{'bit for bit' if bitwise else f'within {gap:.3g} rel of'} the one-process run's; wall "
+                f"{max(walls):.3f} s (ranks {[round(w, 3) for w in walls]}; one process {refs[job]['wall']:.3f} s); "
+                f"slab launches by rank: TV {[r[job]['tv'] for r in ranks]}, split, rhs {slab}; bytes sent between "
+                f"ranks {sent}")
+    per_eval = {k: sum(r["per_evaluation"].get(k, 0) for r in ranks) for k in SENT_KINDS}
+    fit_eval = {k: sum(r["depthvar_fit_evaluation"].get(k, 0) for r in ranks) for k in SENT_KINDS}
     log(31, f"[{card}] {name}: one objective evaluation at x0 moved {per_eval} bytes between ranks (halo planes, "
-            f"the distributed FFT's transposes, the reductions' gathered values)")
+            f"the distributed FFT's transposes, the reductions' gathered values); one depth-varying PSF fit "
+            f"evaluation (cost and gradient, {DEPTH_K} anchor PSFs of {LANE_SHAPE} cut with gradient) moved {fit_eval}")
     return counts
 
 
@@ -5047,16 +5208,71 @@ def _mp_first_launch(ranks: list, data_x0: torch.Tensor) -> tuple[float, list]:
     return err, times
 
 
+def _mp_first_admm_launches(ranks: list) -> dict:
+    """Each rank's first ADMM split update and rhs slab launch that took a
+    plane from another rank's slab, re-run here alone on the card on their
+    captured inputs: against the rank's outputs and the plain version's, bit
+    for bit; then timed (50 raw launches into fresh copies of the state, the
+    wrapper's call and the plain version's, medians of 20) beside the bound.
+    Returns by kind the largest error against the plain version, the times
+    of the slower rank's launch and each rank's ``kernel_ms``."""
+    from microtipi_tpu_torch.ops.kernels import admm_split as ak
+
+    out = {}
+    for kind in ("split", "rhs"):
+        err, times = 0.0, []
+        for r in ranks:
+            cap = r["first_admm_launch"].get(kind)
+            if cap is None:
+                raise AssertionError(f"rank of cells {r['cells']}: no {kind} slab launch took a plane from another rank")
+            args = cap["inputs"]
+            if kind == "split":
+                x, xn, *state = args[:6]
+                lam, eps, z_off, nz, al, pos, scales = args[6:]
+                got, plain = [t.clone() for t in state], [t.clone() for t in state]
+                ak.admm_split_update_slab(x, xn, *got, lam, eps, z_off, nz, al, pos, scales)
+                ak.admm_split_update_slab_plain(x, xn, *plain, lam, eps, z_off, nz, al, pos, scales)
+                wanted = cap["outputs"]
+                fresh = [t.clone() for t in state]
+                ms = raw_ms(ak.prepare_split_update(x, *fresh, lam, eps, al, pos, scales, xn, z_off, nz))
+                call_ms = _median_ms(lambda: ak.admm_split_update_slab(x, xn, *fresh, lam, eps, z_off, nz, al, pos,
+                                                                       scales))
+                plain_ms = _median_ms(lambda: ak.admm_split_update_slab_plain(x, xn, *fresh, lam, eps, z_off, nz, al,
+                                                                              pos, scales))
+                volumes, ops = (SPLIT_VOLUMES, SPLIT_OPS) if al == 1.0 else (SPLIT_VOLUMES_RELAXED, SPLIT_OPS_RELAXED)
+                bound = slab_bound(x.numel(), x.shape[-2] * x.shape[-1], volumes, 1, ops)
+            else:
+                z1, u1, z2, u2, zp, up, r1, r2, scales = args
+                got, plain, wanted = [ak.admm_rhs_slab(*args)], [ak.admm_rhs_slab_plain(*args)], [cap["outputs"]]
+                ms = raw_ms(ak.prepare_rhs(z1, u1, z2, u2, r1, r2, scales, zp, up)[0])
+                call_ms = _median_ms(lambda: ak.admm_rhs_slab(*args))
+                plain_ms = _median_ms(lambda: ak.admm_rhs_slab_plain(*args))
+                bound = slab_bound(z2.numel(), z2.shape[-2] * z2.shape[-1], RHS_VOLUMES, 2, RHS_OPS)
+            err = max(err, *(float((a - b).abs().max()) for a, b in zip(got, plain)))
+            if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(got, plain, wanted)):
+                raise AssertionError(f"the {kind} slab launch of cell {cap['cell']} with a plane from cell "
+                                     f"{cap['from']} != its plain version or the rank's launch")
+            times.append((ms, *bound, call_ms, plain_ms, cap["cell"], cap["from"]))
+        ms, bound, by, call_ms, plain_ms, *_ = max(times)
+        out[kind] = {"max_abs_err": err, "kernel_ms": ms, "ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+                     "kernel_ms_by_rank": [t[0] for t in times], "cells": [[t[5], t[6]] for t in times]}
+    return out
+
+
 def phase31_processes(card: str, refs: dict) -> dict:
-    """The sharded VMLMB and blind loop of phase 30 on a (1, SLABS) mesh over
-    MP_RANKS spawned processes on cuda:0 (gloo, every CUDA tensor staged
-    through the host), against phase 30's one-process run (``refs``); one
-    cross-rank TV slab launch a rank against its plain version; which gloo
+    """Phase 30's sharded jobs (:data:`MP_JOBS`: VMLMB, the blind loop, ADMM,
+    the blind loop by ADMM, RL-TV and depthvar on a (1, SLABS) mesh, VMLMB of
+    one volume on (2, SLABS // 2)) over MP_RANKS spawned processes on cuda:0
+    (gloo, every CUDA tensor staged through the host), against phase 30's
+    one-process runs (``refs``); one cross-rank TV slab launch, split update
+    and rhs a rank against their plain versions, timed alone; which gloo
     operations take CUDA tensors; then NCCL: MP_RANKS ranks on the card, or,
     where NCCL refuses ranks that share a card, a group of one rank (this
-    process) running the same jobs through the NCCL calls. Returns the TV
-    slab launches by path, summed over the ranks, and the cross-rank launch's
-    entry (error, time, bound, the gloo paths' launches)."""
+    process) running the same jobs through the NCCL calls. Returns each
+    path's slab launches summed over the ranks (:func:`_mp_check`), the
+    cross-rank TV launch's entry (error, time, bound, the gloo paths'
+    launches) and the ADMM ones by kind."""
     import datetime
     import tempfile
 
@@ -5096,8 +5312,7 @@ def phase31_processes(card: str, refs: dict) -> dict:
             + ", ".join(f"{k} {'takes them' if v is True else 'refuses: ' + v}" for k, v in ops.items()))
     name = f"gloo, {MP_RANKS} processes"
     n = _mp_check(name, gloo, refs, card)
-    paths[f"sharded VMLMB 256^3 (1, {SLABS}), {name} (phase 31)"] = n["vmlmb"]
-    paths[f"sharded blind 256^3 (1, {SLABS}), {name} (phase 31)"] = n["blind"]
+    paths.update({f"sharded {c['label']}, {name} (phase 31)": c for c in n.values()})
     _, data, _ = bench_scene(SHAPE, torch.device("cuda", 0), torch.float32)
     err, times = _mp_first_launch(gloo, torch.clamp_min(data, 0.0))
     ms, bound, by, call_ms, plain_ms = max(times)
@@ -5111,6 +5326,14 @@ def phase31_processes(card: str, refs: dict) -> dict:
             f"{[round(t[0], 4) for t in times]} by rank, call_ms {[round(t[3], 4) for t in times]}, plain "
             f"{[round(t[4], 4) for t in times]} ms; bound {bound:.4f} ms ({by}), {cross['bound_share']:.1%} of it "
             f"(the slower rank's)")
+    admm_cross = _mp_first_admm_launches(gloo)
+    for kind, e in admm_cross.items():
+        e["launches"] = sum(c[kind] for c in paths.values())
+        log(31, f"[{card}] each rank's first ADMM {kind} slab launch with a plane from the other rank (cells, "
+                f"neighbours {e['cells']}), re-run alone on the card: bit for bit the rank's launch and the plain "
+                f"version; kernel_ms {[round(t, 4) for t in e['kernel_ms_by_rank']]} by rank (50 raw launches), "
+                f"call_ms {e['ms']:.4f}, plain {e['plain_ms']:.4f} ms; bound {e['bound_ms']:.4f} ms "
+                f"({e['bound_by']}), {e['bound_share']:.1%} of it (the slower rank's)")
 
     if len(nccl) == MP_RANKS and not any("refused" in r for r in nccl):
         name = f"NCCL, {MP_RANKS} processes"
@@ -5131,9 +5354,8 @@ def phase31_processes(card: str, refs: dict) -> dict:
         log(31, "NCCL, 1 process: every cell is this rank's, so no send or receive reached NCCL (the halo planes and "
                 "the transposes stay copies on the card); its calls were the reductions' all-gathers and gather's "
                 "broadcasts, of one rank")
-    paths[f"sharded VMLMB 256^3 (1, {SLABS}), {name} (phase 31)"] = n["vmlmb"]
-    paths[f"sharded blind 256^3 (1, {SLABS}), {name} (phase 31)"] = n["blind"]
-    return paths, cross
+    paths.update({f"sharded {c['label']}, {name} (phase 31)": c for c in n.values()})
+    return paths, cross, admm_cross
 
 
 def main() -> int:
@@ -5199,10 +5421,11 @@ def main() -> int:
                   for kind in ("tv", "split", "rhs")}
     if not all(slab_paths.values()):
         raise AssertionError(f"a slab entry was launched on no sharded path: {mesh_paths}")
-    process_paths, cross_rank = phase31_processes(card, mesh_refs)
-    if not all(n["tv"] for n in process_paths.values()):
-        raise AssertionError(f"a path over processes launched no TV slab kernel: {process_paths}")
-    slab_paths["tv"].update({name: n["tv"] for name, n in process_paths.items()})
+    process_paths, cross_rank, admm_cross_rank = phase31_processes(card, mesh_refs)
+    if not all(n["tv"] and (not n["admm"] or n["split"] and n["rhs"]) for n in process_paths.values()):
+        raise AssertionError(f"a path over processes launched none of its slab kernels: {process_paths}")
+    for kind in ("tv", "split", "rhs"):
+        slab_paths[kind].update({name: n[kind] for name, n in process_paths.items() if n[kind]})
     tv_slabs = {f"{name} (phase 30)": n["tv_slabs"] for name, n in mesh_paths.items() if n["tv"]}
     tv_slabs.update({name: n["tv_slabs"] for name, n in process_paths.items()})
     tv_paths = {"deconvolve and blind (phase 3)": launches, "RL-TV (phase 13)": rl_launches,
@@ -5248,15 +5471,18 @@ def main() -> int:
          "slabs_launched": sum(tv_slabs.values()), "slabs_launched_by_path": tv_slabs,
          "halo_sends_phase30": sum(n["halo_sends"] for n in mesh_paths.values()),
          "halo_bytes_between_ranks_by_path": {name: n["halo"] for name, n in process_paths.items()},
+         "over_processes_by_path": {name: {k: n[k] for k in ("bit_for_bit", "wall", "one_process_wall", "sent")}
+                                    for name, n in process_paths.items()},
          "cross_rank_launch": cross_rank,
          **slab_kern["tv"]},
         {"name": "admm_split_update_slab", "route": "cuda", "source": admm_source,
          "replaces": f"microtipi_tpu/parallel/admm.py:184-196 with GSPMD's z-halo exchange ({fused_by_xla})",
          "launches": sum(slab_paths["split"].values()), "launches_by_path": slab_paths["split"],
-         **slab_kern["split"]},
+         "cross_rank_launch": admm_cross_rank["split"], **slab_kern["split"]},
         {"name": "admm_rhs_slab", "route": "cuda", "source": admm_source,
          "replaces": f"microtipi_tpu/parallel/admm.py:170-171 with GSPMD's z-halo exchange ({fused_by_xla})",
-         "launches": sum(slab_paths["rhs"].values()), "launches_by_path": slab_paths["rhs"], **slab_kern["rhs"]},
+         "launches": sum(slab_paths["rhs"].values()), "launches_by_path": slab_paths["rhs"],
+         "cross_rank_launch": admm_cross_rank["rhs"], **slab_kern["rhs"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

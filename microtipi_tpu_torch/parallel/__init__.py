@@ -5,8 +5,7 @@ devices (``mesh.make_mesh``); a sharded volume is a grid of per-device
 tensors (``mesh.ShardedVolume``), and the collectives are explicit copies.
 With a process group (``make_mesh(..., group=pg)``) the mesh spans one
 process a rank, and the collectives are ``torch.distributed`` calls
-(``parallel/collectives.py``): VMLMB, the PSF fits and the blind loop run
-there; ADMM, RL and the depth-varying solvers raise.
+(``parallel/collectives.py``); every sharded solver runs on either kind.
 """
 from microtipi_tpu_torch.parallel.admm import sharded_admm_deconvolve
 from microtipi_tpu_torch.parallel.blind import sharded_blind_deconvolve
@@ -25,7 +24,6 @@ from microtipi_tpu_torch.parallel.mesh import (
     ShardedVolume,
     gather,
     make_mesh,
-    one_process,
     shard,
     volume_sharding,
 )
@@ -37,5 +35,5 @@ __all__ = [
     "make_sharded_objective", "sharded_deconvolve", "sharded_fit_psf",
     "sharded_blind_deconvolve", "sharded_admm_deconvolve",
     "ShardedVolume", "shard", "gather",
-    "Mesh", "one_process", "exchange", "all_cells", "cell_values",
+    "Mesh", "exchange", "all_cells", "cell_values",
 ]

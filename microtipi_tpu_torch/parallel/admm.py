@@ -2,7 +2,9 @@
 
 Port of ``microtipi_tpu/parallel/admm.py``, the distributed
 ``jobs.admm.admm_deconvolve`` for one volume (Nz, Ny, Nx) z-sharded over the
-mesh's z axis (row 0 of a mesh with several rows):
+mesh's z axis (row 0 of a mesh with several rows driven by one process;
+every row's replica of it over processes, as JAX replicates it over the
+batch axis):
 
 - the x-update's circulant solve runs through the distributed transpose FFT
   (``parallel/fft.py``); its denominator ``rho0|H^|^2 + rho1 sum|D^|^2 +
@@ -14,16 +16,19 @@ mesh's z axis (row 0 of a mesh with several rows):
   ``u1_z`` plane for the rhs, the next slab's first ``x`` plane for the
   split update (around the ring, since the splitting is circular), whose z
   mask is the volume's last plane (GSPMD inserts these exchanges on a TPU);
+  each kind of plane comes in one ``collectives.exchange`` an iteration,
+  from the same rank or another;
 - the data split's prox and dual update, the Boyd residual norms and the
-  objective tracker are tile-by-tile PyTorch, every sum added on the mesh's
-  first device.
+  objective tracker are tile-by-tile PyTorch, every sum added in one order
+  (``Mesh.add``), so every rank takes the Boyd test's branch alike.
 
 The same objective as the dense engine (the masked prox makes it the
 replicate-boundary ``make_objective`` exactly), so ``f`` and ``f_history``
 compare across engines and paths. Scope as in the JAX module: Gaussian
 (uniform or per-voxel weights) or Poisson data + mu * TV + positivity, no
 padded variable, no batch, explicit ``rho*`` (no ``adaptive_rho``). The
-split update writes its state in place, so every halo plane is a copy.
+split update writes its state in place, so every halo plane is a copy or a
+received buffer.
 """
 
 from __future__ import annotations
@@ -41,46 +46,72 @@ from microtipi_tpu_torch.ops.kernels.admm_split import (
     slab_diffs,
     slab_diffs_adjoint,
 )
+from microtipi_tpu_torch.parallel.collectives import exchange
 from microtipi_tpu_torch.parallel.deconv import _abs2, sharded_objective
 from microtipi_tpu_torch.parallel.fft import sharded_irfftn, sharded_rfftn, sharded_spectrum
-from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, ShardedVolume, one_process, send, shard
+from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, ShardedVolume, send, shard
 
 __all__ = ["sharded_admm_deconvolve"]
 
 
 class _Slabs:
-    """Row 0's z-slabs of a volume and the exchanges between them."""
+    """The z-slabs of the volume on this rank's cells (``local``, of
+    ``cells``: the volume's) and the planes they read from the slab after or
+    before them around the ring. Each call is one exchange with its moves
+    listed alike on every rank: a plane from a cell of this rank is a copy,
+    one from another rank's a received buffer."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, nz: int):
         self.mesh, self.p = mesh, mesh.shape[Z_AXIS]
+        self.cells = mesh.volume_cells(False)
+        self.local = mesh.local(self.cells)
+        self.nzs = nz // self.p
 
-    def dev(self, z: int) -> torch.device:
-        return self.mesh.device(0, z)
+    def _planes(self, stacks, take, step: int) -> list[dict]:
+        """Per dict of slab tensors in ``stacks`` (keyed by this rank's
+        cells), each local cell's ``take`` of the tensor of the cell ``step``
+        along its row's ring."""
+        moves, mesh = [], self.mesh
+        for k, s in enumerate(stacks):
+            like = take(next(iter(s.values())))
+            for b, z in self.cells:
+                src, t = (b, (z + step) % self.p), None
+                if src in s:
+                    t = take(s[src])
+                    t = send(t, mesh.device(b, z)) if mesh.is_local(b, z) else t
+                moves.append((src, (b, z), t, like.shape, like.dtype, k))
+        out = [{} for _ in stacks]
+        for (_, dst, *_, k), t in zip(moves, exchange(mesh, [m[:5] for m in moves], "halo")):
+            if t is not None:
+                out[k][dst] = t
+        return out
 
-    def next_first(self, x: ShardedVolume, z: int) -> torch.Tensor:
-        """x's plane after slab z (around the ring), (1, Ny, Nx), a copy."""
-        return send(x.tiles[(0, (z + 1) % self.p)][:1], self.dev(z))
+    def next_first(self, x: ShardedVolume) -> dict:
+        """x's plane after each slab (around the ring), (1, Ny, Nx)."""
+        return self._planes([x.tiles], lambda t: t[:1], 1)[0]
 
-    def prev_last_z(self, stack: dict, z: int) -> torch.Tensor:
-        """The z component of a (1, 3, nz, Ny, Nx) stack at the plane before
-        slab z (around the ring), (1, Ny, Nx), a copy."""
-        return send(stack[(z - 1) % self.p][:, 0, -1], self.dev(z))
+    def prev_last_z(self, *stacks: dict) -> list[dict]:
+        """The z component of each (1, 3, nz, Ny, Nx) stack at the plane
+        before each slab (around the ring), (1, Ny, Nx)."""
+        return self._planes(stacks, lambda t: t[:, 0, -1], -1)
 
     def diffs(self, x: ShardedVolume) -> dict:
         """The circular differences of each slab (1, 3, nz, Ny, Nx)."""
-        return {z: slab_diffs(x.tiles[(0, z)][None], self.next_first(x, z)) for z in range(self.p)}
+        nxt = self.next_first(x)
+        return {c: slab_diffs(x.tiles[c][None], nxt[c]) for c in self.local}
 
     def diffs_adjoint(self, g: dict, like: ShardedVolume) -> ShardedVolume:
-        tiles = {(0, z): slab_diffs_adjoint(g[z], self.prev_last_z(g, z))[0] for z in range(self.p)}
-        return like.with_tiles(tiles)
+        (prev,) = self.prev_last_z(g)
+        return like.with_tiles({c: slab_diffs_adjoint(g[c], prev[c])[0] for c in self.local})
 
 
-def _stack_norm(terms, first: torch.device) -> torch.Tensor:
+def _stack_norm(terms, mesh: Mesh) -> torch.Tensor:
     """The L2 norm of sharded volumes and dicts of slab stacks together, on
-    the mesh's first device."""
+    the mesh's first device, every part added in one order (``Mesh.add``)."""
+    cells = mesh.cells((0,))
     parts = [(t * t).sum() if isinstance(t, ShardedVolume) else
-             sum((v * v).sum().to(first) for v in t.values()) for t in terms]
-    return torch.sqrt(sum(p.to(first) for p in parts))
+             mesh.add({c: (v * v).sum() for c, v in t.items()}, cells, next(iter(t.values())).dtype) for t in terms]
+    return torch.sqrt(sum(parts[1:], parts[0]))
 
 
 def sharded_admm_deconvolve(
@@ -105,7 +136,6 @@ def sharded_admm_deconvolve(
     / ``admm_reltol`` turn on the Boyd residual test every
     ``admm_check_every`` iterations. The result's ``x`` is a sharded volume.
     """
-    one_process(mesh, "sharded_admm_deconvolve")
     _check_config(config, "admm")
     if len(data.shape) != 3:
         raise ValueError("sharded_admm_deconvolve takes one (Nz, Ny, Nx) volume; use the sharded VMLMB path "
@@ -132,7 +162,7 @@ def sharded_admm_deconvolve(
     elif weights is not None:
         r0 = weights.sum() / n_el
     al, n = float(over_relax), int(config.max_iter)
-    slabs = _Slabs(mesh)
+    slabs = _Slabs(mesh, shape[0])
 
     objective_fn, _ = sharded_objective(psf, data, weights, config, mesh, accurate=True)
 
@@ -145,15 +175,15 @@ def sharded_admm_deconvolve(
     s2 = shard(_grad_sq_spectrum(shape, scales, dtype), mesh, False, layout="y")
     den = s2 * r1 + r2
     inv_den = 1.0 / (den + (h_hat.map(_abs2) * r0 if data_split else h_hat.map(_abs2)))
-    lanes = {z: torch.ones(1, dtype=dtype, device=slabs.dev(z)) for z in range(slabs.p)}
-    lam, rr1, rr2 = ({z: t * v for z, t in lanes.items()} for v in (mu / r1, r1, r2))
+    lanes = {c: torch.ones(1, dtype=dtype, device=mesh.device(*c)) for c in slabs.local}
+    lam, rr1, rr2 = ({c: t * v for c, t in lanes.items()} for v in (mu / r1, r1, r2))
 
     x = shard(x0, mesh, False) if x0 is not None else data.map(
         lambda d: torch.clamp_min(d, 0.0) if config.positivity else d)
     x = x.map(lambda t: t.to(dtype).contiguous())
     hist = [objective(x)]
     st = {"x": x, "z1": slabs.diffs(x), "z2": x.map(torch.clone), "u2": x.map(torch.zeros_like)}
-    st["u1"] = {z: torch.zeros_like(t) for z, t in st["z1"].items()}
+    st["u1"] = {c: torch.zeros_like(t) for c, t in st["z1"].items()}
     if data_split:
         st["z0"] = sharded_irfftn(h_hat * sharded_rfftn(x, mesh), shape, mesh)
         st["u0"] = x.map(torch.zeros_like)
@@ -175,11 +205,11 @@ def sharded_admm_deconvolve(
 
     def step():
         """One iteration; returns ``hx`` on the data-split paths."""
+        z1_prev, u1_prev = slabs.prev_last_z(st["z1"], st["u1"])
         rhs = st["x"].with_tiles({
-            (0, z): admm_rhs_slab(st["z1"][z], st["u1"][z], st["z2"].tiles[(0, z)][None],
-                                  st["u2"].tiles[(0, z)][None], slabs.prev_last_z(st["z1"], z),
-                                  slabs.prev_last_z(st["u1"], z), rr1[z], rr2[z], scales)[0]
-            for z in range(slabs.p)})
+            c: admm_rhs_slab(st["z1"][c], st["u1"][c], st["z2"].tiles[c][None], st["u2"].tiles[c][None],
+                             z1_prev[c], u1_prev[c], rr1[c], rr2[c], scales)[0]
+            for c in slabs.local})
         x_hat = sharded_rfftn(rhs, mesh)
         if data_split:
             x_hat = x_hat + (h_conj * sharded_rfftn(st["z0"] - st["u0"], mesh)).map(_scale_spectrum_, r0)
@@ -194,25 +224,26 @@ def sharded_admm_deconvolve(
             z0 = data_prox(hxr + st["u0"])
             st["u0"] = st["u0"] + hxr - z0
             st["z0"] = z0
-        for z in range(slabs.p):
-            admm_split_update_slab(st["x"].tiles[(0, z)][None], slabs.next_first(st["x"], z), st["z1"][z],
-                                   st["u1"][z], st["z2"].tiles[(0, z)][None], st["u2"].tiles[(0, z)][None],
-                                   lam[z], eps, z * (shape[0] // slabs.p), shape[0], al, config.positivity, scales)
+        x_next = slabs.next_first(st["x"])
+        for c in slabs.local:
+            admm_split_update_slab(st["x"].tiles[c][None], x_next[c], st["z1"][c], st["u1"][c],
+                                   st["z2"].tiles[c][None], st["u2"].tiles[c][None], lam[c], eps, c[1] * slabs.nzs,
+                                   shape[0], al, config.positivity, scales)
         return hx
 
     def converged(z_old, hx) -> bool:
         """Boyd section 3.3 (``jobs.admm._boyd_criterion``) on the mesh."""
         dx = slabs.diffs(st["x"])
-        r_terms = [{z: dx[z] - st["z1"][z] for z in dx}, st["x"] - st["z2"]]
+        r_terms = [{c: dx[c] - st["z1"][c] for c in dx}, st["x"] - st["z2"]]
         z_terms = [st["z1"], st["z2"]]
         if data_split:
             r_terms.append(hx - st["z0"])
             z_terms.append(st["z0"])
         p_el = n_el * (4.0 + data_split)
-        if not bool(_stack_norm(r_terms, first) <= math.sqrt(p_el) * abstol + reltol * _stack_norm(z_terms, first)):
+        if not bool(_stack_norm(r_terms, mesh) <= math.sqrt(p_el) * abstol + reltol * _stack_norm(z_terms, mesh)):
             return False
         like = st["x"]
-        dz1 = {z: st["z1"][z] - z_old["z1"][z] for z in dx}
+        dz1 = {c: st["z1"][c] - z_old["z1"][c] for c in dx}
         s_vec = slabs.diffs_adjoint(dz1, like) * r1 + (st["z2"] - z_old["z2"]) * r2
         aty = slabs.diffs_adjoint(st["u1"], like) * r1 + st["u2"] * r2
         if data_split:
@@ -221,7 +252,7 @@ def sharded_admm_deconvolve(
 
             s_vec = s_vec + conv_t(st["z0"] - z_old["z0"]) * r0
             aty = aty + conv_t(st["u0"]) * r0
-        return bool(_stack_norm([s_vec], first) <= math.sqrt(n_el) * abstol + reltol * _stack_norm([aty], first))
+        return bool(_stack_norm([s_vec], mesh) <= math.sqrt(n_el) * abstol + reltol * _stack_norm([aty], mesh))
 
     abstol, reltol, check_every, use_tol = _admm_tolerances(config)
     iterations, status = n, 1 if use_tol else 0
@@ -229,7 +260,7 @@ def sharded_admm_deconvolve(
         check = use_tol and i % check_every == 0
         z_old = None
         if check:
-            z_old = {"z1": {z: t.clone() for z, t in st["z1"].items()}, "z2": st["z2"].map(torch.clone)}
+            z_old = {"z1": {c: t.clone() for c, t in st["z1"].items()}, "z2": st["z2"].map(torch.clone)}
             if data_split:
                 z_old["z0"] = st["z0"]
         hx = step()

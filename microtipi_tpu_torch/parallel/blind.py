@@ -24,7 +24,7 @@ import torch
 from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig, BlindDeconvResult, _bead_terms, blind_fits, run_blind_loop
 from microtipi_tpu_torch.parallel.deconv import crop_trailing, pad_trailing, sharded_deconvolve, sharded_wiener
 from microtipi_tpu_torch.parallel.fft import sharded_convolve, sharded_spectrum
-from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, constrain_volume, gather, one_process, shard
+from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, constrain_volume, gather, shard
 from microtipi_tpu_torch.parallel.psf_fit import sharded_fit_cost
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
@@ -107,8 +107,6 @@ def sharded_blind_deconvolve(
     if config.fit.fit_window is not None:
         raise ValueError("PsfFitConfig.fit_window is a single-chip optimization (the crop would gather across "
                          "shards); drop it for the sharded loop")
-    if config.deconv_engine == "admm":
-        one_process(mesh, "the sharded blind loop's admm object engine")
     if config.deconv_engine == "admm" and (batched or grid.padded):
         raise ValueError("the sharded admm object engine takes one mesh-divisible (Nz, Ny, Nx) volume "
                          "(parallel.admm); batched/auto-padded sharded loops run the VMLMB object step")

@@ -22,9 +22,12 @@ processes, where each rank evaluates its own tiles: there a slab's halo plane
 from another rank's slab comes in one exchange before the TV launches
 (:func:`_remote_halos`), the assembled pieces and the FFT's transposes cross
 between the ranks, and every sum gathers the cells' parts and adds them alike
-on every rank. Only unmixing takes another path over processes (each row
-contracts the mixing matrix with its own channels instead of row 0 with
-them all), so its results there agree with one process's to rounding.
+on every rank. An unbatched volume on several mesh rows is computed on each
+row's replica, its sums count row 0's tiles, and the replicas of the
+variable move with row 0's gradient (``ShardedVolume.as_row0``). Only
+unmixing takes another path over processes (each row contracts the mixing
+matrix with its own channels instead of row 0 with them all), so its results
+there agree with one process's to rounding.
 
 VMLMB (``optim/vmlmb.py``) runs unchanged on the sharded variable, a dict of
 tiles keyed (batch, z) (``ShardedVolume.variable``). The same PSF is shared
@@ -263,7 +266,7 @@ def _own_terms(x: ShardedVolume, halo: int, terms) -> torch.Tensor:
     own planes, added on the mesh's first device."""
     parts = {c: terms(ext).narrow(-3, 0, x.tiles[c].shape[-3]).sum() + tie
              for c, (ext, tie) in _with_halo(x, _after_plan(x, halo), -3).items()}
-    return x.mesh.add(parts, x.cells(), x.dtype)
+    return x.mesh.add(parts, x.sum_cells(), x.dtype)
 
 
 def _extra_priors(x: ShardedVolume, config: DeconvolutionConfig):
@@ -380,8 +383,13 @@ def _mixer(mixm: torch.Tensor, mesh: Mesh):
 
 def _sharded_fun(objective, like: ShardedVolume):
     """``v -> (f, g)`` over the tiles dict VMLMB moves (or a sharded volume,
-    whose gradient then comes back sharded)."""
-    fun = value_and_grad(lambda tiles: objective(like.with_tiles(tiles)))
+    whose gradient then comes back sharded); an unbatched variable's replicas
+    on the rows of a mesh over processes take row 0's gradient."""
+    value_grad = value_and_grad(lambda tiles: objective(like.with_tiles(tiles)))
+
+    def fun(tiles):
+        f, g = value_grad(tiles)
+        return f, like.as_row0(g)
 
     def call(v):
         if isinstance(v, ShardedVolume):

@@ -28,7 +28,7 @@ from microtipi_tpu_torch.optim.vmlmb import minimize_vmlmb
 from microtipi_tpu_torch.parallel.blind import _Grid
 from microtipi_tpu_torch.parallel.deconv import _sharded_fun, pad_trailing, sharded_regularization, sharded_start
 from microtipi_tpu_torch.parallel.fft import sharded_convolve, sharded_spectrum
-from microtipi_tpu_torch.parallel.mesh import Mesh, ShardedVolume, gather, one_process, shard
+from microtipi_tpu_torch.parallel.mesh import Mesh, ShardedVolume, gather, shard
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
 __all__ = [
@@ -70,7 +70,6 @@ def sharded_deconvolve_depthvar(
     volume corner-origin anchor stack shared by the batch; ``anchors`` their
     z indices on the data grid (default K evenly spaced). The Gaussian data
     term (the JAX module's only one). The result's ``x`` is a sharded volume."""
-    one_process(mesh, "sharded_deconvolve_depthvar")
     if config.data_term != "gaussian":
         raise ValueError("the sharded depth-varying step has the Gaussian data term only")
     vol_shape = tuple(data.shape[-3:])
@@ -88,6 +87,7 @@ def sharded_deconvolve_depthvar(
     rows = _blend_rows(var_shape[0], anchors + off_z, mesh, data.dtype)
     if weights is not None:
         # Zero weight excludes the voxel whatever its value (0 * NaN = NaN).
+        # Data and weights carry no gradient, so these gathers run over processes too.
         weights = gather(weights)
         data = torch.where(weights > 0, gather(data), torch.zeros((), dtype=data.dtype, device=weights.device))
     if var_shape != vol_shape:
@@ -120,7 +120,6 @@ def sharded_depthvar_fit_cost(model, data, obj, weights, mesh: Mesh, anchors, of
     at the data grid's anchor depths), splits each into slabs and runs K
     distributed convolutions. ``off_z`` shifts the blend rows when ``data``
     and ``obj`` live on a padded grid."""
-    one_process(mesh, "sharded_depthvar_fit_cost")
     vol = tuple(data.shape[-3:])
     batched = data.ndim == 4
     data = shard(data, mesh, batched)
@@ -166,7 +165,6 @@ def sharded_fit_psf_depthvar(
     one flag fits that family, several fit jointly, under the depth-varying
     operator; the DEPTH family is fittable and preconditioned; a batch gives
     one parameter vector."""
-    one_process(mesh, "sharded_fit_psf_depthvar")
     if not hasattr(params, "depth"):
         raise ValueError("sharded_fit_psf_depthvar needs a model with a DEPTH family (models/gibson_lanni.py) — "
                          "the anchors vary that family")
@@ -195,7 +193,6 @@ def sharded_blind_deconvolve_depthvar(
     ``BlindDeconvConfig`` knob but the ADMM engine and the fit window, which
     the dense depth-varying loop refuses too). ``anchors``: K z indices of the
     data grid, or an int K. The result's PSF is the (K, ...) anchor stack."""
-    one_process(mesh, "sharded_blind_deconvolve_depthvar")
     config = BlindDeconvConfig() if config is None else config
     if config.deconv_engine != "vmlmb":
         raise ValueError("deconv_engine='admm' needs a circulant forward model; the depth-varying anchor blend is "

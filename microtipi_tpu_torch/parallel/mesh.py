@@ -47,7 +47,10 @@ kinds differ:
   the order above, so every rank gets the same bits (:meth:`Mesh.add`), and
   the optimizer's variable is a ``treeutil.Shares`` that sums its dots so;
 - an unbatched volume has a replica on every mesh row, computed there (JAX
-  replicates it over the batch axis too), instead of copies of row 0's.
+  replicates it over the batch axis too), instead of copies of row 0's; its
+  sums count row 0's tiles, and an unbatched variable's replicas move with
+  row 0's gradient (:meth:`ShardedVolume.as_row0`), so every row holds the
+  one-process mesh's row 0 bit for bit.
 """
 
 from __future__ import annotations
@@ -58,11 +61,11 @@ from typing import Callable, NamedTuple
 import torch
 import torch.distributed as dist
 
-from microtipi_tpu_torch.optim.treeutil import Shares
+from microtipi_tpu_torch.optim import treeutil
 from microtipi_tpu_torch.parallel.collectives import all_cells, cell_values, exchange
 
 __all__ = ["BATCH_AXIS", "Z_AXIS", "Mesh", "ShardedVolume", "VolumeSharding", "constrain_volume", "gather",
-           "make_mesh", "one_process", "send", "shard", "shard_rows", "volume_sharding"]
+           "make_mesh", "send", "shard", "shard_rows", "volume_sharding"]
 
 BATCH_AXIS = "batch"
 Z_AXIS = "z"
@@ -149,14 +152,6 @@ class Mesh:
                 f"rank={self.rank} of {self.size}, {self.backend})")
 
 
-def one_process(mesh: Mesh, what: str) -> None:
-    """Raise for a mesh over processes where ``what`` runs only on a mesh
-    driven by one process."""
-    if mesh.distributed:
-        raise ValueError(f"{what} runs on a mesh driven by one process; this mesh spans {mesh.size} processes "
-                         "(a mesh over processes runs parallel.deconv, parallel.psf_fit and parallel.blind)")
-
-
 def _visible_cuda() -> list[torch.device]:
     if not torch.cuda.is_available():
         raise RuntimeError("make_mesh with devices=None takes the visible CUDA devices and there are none; "
@@ -234,7 +229,8 @@ class ShardedVolume:
     (..., Nz/Z, Ny, Nx); "y": a spectrum of ``parallel/fft.py``, z whole and y
     split (..., Nz, Ny/Z, Nx//2+1); "rows": per-frame values (B, 1, 1, 1)
     split over the batch axis only. ``batched``: the leading axis is split
-    over the mesh rows; otherwise the tiles are row 0's."""
+    over the mesh rows; otherwise the tiles are row 0's (over processes
+    every row's replica)."""
 
     def __init__(self, mesh: Mesh, shape, tiles: dict, batched: bool, layout: str = "z"):
         self.mesh, self.shape, self.tiles = mesh, tuple(shape), tiles
@@ -325,15 +321,32 @@ class ShardedVolume:
     def variable(self) -> dict:
         """The tiles the optimizer moves, as a dict keyed (b, z); over
         processes this rank's, as a ``treeutil.Shares`` whose dots every rank
-        sums alike."""
+        sums alike, each cell once (an unbatched volume's row 0: the other
+        rows' replicas are copies of it, :meth:`as_row0`)."""
         tiles = {c: self.tiles[c] for c in self.local_cells()}
         if not self.mesh.distributed:
             return tiles
-        if not self.batched and self.mesh.shape[BATCH_AXIS] > 1:
-            raise ValueError("an unbatched variable on a mesh over processes needs one mesh row (batch=1): on "
-                             f"{self.mesh.shape[BATCH_AXIS]} rows each row would move a replica of it")
-        cells, mesh, dtype = self.cells(), self.mesh, self.dtype
-        return Shares(tiles, lambda parts: mesh.add(parts, cells, dtype))
+        cells, mesh, dtype = self.sum_cells(), self.mesh, self.dtype
+        return treeutil.Shares(tiles, lambda parts: mesh.add(parts, cells, dtype))
+
+    def as_row0(self, tiles: dict) -> dict:
+        """``tiles`` (this rank's, of this volume's layout) with every
+        replica's tile replaced by row 0's of its z column, in one exchange:
+        over processes on several rows each row holds a replica of an
+        unbatched volume, and only row 0's tiles take part in its sums, so
+        row 0's gradient is the whole one, and the replicas move with it.
+        ``tiles`` as they are where there are no replicas."""
+        mesh = self.mesh
+        if self.batched or not mesh.distributed or mesh.shape[BATCH_AXIS] == 1:
+            return tiles
+        like = next(iter(tiles.values()))
+        moves = [((0, z), (b, z), tiles.get((0, z)), like.shape, like.dtype)
+                 for b in range(1, mesh.shape[BATCH_AXIS]) for z in range(mesh.shape[Z_AXIS])]
+        out = dict(tiles)
+        for (_, dst, *_), t in zip(moves, exchange(mesh, moves, "rows")):
+            if t is not None:
+                out[dst] = t
+        return treeutil.like((tiles,), out)
 
     def with_tiles(self, tiles: dict) -> "ShardedVolume":
         """This layout with other tiles (a dict of :meth:`variable`'s keys)."""

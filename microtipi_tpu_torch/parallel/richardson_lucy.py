@@ -10,11 +10,13 @@ in the JAX module.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from microtipi_tpu_torch.parallel.deconv import sharded_tv_gradient
 from microtipi_tpu_torch.parallel.fft import sharded_irfftn, sharded_rfftn, sharded_spectrum
-from microtipi_tpu_torch.parallel.mesh import Mesh, ShardedVolume, gather, one_process, shard
+from microtipi_tpu_torch.parallel.mesh import Mesh, ShardedVolume, gather, shard
 
 __all__ = ["sharded_multiview_richardson_lucy", "sharded_richardson_lucy"]
 
@@ -38,7 +40,6 @@ def sharded_richardson_lucy(data, psf, mesh: Mesh, iterations: int = 50, backgro
     ``psf`` corner-origin at the volume grid, ``data`` (Nz, Ny, Nx) or
     batched (B, Nz, Ny, Nx), a tensor or a sharded volume. Returns the
     sharded estimate."""
-    one_process(mesh, "sharded_richardson_lucy")
     vol_shape = tuple(data.shape[-3:])
     if tuple(psf.shape) != vol_shape:
         raise ValueError("richardson_lucy requires psf shape == volume shape")
@@ -48,7 +49,7 @@ def sharded_richardson_lucy(data, psf, mesh: Mesh, iterations: int = 50, backgro
     flux = gather(psf).sum().to(mesh.first)
     d = _clamp(data, 0.0)
     x = _clamp(data if x0 is None else shard(x0, mesh, data.batched), 1e-12)
-    eps = _support_floor(d, data.tiles[(0, 0)].numel() * len(data.tiles), background)
+    eps = _support_floor(d, math.prod(data.shape), background)
     with torch.no_grad():
         for _ in range(iterations):
             model = sharded_irfftn(sharded_rfftn(x, mesh) * k_hat, vol_shape, mesh) + background
@@ -65,8 +66,8 @@ def sharded_multiview_richardson_lucy(views, psfs, mesh: Mesh, iterations: int =
     """Joint-MLE multi-view RL fusion on the mesh (``richardson_lucy.py:67-107``):
     the views (K,) + volume ride the mesh's batch axis, each z-sharded; the
     sum over views adds the rows' back-projections on row 0, where the
-    estimate lives (one unbatched volume)."""
-    one_process(mesh, "sharded_multiview_richardson_lucy")
+    estimate lives (one unbatched volume; over processes on every row, each
+    row's replica)."""
     if tuple(views.shape) != tuple(psfs.shape) or len(views.shape) != 4:
         raise ValueError("views and psfs must share a (K,)+volume shape")
     vol = tuple(views.shape[1:])
@@ -75,7 +76,7 @@ def sharded_multiview_richardson_lucy(views, psfs, mesh: Mesh, iterations: int =
     k_conj = k_hat.map(torch.conj)
     flux = gather(psfs).sum().to(mesh.first)
     d = _clamp(views, 0.0)
-    n = views.tiles[(0, 0)].numel() * len(views.tiles)
+    n = math.prod(views.shape)
     if x0 is None:
         # Floored mean-of-views start, matching jobs.richardson_lucy.
         mean_view = d.sum_frames() / views.shape[0]

@@ -17,10 +17,22 @@ import torch.distributed as dist
 
 from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
-from microtipi_tpu_torch.models.microscope import DEFOCUS, PHASE
+from microtipi_tpu_torch.jobs.depthvar import depth_anchor_psfs
+from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+from microtipi_tpu_torch.models.gibson_lanni import GibsonLanniConfig, GibsonLanniModel
+from microtipi_tpu_torch.models.microscope import DEFOCUS, DEPTH, PHASE
 from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
 from microtipi_tpu_torch.ops.convolution import convolve, convolve_spectrum
-from microtipi_tpu_torch.parallel import gather, make_mesh, sharded_blind_deconvolve, sharded_deconvolve
+from microtipi_tpu_torch.ops.depthconv import DepthVaryingConvCost
+from microtipi_tpu_torch.parallel import (
+    gather,
+    make_mesh,
+    sharded_admm_deconvolve,
+    sharded_blind_deconvolve,
+    sharded_deconvolve,
+)
+from microtipi_tpu_torch.parallel import depthvar as sdv
+from microtipi_tpu_torch.parallel.richardson_lucy import sharded_multiview_richardson_lucy, sharded_richardson_lucy
 
 #: ``tests/test_torch_parallel_jobs.py``'s scene and optics.
 SHAPE = (16, 32, 32)
@@ -35,10 +47,17 @@ ODD_KW = dict(na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9, dz=200e-9, n_phase
 ODD_BLIND = dict(loops=2, families=(DEFOCUS, PHASE), psf_max_iter=(2, 2), joint_fit=True, phase_freeze_head=1,
                  init="wiener")
 ODD_CFG = dict(mu=0.01, epsilon=1.0, max_iter=2, grtol=0.0)
+#: ``tests/test_torch_parallel_depthvar.py``'s Gibson-Lanni scene: 3 anchors.
+ANCHORS = np.array([0.0, 7.5, 15.0])
+GL_KW = dict(na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9, dz=200e-9, n_phase=4, ns=1.38, depth=10e-6)
+DV_CFG = dict(mu=0.01, epsilon=1.0, grtol=0.0, gatol=0.0)
+#: The Boyd-stopped ADMM case: its test passes at the third check (iteration 15).
+BOYD = dict(max_iter=100, admm_abstol=1e-2, admm_reltol=1e-2, admm_check_every=5)
 #: A rank that waits on a dead peer gives up after this many seconds.
 TIMEOUT_S = 30
-#: The cases a spawn of four ranks (one cell each) runs.
-FEW = ("deconv_1x4", "odd_2x2")
+#: The cases a spawn of four ranks (one cell each) runs: on (1, 4) the ADMM
+#: ring's wrap from slab 3 to slab 0 crosses ranks.
+FEW = ("deconv_1x4", "odd_2x2", "admm_1x4", "rl_tv_1x4")
 #: The options it runs: on them a rank whose cell reads no other cell's
 #: planes or frames (the last slab, the last row) still takes part in the
 #: exchange that sends its own to the others.
@@ -68,8 +87,40 @@ def odd_scene():
     return model, torch.as_tensor(np.random.default_rng(0).random((2, *ODD_SHAPE)))
 
 
+def depthvar_scene():
+    """(model, anchor psfs, object, data) of the depth-varying cases."""
+    model = GibsonLanniModel(GibsonLanniConfig(shape=SHAPE, dtype=torch.float64, **GL_KW), device="cpu")
+    true = model.init_params()._replace(phase=torch.tensor([0.2, -0.1, 0.05, 0.1], dtype=torch.float64))
+    with torch.no_grad():
+        psfs = depth_anchor_psfs(model, true, ANCHORS)
+        rng = np.random.default_rng(0)
+        obj = torch.as_tensor((rng.random(SHAPE) > 0.97) * rng.random(SHAPE) * 100.0)
+        data = DepthVaryingConvCost.build(psfs, obj, None, SHAPE, ANCHORS).model(obj)
+    return model, psfs, obj, data + 0.01 * torch.as_tensor(rng.standard_normal(SHAPE))
+
+
 def _deconv(res) -> dict:
     return {"x": gather(res.x), "f": res.f, "f_history": res.f_history}
+
+
+def _solve(res) -> dict:
+    """A solve's result, with this rank's tiles (an unbatched volume's
+    replicas on every row of a mesh over processes) and its stop."""
+    return {**_deconv(res), "tiles": _tiles(res.x), "iterations": res.iterations, "status": res.status}
+
+
+def _tiles(x) -> dict:
+    return {f"{b},{z}": t for (b, z), t in x.tiles.items()}
+
+
+def _estimate(x) -> dict:
+    """An RL estimate, whole and as this rank's tiles."""
+    return {"x": gather(x), "tiles": _tiles(x)}
+
+
+def _fit(res) -> dict:
+    return {"defocus": res.params.defocus.detach(), "depth": res.params.depth.detach(), "f": res.f,
+            "f_history": res.f_history}
 
 
 def _blind(res) -> dict:
@@ -125,6 +176,78 @@ def run_options(mesh_of, only=None) -> dict:
     return {name: _deconv(run()) for name, run in runs.items() if only is None or name in only}
 
 
+def run_solvers(mesh_of, only=None) -> dict:
+    """The other sharded solvers (or those named in ``only``) over the meshes
+    ``mesh_of(batch, z)`` makes: the ADMM engine (uniform, weighted with the
+    Boyd stop, Poisson, one volume on (2, 2)) and the blind loop by it; RL-TV,
+    RL of a stack and multi-view RL; the depth-varying object step, PSF fit
+    and blind loop; VMLMB of one volume on (2, 2), weighted and with the
+    priors, whose sums count row 0's tiles."""
+    model, psf, data, stack = scene()
+    cfg = DeconvolutionConfig(max_iter=15, **CFG)
+    w = torch.as_tensor(0.5 + np.random.default_rng(1).random(SHAPE))
+    gl, psfs, obj, ddata = depthvar_scene()
+    dcfg = DeconvolutionConfig(max_iter=10, **DV_CFG)
+    priors = DeconvolutionConfig(max_iter=12, sparsity=0.01, sparsity_epsilon=0.05, hessian=0.05, **CFG)
+    runs = {
+        "admm_1x4": lambda: _solve(sharded_admm_deconvolve(data, psf, mesh_of(1, 4), config=cfg, over_relax=1.8)),
+        "admm_weighted_1x4": lambda: _solve(sharded_admm_deconvolve(
+            data, psf, mesh_of(1, 4), weights=w, config=DeconvolutionConfig(**BOYD, **CFG), track_objective=False)),
+        "admm_poisson_1x4": lambda: _solve(sharded_admm_deconvolve(
+            torch.clamp_min(data, 0.0) + 1.0, psf, mesh_of(1, 4),
+            config=DeconvolutionConfig(max_iter=10, data_term="poisson", background=0.5, **CFG))),
+        "admm_2x2": lambda: _solve(sharded_admm_deconvolve(data, psf, mesh_of(2, 2), config=cfg)),
+        "blind_admm_1x4": lambda: _blind(sharded_blind_deconvolve(data, model, mesh_of(1, 4), config=BlindDeconvConfig(
+            deconv=DeconvolutionConfig(max_iter=5, **CFG), deconv_engine="admm", **BLIND))),
+        "rl_tv_1x4": lambda: _estimate(sharded_richardson_lucy(data, psf, mesh_of(1, 4), iterations=10, mu=0.01,
+                                                               epsilon=0.5)),
+        "rl_2x2": lambda: _estimate(sharded_richardson_lucy(stack, psf, mesh_of(2, 2), iterations=10, mu=0.01,
+                                                            epsilon=0.5)),
+        "multiview_2x2": lambda: _estimate(sharded_multiview_richardson_lucy(
+            stack, torch.stack([psf, psf.roll(1, 0)]), mesh_of(2, 2), iterations=5)),
+        "depthvar_1x4": lambda: _solve(sdv.sharded_deconvolve_depthvar(ddata, psfs, mesh_of(1, 4), ANCHORS,
+                                                                       config=dcfg)),
+        "depthvar_fit_1x4": lambda: _fit(sdv.sharded_fit_psf_depthvar(
+            gl, gl.init_params(), (DEFOCUS, DEPTH), ddata, obj, mesh_of(1, 4), ANCHORS,
+            config=PsfFitConfig(max_iter=6, grtol=0.0))),
+        "depthvar_blind_1x4": lambda: _blind(sdv.sharded_blind_deconvolve_depthvar(
+            ddata, gl, mesh_of(1, 4), ANCHORS, config=BlindDeconvConfig(
+                loops=2, families=(DEFOCUS, PHASE), psf_max_iter=(3, 3), joint_fit=True, phase_freeze_head=1,
+                deconv=DeconvolutionConfig(max_iter=5, **DV_CFG)))),
+        "unbatched_2x2": lambda: _solve(sharded_deconvolve(data, psf, mesh_of(2, 2), weights=w, config=priors)),
+    }
+    return {name: run() for name, run in runs.items() if only is None or name in only}
+
+
+def run_slab_entries(mesh_of) -> dict:
+    """How often a 6-iteration ADMM solve on (1, 4) called each slab entry
+    on this rank, with the whole-volume entries removed, and the bytes of
+    halo planes it sent to other ranks."""
+    from microtipi_tpu_torch.ops.kernels import admm_split as ak
+    from microtipi_tpu_torch.parallel import admm as padmm
+    from microtipi_tpu_torch.parallel import collectives
+
+    _, psf, data, _ = scene()
+    calls, saved = {"split": 0, "rhs": 0}, (padmm.admm_split_update_slab, padmm.admm_rhs_slab, ak.admm_split_update,
+                                            ak.admm_rhs)
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    padmm.admm_split_update_slab, padmm.admm_rhs_slab = count("split", saved[0]), count("rhs", saved[1])
+    ak.admm_split_update = ak.admm_rhs = None
+    collectives.sent.clear()
+    try:
+        mesh = mesh_of(1, 4)
+        sharded_admm_deconvolve(data, psf, mesh, config=DeconvolutionConfig(max_iter=6, **CFG))
+    finally:
+        padmm.admm_split_update_slab, padmm.admm_rhs_slab, ak.admm_split_update, ak.admm_rhs = saved
+    return {**calls, "cells": len(mesh.local(mesh.cells())), "halo_bytes": collectives.sent["halo"]}
+
+
 def run_reductions(mesh_of) -> dict:
     """A stack's reductions on a (2, 2) mesh from ``mesh_of``: ``sum``,
     ``amax``, ``sum_frames`` and the per-frame values' ``gather``."""
@@ -139,40 +262,16 @@ def run_reductions(mesh_of) -> dict:
             "rows": gather(shard_rows(gains, mesh))}
 
 
-def guards(mesh_of) -> dict:
-    """What each solver that a mesh over processes does not run raised
-    (name: message)."""
-    from microtipi_tpu_torch.parallel import sharded_admm_deconvolve
-    from microtipi_tpu_torch.parallel.depthvar import sharded_deconvolve_depthvar
-    from microtipi_tpu_torch.parallel.richardson_lucy import sharded_richardson_lucy
-
-    _, psf, data, stack = scene()
-    cfg = DeconvolutionConfig(max_iter=2, **CFG)
-    calls = {
-        "admm": lambda: sharded_admm_deconvolve(data, psf, mesh_of(1, 4), config=cfg),
-        "richardson_lucy": lambda: sharded_richardson_lucy(data, psf, mesh_of(1, 4), iterations=2),
-        "depthvar": lambda: sharded_deconvolve_depthvar(data, torch.stack([psf, psf]), mesh_of(1, 4), config=cfg),
-        "unbatched_2x2": lambda: sharded_deconvolve(data, psf, mesh_of(2, 2), config=cfg),
-    }
-    out = {}
-    for name, call in calls.items():
-        try:
-            call()
-            out[name] = None
-        except ValueError as e:
-            out[name] = str(e)
-    return out
-
-
 def one_process_mesh(batch: int, z: int):
     return make_mesh(batch, z, devices=[torch.device("cpu")] * (batch * z))
 
 
 def child(rank: int, world: int, init: str, out: str, case: str) -> None:
     """Rank ``rank`` of ``world``: ``case`` "jobs" runs :func:`run_cases`,
-    :func:`run_options` and :func:`guards` on meshes over the ranks and saves
+    :func:`run_options`, :func:`run_solvers`, :func:`run_reductions` and
+    :func:`run_slab_entries` on meshes over the ranks and saves
     ``rank<r>.pt`` in ``out``; "few" runs :data:`FEW` of the cases and
-    :data:`FEW_OPTIONS` of the options; "fail"
+    solvers and :data:`FEW_OPTIONS` of the options; "fail"
     makes rank 1 raise before its first collective. A failure leaves its
     traceback in ``rank<r>.err`` and exits non-zero."""
     torch.set_num_threads(1)
@@ -188,10 +287,10 @@ def child(rank: int, world: int, init: str, out: str, case: str) -> None:
                                  group=dist.group.WORLD)
 
             if case == "few":
-                got = {**run_cases(mesh_of, FEW), **run_options(mesh_of, FEW_OPTIONS)}
+                got = {**run_cases(mesh_of, FEW), **run_solvers(mesh_of, FEW), **run_options(mesh_of, FEW_OPTIONS)}
             else:
-                got = run_cases(mesh_of)
-                got.update(run_options(mesh_of), reductions=run_reductions(mesh_of), guards=guards(mesh_of))
+                got = {**run_cases(mesh_of), **run_options(mesh_of), **run_solvers(mesh_of)}
+                got.update(reductions=run_reductions(mesh_of), slab_entries=run_slab_entries(mesh_of))
             torch.save(got, pathlib.Path(out) / f"rank{rank}.pt")
         finally:
             dist.destroy_process_group()
