@@ -164,11 +164,15 @@ raises and the script exits non-zero:
     OME-TIFF half and ``StackPrefetcher`` need libtiff, which the card's
     machine lacks: the CPU tests hold them.
 30. the mesh-sharded paths (``microtipi_tpu_torch/parallel``) on meshes whose
-    entries are all ``cuda:0``: the three slab entries (the TV kernel, the
-    ADMM split update and rhs on a z-slab with its neighbours' planes)
-    against their plain versions and, put together, against the
-    whole-volume launches at 256^3 in 4 slabs and 2 x 256^3 in 2 (gradients
-    and ADMM state bit for bit), then their times at one 64-plane slab;
+    entries are all ``cuda:0``: phase 3's 256^3 PSF from each cell's own
+    planes on (1, 4), put together, against ``compute_psf`` (bit for bit, or
+    the largest gap in ulps), and a fit evaluation's float32 gradient by
+    those planes and by the whole synthesis against float64; the three slab
+    entries (the TV kernel, the ADMM split update and rhs on a z-slab with
+    its neighbours' planes) against their plain versions and, put together,
+    against the whole-volume launches at 256^3 in 4 slabs and 2 x 256^3 in 2
+    (gradients and ADMM state bit for bit), then their times at one 64-plane
+    slab;
     ``sharded_deconvolve`` at 256^3 on (1, 1), (1, 4) and (2, 2) (f(x0) and
     the first iteration's f within 1e-4 of the dense run, walls beside
     dense); phase 3's blind loop on (1, 4) (round 1's f within 1e-4 of phase
@@ -190,7 +194,10 @@ raises and the script exits non-zero:
     same jobs, which reaches NCCL's all-gather and broadcast but sends
     nothing between ranks (``chip_nccl_mesh.py`` runs one rank a card);
     walls beside the one-process run's, bytes exchanged in an evaluation,
-    TV slab launches by rank.
+    TV slab launches by rank; one wide-field and one depth-varying PSF fit
+    evaluation, each cell synthesizing its own planes (no ``cells`` bytes,
+    the pupil's gradient within its bound) beside the whole synthesis and
+    cut, with each rank's peak memory.
 
 The main paths are phases 3, 13, 15, 17, 18, 20, 21, 22's superres and 28 (the
 single-volume TV kernel), phases 7-8, 14, 15, 18, 19, 22, 23 and 24 (the
@@ -4631,6 +4638,75 @@ def mesh_blind_config():
         fit=PsfFitConfig(grtol=0.0))
 
 
+#: The PSF's slabs put together against ``compute_psf`` on the card (float32): relative L2 at most this, where
+#: cuFFT plans the slabs' batches of planes otherwise than the whole volume's.
+PSF_SLABS_RTOL = 1e-6
+
+
+def phase30_psf_slabs(card: str) -> None:
+    """Phase 3's PSF at 256^3 (the bench optics, its aberration) synthesized
+    by each cell of a (1, SLABS) mesh of cuda:0 for its own planes
+    (``parallel.psf_fit.psf_slabs``, as a sharded fit evaluates it), put
+    together, against ``compute_psf``: bit for bit, or the largest gap in
+    float32 ulps (a batched 2D FFT of 64 planes may take another cuFFT plan
+    than one of 256), within PSF_SLABS_RTOL; then both syntheses timed. Then
+    one fit evaluation on the same mesh (cost and gradient of every family,
+    the bench data as data and object) by each cell's planes and by the whole
+    synthesis and cut, in float32, each against float64 on the card: the
+    planes' gradient may be no farther from float64 than twice the whole's."""
+    from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
+    from microtipi_tpu_torch.parallel import gather
+    from microtipi_tpu_torch.parallel import psf_fit as spf
+    from microtipi_tpu_torch.parallel.psf_fit import psf_slabs, sharded_fit_cost
+
+    dev = torch.device("cuda", 0)
+    model = WideFieldModel(WideFieldConfig(shape=SHAPE, na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9, dz=200e-9,
+                                           n_phase=6, n_modulus=1, dtype=torch.float32), device=dev)
+    params = model.init_params()._replace(phase=torch.as_tensor(BENCH_PHASE, dtype=torch.float32, device=dev))
+    mesh = card_mesh(1, SLABS)
+    with torch.no_grad():
+        whole = model.compute_psf(params)
+        slabs = gather(psf_slabs(model, params, mesh)[0])
+        ulps = int((slabs.view(torch.int32) - whole.view(torch.int32)).abs().max())
+        rel = _rel_l2(slabs, whole)
+        whole_ms = _median_ms(lambda: model.compute_psf(params))
+        slabs_ms = _median_ms(lambda: psf_slabs(model, params, mesh))
+    if not rel <= PSF_SLABS_RTOL:
+        raise AssertionError(f"the PSF's {SLABS} slabs put together are {rel:.3g} relative L2 off compute_psf")
+    log(30, f"[{card}] the PSF of {SHAPE} from each cell's planes on (1, {SLABS}) of cuda:0, put together, against "
+            f"compute_psf: {'bit for bit' if ulps == 0 else f'largest gap {ulps} float32 ulps, {rel:.3g} relative L2'}"
+            f"; synthesis {slabs_ms:.4f} ms as {SLABS} slabs, {whole_ms:.4f} ms whole (medians of 20)")
+    _, data, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE, model=model)
+    m64 = WideFieldModel(dataclasses.replace(model.config, dtype=torch.float64), device=dev)
+
+    def evaluation(m, whole: bool):
+        saved = spf.synthesizes_planes
+        if whole:
+            spf.synthesizes_planes = lambda model, grid: False
+        try:
+            d = data.to(m.dtype)
+            cost = sharded_fit_cost(m, d, torch.clamp_min(d, 0.0), None, mesh)
+        finally:
+            spf.synthesizes_planes = saved
+        leaves = [t.detach().to(m.dtype).requires_grad_(True) for t in params]
+        f = cost(type(params)(*leaves))
+        grads = torch.autograd.grad(f, leaves, allow_unused=True, materialize_grads=True)
+        return float(f.detach()), torch.cat([g.reshape(-1) for g in grads]).double()
+
+    f64, g64 = evaluation(m64, False)
+    errs = {}
+    for route in ("planes", "whole"):
+        f32, g32 = evaluation(model, route == "whole")
+        errs[route] = (abs(f32 - f64) / abs(f64), float((g32 - g64).abs().max() / g64.abs().max()))
+    del m64
+    if not errs["planes"][1] <= 2.0 * errs["whole"][1]:
+        raise AssertionError(f"a fit evaluation's float32 gradient by each cell's planes is {errs['planes'][1]:.3g} "
+                             f"of the largest off float64, the whole synthesis's {errs['whole'][1]:.3g}")
+    log(30, f"[{card}] one fit evaluation of {SHAPE} on (1, {SLABS}), float32 against float64 on the card: by each "
+            f"cell's planes f {errs['planes'][0]:.3g} rel, gradient of every family {errs['planes'][1]:.3g} of its "
+            f"largest; by the whole synthesis and cut f {errs['whole'][0]:.3g} rel, gradient {errs['whole'][1]:.3g}")
+
+
 def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: float) -> tuple[dict, dict]:
     """The sharded paths at full width on meshes of the one card, each run
     between :class:`SlabCounts` (slab launches only); the sharded blind loop
@@ -4654,6 +4730,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
 
     dev, nvox = torch.device("cuda", 0), float(np.prod(SHAPE))
     paths, refs = {}, {}
+    phase30_psf_slabs(card)
     _, data, psf = bench_scene(SHAPE, dev, torch.float32)
     cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
     dense_wall, dense = _wall(lambda: deconvolve(data, psf, config=cfg))
@@ -4902,7 +4979,38 @@ MP_JOBS = (("vmlmb", "VMLMB 256^3 (1, 4)", "f_history", False), ("blind", "blind
            ("blind_admm", "blind by ADMM 256^3 (1, 4)", "deconv_f", True),
            ("rl_tv", "RL-TV 64x256x256 (1, 4)", "x", False), ("depthvar", "depthvar 64x256x256 (1, 4)", "f_history", False),
            ("vmlmb_2x2", "VMLMB 256^3 (2, 2)", "f_history", False))
-SENT_KINDS = ("halo", "transpose", "values", "cells", "rows")
+SENT_KINDS = ("halo", "transpose", "values", "cells", "rows", "pupil")
+
+
+def _fit_evaluation(make_cost, params, dev: torch.device, whole: bool = False) -> dict:
+    """One PSF fit evaluation on this rank, the cost ``make_cost()`` builds and
+    its gradient with respect to every family of ``params``: the bytes this
+    rank sent by kind, its peak memory on ``dev`` (and what it held before),
+    the wall, f and the gradient. ``whole``: the route of a model that does
+    not synthesize its planes (the PSF whole on the model's device, cut, its
+    slabs' gradients broadcast), for comparison."""
+    from microtipi_tpu_torch.parallel import collectives
+    from microtipi_tpu_torch.parallel import depthvar as sdv
+    from microtipi_tpu_torch.parallel import psf_fit as spf
+
+    saved = spf.synthesizes_planes, sdv.synthesizes_planes
+    if whole:
+        spf.synthesizes_planes = sdv.synthesizes_planes = lambda model, grid: False
+    try:
+        cost = make_cost()
+        leaves = [t.detach().clone().requires_grad_(True) for t in params]
+        torch.cuda.synchronize(dev)
+        collectives.sent.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        f = cost(type(params)(*leaves))
+        grads = torch.autograd.grad(f, leaves, allow_unused=True, materialize_grads=True)
+        torch.cuda.synchronize(dev)
+        return {"sent": dict(collectives.sent), "peak": torch.cuda.max_memory_allocated(dev), "before": before,
+                "wall": time.perf_counter() - t0, "f": float(f.detach()), "grads": torch.cat([g.reshape(-1) for g in grads])}
+    finally:
+        spf.synthesizes_planes, sdv.synthesizes_planes = saved
 
 
 def _capture_admm_launches(mesh, run) -> dict:
@@ -4958,8 +5066,10 @@ def _mp_jobs(group, devices) -> dict:
     the parent to check and time alone on the card once the ranks have
     exited, and likewise the first ADMM split update and rhs with a plane
     from another rank, from a 2-iteration warm-up at over-relaxation 1.
-    Then one objective evaluation's traffic, and one depth-varying PSF fit
-    evaluation's (cost and gradient)."""
+    Then one objective evaluation's traffic, and one wide-field PSF fit
+    evaluation (at the blind loop's object) and one depth-varying one, cost
+    and gradient (:func:`_fit_evaluation`), by each cell's planes and by the
+    whole synthesis and cut."""
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
     from microtipi_tpu_torch.jobs.depthvar import depth_anchor_psfs
     from microtipi_tpu_torch.ops.kernels import admm_split as ak
@@ -4974,6 +5084,7 @@ def _mp_jobs(group, devices) -> dict:
         sharded_deconvolve,
     )
     from microtipi_tpu_torch.parallel import depthvar as sdv
+    from microtipi_tpu_torch.parallel.psf_fit import sharded_fit_cost
     from microtipi_tpu_torch.parallel.richardson_lucy import sharded_richardson_lucy
 
     dev = devices[0]
@@ -5025,6 +5136,10 @@ def _mp_jobs(group, devices) -> dict:
     bres = run("blind", lambda: sharded_blind_deconvolve(bdata, model, mesh, config=mesh_blind_config()))
     out["blind"].update(deconv_f=bres.deconv_f, fit_f=bres.fit_f, phase=bres.params.phase.cpu(),
                         finite=finite(gather(bres.obj)))
+    # One PSF fit evaluation of the blind loop's last fit: the bench model, the data, the loop's object.
+    out["fit_evaluation"] = {route: _fit_evaluation(lambda: sharded_fit_cost(model, bdata, bres.obj, None, mesh),
+                                                    bres.params, dev, whole=route == "whole")
+                             for route in ("planes", "whole")}
     res = run("admm", lambda: sharded_admm_deconvolve(data, psf, mesh, config=cfg))
     out["admm"].update(f_history=res.f_history, finite=finite(gather(res.x)), iterations=res.iterations)
     bres = run("blind_admm", lambda: sharded_blind_deconvolve(bdata, model, mesh, config=blind_admm_config()))
@@ -5042,14 +5157,11 @@ def _mp_jobs(group, devices) -> dict:
     ddata, _ = depthvar_scene(psfs, anchors, LANE_SHAPE, dev, torch.float32)
     res = run("depthvar", lambda: sdv.sharded_deconvolve_depthvar(ddata, psfs, mesh, anchors, config=cfg))
     out["depthvar"].update(f_history=res.f_history, finite=finite(gather(res.x)))
-    # One depth-varying PSF fit evaluation (cost and DEPTH gradient): the K anchor PSFs cut with gradient.
-    cost = sdv.sharded_depthvar_fit_cost(gl, ddata, res.x, None, mesh, anchors)
-    p = gl.init_params()
-    p = p._replace(depth=p.depth.clone().requires_grad_(True))
-    collectives.sent.clear()
-    cost(p).backward()
-    out["depthvar_fit_evaluation"] = dict(collectives.sent)
-    del ldata, ddata, psfs, res, cost
+    # One depth-varying PSF fit evaluation at the solve's object, each cell's planes of the K anchor PSFs.
+    out["depthvar_fit_evaluation"] = {route: _fit_evaluation(
+        lambda: sdv.sharded_depthvar_fit_cost(gl, ddata, res.x, None, mesh, anchors), gl.init_params(), dev,
+        whole=route == "whole") for route in ("planes", "whole")}
+    del ldata, ddata, psfs, res
     res = run("vmlmb_2x2", lambda: sharded_deconvolve(data, psf, rows, config=cfg))
     whole, nzs = gather(res.x), SHAPE[0] // rows.shape["z"]
     out["vmlmb_2x2"].update(f_history=res.f_history, finite=finite(whole), replicas_are_row0=all(
@@ -5155,10 +5267,30 @@ def _mp_check(name: str, ranks: list, refs: dict, card: str) -> dict:
                 f"slab launches by rank: TV {[r[job]['tv'] for r in ranks]}, split, rhs {slab}; bytes sent between "
                 f"ranks {sent}")
     per_eval = {k: sum(r["per_evaluation"].get(k, 0) for r in ranks) for k in SENT_KINDS}
-    fit_eval = {k: sum(r["depthvar_fit_evaluation"].get(k, 0) for r in ranks) for k in SENT_KINDS}
     log(31, f"[{card}] {name}: one objective evaluation at x0 moved {per_eval} bytes between ranks (halo planes, "
-            f"the distributed FFT's transposes, the reductions' gathered values); one depth-varying PSF fit "
-            f"evaluation (cost and gradient, {DEPTH_K} anchor PSFs of {LANE_SHAPE} cut with gradient) moved {fit_eval}")
+            f"the distributed FFT's transposes, the reductions' gathered values)")
+    for key, what, ny_nx in (("fit_evaluation", f"wide-field PSF fit evaluation of {SHAPE}", SHAPE[1] * SHAPE[2]),
+                             ("depthvar_fit_evaluation", f"depth-varying PSF fit evaluation ({DEPTH_K} anchor PSFs of "
+                                                         f"{LANE_SHAPE})", LANE_SHAPE[1] * LANE_SHAPE[2])):
+        ev = {route: [r[key][route] for r in ranks] for route in ("planes", "whole")}
+        sent = {route: {k: sum(e["sent"].get(k, 0) for e in evs) for k in SENT_KINDS} for route, evs in ev.items()}
+        bound = sum(len(r["cells"]) for r in ranks) * (len(ranks) - 1) * 3 * ny_nx * 4
+        f_gap = _rel_f([ev["planes"][0]["f"]], [ev["whole"][0]["f"]])
+        g, g0 = ev["planes"][0]["grads"], ev["whole"][0]["grads"]
+        g_gap = float((g - g0).abs().max() / g0.abs().max())
+        log(31, f"[{card}] {name}: one {what}, cost and gradient of every family, each cell synthesizing its own "
+                f"planes: bytes between ranks {sent['planes']} (the pupil's gradient at most {bound} in all), wall "
+                f"{max(e['wall'] for e in ev['planes']):.4f} s, peak memory by rank "
+                f"{[round(e['peak'] / 2**20, 1) for e in ev['planes']]} MiB (held before "
+                f"{[round(e['before'] / 2**20, 1) for e in ev['planes']]}); by the whole synthesis and cut: bytes "
+                f"{sent['whole']}, wall {max(e['wall'] for e in ev['whole']):.4f} s, peak memory "
+                f"{[round(e['peak'] / 2**20, 1) for e in ev['whole']]} MiB; f within {f_gap:.3g} rel, gradient "
+                f"within {g_gap:.3g} of its largest")
+        if sent["planes"]["cells"] or sent["planes"]["pupil"] > bound or f_gap > SLAB_F_RTOL:
+            raise AssertionError(f"{name}: the {what} by each cell's planes sent {sent['planes']} (pupil bound "
+                                 f"{bound}), f {f_gap:.3g} rel off the whole synthesis")
+        if not all(torch.equal(e["grads"].cpu(), g.cpu()) and e["f"] == ev["planes"][0]["f"] for e in ev["planes"]):
+            raise AssertionError(f"{name}: the ranks' {what} differ")
     return counts
 
 

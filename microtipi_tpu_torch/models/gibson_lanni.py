@@ -14,7 +14,9 @@ wide-field model. ``depth = (ns/lambda, d)`` is the fittable DEPTH family.
 The optical path is linear in ``d``, so the PSFs at K depths
 (:meth:`GibsonLanniModel.compute_depth_psfs`) come from one (K, Nz, Ny, Nx)
 field with depth on a broadcast axis and one batched 2D FFT: the port's
-counterpart of the JAX package's ``vmap`` over depth.
+counterpart of the JAX package's ``vmap`` over depth. As in the wide-field
+model, each of these is :meth:`~WideFieldModel.psf_planes` over every plane,
+here of :class:`GibsonLanniPlaneInputs`, which add the DEPTH family.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
 from microtipi_tpu_torch.utils.grids import fft_index
 
-__all__ = ["GibsonLanniConfig", "GibsonLanniModel", "GibsonLanniParams"]
+__all__ = ["GibsonLanniConfig", "GibsonLanniModel", "GibsonLanniParams", "GibsonLanniPlaneInputs"]
 
 
 class GibsonLanniParams(NamedTuple):
@@ -37,6 +39,16 @@ class GibsonLanniParams(NamedTuple):
     phase: torch.Tensor
     modulus: torch.Tensor
     depth: torch.Tensor  # (ns/lambda, d): sample index over wavelength, depth in m
+
+
+class GibsonLanniPlaneInputs(NamedTuple):
+    """The wide-field plane inputs and ``depth = (ns/lambda, d)``, from which
+    each plane range recomputes the sample's defocus function."""
+
+    rho: torch.Tensor
+    phi: torch.Tensor
+    defocus: torch.Tensor
+    depth: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,29 +69,41 @@ class GibsonLanniModel(WideFieldModel):
         depth = torch.tensor([c.ns / c.wavelength, c.depth], dtype=self.dtype, device=self.device)
         return GibsonLanniParams(base.defocus, base.phase, base.modulus, depth)
 
+    def plane_inputs(self, params: GibsonLanniParams) -> GibsonLanniPlaneInputs:
+        rho, phi, _, _ = self.compute_pupil(params)
+        return GibsonLanniPlaneInputs(rho, phi, params.defocus, params.depth)
+
     def _psi_sample(self, lambda_ns: torch.Tensor) -> torch.Tensor:
-        """Defocus function in the sample medium (``gibson_lanni.py:54-63``);
-        the clamp is float32's tiny in every dtype, as in the JAX package."""
+        """Defocus function in the sample medium (``gibson_lanni.py:54-63``)
+        on ``lambda_ns``'s device; the clamp is float32's tiny in every
+        dtype, as in the JAX package."""
         _, ny, nx = self.shape
-        kw = dict(dtype=self.dtype, device=self.device)
+        kw = dict(dtype=self.dtype, device=lambda_ns.device)
         kx = torch.as_tensor(fft_index(nx) / (nx * self.config.dxy), **kw)
         ky = torch.as_tensor(fft_index(ny) / (ny * self.config.dxy), **kw)
         q = lambda_ns * lambda_ns - kx[None, :] ** 2 - ky[:, None] ** 2
         valid = (q > 0).to(self.dtype)
         return torch.sqrt(torch.clamp_min(q, float(np.finfo(np.float32).tiny))) * valid
 
+    def planes_field(self, inputs: GibsonLanniPlaneInputs, planes=slice(None),
+                     depths: torch.Tensor | None = None) -> torch.Tensor:
+        """The field of the planes ``planes`` (:meth:`WideFieldModel.planes_field`)
+        at the depth ``inputs.depth[1]``, (P, Ny, Nx), or one a depth of
+        ``depths`` (K,), (K, P, Ny, Nx) (``gibson_lanni.py:65-73``)."""
+        psi_i, mask = self._psi(inputs.defocus)
+        psi_s = self._psi_sample(inputs.depth[0]) * mask
+        defoc = (2.0 * math.pi * self.config.dz) * self._z(planes, psi_i.device)
+        d = inputs.depth[1] if depths is None else depths[:, None, None, None]
+        opd = defoc[:, None, None] * psi_i[None] + (2.0 * math.pi) * d * (psi_s - psi_i)[None]
+        phase = inputs.phi[None] + opd
+        return inputs.rho[None] * torch.exp(1j * phase.to(self.cdtype))
+
     def compute_pupil_field(self, params: GibsonLanniParams, depths: torch.Tensor | None = None) -> torch.Tensor:
         """The field (Nz, Ny, Nx) at the depth ``params.depth[1]``, or one a
-        depth of ``depths`` (K,), (K, Nz, Ny, Nx) (``gibson_lanni.py:65-73``)."""
-        rho, phi, psi_i, mask = self.compute_pupil(params)
-        psi_s = self._psi_sample(params.depth[0]) * mask
-        defoc = (2.0 * math.pi * self.config.dz) * self.z_wrapped
-        d = params.depth[1] if depths is None else depths[:, None, None, None]
-        opd = defoc[:, None, None] * psi_i[None] + (2.0 * math.pi) * d * (psi_s - psi_i)[None]
-        phase = phi[None] + opd
-        return rho[None] * torch.exp(1j * phase.to(self.cdtype))
+        depth of ``depths`` (K,), (K, Nz, Ny, Nx)."""
+        return self.planes_field(self.plane_inputs(params), depths=depths)
 
     def compute_depth_psfs(self, params: GibsonLanniParams, depths: torch.Tensor) -> torch.Tensor:
         """The PSFs at the K depths ``depths`` (in m; they replace
         ``params.depth[1]``), (K, Nz, Ny, Nx), from one batched 2D FFT."""
-        return self._intensity(torch.fft.fft2(self.compute_pupil_field(params, depths)))
+        return self.psf_planes(self.plane_inputs(params), depths=depths)

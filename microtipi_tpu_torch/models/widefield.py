@@ -8,6 +8,15 @@ once and pushed through one batched 2D FFT (cuFFT on the card); the PSF is
 Gradients with respect to defocus, phase and modulus come from autograd
 through this synthesis, complex tensors included.
 
+Each plane's field and 2D FFT are independent of the others' (the reference
+synthesizes them on a thread pool, ``WideFieldModel.java:216-261``), so the
+synthesis is one function of a plane range: :meth:`WideFieldModel.plane_inputs`
+computes what every plane needs once (:class:`PlaneInputs`) and
+:meth:`WideFieldModel.psf_planes` synthesizes any planes of the FFT-layout z
+axis from it, on the device the inputs are on. ``compute_psf`` is that
+function over every plane; a mesh-sharded fit (``parallel/psf_fit.py``) calls
+it on each cell for the cell's own planes.
+
 ``WideFieldConfig`` holds the static geometry; ``WideFieldModel`` is the
 ``nn.Module`` whose Zernike stack, pupil mask and wrapped-z grid are
 registered buffers, so ``.to(device)`` moves them.
@@ -32,7 +41,7 @@ from microtipi_tpu_torch.ops.pupil import (
 from microtipi_tpu_torch.ops.zernike import orthonormalize, zernike_basis
 from microtipi_tpu_torch.utils.grids import wrapped_z
 
-__all__ = ["WideFieldParams", "WideFieldConfig", "WideFieldModel"]
+__all__ = ["PlaneInputs", "WideFieldParams", "WideFieldConfig", "WideFieldModel"]
 
 
 class WideFieldParams(NamedTuple):
@@ -44,6 +53,17 @@ class WideFieldParams(NamedTuple):
     defocus: torch.Tensor
     phase: torch.Tensor
     modulus: torch.Tensor
+
+
+class PlaneInputs(NamedTuple):
+    """What every z plane of the wide-field PSF needs: the Zernike syntheses
+    ``rho`` and ``phi`` (Ny, Nx), which read the model's Zernike stack, and
+    the ``defocus`` vector, from which each plane range recomputes ``psi``
+    (an elementwise map of three numbers)."""
+
+    rho: torch.Tensor
+    phi: torch.Tensor
+    defocus: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,17 +173,44 @@ class WideFieldModel(nn.Module):
         phi = synthesize_phase(params.phase, self.zernike, mask, self.config.radial)
         return rho, phi, psi, mask
 
-    def compute_pupil_field(self, params: WideFieldParams) -> torch.Tensor:
-        """Complex pupil field ``A(z) = rho * exp(i (phi + 2*pi*z_w*dz*psi))``
-        with the negative-frequency z fold (``WideFieldModel.java:232-246``)."""
-        rho, phi, psi, _ = self.compute_pupil(params)
-        return self._field_from_pupil(rho, phi, psi)
+    def plane_inputs(self, params: WideFieldParams) -> PlaneInputs:
+        """The inputs of :meth:`psf_planes`, computed once on the model's device."""
+        rho, phi, _, _ = self.compute_pupil(params)
+        return PlaneInputs(rho, phi, params.defocus)
 
-    def _field_from_pupil(self, rho, phi, psi) -> torch.Tensor:
-        """The field of (Ny, Nx) pupil maps over the z planes, (Nz, Ny, Nx);
-        maps with leading axes (K, Ny, Nx) give (K, Nz, Ny, Nx)
-        (``widefield.py:178-182``)."""
-        defoc_scale = (2.0 * math.pi * self.config.dz) * self.z_wrapped
+    def _psi(self, defocus: torch.Tensor):
+        """``(psi, mask)`` of ``defocus`` on its device."""
+        _, ny, nx = self.shape
+        return defocus_psi(defocus, ny, nx, self.config.dxy, self.geom_mask.to(defocus.device))
+
+    def _z(self, planes, device) -> torch.Tensor:
+        """The wrapped z of ``planes`` on ``device``."""
+        return self.z_wrapped[planes].to(device)
+
+    def planes_field(self, inputs: PlaneInputs, planes=slice(None)) -> torch.Tensor:
+        """The complex pupil field ``A(z) = rho * exp(i (phi + 2*pi*z_w*dz*psi))``
+        with the negative-frequency z fold (``WideFieldModel.java:232-246``)
+        of the planes ``planes`` (a slice or an index tensor of the FFT-layout
+        z axis), (P, Ny, Nx), on the inputs' device."""
+        psi, _ = self._psi(inputs.defocus)
+        return self._field_from_pupil(inputs.rho, inputs.phi, psi, self._z(planes, inputs.rho.device))
+
+    def psf_planes(self, inputs: PlaneInputs, planes=slice(None), **field) -> torch.Tensor:
+        """The PSF planes ``planes`` of :meth:`compute_psf`, (P, Ny, Nx), from
+        :meth:`plane_inputs` on the inputs' device: each plane's field and its
+        2D FFT, normalised by the whole volume's Nx*Ny*Nz. ``field``: the
+        keywords of :meth:`planes_field`."""
+        return self._intensity(torch.fft.fft2(self.planes_field(inputs, planes, **field)))
+
+    def compute_pupil_field(self, params: WideFieldParams) -> torch.Tensor:
+        """The pupil field of every plane, (Nz, Ny, Nx) (:meth:`planes_field`)."""
+        return self.planes_field(self.plane_inputs(params))
+
+    def _field_from_pupil(self, rho, phi, psi, z=None) -> torch.Tensor:
+        """The field of (Ny, Nx) pupil maps over the planes of wrapped z ``z``
+        (default every plane), (P, Ny, Nx); maps with leading axes (K, Ny, Nx)
+        give (K, P, Ny, Nx) (``widefield.py:178-182``)."""
+        defoc_scale = (2.0 * math.pi * self.config.dz) * (self.z_wrapped if z is None else z)
         phase = phi.unsqueeze(-3) + defoc_scale[:, None, None] * psi.unsqueeze(-3)
         return rho.unsqueeze(-3) * torch.exp(1j * phase.to(self.cdtype))
 
@@ -198,8 +245,9 @@ class WideFieldModel(nn.Module):
 
     def compute_psf(self, params: WideFieldParams) -> torch.Tensor:
         """3D PSF, corner-origin (FFT layout), shape (Nz, Ny, Nx)
-        (``WideFieldModel.java:202-203,213,251-255``)."""
-        return self.compute_psf_and_field(params)[0]
+        (``WideFieldModel.java:202-203,213,251-255``): :meth:`psf_planes`
+        over every plane."""
+        return self.psf_planes(self.plane_inputs(params))
 
     def compute_mtf(self, params: WideFieldParams) -> torch.Tensor:
         """3D FFT of the PSF (``widefield.py:221-233``; the reference's

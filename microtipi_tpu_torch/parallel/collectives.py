@@ -31,7 +31,7 @@ back: a backend that refuses an operation raises, and a rank that stops makes
 the others fail at the group's timeout.
 
 :data:`sent` counts the bytes this rank sent, by kind ("halo", "transpose",
-"cells", "values"), since the last ``sent.clear()``.
+"cells", "values", "rows", "pupil"), since the last ``sent.clear()``.
 """
 
 from __future__ import annotations
@@ -191,17 +191,17 @@ def assemble(mesh, local, tiles, plan, dim: int) -> dict:
     return dict(zip(local, _Assemble.apply(mesh, list(local), list(plan), dim, tiles[0], *pieces)))
 
 
-def all_cells(mesh, tiles: dict, cells) -> dict:
+def all_cells(mesh, tiles: dict, cells, kind: str = "cells") -> dict:
     """Every cell of ``cells``' tensor on every rank, on :attr:`Mesh.first`
     (a local cell's own tensor as it is): one broadcast a cell, from its
-    owner. ``tiles`` holds this rank's; every cell's tensor has the shape
-    and dtype of this rank's first."""
+    owner, its bytes counted under ``kind``. ``tiles`` holds this rank's;
+    every cell's tensor has the shape and dtype of this rank's first."""
     like = next(iter(tiles.values()))
     out = {}
     for c in cells:
         if mesh.is_local(*c):
             buf = _wire(tiles[c], mesh)
-            sent["cells"] += buf.numel() * buf.element_size() * (mesh.size - 1)
+            sent[kind] += buf.numel() * buf.element_size() * (mesh.size - 1)
         else:
             buf = _buffer(like.shape, like.dtype, mesh)
         dist.broadcast(buf, mesh.peer(*c), group=mesh.group)

@@ -29,6 +29,7 @@ from microtipi_tpu_torch.parallel.blind import _Grid
 from microtipi_tpu_torch.parallel.deconv import _sharded_fun, pad_trailing, sharded_regularization, sharded_start
 from microtipi_tpu_torch.parallel.fft import sharded_convolve, sharded_spectrum
 from microtipi_tpu_torch.parallel.mesh import Mesh, ShardedVolume, gather, shard
+from microtipi_tpu_torch.parallel.psf_fit import psf_slabs, synthesizes_planes
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
 __all__ = [
@@ -116,10 +117,12 @@ def sharded_deconvolve_depthvar(
 def sharded_depthvar_fit_cost(model, data, obj, weights, mesh: Mesh, anchors, off_z: int = 0):
     """The depth-varying PSF fit's data term on the mesh (``depthvar.py:133-180``):
     the K blended objects' spectra are taken once; each evaluation
-    synthesizes the K anchor PSFs from the parameters (one batched synthesis
-    at the data grid's anchor depths), splits each into slabs and runs K
-    distributed convolutions. ``off_z`` shifts the blend rows when ``data``
-    and ``obj`` live on a padded grid."""
+    synthesizes the K anchor PSFs from the parameters at the data grid's
+    anchor depths and runs K distributed convolutions. On the model's grid
+    each cell synthesizes its own planes of the K PSFs
+    (``parallel.psf_fit.psf_slabs``, the gradient that crosses cells the
+    pupil's); on a padded grid (``off_z`` shifts the blend rows there) the K
+    PSFs are synthesized whole in one batch, zero-padded and cut."""
     vol = tuple(data.shape[-3:])
     batched = data.ndim == 4
     data = shard(data, mesh, batched)
@@ -129,14 +132,22 @@ def sharded_depthvar_fit_cost(model, data, obj, weights, mesh: Mesh, anchors, of
     anchors = np.asarray(anchors, np.float64)
     obj = shard(obj, mesh, obj.ndim == 4)
     obj_hats = [sharded_spectrum(obj * w, mesh) for w in _blend_rows(vol[0], anchors + off_z, mesh, data.dtype)]
+    planes, steps = synthesizes_planes(model, vol), anchors * model.config.dz
+
+    def depths(inputs):
+        """``depth_anchor_psfs``'s depths from a cell's copy of the DEPTH family."""
+        return {"depths": inputs.depth[1] + torch.as_tensor(steps, dtype=inputs.depth.dtype,
+                                                             device=inputs.depth.device)}
 
     def cost(p):
-        psfs = depth_anchor_psfs(model, p, anchors, depth0=p.depth[1])
-        if tuple(psfs.shape[1:]) != vol:
-            psfs = pad_fft_kernel(psfs, vol)
+        if planes:
+            psfs = psf_slabs(model, p, mesh, depths)
+        else:
+            whole = pad_fft_kernel(depth_anchor_psfs(model, p, anchors, depth0=p.depth[1]), vol)
+            psfs = [shard(h, mesh, False) for h in whole]
         pred = None
-        for i, obj_hat in enumerate(obj_hats):
-            term = sharded_convolve(shard(psfs[i], mesh, False), obj_hat, vol, mesh)
+        for psf, obj_hat in zip(psfs, obj_hats):
+            term = sharded_convolve(psf, obj_hat, vol, mesh)
             pred = term if pred is None else pred + term
         r = pred - data
         return 0.5 * (r * r if weights is None else weights * r * r).sum()

@@ -42,10 +42,17 @@ kinds differ:
 - :func:`shard` of a tensor that every rank holds whole cuts this rank's
   tiles (``make_array_from_callback``); its gradient, where the tensor has
   one, is the sum over every rank's tiles (:class:`_Cut`);
+- :func:`replicate` gives each cell a copy of small tensors that every cell
+  needs whole (a PSF's pupil, from which each cell synthesizes its own
+  planes); their gradient is every cell's, gathered and added in the order
+  of the cells on every rank (:class:`_Replicate`), on both kinds of mesh;
 - :func:`gather` gives every rank the whole (``process_allgather``);
 - a sum or maximum gathers the cells' parts and adds them on every rank in
   the order above, so every rank gets the same bits (:meth:`Mesh.add`), and
   the optimizer's variable is a ``treeutil.Shares`` that sums its dots so;
+  a replica's part of a sum is passed and takes no part, so that its
+  rank's backward reaches the replica (with a zero gradient) and with it
+  every collective of the backward that the other ranks run;
 - an unbatched volume has a replica on every mesh row, computed there (JAX
   replicates it over the batch axis too), instead of copies of row 0's; its
   sums count row 0's tiles, and an unbatched variable's replicas move with
@@ -65,7 +72,7 @@ from microtipi_tpu_torch.optim import treeutil
 from microtipi_tpu_torch.parallel.collectives import all_cells, cell_values, exchange
 
 __all__ = ["BATCH_AXIS", "Z_AXIS", "Mesh", "ShardedVolume", "VolumeSharding", "constrain_volume", "gather",
-           "make_mesh", "send", "shard", "shard_rows", "volume_sharding"]
+           "make_mesh", "replicate", "send", "shard", "shard_rows", "volume_sharding"]
 
 BATCH_AXIS = "batch"
 Z_AXIS = "z"
@@ -291,9 +298,10 @@ class ShardedVolume:
 
     def sum(self) -> torch.Tensor:
         """The sum of every element, a 0-dim tensor on the mesh's first device:
-        each tile's sum, added batch-major then by z."""
-        cells = self.sum_cells()
-        return self.mesh.add({c: self.tiles[c].sum() for c in self.mesh.local(cells)}, cells, self.dtype)
+        each tile's sum, added batch-major then by z. A replica's tile (an
+        unbatched volume's on a row other than 0, over processes) adds
+        nothing and gets a zero gradient."""
+        return self.mesh.add({c: self.tiles[c].sum() for c in self.local_cells()}, self.sum_cells(), self.dtype)
 
     def sum_frames(self) -> "ShardedVolume":
         """The sum over the leading (frame) axis of a batched volume, an
@@ -432,6 +440,59 @@ class _Cut(torch.autograd.Function):
         for b, z in cells:
             cut(g, b, z).add_(every[(b, z)].to(device))
         return None, None, None, g
+
+
+class _Replicate(torch.autograd.Function):
+    """A copy of ``tensors`` on each of this rank's ``cells``' devices, one
+    output a tensor and a cell (this rank's cells in order). The gradient of
+    each tensor is every cell's gradient of its copy, gathered
+    (``collectives.all_cells``, kind "pupil": a cell's gradients as one
+    vector) and added in the order of ``cells`` on every rank alike, on the
+    tensors' device, in float64 and rounded once to the tensors' dtype (a
+    float32 sum in cell order rounds each addition, and a float32 blind loop
+    follows its gradient's last bits): the same bits on a mesh driven by one
+    process and over processes. Forward mode takes the tangents' copies."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(mesh, cells, *tensors):
+        return tuple(send(t, mesh.device(*c)) for c in mesh.local(cells) for t in tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        mesh, cells, *tensors = inputs
+        ctx.args, ctx.like = (mesh, cells), [(t.shape, t.device) for t in tensors]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, cells = ctx.args
+        n, local = len(ctx.like), mesh.local(cells)
+        parts = {c: torch.cat([g.reshape(-1) for g in grads[k * n:(k + 1) * n]]) for k, c in enumerate(local)}
+        if mesh.distributed:
+            parts = all_cells(mesh, parts, cells, "pupil")
+        device, dtype = ctx.like[0][1], parts[cells[0]].dtype
+        total = parts[cells[0]].to(device, torch.float64)
+        for c in cells[1:]:
+            total = total + parts[c].to(device, torch.float64)
+        sizes = [shape.numel() for shape, _ in ctx.like]
+        return (None, None, *(g.reshape(shape).to(dev, dtype) for g, (shape, dev) in zip(total.split(sizes), ctx.like)))
+
+    @staticmethod
+    def jvp(ctx, _mesh, _cells, *tangents):
+        mesh, cells = ctx.args
+        return tuple(None if t is None else send(t, mesh.device(*c)) for c in mesh.local(cells) for t in tangents)
+
+
+def replicate(tensors, mesh: Mesh, cells) -> dict:
+    """A copy of ``tensors`` (a tuple, or a named tuple, of tensors of one
+    dtype that every cell needs whole) on each of this rank's ``cells``'
+    devices, keyed by cell, as ``tensors``' type; differentiable (see
+    :class:`_Replicate`: every rank must reach its backward)."""
+    n, local = len(tensors), mesh.local(cells)
+    flat = _Replicate.apply(mesh, list(cells), *tensors)
+    make = getattr(tensors, "_make", tuple)
+    return {c: make(flat[k * n:(k + 1) * n]) for k, c in enumerate(local)}
 
 
 def shard_rows(a: torch.Tensor, mesh: Mesh) -> ShardedVolume:

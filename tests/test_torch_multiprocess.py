@@ -13,7 +13,11 @@ step, fit and blind loop, and one volume on (2, 2), a replica a row). A
 second spawn of four ranks, one cell each, runs four of the cases (the
 moves' tags must agree across ranks that see different moves; the ADMM
 ring's wrap crosses ranks) and three of the options (a rank whose cell reads
-nothing from the others must still reach the exchange's backward). One spawn
+nothing from the others must still reach the exchange's backward). Both
+spawns also run one PSF fit evaluation (cost and gradient) of one volume on
+(1, 4) and on (2, 2), and one of the depth-varying fit, and count the bytes
+each rank sent: each cell synthesizes its own planes of the PSF, so only the
+pupil's gradient crosses ranks, never a PSF slab. One spawn
 of each serves the module, and the parent computes its references while
 they run, then joins the ranks with a deadline and kills them past it.
 
@@ -125,7 +129,8 @@ def runs(tmp_path_factory):
     try:
         one = {**worker.run_cases(worker.one_process_mesh), **worker.run_options(worker.one_process_mesh),
                **worker.run_solvers(worker.one_process_mesh), "reductions": worker.run_reductions(worker.one_process_mesh),
-               "slab_entries": worker.run_slab_entries(worker.one_process_mesh)}
+               "slab_entries": worker.run_slab_entries(worker.one_process_mesh),
+               "fit_evaluations": worker.run_fit_evaluations(worker.one_process_mesh)}
         refs = _jax_refs()
     finally:
         done = results(two, started[0]), results(four, started[1])
@@ -320,3 +325,21 @@ def test_admm_over_processes_runs_the_slab_entries_only(ranks, one_process):
         got = r["slab_entries"]
         assert (got["split"], got["rhs"], got["cells"]) == (12, 12, 2) and got["halo_bytes"] > 0, got
     assert one_process["slab_entries"]["split"] == sum(r["slab_entries"]["split"] for r in ranks) == 24
+
+
+@pytest.mark.parametrize("world", ["two", "four"])
+@pytest.mark.parametrize("case", ["fit_1x4", "fit_2x2", "depthvar_fit_1x4"])
+def test_a_fit_evaluation_sends_the_pupils_gradient_and_no_psf_slab(case, world, runs):
+    """One PSF fit evaluation (cost and gradient) on 2 and 4 ranks: each cell
+    synthesizes its own planes, so no PSF slab crosses ranks (0 bytes of kind
+    "cells"); what crosses is each cell's gradient of the pupil (kind
+    "pupil"), at most 3 * Ny * Nx values a cell to each other rank; every
+    rank gets the one-process mesh's cost and gradient bit for bit (on (2, 2)
+    the replica row's gradient is zero and changes no bit)."""
+    ranks, want = runs[world], runs["one"]["fit_evaluations"][case]
+    bound = 3 * worker.SHAPE[1] * worker.SHAPE[2] * 8
+    for r in ranks:
+        got = r["fit_evaluations"][case]
+        assert got["sent"].get("cells", 0) == 0, got["sent"]
+        assert 0 < got["sent"]["pupil"] <= got["cells"] * (len(ranks) - 1) * bound, got["sent"]
+        assert torch.equal(_bits(got["f"]), _bits(want["f"])) and torch.equal(_bits(got["grads"]), _bits(want["grads"]))

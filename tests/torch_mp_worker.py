@@ -262,6 +262,34 @@ def run_reductions(mesh_of) -> dict:
             "rows": gather(shard_rows(gains, mesh))}
 
 
+def run_fit_evaluations(mesh_of) -> dict:
+    """One PSF fit evaluation, cost and gradient, on the meshes ``mesh_of(batch,
+    z)`` makes: ``sharded_fit_cost`` of one volume on (1, 4) and on (2, 2)
+    (a replica a row), and the depth-varying fit's cost on (1, 4); each with
+    the bytes this rank sent by kind and its number of cells."""
+    from microtipi_tpu_torch.parallel import collectives
+    from microtipi_tpu_torch.parallel.psf_fit import sharded_fit_cost
+
+    model, _, data, _ = scene()
+    gl, _, obj, ddata = depthvar_scene()
+    p = model.init_params()._replace(phase=torch.tensor([0.3, -0.1, 0.05], dtype=torch.float64))
+    costs = {"fit_1x4": (p, lambda: sharded_fit_cost(model, data, obj, None, mesh_of(1, 4)), (1, 4)),
+             "fit_2x2": (p, lambda: sharded_fit_cost(model, data, obj, None, mesh_of(2, 2)), (2, 2)),
+             "depthvar_fit_1x4": (gl.init_params(), lambda: sdv.sharded_depthvar_fit_cost(
+                 gl, ddata, obj, None, mesh_of(1, 4), ANCHORS), (1, 4))}
+    out = {}
+    for name, (params, make, shape) in costs.items():
+        cost = make()
+        leaves = [t.detach().clone().requires_grad_(True) for t in params]
+        collectives.sent.clear()
+        f = cost(type(params)(*leaves))
+        grads = torch.autograd.grad(f, leaves, allow_unused=True, materialize_grads=True)
+        mesh = mesh_of(*shape)
+        out[name] = {"f": f.detach(), "grads": torch.cat([g.reshape(-1) for g in grads]),
+                     "sent": dict(collectives.sent), "cells": len(mesh.local(mesh.cells()))}
+    return out
+
+
 def one_process_mesh(batch: int, z: int):
     return make_mesh(batch, z, devices=[torch.device("cpu")] * (batch * z))
 
@@ -269,9 +297,10 @@ def one_process_mesh(batch: int, z: int):
 def child(rank: int, world: int, init: str, out: str, case: str) -> None:
     """Rank ``rank`` of ``world``: ``case`` "jobs" runs :func:`run_cases`,
     :func:`run_options`, :func:`run_solvers`, :func:`run_reductions` and
-    :func:`run_slab_entries` on meshes over the ranks and saves
-    ``rank<r>.pt`` in ``out``; "few" runs :data:`FEW` of the cases and
-    solvers and :data:`FEW_OPTIONS` of the options; "fail"
+    :func:`run_slab_entries` and :func:`run_fit_evaluations` on meshes over
+    the ranks and saves ``rank<r>.pt`` in ``out``; "few" runs :data:`FEW` of
+    the cases and solvers, :data:`FEW_OPTIONS` of the options and the fit
+    evaluations; "fail"
     makes rank 1 raise before its first collective. A failure leaves its
     traceback in ``rank<r>.err`` and exits non-zero."""
     torch.set_num_threads(1)
@@ -291,6 +320,7 @@ def child(rank: int, world: int, init: str, out: str, case: str) -> None:
             else:
                 got = {**run_cases(mesh_of), **run_options(mesh_of), **run_solvers(mesh_of)}
                 got.update(reductions=run_reductions(mesh_of), slab_entries=run_slab_entries(mesh_of))
+            got.update(fit_evaluations=run_fit_evaluations(mesh_of))
             torch.save(got, pathlib.Path(out) / f"rank{rank}.pt")
         finally:
             dist.destroy_process_group()
