@@ -167,7 +167,10 @@ raises and the script exits non-zero:
     entries are all ``cuda:0``: phase 3's 256^3 PSF from each cell's own
     planes on (1, 4), put together, against ``compute_psf`` (bit for bit, or
     the largest gap in ulps), and a fit evaluation's float32 gradient by
-    those planes and by the whole synthesis against float64; the three slab
+    those planes and by the whole synthesis against float64; the blind
+    loop's object step at 256^3 on (1, 4), its PSF by each cell's planes and
+    by the whole synthesis and cut (its peak memory and its synthesis's,
+    walls, ``deconv_f`` of both routes bit for bit or within 1e-4); the three slab
     entries (the TV kernel, the ADMM split update and rhs on a z-slab with
     its neighbours' planes) against their plain versions and, put together,
     against the whole-volume launches at 256^3 in 4 slabs and 2 x 256^3 in 2
@@ -197,7 +200,9 @@ raises and the script exits non-zero:
     TV slab launches by rank; one wide-field and one depth-varying PSF fit
     evaluation, each cell synthesizing its own planes (no ``cells`` bytes,
     the pupil's gradient within its bound) beside the whole synthesis and
-    cut, with each rank's peak memory.
+    cut, with each rank's peak memory; the blind loop's object step on each
+    rank by both routes (no ``cells`` or ``pupil`` byte by each cell's
+    planes, each rank's peaks and walls beside phase 30's).
 
 The main paths are phases 3, 13, 15, 17, 18, 20, 21, 22's superres and 28 (the
 single-volume TV kernel), phases 7-8, 14, 15, 18, 19, 22, 23 and 24 (the
@@ -4638,6 +4643,111 @@ def mesh_blind_config():
         fit=PsfFitConfig(grtol=0.0))
 
 
+#: Object steps of :func:`_object_step_reading`'s loop: the first a warm-up (its cuFFT plans), then the ones read.
+OBJECT_ROUNDS = 3
+
+
+def _object_step_reading(model, data, mesh, dev: torch.device, whole: bool = False) -> dict:
+    """Phase 3's blind loop on ``mesh`` cut to OBJECT_ROUNDS object steps (every
+    family's fit budget 0, so no fit runs; the data as the start), each object
+    step read between CUDA synchronizations: its wall, this process's memory on
+    ``dev`` held before it and its peak during it (``torch.cuda.max_memory_allocated``,
+    reset just before), the bytes this rank sent by kind (``collectives.sent``,
+    cleared just before), and the wall and peak of its PSF synthesis, the step's
+    first work (the peak read just after it is the synthesis's). The PSF by each
+    cell's planes (``parallel.psf_fit.psf_slabs``), or with ``whole`` the route
+    of a model that does not synthesize plane by plane: the whole PSF on every
+    rank, cut by the solver. Returns the readings by step and the loop's
+    ``deconv_f``."""
+    from microtipi_tpu_torch.parallel import blind as pb
+    from microtipi_tpu_torch.parallel import collectives
+
+    cfg = dataclasses.replace(mesh_blind_config(), loops=OBJECT_ROUNDS, psf_max_iter=(0, 0), joint_fit=False)
+    plain = pb.run_blind_loop, pb.psf_slabs, pb.plane_by_plane
+    steps, synth = [], {}
+
+    def synchronized(fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if "t0" in synth:  # the first synthesis of a step being read
+                torch.cuda.synchronize(dev)
+                synth.update(ms=(time.perf_counter() - synth.pop("t0")) * 1e3,
+                             peak=torch.cuda.max_memory_allocated(dev))
+            return out
+        return run
+
+    def loop(config, f_dtype, x0, params0, object_step, *rest):
+        def read(x, params, mu):
+            torch.cuda.synchronize(dev)
+            collectives.sent.clear()
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            synth.clear()
+            t0 = synth["t0"] = time.perf_counter()
+            out = object_step(x, params, mu)
+            torch.cuda.synchronize(dev)
+            steps.append({"wall": time.perf_counter() - t0, "before": before,
+                          "peak": torch.cuda.max_memory_allocated(dev), "sent": dict(collectives.sent),
+                          "synth_ms": synth["ms"], "synth_peak": synth["peak"]})
+            return out
+        return plain[0](config, f_dtype, x0, params0, read, *rest)
+
+    pb.run_blind_loop, pb.psf_slabs = loop, synchronized(plain[1])
+    model.compute_psf = synchronized(type(model).compute_psf.__get__(model))
+    if whole:
+        pb.plane_by_plane = lambda m: False
+    try:
+        res = pb.sharded_blind_deconvolve(data, model, mesh, config=cfg)
+    finally:
+        pb.run_blind_loop, pb.psf_slabs, pb.plane_by_plane = plain
+        del model.compute_psf
+    return {"steps": steps, "deconv_f": res.deconv_f}
+
+
+def _object_step_summary(r: dict) -> dict:
+    """Of :func:`_object_step_reading`'s steps after the warm-up: the median
+    walls (s, ms) and the largest peaks (MiB, above what was held and in all)."""
+    read, mib = r["steps"][1:], 2.0 ** -20
+    return {"wall": float(np.median([t["wall"] for t in read])),
+            "synth_ms": float(np.median([t["synth_ms"] for t in read])),
+            "peak": max(t["peak"] for t in read) * mib, "held": max(t["before"] for t in read) * mib,
+            "step_peak": max(t["peak"] - t["before"] for t in read) * mib,
+            "synth_peak": max(t["synth_peak"] - t["before"] for t in read) * mib,
+            "sent": {k: sum(t["sent"].get(k, 0) for t in read) for k in SENT_KINDS}}
+
+
+def _object_step_text(s: dict) -> str:
+    return (f"step {s['wall']:.4f} s, peak {s['peak']:.1f} MiB (+{s['step_peak']:.1f} over {s['held']:.1f} held), "
+            f"PSF synthesis {s['synth_ms']:.3f} ms (+{s['synth_peak']:.1f} MiB)")
+
+
+def phase30_object_step(card: str) -> dict:
+    """The blind loop's object step on (1, SLABS) of cuda:0 at 256^3, phase 3's
+    scene and loop (:func:`_object_step_reading`), its PSF by each cell's
+    planes and by the whole synthesis and cut: the object step's and its
+    synthesis's peak memory and walls, and the loop's ``deconv_f`` by both
+    routes, bit for bit or within SLAB_F_RTOL. Returns both readings (phase
+    31's one-process references)."""
+    dev = torch.device("cuda", 0)
+    model, bdata, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE)
+    mesh = card_mesh(1, SLABS)
+    got = {route: _object_step_reading(model, bdata, mesh, dev, whole=route == "whole")
+           for route in ("whole", "planes")}
+    f, f0 = got["planes"]["deconv_f"], got["whole"]["deconv_f"]
+    bitwise, gap = _same_bits(f, f0), _rel_f(f, f0)
+    if not (bitwise or gap <= SLAB_F_RTOL) or not np.isfinite(f).all():
+        raise AssertionError(f"the object steps fed each cell's planes: deconv_f {f}, by the whole PSF cut {f0}")
+    s = {route: _object_step_summary(r) for route, r in got.items()}
+    if not s["planes"]["synth_peak"] < s["whole"]["synth_peak"]:
+        raise AssertionError(f"the object step's PSF synthesis by each cell's planes peaked at +"
+                             f"{s['planes']['synth_peak']:.1f} MiB, the whole PSF's at +{s['whole']['synth_peak']:.1f}")
+    log(30, f"[{card}] the blind loop's object step of {SHAPE} on (1, {SLABS}) of cuda:0 ({OBJECT_ROUNDS} steps of "
+            f"phase 3's loop without fits; medians and largest peaks of the {OBJECT_ROUNDS - 1} after a warm-up): by "
+            f"each cell's planes {_object_step_text(s['planes'])}; by the whole PSF synthesized and cut "
+            f"{_object_step_text(s['whole'])}; deconv_f {'bit for bit' if bitwise else f'within {gap:.3g} rel'}")
+    return got
+
+
 #: The PSF's slabs put together against ``compute_psf`` on the card (float32): relative L2 at most this, where
 #: cuFFT plans the slabs' batches of planes otherwise than the whole volume's.
 PSF_SLABS_RTOL = 1e-6
@@ -4731,6 +4841,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
     dev, nvox = torch.device("cuda", 0), float(np.prod(SHAPE))
     paths, refs = {}, {}
     phase30_psf_slabs(card)
+    refs["object_step"] = phase30_object_step(card)
     _, data, psf = bench_scene(SHAPE, dev, torch.float32)
     cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
     dense_wall, dense = _wall(lambda: deconvolve(data, psf, config=cfg))
@@ -5136,6 +5247,9 @@ def _mp_jobs(group, devices) -> dict:
     bres = run("blind", lambda: sharded_blind_deconvolve(bdata, model, mesh, config=mesh_blind_config()))
     out["blind"].update(deconv_f=bres.deconv_f, fit_f=bres.fit_f, phase=bres.params.phase.cpu(),
                         finite=finite(gather(bres.obj)))
+    # The blind loop's object step on this rank, its PSF by each cell's planes and by the whole synthesis and cut.
+    out["object_step"] = {route: _object_step_reading(model, bdata, mesh, dev, whole=route == "whole")
+                          for route in ("whole", "planes")}
     # One PSF fit evaluation of the blind loop's last fit: the bench model, the data, the loop's object.
     out["fit_evaluation"] = {route: _fit_evaluation(lambda: sharded_fit_cost(model, bdata, bres.obj, None, mesh),
                                                     bres.params, dev, whole=route == "whole")
@@ -5266,6 +5380,7 @@ def _mp_check(name: str, ranks: list, refs: dict, card: str) -> dict:
                 f"{max(walls):.3f} s (ranks {[round(w, 3) for w in walls]}; one process {refs[job]['wall']:.3f} s); "
                 f"slab launches by rank: TV {[r[job]['tv'] for r in ranks]}, split, rhs {slab}; bytes sent between "
                 f"ranks {sent}")
+    _mp_object_step(name, ranks, refs["object_step"], card)
     per_eval = {k: sum(r["per_evaluation"].get(k, 0) for r in ranks) for k in SENT_KINDS}
     log(31, f"[{card}] {name}: one objective evaluation at x0 moved {per_eval} bytes between ranks (halo planes, "
             f"the distributed FFT's transposes, the reductions' gathered values)")
@@ -5292,6 +5407,33 @@ def _mp_check(name: str, ranks: list, refs: dict, card: str) -> dict:
         if not all(torch.equal(e["grads"].cpu(), g.cpu()) and e["f"] == ev["planes"][0]["f"] for e in ev["planes"]):
             raise AssertionError(f"{name}: the ranks' {what} differ")
     return counts
+
+
+def _mp_object_step(name: str, ranks: list, ref: dict, card: str) -> None:
+    """Each rank's reading of the blind loop's object step
+    (:func:`_object_step_reading`) beside phase 30's one-process one, by
+    route: no PSF byte crosses ranks (0 bytes of kinds "cells" and "pupil"),
+    the ranks' ``deconv_f`` agree bit for bit and hold phase 30's by the same
+    route (bit for bit, or within SLAB_F_RTOL) and the whole route's; log
+    each rank's peaks and walls."""
+    for route in ("planes", "whole"):
+        f = [r["object_step"][route]["deconv_f"] for r in ranks]
+        want = ref[route]["deconv_f"]
+        if not all(_same_bits(g, f[0]) for g in f) or not (_same_bits(f[0], want) or _rel_f(f[0], want) <= SLAB_F_RTOL):
+            raise AssertionError(f"{name}: the object steps' deconv_f by {route} {f}, one process {want}")
+        s = [_object_step_summary(r["object_step"][route]) for r in ranks]
+        if route == "planes" and any(t["sent"]["cells"] or t["sent"]["pupil"] for t in s):
+            raise AssertionError(f"{name}: an object step fed each cell's planes moved PSF bytes between ranks: "
+                                 f"{[t['sent'] for t in s]}")
+        one, bitwise = _object_step_summary(ref[route]), _same_bits(f[0], want)
+        how = "each cell synthesizing its own planes" if route == "planes" else "the whole PSF synthesized and cut"
+        log(31, f"[{card}] {name}: the blind loop's object step of {SHAPE} on (1, {SLABS}), {how}, by rank: " + "; ".join(f"rank {k}: {_object_step_text(t)}" for k, t in enumerate(s))
+                + f"; bytes between ranks {[t['sent'] for t in s]}; deconv_f "
+                  f"{'bit for bit' if bitwise else f'within {_rel_f(f[0], want):.3g} rel of'} the one-process run's "
+                  f"(one process: {_object_step_text(one)})")
+    f, f0 = ranks[0]["object_step"]["planes"]["deconv_f"], ranks[0]["object_step"]["whole"]["deconv_f"]
+    if not (_same_bits(f, f0) or _rel_f(f, f0) <= SLAB_F_RTOL):
+        raise AssertionError(f"{name}: the object steps' deconv_f by each cell's planes {f}, by the whole PSF {f0}")
 
 
 def _mp_first_launch(ranks: list, data_x0: torch.Tensor) -> tuple[float, list]:

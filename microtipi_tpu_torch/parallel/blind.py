@@ -12,6 +12,16 @@ Any stack size: where Nz or Ny is not a multiple of the mesh's z axis (the
 distributed FFT needs both), the loop runs on the rounded-up grid with zero
 weight in the padding, the dense crop operator's semantics; the returned
 object lives on that grid (``crop_trailing`` recovers the data window).
+
+The object step's PSF, and the Wiener start's, is z-sharded on the loop's
+grid, as the JAX module's GSPMD lays it out: where the model synthesizes
+plane by plane (``parallel.psf_fit.plane_by_plane``) each cell builds
+its own planes (``psf_slabs``, zero-padded in FFT layout on a padded grid),
+so no rank holds the whole PSF or its complex field, and no PSF byte moves
+between ranks; the solver and the weights' re-estimate take its spectrum in
+place. The other families synthesize it whole and cut it. The result's
+``psf`` is the whole PSF (``BlindDeconvResult``'s), synthesized once on
+every rank.
 """
 
 from __future__ import annotations
@@ -24,8 +34,8 @@ import torch
 from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig, BlindDeconvResult, _bead_terms, blind_fits, run_blind_loop
 from microtipi_tpu_torch.parallel.deconv import crop_trailing, pad_trailing, sharded_deconvolve, sharded_wiener
 from microtipi_tpu_torch.parallel.fft import sharded_convolve, sharded_spectrum
-from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, constrain_volume, gather, shard
-from microtipi_tpu_torch.parallel.psf_fit import sharded_fit_cost
+from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, ShardedVolume, constrain_volume, gather, shard
+from microtipi_tpu_torch.parallel.psf_fit import plane_by_plane, psf_slabs, sharded_fit_cost
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
 __all__ = ["sharded_blind_deconvolve"]
@@ -63,13 +73,16 @@ class _Grid:
         window, the padded grid masks it."""
         return x * self.window if self.padded else x
 
+    def on_grid(self, psf):
+        """The object step's ``psf`` on the loop's grid: a sharded one is
+        there; a whole one is zero-padded in FFT layout to it."""
+        return psf if isinstance(psf, ShardedVolume) else pad_fft_kernel(psf, self.var_shape)
+
     def start(self, psf0, init: str):
-        """Round 1's object: the data or its Wiener estimate, clamped at 0."""
+        """Round 1's object: the data or its Wiener estimate under ``psf0()``
+        (the object step's PSF, :meth:`on_grid`), clamped at 0."""
         if init == "wiener":
-            if self.padded:
-                x0 = sharded_wiener(self.d_fit, pad_fft_kernel(psf0, self.var_shape), self.mesh)
-            else:
-                x0 = sharded_wiener(self.data, psf0, self.mesh)
+            x0 = sharded_wiener(self.d_fit if self.padded else self.data, self.on_grid(psf0()), self.mesh)
         else:
             x0 = shard(pad_trailing(gather(self.data), self.var_shape), self.mesh, self.batched)
         return x0.map(lambda t: torch.clamp_min(t, 0.0))
@@ -111,12 +124,19 @@ def sharded_blind_deconvolve(
         raise ValueError("the sharded admm object engine takes one mesh-divisible (Nz, Ny, Nx) volume "
                          "(parallel.admm); batched/auto-padded sharded loops run the VMLMB object step")
 
+    planes = plane_by_plane(model)
+
+    def object_psf(params):
+        """The object step's PSF: each cell's planes on the loop's grid, or
+        the whole PSF on the model's."""
+        with torch.no_grad():
+            return psf_slabs(model, params, mesh, grid=grid.var_shape)[0] if planes else model.compute_psf(params)
+
     with torch.no_grad():
-        x0 = grid.start(model.compute_psf(params0), config.init)
+        x0 = grid.start(lambda: object_psf(params0), config.init)
 
     def object_step(x, params, mu):
-        with torch.no_grad():
-            psf = model.compute_psf(params)
+        psf = object_psf(params)
         cfg_i = dcfg if mu is None else dataclasses.replace(dcfg, mu=mu)
         if config.deconv_engine == "admm":
             from microtipi_tpu_torch.parallel.admm import sharded_admm_deconvolve
@@ -134,7 +154,7 @@ def sharded_blind_deconvolve(
         # Model prediction H x (deconvolver.getModel()); the re-estimated
         # weights feed only the PSF step (BlindDeconvJob.java:109-111).
         with torch.no_grad():
-            k_hat = sharded_spectrum(pad_fft_kernel(psf, grid.var_shape), mesh)
+            k_hat = sharded_spectrum(grid.on_grid(psf), mesh)
             return grid.refit_weights(weight_updater, sharded_convolve(x, k_hat, grid.var_shape, mesh))
 
     def cost_of(x, w):

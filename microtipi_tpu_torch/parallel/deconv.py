@@ -407,7 +407,10 @@ def make_sharded_objective(psf, data, weights, config: DeconvolutionConfig, mesh
 
     ``data`` is (Nz, Ny, Nx) or batched (B, Nz, Ny, Nx), a tensor or a
     sharded volume; ``psf`` one volume at the data shape or, for batched
-    data, a (B,) + volume stack of per-frame kernels. Uniform weights take
+    data, a (B,) + volume stack of per-frame kernels; a sharded ``psf`` on
+    the variable's grid (``parallel.psf_fit.psf_slabs``) is the kernel
+    already zero-padded there, and its spectrum is taken from its tiles in
+    place. Uniform weights take
     the 2-FFT quadratic form (``accurate``: the residual form); weights, or
     ``mixing`` (a (C_det, K) bleed-through matrix: the variable is the K dye
     volumes), the explicit residual; ``data_term="poisson"`` the generalized
@@ -444,14 +447,14 @@ def sharded_objective(psf, data, weights, config: DeconvolutionConfig, mesh: Mes
             raise ValueError(f"mixing must be ({data.shape[0]}, K) (rows = the data's detected channels), "
                              f"got {tuple(mixm.shape)}")
     n_kernels = mixm.shape[1] if mixm is not None else (data.shape[0] if batched else None)
+    var_shape = tuple(config.var_shape) if config.var_shape is not None else vol_shape
     if per_channel:
         if not batched:
             raise ValueError("per-frame kernels need batched (B, Nz, Ny, Nx) data")
         if psf.shape[0] != n_kernels or tuple(psf.shape[1:]) != vol_shape:
             raise ValueError(f"per-frame kernels must be {(n_kernels,) + vol_shape}, got {tuple(psf.shape)}")
-    elif tuple(psf.shape) != vol_shape:
-        raise ValueError("sharded mode requires psf shape == volume shape")
-    var_shape = tuple(config.var_shape) if config.var_shape is not None else vol_shape
+    elif tuple(psf.shape) != vol_shape and not (isinstance(psf, ShardedVolume) and tuple(psf.shape) == var_shape):
+        raise ValueError("sharded mode requires psf shape == volume shape (or, sharded, == var_shape)")
     if mu_t > 0 and not batched:
         raise ValueError("mu_t couples the leading batch axis; data must be (T, Nz, Ny, Nx)")
     if joint_channels:
@@ -467,6 +470,8 @@ def sharded_objective(psf, data, weights, config: DeconvolutionConfig, mesh: Mes
     mix = (lambda hx: hx) if mixm is None else _mixer(mixm, mesh)
 
     def spectrum(p):
+        if isinstance(p, ShardedVolume) and tuple(p.shape[-3:]) == var_shape:
+            return sharded_spectrum(p, mesh)  # the slabs in place (parallel.psf_fit.psf_slabs)
         kernel = gather(p)
         kernel = pad_fft_kernel(kernel, var_shape) if tuple(kernel.shape[-3:]) != var_shape else kernel
         return sharded_spectrum(shard(kernel, mesh, batched=per_channel), mesh)

@@ -29,7 +29,7 @@ from microtipi_tpu_torch.parallel.blind import _Grid
 from microtipi_tpu_torch.parallel.deconv import _sharded_fun, pad_trailing, sharded_regularization, sharded_start
 from microtipi_tpu_torch.parallel.fft import sharded_convolve, sharded_spectrum
 from microtipi_tpu_torch.parallel.mesh import Mesh, ShardedVolume, gather, shard
-from microtipi_tpu_torch.parallel.psf_fit import psf_slabs, synthesizes_planes
+from microtipi_tpu_torch.parallel.psf_fit import plane_by_plane, psf_slabs, synthesizes_planes
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
 __all__ = [
@@ -44,6 +44,31 @@ def _blend_rows(nz: int, anchors, mesh: Mesh, dtype) -> list[ShardedVolume]:
     columns, each slab holding its own planes' weights."""
     zw = torch.as_tensor(depth_weights(nz, anchors), dtype=dtype)
     return [shard(row[:, None, None], mesh, False) for row in zw]
+
+
+def _on_grid(psfs, var_shape) -> list:
+    """The K anchor PSFs on the variable's grid: K sharded volumes there as
+    they are, or a (K,) + volume stack zero-padded in FFT layout to it."""
+    if not isinstance(psfs, ShardedVolume) and all(isinstance(h, ShardedVolume) for h in psfs):
+        if any(tuple(h.shape) != var_shape for h in psfs):
+            raise ValueError(f"sharded anchor PSFs must lie on the variable's grid {var_shape}, got "
+                             f"{[tuple(h.shape) for h in psfs]}")
+        return list(psfs)
+    psfs = gather(psfs)
+    return list(pad_fft_kernel(psfs, var_shape) if tuple(psfs.shape[1:]) != var_shape else psfs)
+
+
+def _anchor_depths(model, anchors):
+    """``field_of`` of ``parallel.psf_fit.psf_slabs`` for the K anchor PSFs
+    of ``jobs.depthvar.depth_anchor_psfs`` (``depth0`` the parameters' depth)
+    from a cell's copy of the plane inputs."""
+    steps = np.asarray(anchors, np.float64) * model.config.dz
+
+    def depths(inputs):
+        return {"depths": inputs.depth[1] + torch.as_tensor(steps, dtype=inputs.depth.dtype,
+                                                             device=inputs.depth.device)}
+
+    return depths
 
 
 def _depthvar_model(k_hats, rows, shape, mesh: Mesh):
@@ -68,22 +93,21 @@ def sharded_deconvolve_depthvar(
 ) -> DeconvolutionResult:
     """The depth-varying object step on the mesh (``depthvar.py:44-130``):
     ``data`` (Nz, Ny, Nx) or batched (B, Nz, Ny, Nx); ``psfs`` the (K,) +
-    volume corner-origin anchor stack shared by the batch; ``anchors`` their
-    z indices on the data grid (default K evenly spaced). The Gaussian data
-    term (the JAX module's only one). The result's ``x`` is a sharded volume."""
+    volume corner-origin anchor stack shared by the batch, or K z-sharded
+    volumes on the variable's grid (``parallel.psf_fit.psf_slabs``), whose
+    spectra are taken from their tiles in place; ``anchors`` their z indices
+    on the data grid (default K evenly spaced). The Gaussian data term (the
+    JAX module's only one). The result's ``x`` is a sharded volume."""
     if config.data_term != "gaussian":
         raise ValueError("the sharded depth-varying step has the Gaussian data term only")
     vol_shape = tuple(data.shape[-3:])
     var_shape = tuple(config.var_shape) if config.var_shape is not None else vol_shape
     batched = data.ndim == 4
-    k = psfs.shape[0]
+    k_hats = [sharded_spectrum(h, mesh) for h in _on_grid(psfs, var_shape)]
+    k = len(k_hats)
     anchors = np.linspace(0.0, vol_shape[0] - 1.0, k) if anchors is None else np.asarray(anchors, np.float64)
     if anchors.shape != (k,):
         raise ValueError(f"need one anchor per kernel, got {anchors.shape} for K={k}")
-    psfs = gather(psfs)
-    if tuple(psfs.shape[1:]) != var_shape:
-        psfs = pad_fft_kernel(psfs, var_shape)
-    k_hats = [sharded_spectrum(psfs[i], mesh) for i in range(k)]
     off_z = (var_shape[0] - vol_shape[0]) // 2
     rows = _blend_rows(var_shape[0], anchors + off_z, mesh, data.dtype)
     if weights is not None:
@@ -132,12 +156,7 @@ def sharded_depthvar_fit_cost(model, data, obj, weights, mesh: Mesh, anchors, of
     anchors = np.asarray(anchors, np.float64)
     obj = shard(obj, mesh, obj.ndim == 4)
     obj_hats = [sharded_spectrum(obj * w, mesh) for w in _blend_rows(vol[0], anchors + off_z, mesh, data.dtype)]
-    planes, steps = synthesizes_planes(model, vol), anchors * model.config.dz
-
-    def depths(inputs):
-        """``depth_anchor_psfs``'s depths from a cell's copy of the DEPTH family."""
-        return {"depths": inputs.depth[1] + torch.as_tensor(steps, dtype=inputs.depth.dtype,
-                                                             device=inputs.depth.device)}
+    planes, depths = synthesizes_planes(model, vol), _anchor_depths(model, anchors)
 
     def cost(p):
         if planes:
@@ -203,7 +222,10 @@ def sharded_blind_deconvolve_depthvar(
     optics, mesh-odd Nz/Ny padded with zero weight, every
     ``BlindDeconvConfig`` knob but the ADMM engine and the fit window, which
     the dense depth-varying loop refuses too). ``anchors``: K z indices of the
-    data grid, or an int K. The result's PSF is the (K, ...) anchor stack."""
+    data grid, or an int K. The object step's K anchor PSFs are synthesized
+    z-sharded, each cell its own planes, as the fits' are (see
+    ``parallel.blind``). The result's PSF is the (K, ...) anchor stack,
+    synthesized whole once on every rank."""
     config = BlindDeconvConfig() if config is None else config
     if config.deconv_engine != "vmlmb":
         raise ValueError("deconv_engine='admm' needs a circulant forward model; the depth-varying anchor blend is "
@@ -224,13 +246,19 @@ def sharded_blind_deconvolve_depthvar(
     dcfg = dataclasses.replace(config.deconv, var_shape=grid.var_shape if grid.padded else None)
     fit_cfg = dataclasses.replace(config.fit, grtol=0.0)  # BlindDeconvJob.java:124
 
+    planes = plane_by_plane(model)
+
     def synth(p):
+        """The object step's K anchor PSFs: each cell's planes on the loop's
+        grid (the fits' depths), or the (K,) + volume stack."""
         with torch.no_grad():
+            if planes:
+                return psf_slabs(model, p, mesh, _anchor_depths(model, anchors), grid=grid.var_shape)
             return depth_anchor_psfs(model, p, anchors, depth0=p.depth[1])
 
     with torch.no_grad():
         # Middle-anchor regularized inverse: the best shift-invariant stand-in.
-        x0 = grid.start(synth(params0)[anchors.shape[0] // 2], config.init)
+        x0 = grid.start(lambda: synth(params0)[anchors.shape[0] // 2], config.init)
 
     def object_step(x, params, mu):
         psfs = synth(params)
@@ -242,9 +270,8 @@ def sharded_blind_deconvolve_depthvar(
         if weight_updater is None:
             return grid.w_fit
         with torch.no_grad():
-            h = pad_fft_kernel(psfs, grid.var_shape)
-            rows = _blend_rows(grid.var_shape[0], anchors + off_z, mesh, psfs.dtype)
-            k_hats = [sharded_spectrum(h[i], mesh) for i in range(h.shape[0])]
+            rows = _blend_rows(grid.var_shape[0], anchors + off_z, mesh, x.dtype)
+            k_hats = [sharded_spectrum(h, mesh) for h in _on_grid(psfs, grid.var_shape)]
             return grid.refit_weights(weight_updater, _depthvar_model(k_hats, rows, grid.var_shape, mesh)(x))
 
     phase_anchor = params0.phase.detach() if config.phase_prior_weight > 0 else None
@@ -270,4 +297,6 @@ def sharded_blind_deconvolve_depthvar(
     f_dtype = np.float64 if data.dtype == torch.float64 else np.float32
     x, params, deconv_f, fit_f, deconv_iters = run_blind_loop(config, f_dtype, x0, params0, object_step,
                                                               fit_weights, fit_one, fit_joint)
-    return BlindDeconvResult(x, params, synth(params), deconv_f, fit_f, deconv_iters)
+    with torch.no_grad():
+        psfs = depth_anchor_psfs(model, params, anchors, depth0=params.depth[1])
+    return BlindDeconvResult(x, params, psfs, deconv_f, fit_f, deconv_iters)

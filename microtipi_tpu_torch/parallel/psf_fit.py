@@ -9,26 +9,41 @@ costs over one parameter vector: the parameters are tiny and live on the
 model's device, only the volumes are sharded.
 
 The PSF synthesis is embarrassingly z-parallel: each plane's pupil field and
-2D FFT are independent of the others'. Where the model's grid is the data's,
-and the model synthesizes its PSF plane by plane (the wide-field and
-Gibson-Lanni models: :func:`synthesizes_planes`), each cell of the mesh
-synthesizes its own z-slab of the PSF on its own device (:func:`psf_slabs`),
-from a copy of the model's plane inputs (the pupil's Zernike syntheses and
-the defocus and depth vectors, computed once on the model's device and given
-to the cells by ``mesh.replicate``). No PSF slab then moves between cells: the
-gradient that crosses them is the pupil's, at most 3 * Ny * Nx values a cell
-(kind "pupil" in ``collectives.sent``), where the whole PSF's slabs crossed.
+2D FFT are independent of the others'. Where the model synthesizes its PSF
+plane by plane (the wide-field and Gibson-Lanni models:
+:func:`plane_by_plane`; a fit does so on the model's grid:
+:func:`synthesizes_planes`), each cell of the mesh synthesizes its own
+z-slab of the PSF on its own device (:func:`psf_slabs`), from a copy of the
+model's plane inputs (the pupil's Zernike syntheses and the defocus and
+depth vectors, computed once on the model's device and given to the cells
+by ``mesh.replicate``). No PSF slab then moves between cells: the gradient
+that crosses them is the pupil's, at most 3 * Ny * Nx values a cell (kind
+"pupil" in ``collectives.sent``), where the whole PSF's slabs crossed. The
+sharded loops' object steps take their PSFs the same way, under
+``no_grad`` (``parallel/blind.py``, ``parallel/depthvar.py``), so no rank
+holds a whole PSF or its whole complex field there.
 
-The other routes synthesize the PSF whole on the model's device and cut it
-into slabs (``mesh.shard``; over processes its gradient is every cell's slab
-gradient, kind "cells"): the families that define their own
-``compute_psf`` (a second pupil, a normalisation over the whole volume), and
-a grid larger than the model's, the padded grid of a sharded blind loop
-whose Nz or Ny does not divide the mesh, where the PSF is zero-padded in FFT
-layout first (the JAX module, too, shards the padded kernel there). The fit
-scaffolding (graduated ``active`` modes, ``freeze_head``, preconditioning,
-the calibration prior, auxiliary bead terms, the joint variable) is
-``jobs.psf_fit``'s, over this cost.
+The padded grid of a sharded loop whose Nz or Ny does not divide the mesh
+(the JAX module shards the zero-padded kernel there): each cell's planes of
+the PSF zero-padded in FFT layout are either planes of the model's grid,
+each zero-padded in (y, x), or zero planes, so a cell can synthesize the
+model planes that land in its slab and place them (:func:`psf_slabs` with
+``grid``), bit for bit ``pad_fft_kernel`` of the whole PSF cut. The object
+steps take that route. The fits on a padded grid synthesize the PSF whole,
+zero-pad it and cut it: the pupil gradient added cell by cell rounds
+otherwise over processes on a mesh of several rows (each row's cells add
+their own parts) than on one process (row 1 reads row 0's slabs), and a
+float64 blind loop of a padded noise stack on (2, 2) carried that to 3.4e-11
+relative in its phase, where the whole route stays within 1e-12 of the
+one-process mesh.
+
+The families that define their own ``compute_psf`` (a second pupil, a
+normalisation over the whole volume) synthesize the PSF whole on the model's
+device, zero-padded in FFT layout to a larger grid, and cut it into slabs
+(``mesh.shard``; over processes its gradient is every cell's slab gradient,
+kind "cells"). The fit scaffolding (graduated ``active`` modes,
+``freeze_head``, preconditioning, the calibration prior, auxiliary bead
+terms, the joint variable) is ``jobs.psf_fit``'s, over this cost.
 """
 
 from __future__ import annotations
@@ -42,37 +57,68 @@ from microtipi_tpu_torch.parallel.fft import sharded_convolve, sharded_spectrum
 from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, ShardedVolume, replicate, shard
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
-__all__ = ["psf_slabs", "sharded_fit_psf", "sharded_fit_psf_joint", "synthesizes_planes"]
+__all__ = ["plane_by_plane", "psf_slabs", "sharded_fit_psf", "sharded_fit_psf_joint", "synthesizes_planes"]
+
+
+def plane_by_plane(model) -> bool:
+    """Whether ``model``'s ``compute_psf`` is ``WideFieldModel``'s, the plane
+    synthesis over every plane (the wide-field and Gibson-Lanni models; the
+    class that defines ``compute_psf`` decides): its PSF can be synthesized
+    cell by cell (:func:`psf_slabs`)."""
+    return type(model).compute_psf is WideFieldModel.compute_psf
 
 
 def synthesizes_planes(model, grid) -> bool:
     """Whether a sharded fit on ``grid`` synthesizes ``model``'s PSF cell by
-    cell (:func:`psf_slabs`): on the model's own grid, where its
-    ``compute_psf`` is ``WideFieldModel``'s, the plane synthesis over every
-    plane (the wide-field and Gibson-Lanni models; the class that defines
-    ``compute_psf`` decides)."""
-    return type(model).compute_psf is WideFieldModel.compute_psf and tuple(model.shape) == tuple(grid)
+    cell (:func:`psf_slabs`): a :func:`plane_by_plane` model on its own
+    grid. On a padded grid the fits synthesize the PSF whole (the module
+    docstring says why)."""
+    return plane_by_plane(model) and tuple(model.shape) == tuple(grid)
 
 
-def psf_slabs(model, params, mesh: Mesh, field_of=None) -> list[ShardedVolume]:
+def _fft_planes(n: int, size: int) -> torch.Tensor:
+    """For each plane of an FFT-layout axis of ``size``, the plane of one of
+    ``n`` that ``pad_fft_kernel`` puts there, or -1 (a zero plane)."""
+    return pad_fft_kernel(torch.arange(1, n + 1, dtype=torch.float64), (size,)).long() - 1
+
+
+def _padded_planes(model, inputs, src: torch.Tensor, grid, field: dict) -> torch.Tensor:
+    """The planes of the PSF zero-padded in FFT layout to ``grid`` whose
+    model planes are ``src`` (:func:`_fft_planes`; -1 a zero plane): the
+    model planes synthesized, each zero-padded in (y, x), and put in place."""
+    held = src >= 0
+    take = src[held] if bool(held.any()) else src.new_zeros(1)  # a slab of zero planes: shape only
+    planes = pad_fft_kernel(model.psf_planes(inputs, take, **field), tuple(grid[1:]))
+    at = torch.where(held, torch.cumsum(held, 0) - 1, planes.shape[-3]).to(planes.device)
+    return torch.cat([planes, torch.zeros_like(planes[..., :1, :, :])], -3).index_select(-3, at)
+
+
+def psf_slabs(model, params, mesh: Mesh, field_of=None, grid=None) -> list[ShardedVolume]:
     """The PSF of ``params`` as unbatched z-sharded volumes, each cell's slab
     synthesized on its own device (``model.psf_planes``) from its copy of
     ``model.plane_inputs(params)``: one volume, or K where ``field_of``, a
     function of a cell's copy, gives keywords of ``model.planes_field`` that
-    make K PSFs (Gibson-Lanni ``depths``). Differentiable; every rank of a
-    mesh over processes must reach the backward."""
-    nz, z_size = model.shape[0], mesh.shape[Z_AXIS]
+    make K PSFs (Gibson-Lanni ``depths``). ``grid``: a grid larger than the
+    model's, on which the PSF is zero-padded in FFT layout (default the
+    model's). Differentiable; every rank of a mesh over processes must reach
+    the backward."""
+    grid = tuple(model.shape) if grid is None else tuple(grid)
+    nz, z_size = grid[0], mesh.shape[Z_AXIS]
     if nz % z_size:
         raise ValueError(f"the PSF's {nz} planes do not divide over {z_size} mesh entries")
     step, cells = nz // z_size, mesh.volume_cells(False)
+    src = None if grid == tuple(model.shape) else _fft_planes(model.shape[0], nz)
     tiles = {}
     for (b, z), inputs in replicate(model.plane_inputs(params), mesh, cells).items():
         kw = {} if field_of is None else field_of(inputs)
-        tiles[(b, z)] = model.psf_planes(inputs, slice(z * step, (z + 1) * step), **kw)
+        if src is None:
+            tiles[(b, z)] = model.psf_planes(inputs, slice(z * step, (z + 1) * step), **kw)
+        else:
+            tiles[(b, z)] = _padded_planes(model, inputs, src[z * step:(z + 1) * step], grid, kw)
     lead = next(iter(tiles.values())).shape[:-3]
     if not lead:
-        return [ShardedVolume(mesh, model.shape, tiles, False)]
-    return [ShardedVolume(mesh, model.shape, {c: t[k] for c, t in tiles.items()}, False) for k in range(lead[0])]
+        return [ShardedVolume(mesh, grid, tiles, False)]
+    return [ShardedVolume(mesh, grid, {c: t[k] for c, t in tiles.items()}, False) for k in range(lead[0])]
 
 
 def sharded_fit_cost(model, data, obj, weights, mesh: Mesh):

@@ -60,6 +60,7 @@ from microtipi_tpu.parallel.deconv import sharded_deconvolve as jax_sharded_deco
 from microtipi_tpu.parallel.depthvar import sharded_deconvolve_depthvar as jax_sharded_depthvar
 from microtipi_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from microtipi_tpu.parallel.richardson_lucy import sharded_richardson_lucy as jax_sharded_rl
+from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
 F_REL, X_ABS, P_ABS, RL_REL = 1e-8, 1e-6, 1e-7, 1e-8
 #: The (2, 2) PSF fits' rounding (see the module docstring).
@@ -130,7 +131,8 @@ def runs(tmp_path_factory):
         one = {**worker.run_cases(worker.one_process_mesh), **worker.run_options(worker.one_process_mesh),
                **worker.run_solvers(worker.one_process_mesh), "reductions": worker.run_reductions(worker.one_process_mesh),
                "slab_entries": worker.run_slab_entries(worker.one_process_mesh),
-               "fit_evaluations": worker.run_fit_evaluations(worker.one_process_mesh)}
+               "fit_evaluations": worker.run_fit_evaluations(worker.one_process_mesh),
+               "object_steps": worker.run_object_steps(worker.one_process_mesh)}
         refs = _jax_refs()
     finally:
         done = results(two, started[0]), results(four, started[1])
@@ -343,3 +345,32 @@ def test_a_fit_evaluation_sends_the_pupils_gradient_and_no_psf_slab(case, world,
         assert got["sent"].get("cells", 0) == 0, got["sent"]
         assert 0 < got["sent"]["pupil"] <= got["cells"] * (len(ranks) - 1) * bound, got["sent"]
         assert torch.equal(_bits(got["f"]), _bits(want["f"])) and torch.equal(_bits(got["grads"]), _bits(want["grads"]))
+
+
+def _cell_planes(n: int, nz: int, z: int, step: int) -> list:
+    """The model planes cell ``z`` synthesizes for a PSF of ``n`` planes on a
+    grid of ``nz`` (``step`` planes a cell), zero-padded in FFT layout
+    there (``pad_fft_kernel`` of the plane numbers, -1 a zero plane)."""
+    src = (pad_fft_kernel(torch.arange(1.0, n + 1, dtype=torch.float64), (nz,)) - 1).long().tolist()
+    return [i for i in src[z * step:(z + 1) * step] if i >= 0]
+
+
+@pytest.mark.parametrize("case", worker.OBJECT_STEPS)
+def test_the_object_step_synthesizes_its_cells_planes_and_moves_no_psf_byte(case, ranks, one_process):
+    """One round of each sharded blind loop (the Wiener start and the object
+    step) on 2 ranks: each rank synthesizes only its own cells' planes of the
+    PSF (the object step's and the start's; the last call is the result's
+    whole PSF), no PSF byte crosses ranks (0 bytes of kinds "cells" and
+    "pupil"), and the object and ``deconv_f`` are the one-process mesh's bit
+    for bit."""
+    n = {"odd_2x2": worker.ODD_SHAPE[0]}.get(case, worker.SHAPE[0])
+    nz = n + (-n) % 2 if case == "odd_2x2" else n
+    z_size = 2 if case == "odd_2x2" else 4
+    want = one_process["object_steps"][case]
+    for r in ranks:
+        got = r["object_steps"][case]
+        assert got["sent"].get("cells", 0) == 0 and got["sent"].get("pupil", 0) == 0, got["sent"]
+        own = [_cell_planes(n, nz, z, nz // z_size) for z in got["cells"]]
+        assert got["calls"] == 2 * own + ["all"], got["calls"]
+        for key in ("obj", "deconv_f"):
+            assert torch.equal(_bits(got[key]), _bits(want[key])), key

@@ -290,6 +290,63 @@ def run_fit_evaluations(mesh_of) -> dict:
     return out
 
 
+#: The object-step cases: one round (the Wiener start and the object step, no fit) of each sharded blind loop.
+OBJECT_STEPS = ("blind_1x4", "blind_admm_1x4", "odd_2x2", "depthvar_blind_1x4")
+
+
+def _planes(planes) -> list | str:
+    """A ``psf_planes`` call's planes as a list of indices ("all": every plane)."""
+    if isinstance(planes, slice):
+        return "all" if planes == slice(None) else list(range(planes.start, planes.stop))
+    return planes.tolist()
+
+
+def run_object_steps(mesh_of) -> dict:
+    """One round of each sharded blind loop of :data:`OBJECT_STEPS` (no fit:
+    the Wiener start and the object step, each fed the PSF's cells'
+    planes) on the meshes ``mesh_of(batch, z)`` makes: the object and
+    ``deconv_f``, the bytes this rank sent by kind during the round, this
+    rank's cells (z) and the planes of each ``psf_planes`` call on this rank
+    (the last is the result's whole PSF)."""
+    from microtipi_tpu_torch.parallel import collectives
+
+    model, _, data, _ = scene()
+    odd_model, odd = odd_scene()
+    gl, _, _, ddata = depthvar_scene()
+    one = dict(loops=1, families=(DEFOCUS, PHASE), psf_max_iter=(2, 2), joint_fit=True, init="wiener")
+    deconv = DeconvolutionConfig(max_iter=4, **CFG)
+    runs = {
+        "blind_1x4": (model, (1, 4), lambda m, mesh: sharded_blind_deconvolve(
+            data, m, mesh, config=BlindDeconvConfig(deconv=deconv, **one))),
+        "blind_admm_1x4": (model, (1, 4), lambda m, mesh: sharded_blind_deconvolve(
+            data, m, mesh, config=BlindDeconvConfig(deconv=deconv, deconv_engine="admm", **one))),
+        "odd_2x2": (odd_model, (2, 2), lambda m, mesh: sharded_blind_deconvolve(
+            odd, m, mesh, config=BlindDeconvConfig(deconv=DeconvolutionConfig(**ODD_CFG), **one))),
+        "depthvar_blind_1x4": (gl, (1, 4), lambda m, mesh: sdv.sharded_blind_deconvolve_depthvar(
+            ddata, m, mesh, ANCHORS, config=BlindDeconvConfig(deconv=DeconvolutionConfig(max_iter=4, **DV_CFG),
+                                                              **one))),
+    }
+    out = {}
+    for name, (m, shape, run) in runs.items():
+        calls, plain = [], m.psf_planes
+
+        def spy(inputs, planes=slice(None), **field):
+            calls.append(_planes(planes))
+            return plain(inputs, planes, **field)
+
+        mesh = mesh_of(*shape)
+        m.psf_planes = spy
+        collectives.sent.clear()
+        try:
+            res = run(m, mesh)
+        finally:
+            del m.psf_planes
+        sent = dict(collectives.sent)
+        out[name] = {"obj": gather(res.obj), "deconv_f": res.deconv_f, "sent": sent, "calls": calls,
+                     "cells": [z for _, z in mesh.local(mesh.volume_cells(False))]}
+    return out
+
+
 def one_process_mesh(batch: int, z: int):
     return make_mesh(batch, z, devices=[torch.device("cpu")] * (batch * z))
 
@@ -300,7 +357,7 @@ def child(rank: int, world: int, init: str, out: str, case: str) -> None:
     :func:`run_slab_entries` and :func:`run_fit_evaluations` on meshes over
     the ranks and saves ``rank<r>.pt`` in ``out``; "few" runs :data:`FEW` of
     the cases and solvers, :data:`FEW_OPTIONS` of the options and the fit
-    evaluations; "fail"
+    evaluations ("jobs" also :func:`run_object_steps`); "fail"
     makes rank 1 raise before its first collective. A failure leaves its
     traceback in ``rank<r>.err`` and exits non-zero."""
     torch.set_num_threads(1)
@@ -321,6 +378,8 @@ def child(rank: int, world: int, init: str, out: str, case: str) -> None:
                 got = {**run_cases(mesh_of), **run_options(mesh_of), **run_solvers(mesh_of)}
                 got.update(reductions=run_reductions(mesh_of), slab_entries=run_slab_entries(mesh_of))
             got.update(fit_evaluations=run_fit_evaluations(mesh_of))
+            if case != "few":
+                got.update(object_steps=run_object_steps(mesh_of))
             torch.save(got, pathlib.Path(out) / f"rank{rank}.pt")
         finally:
             dist.destroy_process_group()
