@@ -4655,15 +4655,14 @@ def _object_step_reading(model, data, mesh, dev: torch.device, whole: bool = Fal
     reset just before), the bytes this rank sent by kind (``collectives.sent``,
     cleared just before), and the wall and peak of its PSF synthesis, the step's
     first work (the peak read just after it is the synthesis's). The PSF by each
-    cell's planes (``parallel.psf_fit.psf_slabs``), or with ``whole`` the route
-    of a model that does not synthesize plane by plane: the whole PSF on every
-    rank, cut by the solver. Returns the readings by step and the loop's
-    ``deconv_f``."""
+    cell's planes (``parallel.psf_fit.psf_slabs``), or with ``whole`` the whole
+    PSF on every rank, cut (:func:`whole_psf_slabs`). Returns the readings by
+    step and the loop's ``deconv_f``."""
     from microtipi_tpu_torch.parallel import blind as pb
     from microtipi_tpu_torch.parallel import collectives
 
     cfg = dataclasses.replace(mesh_blind_config(), loops=OBJECT_ROUNDS, psf_max_iter=(0, 0), joint_fit=False)
-    plain = pb.run_blind_loop, pb.psf_slabs, pb.plane_by_plane
+    plain = pb.run_blind_loop, pb.psf_slabs
     steps, synth = [], {}
 
     def synchronized(fn):
@@ -4692,16 +4691,25 @@ def _object_step_reading(model, data, mesh, dev: torch.device, whole: bool = Fal
             return out
         return plain[0](config, f_dtype, x0, params0, read, *rest)
 
-    pb.run_blind_loop, pb.psf_slabs = loop, synchronized(plain[1])
+    pb.run_blind_loop, pb.psf_slabs = loop, synchronized(whole_psf_slabs if whole else plain[1])
     model.compute_psf = synchronized(type(model).compute_psf.__get__(model))
-    if whole:
-        pb.plane_by_plane = lambda m: False
     try:
         res = pb.sharded_blind_deconvolve(data, model, mesh, config=cfg)
     finally:
-        pb.run_blind_loop, pb.psf_slabs, pb.plane_by_plane = plain
+        pb.run_blind_loop, pb.psf_slabs = plain
         del model.compute_psf
     return {"steps": steps, "deconv_f": res.deconv_f}
+
+
+def whole_psf_slabs(model, params, mesh, field_of=None, grid=None) -> list:
+    """``parallel.psf_fit.psf_slabs``' stand-in for the whole route, the
+    object steps' route before each cell synthesized its planes: the PSF
+    synthesized whole on the model's device, zero-padded in FFT layout to
+    ``grid`` and cut."""
+    from microtipi_tpu_torch.parallel import shard
+    from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
+
+    return [shard(pad_fft_kernel(model.compute_psf(params), tuple(grid or model.shape)), mesh, False)]
 
 
 def _object_step_summary(r: dict) -> dict:
@@ -4749,72 +4757,126 @@ def phase30_object_step(card: str) -> dict:
 
 
 #: The PSF's slabs put together against ``compute_psf`` on the card (float32): relative L2 at most this, where
-#: cuFFT plans the slabs' batches of planes otherwise than the whole volume's.
+#: cuFFT plans the slabs' batches of planes otherwise than the whole volume's and a unit-sum family's sum is added
+#: in another order.
 PSF_SLABS_RTOL = 1e-6
+#: The families whose fit evaluation phase 31 runs over processes (``family_configs`` names).
+MP_FAMILIES = ("confocal_pinhole", "lightsheet")
+#: A float32 fit evaluation's gradient by each cell's planes may be at most this many times farther from float64
+#: than the whole synthesis's.
+PLANES_GRAD_GAP = 2.0
 
 
-def phase30_psf_slabs(card: str) -> None:
-    """Phase 3's PSF at 256^3 (the bench optics, its aberration) synthesized
-    by each cell of a (1, SLABS) mesh of cuda:0 for its own planes
-    (``parallel.psf_fit.psf_slabs``, as a sharded fit evaluates it), put
-    together, against ``compute_psf``: bit for bit, or the largest gap in
-    float32 ulps (a batched 2D FFT of 64 planes may take another cuFFT plan
-    than one of 256), within PSF_SLABS_RTOL; then both syntheses timed. Then
-    one fit evaluation on the same mesh (cost and gradient of every family,
-    the bench data as data and object) by each cell's planes and by the whole
-    synthesis and cut, in float32, each against float64 on the card: the
-    planes' gradient may be no farther from float64 than twice the whole's."""
-    from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
+def _synthesis_reading(fn, dev: torch.device) -> tuple[float, float]:
+    """(median ms of 20 calls, peak MiB above what was held during one) of a
+    PSF synthesis ``fn`` under ``no_grad``."""
+    ms = _median_ms(fn)
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return ms, (torch.cuda.max_memory_allocated(dev) - before) / 2**20
+
+
+def family_fit_scene(name: str, dev: torch.device):
+    """(model, params, data) of family ``name`` (``family_configs`` at
+    SHAPE, float32) on ``dev``: phase 3's aberration, and the bench scene
+    blurred by the family's PSF there; a fit evaluation takes the data as
+    data and, clamped at 0, as the object."""
+    from microtipi_tpu_torch.models import model_for
+
+    model = model_for(family_configs(SHAPE, torch.float32)[name], dev)
+    return model, _family_params(model), bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE, model=model)[1]
+
+
+def phase30_psf_slabs(card: str) -> dict:
+    """Every family's PSF at 256^3 (``family_configs``, phase 3's aberration)
+    synthesized by each cell of a (1, SLABS) mesh of cuda:0 for its own
+    planes (``parallel.psf_fit.psf_slabs``, as a sharded fit evaluates it; a
+    unit-sum family's planes over the cells' one sum, and ISM's and STED's
+    inner reductions over the cells), put together, against ``compute_psf``:
+    bit for bit, or the largest gap in float32 ulps (a batched 2D FFT of 64
+    planes may take another cuFFT plan than one of 256), within
+    PSF_SLABS_RTOL; then both syntheses timed, and each one's peak above what
+    was held. Then one fit evaluation on the same mesh (cost and gradient of
+    every family of parameters, the family's bench data as data and object)
+    by each cell's planes and by the whole synthesis and cut, in float32,
+    each against float64 on the card: the planes' gradient may be no farther
+    from float64 than twice the whole's. Returns the one-process fit
+    evaluations by each cell's planes of MP_FAMILIES (:func:`_fit_evaluation`),
+    phase 31's references."""
+    from microtipi_tpu_torch.models import model_for
     from microtipi_tpu_torch.parallel import gather
     from microtipi_tpu_torch.parallel import psf_fit as spf
     from microtipi_tpu_torch.parallel.psf_fit import psf_slabs, sharded_fit_cost
 
-    dev = torch.device("cuda", 0)
-    model = WideFieldModel(WideFieldConfig(shape=SHAPE, na=1.4, wavelength=561e-9, ni=1.518, dxy=80e-9, dz=200e-9,
-                                           n_phase=6, n_modulus=1, dtype=torch.float32), device=dev)
-    params = model.init_params()._replace(phase=torch.as_tensor(BENCH_PHASE, dtype=torch.float32, device=dev))
-    mesh = card_mesh(1, SLABS)
-    with torch.no_grad():
-        whole = model.compute_psf(params)
-        slabs = gather(psf_slabs(model, params, mesh)[0])
-        ulps = int((slabs.view(torch.int32) - whole.view(torch.int32)).abs().max())
-        rel = _rel_l2(slabs, whole)
-        whole_ms = _median_ms(lambda: model.compute_psf(params))
-        slabs_ms = _median_ms(lambda: psf_slabs(model, params, mesh))
-    if not rel <= PSF_SLABS_RTOL:
-        raise AssertionError(f"the PSF's {SLABS} slabs put together are {rel:.3g} relative L2 off compute_psf")
-    log(30, f"[{card}] the PSF of {SHAPE} from each cell's planes on (1, {SLABS}) of cuda:0, put together, against "
-            f"compute_psf: {'bit for bit' if ulps == 0 else f'largest gap {ulps} float32 ulps, {rel:.3g} relative L2'}"
-            f"; synthesis {slabs_ms:.4f} ms as {SLABS} slabs, {whole_ms:.4f} ms whole (medians of 20)")
-    _, data, _ = bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE, model=model)
-    m64 = WideFieldModel(dataclasses.replace(model.config, dtype=torch.float64), device=dev)
+    dev, mesh, refs = torch.device("cuda", 0), card_mesh(1, SLABS), {}
+    for name, cfg in family_configs(SHAPE, torch.float32).items():
+        model, params, data = family_fit_scene(name, dev)
+        with torch.no_grad():
+            whole = model.compute_psf(params)
+            slabs = gather(psf_slabs(model, params, mesh)[0])
+            ulps = int((slabs.view(torch.int32) - whole.view(torch.int32)).abs().max())
+            rel = _rel_l2(slabs, whole)
+            del slabs, whole
+            whole_ms, whole_mib = _synthesis_reading(lambda: model.compute_psf(params), dev)
+            slabs_ms, slabs_mib = _synthesis_reading(lambda: psf_slabs(model, params, mesh), dev)
+        if not rel <= PSF_SLABS_RTOL:
+            raise AssertionError(f"{name}: the PSF's {SLABS} slabs put together are {rel:.3g} relative L2 off "
+                                 f"compute_psf")
+        log(30, f"[{card}] {name}: the PSF of {SHAPE} from each cell's planes on (1, {SLABS}) of cuda:0, put "
+                f"together, against compute_psf: "
+                f"{'bit for bit' if ulps == 0 else f'largest gap {ulps} float32 ulps, {rel:.3g} relative L2'}; "
+                f"synthesis {slabs_ms:.4f} ms as {SLABS} slabs (+{slabs_mib:.1f} MiB), {whole_ms:.4f} ms whole "
+                f"(+{whole_mib:.1f} MiB) (medians of 20)")
+        m64 = model_for(dataclasses.replace(cfg, dtype=torch.float64), dev)
 
-    def evaluation(m, whole: bool):
-        saved = spf.synthesizes_planes
-        if whole:
-            spf.synthesizes_planes = lambda model, grid: False
-        try:
-            d = data.to(m.dtype)
-            cost = sharded_fit_cost(m, d, torch.clamp_min(d, 0.0), None, mesh)
-        finally:
-            spf.synthesizes_planes = saved
-        leaves = [t.detach().to(m.dtype).requires_grad_(True) for t in params]
-        f = cost(type(params)(*leaves))
-        grads = torch.autograd.grad(f, leaves, allow_unused=True, materialize_grads=True)
-        return float(f.detach()), torch.cat([g.reshape(-1) for g in grads]).double()
+        def evaluation(m, whole: bool):
+            saved = spf.synthesizes_planes
+            if whole:
+                spf.synthesizes_planes = lambda model, grid: False
+            try:
+                d = data.to(m.dtype)
+                cost = sharded_fit_cost(m, d, torch.clamp_min(d, 0.0), None, mesh)
+            finally:
+                spf.synthesizes_planes = saved
+            leaves = [t.detach().to(m.dtype).requires_grad_(True) for t in params]
+            f = cost(type(params)(*leaves))
+            grads = torch.autograd.grad(f, leaves, allow_unused=True, materialize_grads=True)
+            return float(f.detach()), torch.cat([g.reshape(-1) for g in grads]).double()
 
-    f64, g64 = evaluation(m64, False)
-    errs = {}
-    for route in ("planes", "whole"):
-        f32, g32 = evaluation(model, route == "whole")
-        errs[route] = (abs(f32 - f64) / abs(f64), float((g32 - g64).abs().max() / g64.abs().max()))
-    del m64
-    if not errs["planes"][1] <= 2.0 * errs["whole"][1]:
-        raise AssertionError(f"a fit evaluation's float32 gradient by each cell's planes is {errs['planes'][1]:.3g} "
-                             f"of the largest off float64, the whole synthesis's {errs['whole'][1]:.3g}")
-    log(30, f"[{card}] one fit evaluation of {SHAPE} on (1, {SLABS}), float32 against float64 on the card: by each "
-            f"cell's planes f {errs['planes'][0]:.3g} rel, gradient of every family {errs['planes'][1]:.3g} of its "
-            f"largest; by the whole synthesis and cut f {errs['whole'][0]:.3g} rel, gradient {errs['whole'][1]:.3g}")
+        f64, g64 = evaluation(m64, False)
+        del m64
+        errs = {}
+        for route in ("planes", "whole"):
+            f32, g32 = evaluation(model, route == "whole")
+            errs[route] = (abs(f32 - f64) / abs(f64), float((g32 - g64).abs().max() / g64.abs().max()))
+        if not errs["planes"][1] <= PLANES_GRAD_GAP * errs["whole"][1]:
+            raise AssertionError(f"{name}: a fit evaluation's float32 gradient by each cell's planes is "
+                                 f"{errs['planes'][1]:.3g} of the largest off float64, the whole synthesis's "
+                                 f"{errs['whole'][1]:.3g}")
+        log(30, f"[{card}] {name}: one fit evaluation of {SHAPE} on (1, {SLABS}), float32 against float64 on the "
+                f"card: by each cell's planes f {errs['planes'][0]:.3g} rel, gradient of every family "
+                f"{errs['planes'][1]:.3g} of its largest; by the whole synthesis and cut f {errs['whole'][0]:.3g} "
+                f"rel, gradient {errs['whole'][1]:.3g}")
+        if name in MP_FAMILIES:
+            refs[name] = _fit_evaluation(lambda: sharded_fit_cost(model, data, torch.clamp_min(data, 0.0), None,
+                                                                  mesh), params, dev)
+        del model, data
+        torch.cuda.empty_cache()
+    return refs
+
+
+def confocal_blind_run(mesh):
+    """Phase 3's blind loop cut to 2 rounds on ``mesh``, for the bench scene
+    blurred by the pinhole confocal PSF (``family_fit_scene``) through a
+    ``ConfocalModel``: its object steps and fits on each cell's planes over
+    the cells' one sum."""
+    from microtipi_tpu_torch.parallel import sharded_blind_deconvolve
+
+    model, _, data = family_fit_scene("confocal_pinhole", torch.device("cuda", 0))
+    return sharded_blind_deconvolve(data, model, mesh, config=dataclasses.replace(mesh_blind_config(), loops=2))
 
 
 def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: float) -> tuple[dict, dict]:
@@ -4823,8 +4885,9 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
     beside phase 3's dense one (its ``deconv_f`` and wall). Returns each
     path's slab launches, and the costs (RL-TV: the estimate) and walls of
     the jobs phase 31 runs over processes, its references: VMLMB, the blind
-    loop, ADMM, the blind loop by ADMM, RL-TV and depthvar on (1, 4), and
-    VMLMB of one volume on (2, 2)."""
+    loop, ADMM, the blind loop by ADMM, the confocal blind loop, RL-TV and
+    depthvar on (1, 4), and VMLMB of one volume on (2, 2); and the fit
+    evaluations of MP_FAMILIES (:func:`phase30_psf_slabs`)."""
     from microtipi_tpu_torch.jobs.admm import admm_deconvolve
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig, deconvolve
     from microtipi_tpu_torch.jobs.depthvar import deconvolve_depthvar, depth_anchor_psfs
@@ -4840,7 +4903,7 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
 
     dev, nvox = torch.device("cuda", 0), float(np.prod(SHAPE))
     paths, refs = {}, {}
-    phase30_psf_slabs(card)
+    refs["family_fits"] = phase30_psf_slabs(card)
     refs["object_step"] = phase30_object_step(card)
     _, data, psf = bench_scene(SHAPE, dev, torch.float32)
     cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, grtol=0.0, gatol=0.0)
@@ -4926,6 +4989,24 @@ def phase30_sharded(card: str, dense_blind_f: np.ndarray, dense_blind_wall: floa
     log(30, f"[{card}] sharded_blind_deconvolve {SHAPE} on (1, 4) by the ADMM engine, phase 11's loop: deconv_f "
             f"{ares.deconv_f.tolist()}, wall {awall:.3f} s (1 run); slab launches {n}")
     del ares
+
+    # A confocal stack's blind loop on (1, 4): object steps and fits on each cell's planes over the cells' one sum.
+    with SlabCounts() as c:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cres = confocal_blind_run(card_mesh(1, 4))
+        torch.cuda.synchronize()
+        cwall = time.perf_counter() - t0
+    n = paths["sharded confocal blind 256^3 (1, 4)"] = c.check("sharded confocal blind (1, 4)", slabs=SLABS)
+    _check_object("sharded confocal blind", gather(cres.obj))
+    if not (np.isfinite(cres.deconv_f).all() and np.all(np.diff(cres.deconv_f) < 0)
+            and np.isnan(cres.fit_f[-1]).all()):
+        raise AssertionError(f"sharded confocal blind: deconv_f {cres.deconv_f}, fit_f {cres.fit_f}")
+    refs["blind_confocal"] = {"deconv_f": cres.deconv_f, "wall": cwall}
+    log(30, f"[{card}] sharded_blind_deconvolve {SHAPE} on (1, 4) through a ConfocalModel (pinhole 120 nm), phase "
+            f"3's loop cut to 2 rounds: deconv_f {cres.deconv_f.tolist()} falls, wall {cwall:.3f} s (1 run), TV slab "
+            f"launches {n['tv']}")
+    del cres
 
     scenes = [bench_scene(SHAPE, dev, torch.float32, phase=BENCH_PHASE, seed=s)[1] for s in (0, 1)]
     b2 = dataclasses.replace(bcfg, loops=2)
@@ -5088,6 +5169,7 @@ def _gloo_cuda_ops(rank: int, world: int) -> dict:
 MP_JOBS = (("vmlmb", "VMLMB 256^3 (1, 4)", "f_history", False), ("blind", "blind 256^3 (1, 4)", "deconv_f", False),
            ("admm", "ADMM 256^3 (1, 4)", "f_history", True),
            ("blind_admm", "blind by ADMM 256^3 (1, 4)", "deconv_f", True),
+           ("blind_confocal", "confocal blind 256^3 (1, 4)", "deconv_f", False),
            ("rl_tv", "RL-TV 64x256x256 (1, 4)", "x", False), ("depthvar", "depthvar 64x256x256 (1, 4)", "f_history", False),
            ("vmlmb_2x2", "VMLMB 256^3 (2, 2)", "f_history", False))
 SENT_KINDS = ("halo", "transpose", "values", "cells", "rows", "pupil")
@@ -5097,9 +5179,9 @@ def _fit_evaluation(make_cost, params, dev: torch.device, whole: bool = False) -
     """One PSF fit evaluation on this rank, the cost ``make_cost()`` builds and
     its gradient with respect to every family of ``params``: the bytes this
     rank sent by kind, its peak memory on ``dev`` (and what it held before),
-    the wall, f and the gradient. ``whole``: the route of a model that does
-    not synthesize its planes (the PSF whole on the model's device, cut, its
-    slabs' gradients broadcast), for comparison."""
+    the wall, f and the gradient. ``whole``: the route of a fit on a padded
+    grid (the PSF whole on the model's device, cut, its slabs' gradients
+    broadcast), for comparison."""
     from microtipi_tpu_torch.parallel import collectives
     from microtipi_tpu_torch.parallel import depthvar as sdv
     from microtipi_tpu_torch.parallel import psf_fit as spf
@@ -5178,9 +5260,10 @@ def _mp_jobs(group, devices) -> dict:
     exited, and likewise the first ADMM split update and rhs with a plane
     from another rank, from a 2-iteration warm-up at over-relaxation 1.
     Then one objective evaluation's traffic, and one wide-field PSF fit
-    evaluation (at the blind loop's object) and one depth-varying one, cost
-    and gradient (:func:`_fit_evaluation`), by each cell's planes and by the
-    whole synthesis and cut."""
+    evaluation (at the blind loop's object), one of each of MP_FAMILIES
+    (:func:`family_fit_scene`) and one depth-varying one, cost and gradient
+    (:func:`_fit_evaluation`), by each cell's planes and by the whole
+    synthesis and cut."""
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
     from microtipi_tpu_torch.jobs.depthvar import depth_anchor_psfs
     from microtipi_tpu_torch.ops.kernels import admm_split as ak
@@ -5260,6 +5343,16 @@ def _mp_jobs(group, devices) -> dict:
     out["blind_admm"].update(deconv_f=bres.deconv_f, finite=finite(gather(bres.obj)),
                              iterations=int(bres.deconv_iters.sum()))
     del model, bdata, bres
+    cres = run("blind_confocal", lambda: confocal_blind_run(mesh))
+    out["blind_confocal"].update(deconv_f=cres.deconv_f, finite=finite(gather(cres.obj)))
+    del cres
+    # One fit evaluation of each of MP_FAMILIES, as phase 30 evaluates it on one process.
+    for name in MP_FAMILIES:
+        fmodel, fparams, fdata = family_fit_scene(name, dev)
+        out[f"{name}_fit_evaluation"] = {route: _fit_evaluation(
+            lambda: sharded_fit_cost(fmodel, fdata, torch.clamp_min(fdata, 0.0), None, mesh), fparams, dev,
+            whole=route == "whole") for route in ("planes", "whole")}
+        del fmodel, fdata
     _, ldata, lpsf = bench_scene(LANE_SHAPE, dev, torch.float32)
     x = gather(run("rl_tv", lambda: sharded_richardson_lucy(ldata, lpsf, mesh, iterations=20, mu=0.002,
                                                             epsilon=0.1)))
@@ -5367,6 +5460,8 @@ def _mp_check(name: str, ranks: list, refs: dict, card: str) -> dict:
         want = [(len(r["cells"]) * r[job]["iterations"],) * 2 if admm else (0, 0) for r in ranks]
         if slab != want or (admm and not all(s for s, _ in slab)):
             raise AssertionError(f"{name} {job}: split, rhs slab launches {slab} by rank, expected {want}")
+        if job == "blind_confocal" and not np.all(np.diff(got[0]) < 0):
+            raise AssertionError(f"{name} {job}: deconv_f {got[0]} does not fall")
         if job == "vmlmb_2x2" and not all(r[job]["replicas_are_row0"] for r in ranks):
             raise AssertionError(f"{name} {job}: a rank's replica of the volume is not row 0's")
         walls = [r[job]["wall"] for r in ranks]
@@ -5406,7 +5501,45 @@ def _mp_check(name: str, ranks: list, refs: dict, card: str) -> dict:
                                  f"{bound}), f {f_gap:.3g} rel off the whole synthesis")
         if not all(torch.equal(e["grads"].cpu(), g.cpu()) and e["f"] == ev["planes"][0]["f"] for e in ev["planes"]):
             raise AssertionError(f"{name}: the ranks' {what} differ")
+    _mp_family_fits(name, ranks, refs["family_fits"], card)
     return counts
+
+
+def _mp_family_fits(name: str, ranks: list, refs: dict, card: str) -> None:
+    """Each rank's fit evaluation of each of MP_FAMILIES by each cell's
+    planes against phase 30's on one process (``refs``): f and the gradient
+    bit for bit (else within SLAB_F_RTOL), no byte of kind "cells", each
+    cell's gradient of the plane inputs to every other rank once (kind
+    "pupil"), and, over several ranks, on each a peak below the whole
+    route's; log the bytes by kind, the walls and the peaks by route."""
+    from microtipi_tpu_torch.models import model_for
+
+    for fam in MP_FAMILIES:
+        ev = {route: [r[f"{fam}_fit_evaluation"][route] for r in ranks] for route in ("planes", "whole")}
+        sent = {route: {k: sum(e["sent"].get(k, 0) for e in evs) for k in SENT_KINDS} for route, evs in ev.items()}
+        model = model_for(family_configs(SHAPE, torch.float32)[fam], torch.device("cuda", 0))
+        values = sum(t.numel() for t in model.plane_inputs(_family_params(model)))
+        del model
+        pupil = sum(len(r["cells"]) for r in ranks) * (len(ranks) - 1) * values * 4
+        ref, got = refs[fam], ev["planes"]
+        bitwise = all(e["f"] == ref["f"] and torch.equal(e["grads"].cpu(), ref["grads"].cpu()) for e in got)
+        f_gap = max(_rel_f([e["f"]], [ref["f"]]) for e in got)
+        rise = {route: [(e["peak"] - e["before"]) / 2**20 for e in evs] for route, evs in ev.items()}
+        # A rank of several holds its share of the cells' planes; one process holds all four.
+        lower = len(ranks) == 1 or all(a < b for a, b in zip(rise["planes"], rise["whole"]))
+        same = bitwise or f_gap <= SLAB_F_RTOL
+        if sent["planes"]["cells"] or sent["planes"]["pupil"] != pupil or not same or not lower:
+            raise AssertionError(f"{name}: the {fam} fit evaluation by each cell's planes sent {sent['planes']} "
+                                 f"(pupil {pupil} expected), f {f_gap:.3g} rel off one process, peak rise by rank "
+                                 f"{rise['planes']} MiB against the whole route's {rise['whole']}")
+        log(31, f"[{card}] {name}: one {fam} PSF fit evaluation of {SHAPE}, cost and gradient of every family, each "
+                f"cell synthesizing its own planes over the cells' one sum: "
+                f"{'bit for bit' if bitwise else f'f within {f_gap:.3g} rel of'} the one-process run's; bytes "
+                f"between ranks {sent['planes']} (pupil {values} values a cell to each other rank); wall "
+                f"{max(e['wall'] for e in got):.4f} s, peak by rank {[round(e['peak'] / 2**20, 1) for e in got]} MiB "
+                f"(+{[round(v, 1) for v in rise['planes']]} over what it held); by the whole synthesis and cut: "
+                f"bytes {sent['whole']}, wall {max(e['wall'] for e in ev['whole']):.4f} s, peak "
+                f"{[round(e['peak'] / 2**20, 1) for e in ev['whole']]} MiB (+{[round(v, 1) for v in rise['whole']]})")
 
 
 def _mp_object_step(name: str, ranks: list, ref: dict, card: str) -> None:

@@ -287,6 +287,7 @@ def blind_deconvolve_depthvar(
     weight_updater=None,
     config: BlindDeconvConfig | None = None,
     bead_data: torch.Tensor | None = None,
+    phase_anchor: torch.Tensor | None = None,
 ) -> BlindDeconvResult:
     """The blind loop under a depth-varying PSF (``depthvar.py:334-475``):
     the object step is :func:`deconvolve_depthvar` (one TV launch an
@@ -296,7 +297,8 @@ def blind_deconvolve_depthvar(
     ``BlindDeconvConfig`` option applies but the ADMM engine (the anchor
     blend is not circulant) and the fit window (the JAX loop ignores it;
     this one refuses it); the result's PSF is the (K, Nz, Ny, Nx) anchor
-    stack."""
+    stack. ``phase_anchor``: the calibration prior's anchor (default
+    ``params0``'s phase where ``config.phase_prior_weight > 0``)."""
     if config is None:
         config = BlindDeconvConfig()
     if config.deconv_engine != "vmlmb":
@@ -338,7 +340,10 @@ def blind_deconvolve_depthvar(
     def at_data(x):
         return crop_to_shape(x, shape) if tuple(x.shape) != shape else x
 
-    phase_anchor = params0.phase.detach() if config.phase_prior_weight > 0 else None
+    if phase_anchor is None:
+        phase_anchor = params0.phase.detach() if config.phase_prior_weight > 0 else None
+    else:
+        phase_anchor = torch.as_tensor(phase_anchor, dtype=params0.phase.dtype, device=params0.phase.device)
     aux_terms = _bead_terms(model, bead_data, config)
 
     def fit(params, x, w_fit, flags, max_iter, phase_active):

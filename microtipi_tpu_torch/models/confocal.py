@@ -12,20 +12,30 @@ blind loop drive them unchanged through autograd.
 One parameter set drives both pupils: the emission-referred coefficients
 (``ni/lambda`` and the phase) are scaled by ``lambda_em / lambda_exc`` for
 the excitation pupil, which the model holds as a second ``WideFieldModel``
-(``exc``). The composite PSF has unit sum.
+(``exc``). The composite PSF has unit sum. Both are products of per-plane
+quantities (the pinhole blur is a 2D convolution of each plane), so each
+plane comes from the two pupils' plane inputs (:class:`ConfocalPlaneInputs`)
+alone, and ``compute_psf`` divides the planes by their sum.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel, WideFieldParams
+from microtipi_tpu_torch.models.widefield import (
+    PlaneInputs,
+    UnitSumModel,
+    WideFieldConfig,
+    WideFieldModel,
+    WideFieldParams,
+)
 from microtipi_tpu_torch.utils.grids import fft_index
 
-__all__ = ["ConfocalConfig", "ConfocalModel", "TwoPhotonConfig", "TwoPhotonModel"]
+__all__ = ["ConfocalConfig", "ConfocalModel", "ConfocalPlaneInputs", "TwoPhotonConfig", "TwoPhotonModel"]
 
 
 def _scaled_params(params, ratio: float) -> WideFieldParams:
@@ -43,6 +53,29 @@ def _wide_field_at(config: WideFieldConfig, wavelength: float) -> WideFieldConfi
         shape=config.shape, na=config.na, wavelength=wavelength, ni=config.ni, dxy=config.dxy, dz=config.dz,
         n_phase=config.n_phase, n_modulus=config.n_modulus, radial=config.radial, dtype=config.dtype,
     )
+
+
+class ConfocalPlaneInputs(NamedTuple):
+    """The detection pupil's plane inputs (``rho``, ``phi``, ``defocus``)
+    and the excitation pupil's (``exc_*``, from the parameters scaled to its
+    wavelength)."""
+
+    rho: torch.Tensor
+    phi: torch.Tensor
+    defocus: torch.Tensor
+    exc_rho: torch.Tensor
+    exc_phi: torch.Tensor
+    exc_defocus: torch.Tensor
+
+
+def detection(inputs) -> PlaneInputs:
+    """The detection pupil's wide-field plane inputs of a family's ``inputs``."""
+    return PlaneInputs(inputs.rho, inputs.phi, inputs.defocus)
+
+
+def excitation(inputs) -> PlaneInputs:
+    """The excitation pupil's wide-field plane inputs of a family's ``inputs``."""
+    return PlaneInputs(inputs.exc_rho, inputs.exc_phi, inputs.exc_defocus)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +109,7 @@ class ConfocalConfig(WideFieldConfig):
         return np.fft.rfft2(disk)
 
 
-class ConfocalModel(WideFieldModel):
+class ConfocalModel(UnitSumModel):
     """The confocal PSF on a device; the excitation pupil is the submodule
     ``exc`` and the pinhole's OTF the complex buffer ``pinhole_otf`` (None
     for a point pinhole)."""
@@ -88,22 +121,24 @@ class ConfocalModel(WideFieldModel):
         self.register_buffer("pinhole_otf", None if otf is None else
                              torch.as_tensor(otf, dtype=self.cdtype, device=self.device))
 
+    def plane_inputs(self, params) -> ConfocalPlaneInputs:
+        """Both pupils' plane inputs, from the emission-referred ``params``."""
+        wf = WideFieldParams(params.defocus, params.phase, params.modulus)
+        exc = self.exc.plane_inputs(_scaled_params(wf, self.config.wavelength / self.config.lambda_exc))
+        return ConfocalPlaneInputs(*WideFieldModel.plane_inputs(self, wf), *exc)
+
     def _pinhole_blur(self, h: torch.Tensor) -> torch.Tensor:
         """``h (*)_xy pinhole``, plane by plane; ``h`` itself for a point pinhole."""
         if self.pinhole_otf is None:
             return h
         _, ny, nx = self.shape
-        return torch.fft.irfft2(torch.fft.rfft2(h) * self.pinhole_otf, s=(ny, nx))
+        return torch.fft.irfft2(torch.fft.rfft2(h) * self.pinhole_otf.to(h.device), s=(ny, nx))
 
-    def excitation_psf(self, params) -> torch.Tensor:
-        """The excitation PSF from the emission-referred ``params``."""
-        return self.exc.compute_psf(_scaled_params(params, self.config.wavelength / self.config.lambda_exc))
-
-    def compute_psf(self, params) -> torch.Tensor:
-        """``h = h_exc * (h_det (*)_xy pinhole)``, unit sum, corner-origin
-        (``confocal.py:119-131``)."""
-        h = self.excitation_psf(params) * self._pinhole_blur(WideFieldModel.compute_psf(self, params))
-        return h / torch.sum(h)
+    def psf_planes(self, inputs, planes=slice(None)) -> torch.Tensor:
+        """``h_exc * (h_det (*)_xy pinhole)`` of the planes ``planes``, before
+        the unit-sum division (``confocal.py:119-131``)."""
+        h_det = WideFieldModel.psf_planes(self, detection(inputs), planes)
+        return self.exc.psf_planes(excitation(inputs), planes) * self._pinhole_blur(h_det)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,10 +148,9 @@ class TwoPhotonConfig(WideFieldConfig):
     convention."""
 
 
-class TwoPhotonModel(WideFieldModel):
+class TwoPhotonModel(UnitSumModel):
     """``h = h_exc^2``, unit sum (``confocal.py:143-146``)."""
 
-    def compute_psf(self, params) -> torch.Tensor:
-        h = super().compute_psf(params)
-        h = h * h
-        return h / torch.sum(h)
+    def psf_planes(self, inputs: PlaneInputs, planes=slice(None)) -> torch.Tensor:
+        h = WideFieldModel.psf_planes(self, inputs, planes)
+        return h * h

@@ -20,10 +20,10 @@ from typing import NamedTuple
 
 import torch
 
-from microtipi_tpu_torch.models.confocal import ConfocalConfig, ConfocalModel, _scaled_params
-from microtipi_tpu_torch.models.widefield import WideFieldModel, WideFieldParams
+from microtipi_tpu_torch.models.confocal import ConfocalConfig, ConfocalModel, detection, excitation
+from microtipi_tpu_torch.models.widefield import PlaneInputs, WideFieldModel
 
-__all__ = ["FourPiConfig", "FourPiModel", "FourPiParams"]
+__all__ = ["FourPiConfig", "FourPiModel", "FourPiParams", "FourPiPlaneInputs"]
 
 
 class FourPiParams(NamedTuple):
@@ -32,6 +32,18 @@ class FourPiParams(NamedTuple):
     defocus: torch.Tensor
     phase: torch.Tensor
     modulus: torch.Tensor
+    cavity: torch.Tensor
+
+
+class FourPiPlaneInputs(NamedTuple):
+    """The confocal plane inputs of both pupils and the cavity phase."""
+
+    rho: torch.Tensor
+    phi: torch.Tensor
+    defocus: torch.Tensor
+    exc_rho: torch.Tensor
+    exc_phi: torch.Tensor
+    exc_defocus: torch.Tensor
     cavity: torch.Tensor
 
 
@@ -49,11 +61,12 @@ class FourPiConfig(ConfocalConfig):
             raise ValueError(f"fourpi_type must be 'A' or 'C', got {self.fourpi_type!r}")
 
 
-def _interference_intensity(arm: WideFieldModel, params: WideFieldParams, phi_c: torch.Tensor) -> torch.Tensor:
-    """``|E+ + e^{i phi_c} E-|^2 / (Nx Ny Nz)`` on the arm's geometry
-    (``fourpi.py:98-110``)."""
-    rho, phi, psi, _ = arm.compute_pupil(params)
-    e_plus, e_minus = torch.fft.fft2(arm._field_from_pupil(rho, phi, torch.stack([psi, -psi])))
+def _interference_planes(arm: WideFieldModel, inputs: PlaneInputs, phi_c: torch.Tensor, planes) -> torch.Tensor:
+    """``|E+ + e^{i phi_c} E-|^2 / (Nx Ny Nz)`` of the planes ``planes`` on
+    the arm's geometry (``fourpi.py:98-110``)."""
+    psi, _ = arm._psi(inputs.defocus)
+    z = arm._z(planes, psi.device)
+    e_plus, e_minus = torch.fft.fft2(arm._field_from_pupil(inputs.rho, inputs.phi, torch.stack([psi, -psi]), z))
     return arm._intensity(e_plus + torch.exp(1j * phi_c.to(arm.cdtype)) * e_minus)
 
 
@@ -64,14 +77,17 @@ class FourPiModel(ConfocalModel):
         base = WideFieldModel.init_params(self)
         return FourPiParams(*base, torch.tensor([self.config.cavity_phase], dtype=self.dtype, device=self.device))
 
-    def compute_psf(self, params: FourPiParams) -> torch.Tensor:
-        det = WideFieldParams(params.defocus, params.phase, params.modulus)
-        phi_c = params.cavity[0]
-        ratio = self.config.wavelength / self.config.lambda_exc
-        i_exc = _interference_intensity(self.exc, _scaled_params(det, ratio), phi_c)
+    def plane_inputs(self, params: FourPiParams) -> FourPiPlaneInputs:
+        return FourPiPlaneInputs(*super().plane_inputs(params), params.cavity)
+
+    def psf_planes(self, inputs: FourPiPlaneInputs, planes=slice(None)) -> torch.Tensor:
+        """``I_exc * (h_det (*) pinhole)``, ``h_det`` the detection arm's
+        interference for type "C", of the planes ``planes``, before the
+        unit-sum division."""
+        phi_c = inputs.cavity[0]
+        i_exc = _interference_planes(self.exc, excitation(inputs), phi_c, planes)
         if self.config.fourpi_type == "C":
-            h_det = _interference_intensity(self, det, phi_c)
+            h_det = _interference_planes(self, detection(inputs), phi_c, planes)
         else:
-            h_det = WideFieldModel.compute_psf(self, det)
-        h = i_exc * self._pinhole_blur(h_det)
-        return h / torch.sum(h)
+            h_det = WideFieldModel.psf_planes(self, detection(inputs), planes)
+        return i_exc * self._pinhole_blur(h_det)

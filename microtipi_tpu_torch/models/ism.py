@@ -10,7 +10,10 @@ gives the K element PSFs through one batched FFT chain, jointly normalised
 to unit sum; :meth:`ISMModel.compute_psf` is the pixel-reassigned sum (each
 element shifted back by ``-reassign_factor * d_k``), unit sum, so the fits
 and the blind loop run on reassembled ISM images unchanged. The shifts are
-rfft2 phase ramps, complex buffers computed in float64.
+rfft2 phase ramps, complex buffers computed in float64. Each plane of the
+element PSFs and of their reassigned sum comes from that plane's fields
+alone, but the reassigned planes wait on the elements' joint sum
+(:meth:`ISMModel.plane_steps` yields it).
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from microtipi_tpu_torch.models.confocal import ConfocalConfig, ConfocalModel
-from microtipi_tpu_torch.models.widefield import WideFieldModel
+from microtipi_tpu_torch.models.confocal import ConfocalConfig, ConfocalModel, detection, excitation
+from microtipi_tpu_torch.models.widefield import WideFieldModel, whole_steps
 
 __all__ = ["ISMConfig", "ISMModel", "hex_offsets"]
 
@@ -98,19 +101,31 @@ class ISMModel(ConfocalModel):
         self.register_buffer("reassign_ramps", torch.as_tensor(
             config.shift_ramps(-config.reassign_factor), dtype=self.cdtype, device=self.device)[:, None])
 
+    def _element_planes(self, inputs, planes) -> torch.Tensor:
+        """The K element PSFs' planes ``planes``, (K, P, Ny, Nx), before their
+        joint normalisation."""
+        _, ny, nx = self.shape
+        spec = torch.fft.rfft2(WideFieldModel.psf_planes(self, detection(inputs), planes))[None]
+        h_det_k = torch.fft.irfft2(spec * self.element_ramps.to(spec.device), s=(ny, nx))
+        return self.exc.psf_planes(excitation(inputs), planes)[None] * h_det_k
+
     def compute_psfs(self, params) -> torch.Tensor:
         """The K element PSFs ``(K, Nz, Ny, Nx)``, corner-origin, their sum
         of unit integral (``ism.py:136-155``)."""
-        _, ny, nx = self.shape
-        spec = torch.fft.rfft2(WideFieldModel.compute_psf(self, params))[None]
-        h_det_k = torch.fft.irfft2(spec * self.element_ramps, s=(ny, nx))
-        h = self.excitation_psf(params)[None] * h_det_k
+        h = self._element_planes(self.plane_inputs(params), slice(None))
         return h / torch.sum(h)
 
-    def compute_psf(self, params) -> torch.Tensor:
-        """The reassigned-sum ISM PSF, unit sum (``ism.py:157-180``); the
+    def plane_steps(self, inputs, planes=slice(None)):
+        """The reassigned sum's planes ``planes`` before the unit-sum division
+        (``ism.py:157-180``); they wait on the element PSFs' joint sum. The
         subvoxel shifts ring slightly negative, as the reassembled data do."""
         _, ny, nx = self.shape
-        h = torch.fft.irfft2(torch.fft.rfft2(self.compute_psfs(params)) * self.reassign_ramps, s=(ny, nx))
-        h = torch.sum(h, dim=0)
-        return h / torch.sum(h)
+        h = self._element_planes(inputs, planes)
+        (total,) = yield (("sum", h),)
+        ramps = self.reassign_ramps.to(h.device)
+        return torch.sum(torch.fft.irfft2(torch.fft.rfft2(h / total) * ramps, s=(ny, nx)), dim=0)
+
+    def psf_planes(self, inputs, planes=slice(None)) -> torch.Tensor:
+        """:meth:`plane_steps` of every plane; of fewer, the element sum over
+        those planes alone."""
+        return whole_steps(self.plane_steps(inputs, planes))

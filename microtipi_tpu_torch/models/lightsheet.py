@@ -14,6 +14,11 @@ arm's wide-field PSF times the sheet's intensity profile, unit sum.
   static (ky, kz) illumination mask,
   ``S(z) = sum_ky | sum_kz A(ky, kz) exp(i kz z) |^2``, unit peak; the
   SHEET family reads ``(z0, scale)`` there.
+
+The sheet's profile is a function of z (and x), so each plane is its
+detection plane times its rows of the profile; the structured sheet's unit
+peak runs over z, so each set of planes takes its rows of the whole (Nz,)
+profile, M * Nz values.
 """
 
 from __future__ import annotations
@@ -24,11 +29,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel, WideFieldParams
+from microtipi_tpu_torch.models.widefield import PlaneInputs, UnitSumModel, WideFieldConfig, WideFieldModel
 from microtipi_tpu_torch.utils.grids import fft_index, wrapped_z
 
-__all__ = ["LightSheetConfig", "LightSheetModel", "LightSheetParams", "StructuredSheetConfig",
-           "StructuredSheetModel"]
+__all__ = ["LightSheetConfig", "LightSheetModel", "LightSheetParams", "LightSheetPlaneInputs",
+           "StructuredSheetConfig", "StructuredSheetModel"]
 
 
 class LightSheetParams(NamedTuple):
@@ -37,6 +42,15 @@ class LightSheetParams(NamedTuple):
     defocus: torch.Tensor
     phase: torch.Tensor
     modulus: torch.Tensor
+    sheet: torch.Tensor
+
+
+class LightSheetPlaneInputs(NamedTuple):
+    """The detection pupil's plane inputs and ``sheet``."""
+
+    rho: torch.Tensor
+    phi: torch.Tensor
+    defocus: torch.Tensor
     sheet: torch.Tensor
 
 
@@ -62,38 +76,40 @@ class LightSheetConfig(WideFieldConfig):
         return self.lambda_exc / (np.pi * self.sheet_na)
 
 
-class LightSheetModel(WideFieldModel):
+class LightSheetModel(UnitSumModel):
     """The Gaussian light-sheet PSF on a device (``lightsheet.py:104-135``)."""
 
     def init_params(self) -> LightSheetParams:
-        base = super().init_params()
+        base = WideFieldModel.init_params(self)
         sheet = torch.tensor([0.0, self.config.waist], dtype=self.dtype, device=self.device)
         return LightSheetParams(*base, sheet)
 
-    def _z_centered(self) -> torch.Tensor:
-        """The planes' centred z in m."""
-        return torch.as_tensor(wrapped_z(self.shape[0]) * self.config.dz, dtype=self.dtype, device=self.device)
+    def plane_inputs(self, params: LightSheetParams) -> LightSheetPlaneInputs:
+        return LightSheetPlaneInputs(*WideFieldModel.plane_inputs(self, params), params.sheet)
 
-    def sheet_profile(self, sheet: torch.Tensor) -> torch.Tensor:
-        """Excitation intensity, corner-origin, (Nz, 1, Nx) with divergence,
-        (Nz, 1, 1) without."""
+    def _z_centered(self, device) -> torch.Tensor:
+        """The planes' centred z in m, on ``device``."""
+        return torch.as_tensor(wrapped_z(self.shape[0]) * self.config.dz, dtype=self.dtype, device=device)
+
+    def sheet_profile(self, sheet: torch.Tensor, planes=slice(None)) -> torch.Tensor:
+        """Excitation intensity of the planes ``planes``, corner-origin,
+        (P, 1, Nx) with divergence, (P, 1, 1) without, on ``sheet``'s device."""
         c = self.config
         z0, w0 = sheet[0], sheet[1]
-        dz2 = (self._z_centered() - z0) ** 2
+        dz2 = (self._z_centered(sheet.device)[planes] - z0) ** 2
         if not c.divergence:
             return torch.exp(-2.0 * dz2 / (w0 * w0))[:, None, None]
-        xc = torch.as_tensor(fft_index(self.shape[2]) * c.dxy, dtype=self.dtype, device=self.device)
+        xc = torch.as_tensor(fft_index(self.shape[2]) * c.dxy, dtype=self.dtype, device=sheet.device)
         x_r = (np.pi * c.ni / c.lambda_exc) * w0 * w0  # Rayleigh range
         w2 = w0 * w0 * (1.0 + (xc / x_r) ** 2)  # w(x)^2, (Nx,)
         # a 2D (cylindrical) Gaussian sheet: amplitude ~ sqrt(w0/w)
         prof = torch.sqrt(w0 * w0 / w2)[None, :] * torch.exp(-2.0 * dz2[:, None] / w2[None, :])
         return prof[:, None, :]
 
-    def compute_psf(self, params: LightSheetParams) -> torch.Tensor:
-        """``h = h_det * L``, unit sum, corner-origin."""
-        h_det = WideFieldModel.compute_psf(self, WideFieldParams(params.defocus, params.phase, params.modulus))
-        h = h_det * self.sheet_profile(params.sheet)
-        return h / torch.sum(h)
+    def psf_planes(self, inputs: LightSheetPlaneInputs, planes=slice(None)) -> torch.Tensor:
+        """``h_det * L`` of the planes ``planes``, before the unit-sum division."""
+        h_det = WideFieldModel.psf_planes(self, PlaneInputs(inputs.rho, inputs.phi, inputs.defocus), planes)
+        return h_det * self.sheet_profile(inputs.sheet, planes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,13 +183,16 @@ class StructuredSheetModel(LightSheetModel):
         base = WideFieldModel.init_params(self)
         return LightSheetParams(*base, torch.tensor([0.0, 1.0], dtype=self.dtype, device=self.device))
 
-    def sheet_profile(self, sheet: torch.Tensor) -> torch.Tensor:
-        """Dithered sheet intensity S(z), (Nz, 1, 1), unit peak
-        (``lightsheet.py:246-263``)."""
+    def sheet_profile(self, sheet: torch.Tensor, planes=slice(None)) -> torch.Tensor:
+        """Dithered sheet intensity S(z) of the planes ``planes``, (P, 1, 1),
+        unit peak over every plane (``lightsheet.py:246-263``), on
+        ``sheet``'s device."""
         z0, scale = sheet[0], sheet[1]
-        phase = (scale * self.kz)[:, None] * (self._z_centered() - z0)[None, :]  # (M, Nz)
-        e_re = self.illumination @ torch.cos(phase)
-        e_im = self.illumination @ torch.sin(phase)
+        dev = sheet.device
+        phase = (scale * self.kz.to(dev))[:, None] * (self._z_centered(dev) - z0)[None, :]  # (M, Nz)
+        illumination = self.illumination.to(dev)
+        e_re = illumination @ torch.cos(phase)
+        e_im = illumination @ torch.sin(phase)
         s = torch.sum(e_re * e_re + e_im * e_im, dim=0)
         s = s / torch.amax(s)
-        return s[:, None, None]
+        return s[planes, None, None]

@@ -10,7 +10,10 @@ with ``h_conf`` the confocal PSF, ``d`` the depletion beam's intensity
 depletion focus comes from the same aberrated pupil at the depletion
 wavelength (the submodule ``dep``) plus a static phase mask, the buffer
 ``dep_mask_phase``: a 2pi vortex ("donut", lateral) or a pi disk over the
-inner, equal-area pupil ("bottle", axial).
+inner, equal-area pupil ("bottle", axial). Each plane comes from the three
+pupils' plane inputs (:class:`STEDPlaneInputs`) and two numbers of the whole
+volume, the confocal PSF's sum and the depletion's peak
+(:meth:`STEDModel.plane_steps` yields them).
 """
 
 from __future__ import annotations
@@ -23,10 +26,16 @@ import numpy as np
 import torch
 
 from microtipi_tpu_torch.models.confocal import ConfocalConfig, ConfocalModel, _scaled_params, _wide_field_at
-from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel, WideFieldParams
+from microtipi_tpu_torch.models.widefield import (
+    PlaneInputs,
+    WideFieldConfig,
+    WideFieldModel,
+    WideFieldParams,
+    whole_steps,
+)
 from microtipi_tpu_torch.utils.grids import fft_index
 
-__all__ = ["STEDConfig", "STEDModel", "STEDParams"]
+__all__ = ["STEDConfig", "STEDModel", "STEDParams", "STEDPlaneInputs"]
 
 
 class STEDParams(NamedTuple):
@@ -36,6 +45,23 @@ class STEDParams(NamedTuple):
     defocus: torch.Tensor
     phase: torch.Tensor
     modulus: torch.Tensor
+    sted: torch.Tensor
+
+
+class STEDPlaneInputs(NamedTuple):
+    """The confocal plane inputs of the detection and excitation pupils, the
+    depletion pupil's (``dep_*``: its modulus and phase with the static mask,
+    each masked by the pupil support) and ``sted = (zeta,)``."""
+
+    rho: torch.Tensor
+    phi: torch.Tensor
+    defocus: torch.Tensor
+    exc_rho: torch.Tensor
+    exc_phi: torch.Tensor
+    exc_defocus: torch.Tensor
+    dep_rho: torch.Tensor
+    dep_phi: torch.Tensor
+    dep_defocus: torch.Tensor
     sted: torch.Tensor
 
 
@@ -93,22 +119,34 @@ class STEDModel(ConfocalModel):
         base = WideFieldModel.init_params(self)
         return STEDParams(*base, torch.tensor([self.config.saturation], dtype=self.dtype, device=self.device))
 
-    def depletion_intensity(self, params: STEDParams) -> torch.Tensor:
-        """Depletion-beam intensity, unit peak, corner-origin (Nz, Ny, Nx)."""
+    def plane_inputs(self, params: STEDParams) -> STEDPlaneInputs:
+        conf = super().plane_inputs(params)
         wf = _scaled_params(WideFieldParams(params.defocus, params.phase, params.modulus),
                             self.config.wavelength / self.config.lambda_dep)
-        rho, phi, _, _ = self.dep.compute_pupil(wf)
-        h = self.dep.compute_psf_from_pupil(phi + self.dep_mask_phase, rho=rho * self.dep_centre,
-                                            defocus=wf.defocus)
+        rho, phi, _, mask = self.dep.compute_pupil(wf)
+        dep = ((rho * self.dep_centre) * mask, (phi + self.dep_mask_phase) * mask, wf.defocus)
+        return STEDPlaneInputs(*conf, *dep, params.sted)
+
+    def depletion_intensity(self, params: STEDParams) -> torch.Tensor:
+        """Depletion-beam intensity, unit peak, corner-origin (Nz, Ny, Nx)."""
+        i = self.plane_inputs(params)
+        h = self.dep.psf_planes(PlaneInputs(i.dep_rho, i.dep_phi, i.dep_defocus))
         return h / torch.amax(h)
 
-    def compute_psf(self, params: STEDParams) -> torch.Tensor:
-        """``h = h_conf * exp(-ln2 * zeta * d)``, unit sum, corner-origin."""
-        h_conf = ConfocalModel.compute_psf(self, WideFieldParams(params.defocus, params.phase, params.modulus))
-        d = self.depletion_intensity(params)
+    def plane_steps(self, inputs: STEDPlaneInputs, planes=slice(None)):
+        """``h_conf * exp(-ln2 * zeta * d)`` of the planes ``planes``, before
+        the unit-sum division; they wait on the confocal PSF's sum and the
+        depletion intensity's peak."""
+        conf = ConfocalModel.psf_planes(self, inputs, planes)
+        dep = self.dep.psf_planes(PlaneInputs(inputs.dep_rho, inputs.dep_phi, inputs.dep_defocus), planes)
+        total, peak = yield ("sum", conf), ("max", dep)
         # physical: no "anti-depletion"; torch.maximum splits the gradient at
         # the tie zeta = 0 as jnp.maximum does (torch.clamp would not)
-        kw = dict(dtype=self.dtype, device=self.device)
-        zeta = torch.maximum(params.sted[0], torch.zeros((), **kw))
-        h = h_conf * torch.exp(-torch.tensor(math.log(2.0), **kw) * zeta * d)
-        return h / torch.sum(h)
+        kw = dict(dtype=self.dtype, device=conf.device)
+        zeta = torch.maximum(inputs.sted[0], torch.zeros((), **kw))
+        return (conf / total) * torch.exp(-torch.tensor(math.log(2.0), **kw) * zeta * (dep / peak))
+
+    def psf_planes(self, inputs: STEDPlaneInputs, planes=slice(None)) -> torch.Tensor:
+        """:meth:`plane_steps` of every plane; of fewer, their sum and peak
+        over those planes alone."""
+        return whole_steps(self.plane_steps(inputs, planes))

@@ -9,7 +9,8 @@ with ``A`` the aberrated scalar pupil of the wide-field model (its three
 families act unchanged), ``a = 1/sqrt(cos theta)`` the aplanatic
 apodization and ``g_pd`` the six Green's-tensor pupil factors. The factors
 are a float64 NumPy static registered as a (6, Ny, Nx) buffer; the six
-fields go through one batched 2D FFT over (6, Nz, Ny, Nx). Unit sum.
+fields go through one batched 2D FFT over (6, Nz, Ny, Nx). Unit sum; each
+plane comes from the scalar pupil's plane inputs alone.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
+from microtipi_tpu_torch.models.widefield import PlaneInputs, UnitSumModel, WideFieldConfig
 from microtipi_tpu_torch.utils.grids import fft_index
 
 __all__ = ["VectorialConfig", "VectorialModel"]
@@ -56,7 +57,7 @@ class VectorialConfig(WideFieldConfig):
         return g * (1.0 / np.sqrt(np.maximum(cos_t, 1e-3)))[None]
 
 
-class VectorialModel(WideFieldModel):
+class VectorialModel(UnitSumModel):
     """The vectorial PSF on a device, its factors the buffer ``vector_factors``."""
 
     def __init__(self, config: VectorialConfig, device: torch.device | str = "cuda"):
@@ -64,9 +65,9 @@ class VectorialModel(WideFieldModel):
         self.register_buffer("vector_factors",
                              torch.as_tensor(config.vector_factors(), dtype=self.dtype, device=self.device))
 
-    def compute_psf(self, params) -> torch.Tensor:
-        """Unit-sum vectorial PSF, corner-origin (``vectorial.py:88-95``)."""
-        a = self.compute_pupil_field(params)
-        fields = torch.fft.fft2(self.vector_factors[:, None] * a[None])  # (6, Nz, Ny, Nx)
-        h = torch.sum(fields.real ** 2 + fields.imag ** 2, dim=0)
-        return h / torch.sum(h)
+    def psf_planes(self, inputs: PlaneInputs, planes=slice(None)) -> torch.Tensor:
+        """The vectorial PSF's planes ``planes`` before the unit-sum division
+        (``vectorial.py:88-95``): the six fields' intensities summed."""
+        a = self.planes_field(inputs, planes)
+        fields = torch.fft.fft2(self.vector_factors.to(a.device)[:, None] * a[None])  # (6, P, Ny, Nx)
+        return torch.sum(fields.real ** 2 + fields.imag ** 2, dim=0)

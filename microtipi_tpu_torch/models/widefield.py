@@ -17,6 +17,12 @@ axis from it, on the device the inputs are on. ``compute_psf`` is that
 function over every plane; a mesh-sharded fit (``parallel/psf_fit.py``) calls
 it on each cell for the cell's own planes.
 
+Every other family is built on this class the same way: its planes before
+one division (:class:`UnitSumModel`, a PSF of unit sum), and where they wait
+on a reduction over the whole volume (ISM's joint normalisation, STED's
+confocal sum and depletion peak) :meth:`WideFieldModel.plane_steps` yields
+it, so that a mesh takes it over every cell's planes (:func:`run_steps`).
+
 ``WideFieldConfig`` holds the static geometry; ``WideFieldModel`` is the
 ``nn.Module`` whose Zernike stack, pupil mask and wrapped-z grid are
 registered buffers, so ``.to(device)`` moves them.
@@ -41,7 +47,11 @@ from microtipi_tpu_torch.ops.pupil import (
 from microtipi_tpu_torch.ops.zernike import orthonormalize, zernike_basis
 from microtipi_tpu_torch.utils.grids import wrapped_z
 
-__all__ = ["PlaneInputs", "WideFieldParams", "WideFieldConfig", "WideFieldModel"]
+__all__ = ["REDUCTIONS", "PlaneInputs", "UnitSumModel", "WideFieldParams", "WideFieldConfig", "WideFieldModel",
+           "run_steps", "whole_steps"]
+
+#: A whole-volume reduction that a family's planes wait on, taken over one tensor.
+REDUCTIONS = {"sum": torch.sum, "max": torch.amax}
 
 
 class WideFieldParams(NamedTuple):
@@ -64,6 +74,36 @@ class PlaneInputs(NamedTuple):
     rho: torch.Tensor
     phi: torch.Tensor
     defocus: torch.Tensor
+
+
+def run_steps(steps: dict, total) -> dict:
+    """The planes of each of ``steps`` (a dict of :meth:`WideFieldModel.plane_steps`
+    generators, one a set of planes), run side by side: each time they stop,
+    all on the same reductions ``((op, tensor), ...)``, ``total(op, parts)``
+    takes each over every generator's tensor (``parts``, keyed as ``steps``)
+    and gives each its value (a dict keyed so), which it receives to go on."""
+    values, out = dict.fromkeys(steps), {}
+    while steps:
+        asks = {}
+        for k, s in steps.items():
+            try:
+                asks[k] = s.send(values[k])
+            except StopIteration as done:
+                out[k] = done.value
+        if asks and len(asks) != len(steps):
+            raise RuntimeError("plane syntheses of one PSF stopped on different reductions")
+        steps = {k: steps[k] for k in asks}
+        if asks:
+            ops = [op for op, _ in next(iter(asks.values()))]
+            each = [total(op, {k: a[i][1] for k, a in asks.items()}) for i, op in enumerate(ops)]
+            values = {k: tuple(v[k] for v in each) for k in asks}
+    return out
+
+
+def whole_steps(steps):
+    """The planes of one :meth:`WideFieldModel.plane_steps` generator, each
+    reduction taken over its own tensor (its planes are every plane)."""
+    return run_steps({0: steps}, lambda op, parts: {k: REDUCTIONS[op](t) for k, t in parts.items()})[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,6 +242,15 @@ class WideFieldModel(nn.Module):
         keywords of :meth:`planes_field`."""
         return self._intensity(torch.fft.fft2(self.planes_field(inputs, planes, **field)))
 
+    def plane_steps(self, inputs, planes=slice(None), **field):
+        """:meth:`psf_planes` as a generator of :func:`run_steps`: a family
+        whose planes wait on reductions over the whole volume yields each
+        round of them, ``((op, tensor), ...)`` with ``op`` a key of
+        :data:`REDUCTIONS`, and goes on with their values; it returns the
+        planes. These planes wait on none."""
+        yield from ()
+        return self.psf_planes(inputs, planes, **field)
+
     def compute_pupil_field(self, params: WideFieldParams) -> torch.Tensor:
         """The pupil field of every plane, (Nz, Ny, Nx) (:meth:`planes_field`)."""
         return self.planes_field(self.plane_inputs(params))
@@ -253,3 +302,16 @@ class WideFieldModel(nn.Module):
         """3D FFT of the PSF (``widefield.py:221-233``; the reference's
         ``getMtf`` never increments its loop, ``WideFieldModel.java:1814,1822``)."""
         return torch.fft.fftn(self.compute_psf(params).to(self.cdtype))
+
+
+class UnitSumModel(WideFieldModel):
+    """A family whose PSF has unit sum: :meth:`psf_planes` gives its planes
+    before the division, and :meth:`compute_psf` divides them, over every
+    plane, by their sum. A mesh divides each cell's planes by the sum of
+    every cell's (``parallel.psf_fit.psf_slabs``); the wide-field planes
+    carry their analytic 1/(Nx*Ny*Nz) instead."""
+
+    def compute_psf(self, params) -> torch.Tensor:
+        """The unit-sum PSF, corner-origin (FFT layout), (Nz, Ny, Nx)."""
+        h = self.psf_planes(self.plane_inputs(params))
+        return h / torch.sum(h)

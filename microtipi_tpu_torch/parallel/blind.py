@@ -14,14 +14,13 @@ weight in the padding, the dense crop operator's semantics; the returned
 object lives on that grid (``crop_trailing`` recovers the data window).
 
 The object step's PSF, and the Wiener start's, is z-sharded on the loop's
-grid, as the JAX module's GSPMD lays it out: where the model synthesizes
-plane by plane (``parallel.psf_fit.plane_by_plane``) each cell builds
-its own planes (``psf_slabs``, zero-padded in FFT layout on a padded grid),
-so no rank holds the whole PSF or its complex field, and no PSF byte moves
-between ranks; the solver and the weights' re-estimate take its spectrum in
-place. The other families synthesize it whole and cut it. The result's
-``psf`` is the whole PSF (``BlindDeconvResult``'s), synthesized once on
-every rank.
+grid, as the JAX module's GSPMD lays it out: each cell builds its own planes
+(``parallel.psf_fit.psf_slabs``, zero-padded in FFT layout on a padded
+grid; a unit-sum family's planes over the sum of every cell's), so no rank
+holds the whole PSF or its complex field, and no PSF byte moves between
+ranks; the solver and the weights' re-estimate take its spectrum in place.
+The result's ``psf`` is the whole PSF (``BlindDeconvResult``'s),
+synthesized once on every rank.
 """
 
 from __future__ import annotations
@@ -34,9 +33,8 @@ import torch
 from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig, BlindDeconvResult, _bead_terms, blind_fits, run_blind_loop
 from microtipi_tpu_torch.parallel.deconv import crop_trailing, pad_trailing, sharded_deconvolve, sharded_wiener
 from microtipi_tpu_torch.parallel.fft import sharded_convolve, sharded_spectrum
-from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, ShardedVolume, constrain_volume, gather, shard
-from microtipi_tpu_torch.parallel.psf_fit import plane_by_plane, psf_slabs, sharded_fit_cost
-from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
+from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, constrain_volume, gather, shard
+from microtipi_tpu_torch.parallel.psf_fit import psf_slabs, sharded_fit_cost
 
 __all__ = ["sharded_blind_deconvolve"]
 
@@ -73,16 +71,11 @@ class _Grid:
         window, the padded grid masks it."""
         return x * self.window if self.padded else x
 
-    def on_grid(self, psf):
-        """The object step's ``psf`` on the loop's grid: a sharded one is
-        there; a whole one is zero-padded in FFT layout to it."""
-        return psf if isinstance(psf, ShardedVolume) else pad_fft_kernel(psf, self.var_shape)
-
     def start(self, psf0, init: str):
         """Round 1's object: the data or its Wiener estimate under ``psf0()``
-        (the object step's PSF, :meth:`on_grid`), clamped at 0."""
+        (the object step's PSF, sharded on the loop's grid), clamped at 0."""
         if init == "wiener":
-            x0 = sharded_wiener(self.d_fit if self.padded else self.data, self.on_grid(psf0()), self.mesh)
+            x0 = sharded_wiener(self.d_fit if self.padded else self.data, psf0(), self.mesh)
         else:
             x0 = shard(pad_trailing(gather(self.data), self.var_shape), self.mesh, self.batched)
         return x0.map(lambda t: torch.clamp_min(t, 0.0))
@@ -124,13 +117,10 @@ def sharded_blind_deconvolve(
         raise ValueError("the sharded admm object engine takes one mesh-divisible (Nz, Ny, Nx) volume "
                          "(parallel.admm); batched/auto-padded sharded loops run the VMLMB object step")
 
-    planes = plane_by_plane(model)
-
     def object_psf(params):
-        """The object step's PSF: each cell's planes on the loop's grid, or
-        the whole PSF on the model's."""
+        """The object step's PSF: each cell's planes on the loop's grid."""
         with torch.no_grad():
-            return psf_slabs(model, params, mesh, grid=grid.var_shape)[0] if planes else model.compute_psf(params)
+            return psf_slabs(model, params, mesh, grid=grid.var_shape)[0]
 
     with torch.no_grad():
         x0 = grid.start(lambda: object_psf(params0), config.init)
@@ -154,7 +144,7 @@ def sharded_blind_deconvolve(
         # Model prediction H x (deconvolver.getModel()); the re-estimated
         # weights feed only the PSF step (BlindDeconvJob.java:109-111).
         with torch.no_grad():
-            k_hat = sharded_spectrum(grid.on_grid(psf), mesh)
+            k_hat = sharded_spectrum(psf, mesh)
             return grid.refit_weights(weight_updater, sharded_convolve(x, k_hat, grid.var_shape, mesh))
 
     def cost_of(x, w):

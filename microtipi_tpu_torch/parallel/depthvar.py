@@ -29,7 +29,7 @@ from microtipi_tpu_torch.parallel.blind import _Grid
 from microtipi_tpu_torch.parallel.deconv import _sharded_fun, pad_trailing, sharded_regularization, sharded_start
 from microtipi_tpu_torch.parallel.fft import sharded_convolve, sharded_spectrum
 from microtipi_tpu_torch.parallel.mesh import Mesh, ShardedVolume, gather, shard
-from microtipi_tpu_torch.parallel.psf_fit import plane_by_plane, psf_slabs, synthesizes_planes
+from microtipi_tpu_torch.parallel.psf_fit import psf_slabs, synthesizes_planes
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
 __all__ = [
@@ -246,15 +246,11 @@ def sharded_blind_deconvolve_depthvar(
     dcfg = dataclasses.replace(config.deconv, var_shape=grid.var_shape if grid.padded else None)
     fit_cfg = dataclasses.replace(config.fit, grtol=0.0)  # BlindDeconvJob.java:124
 
-    planes = plane_by_plane(model)
-
     def synth(p):
         """The object step's K anchor PSFs: each cell's planes on the loop's
-        grid (the fits' depths), or the (K,) + volume stack."""
+        grid (the fits' depths)."""
         with torch.no_grad():
-            if planes:
-                return psf_slabs(model, p, mesh, _anchor_depths(model, anchors), grid=grid.var_shape)
-            return depth_anchor_psfs(model, p, anchors, depth0=p.depth[1])
+            return psf_slabs(model, p, mesh, _anchor_depths(model, anchors), grid=grid.var_shape)
 
     with torch.no_grad():
         # Middle-anchor regularized inverse: the best shift-invariant stand-in.

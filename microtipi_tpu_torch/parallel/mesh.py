@@ -44,8 +44,9 @@ kinds differ:
   one, is the sum over every rank's tiles (:class:`_Cut`);
 - :func:`replicate` gives each cell a copy of small tensors that every cell
   needs whole (a PSF's pupil, from which each cell synthesizes its own
-  planes); their gradient is every cell's, gathered and added in the order
-  of the cells on every rank (:class:`_Replicate`), on both kinds of mesh;
+  planes; the sum that each cell's planes are divided by); their gradient
+  is every cell's, gathered and added in the order of the cells on every
+  rank (:class:`_Replicate`), on both kinds of mesh;
 - :func:`gather` gives every rank the whole (``process_allgather``);
 - a sum or maximum gathers the cells' parts and adds them on every rank in
   the order above, so every rank gets the same bits (:meth:`Mesh.add`), and
@@ -446,9 +447,10 @@ class _Replicate(torch.autograd.Function):
     """A copy of ``tensors`` on each of this rank's ``cells``' devices, one
     output a tensor and a cell (this rank's cells in order). The gradient of
     each tensor is every cell's gradient of its copy, gathered
-    (``collectives.all_cells``, kind "pupil": a cell's gradients as one
-    vector) and added in the order of ``cells`` on every rank alike, on the
-    tensors' device, in float64 and rounded once to the tensors' dtype (a
+    (``collectives.all_cells``, its bytes counted under ``kind``: a cell's
+    gradients as one vector) and added in the order of ``cells`` on every
+    rank alike, on the tensors' device, in float64 and rounded once to the
+    tensors' dtype (a
     float32 sum in cell order rounds each addition, and a float32 blind loop
     follows its gradient's last bits): the same bits on a mesh driven by one
     process and over processes. Forward mode takes the tangents' copies."""
@@ -456,41 +458,43 @@ class _Replicate(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(mesh, cells, *tensors):
+    def forward(mesh, cells, kind, *tensors):
         return tuple(send(t, mesh.device(*c)) for c in mesh.local(cells) for t in tensors)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        mesh, cells, *tensors = inputs
-        ctx.args, ctx.like = (mesh, cells), [(t.shape, t.device) for t in tensors]
+        mesh, cells, kind, *tensors = inputs
+        ctx.args, ctx.like = (mesh, cells, kind), [(t.shape, t.device) for t in tensors]
 
     @staticmethod
     def backward(ctx, *grads):
-        mesh, cells = ctx.args
+        mesh, cells, kind = ctx.args
         n, local = len(ctx.like), mesh.local(cells)
         parts = {c: torch.cat([g.reshape(-1) for g in grads[k * n:(k + 1) * n]]) for k, c in enumerate(local)}
         if mesh.distributed:
-            parts = all_cells(mesh, parts, cells, "pupil")
+            parts = all_cells(mesh, parts, cells, kind)
         device, dtype = ctx.like[0][1], parts[cells[0]].dtype
         total = parts[cells[0]].to(device, torch.float64)
         for c in cells[1:]:
             total = total + parts[c].to(device, torch.float64)
         sizes = [shape.numel() for shape, _ in ctx.like]
-        return (None, None, *(g.reshape(shape).to(dev, dtype) for g, (shape, dev) in zip(total.split(sizes), ctx.like)))
+        return (None, None, None,
+                *(g.reshape(shape).to(dev, dtype) for g, (shape, dev) in zip(total.split(sizes), ctx.like)))
 
     @staticmethod
-    def jvp(ctx, _mesh, _cells, *tangents):
-        mesh, cells = ctx.args
+    def jvp(ctx, _mesh, _cells, _kind, *tangents):
+        mesh, cells, _ = ctx.args
         return tuple(None if t is None else send(t, mesh.device(*c)) for c in mesh.local(cells) for t in tangents)
 
 
-def replicate(tensors, mesh: Mesh, cells) -> dict:
+def replicate(tensors, mesh: Mesh, cells, kind: str = "pupil") -> dict:
     """A copy of ``tensors`` (a tuple, or a named tuple, of tensors of one
     dtype that every cell needs whole) on each of this rank's ``cells``'
     devices, keyed by cell, as ``tensors``' type; differentiable (see
-    :class:`_Replicate`: every rank must reach its backward)."""
+    :class:`_Replicate`: every rank must reach its backward; ``kind`` counts
+    its bytes in ``collectives.sent``)."""
     n, local = len(tensors), mesh.local(cells)
-    flat = _Replicate.apply(mesh, list(cells), *tensors)
+    flat = _Replicate.apply(mesh, list(cells), kind, *tensors)
     make = getattr(tensors, "_make", tuple)
     return {c: make(flat[k * n:(k + 1) * n]) for k, c in enumerate(local)}
 

@@ -8,42 +8,40 @@ frame shares one optical system, so the fit minimizes the sum of the frames'
 costs over one parameter vector: the parameters are tiny and live on the
 model's device, only the volumes are sharded.
 
-The PSF synthesis is embarrassingly z-parallel: each plane's pupil field and
-2D FFT are independent of the others'. Where the model synthesizes its PSF
-plane by plane (the wide-field and Gibson-Lanni models:
-:func:`plane_by_plane`; a fit does so on the model's grid:
-:func:`synthesizes_planes`), each cell of the mesh synthesizes its own
-z-slab of the PSF on its own device (:func:`psf_slabs`), from a copy of the
-model's plane inputs (the pupil's Zernike syntheses and the defocus and
-depth vectors, computed once on the model's device and given to the cells
-by ``mesh.replicate``). No PSF slab then moves between cells: the gradient
-that crosses them is the pupil's, at most 3 * Ny * Nx values a cell (kind
-"pupil" in ``collectives.sent``), where the whole PSF's slabs crossed. The
-sharded loops' object steps take their PSFs the same way, under
-``no_grad`` (``parallel/blind.py``, ``parallel/depthvar.py``), so no rank
-holds a whole PSF or its whole complex field there.
+The PSF synthesis is embarrassingly z-parallel: each plane's pupil fields
+and 2D FFTs are independent of the others'. Each cell of the mesh
+synthesizes its own z-slab of the PSF on its own device (:func:`psf_slabs`),
+from a copy of the model's plane inputs (its pupils' Zernike syntheses and
+the small vectors of its families, computed once on the model's device and
+given to the cells by ``mesh.replicate``). A family's PSF of unit sum is its
+planes over one total: each cell's planes' sum, added over the cells in
+their order in float64 (``Mesh.add``), so every cell divides by the same
+number; the reductions its planes wait on (ISM's joint normalisation,
+STED's confocal sum and depletion peak) are taken over the cells alike. No
+PSF slab then moves between cells: the gradient that crosses them is the
+pupils', a few (Ny, Nx) maps a cell (kind "pupil" in ``collectives.sent``),
+and each reduction's a value a cell (kind "values"). The sharded loops'
+object steps take their PSFs the same way, under ``no_grad``
+(``parallel/blind.py``, ``parallel/depthvar.py``), so no rank holds a whole
+PSF or its whole complex field there.
 
 The padded grid of a sharded loop whose Nz or Ny does not divide the mesh
 (the JAX module shards the zero-padded kernel there): each cell's planes of
 the PSF zero-padded in FFT layout are either planes of the model's grid,
 each zero-padded in (y, x), or zero planes, so a cell can synthesize the
 model planes that land in its slab and place them (:func:`psf_slabs` with
-``grid``), bit for bit ``pad_fft_kernel`` of the whole PSF cut. The object
-steps take that route. The fits on a padded grid synthesize the PSF whole,
-zero-pad it and cut it: the pupil gradient added cell by cell rounds
-otherwise over processes on a mesh of several rows (each row's cells add
-their own parts) than on one process (row 1 reads row 0's slabs), and a
-float64 blind loop of a padded noise stack on (2, 2) carried that to 3.4e-11
-relative in its phase, where the whole route stays within 1e-12 of the
-one-process mesh.
-
-The families that define their own ``compute_psf`` (a second pupil, a
-normalisation over the whole volume) synthesize the PSF whole on the model's
-device, zero-padded in FFT layout to a larger grid, and cut it into slabs
+``grid``), within a rounding of ``pad_fft_kernel`` of the whole PSF cut; the
+zero planes take no part in a reduction. The object steps take that route.
+The fits on a padded grid synthesize the PSF whole, zero-pad it and cut it
 (``mesh.shard``; over processes its gradient is every cell's slab gradient,
-kind "cells"). The fit scaffolding (graduated ``active`` modes,
-``freeze_head``, preconditioning, the calibration prior, auxiliary bead
-terms, the joint variable) is ``jobs.psf_fit``'s, over this cost.
+kind "cells"): the pupil gradient added cell by cell rounds otherwise over
+processes on a mesh of several rows (each row's cells add their own parts)
+than on one process (row 1 reads row 0's slabs), and a float64 blind loop of
+a padded noise stack on (2, 2) carried that to 3.4e-11 relative in its
+phase, where the whole route stays within 1e-12 of the one-process mesh.
+The fit scaffolding (graduated ``active`` modes, ``freeze_head``,
+preconditioning, the calibration prior, auxiliary bead terms, the joint
+variable) is ``jobs.psf_fit``'s, over this cost.
 """
 
 from __future__ import annotations
@@ -52,28 +50,19 @@ import torch
 
 from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig, PsfFitResult, _fit_joint, _fit_single
 from microtipi_tpu_torch.models.microscope import family_name
-from microtipi_tpu_torch.models.widefield import WideFieldModel
+from microtipi_tpu_torch.models.widefield import UnitSumModel, run_steps
 from microtipi_tpu_torch.parallel.fft import sharded_convolve, sharded_spectrum
 from microtipi_tpu_torch.parallel.mesh import Z_AXIS, Mesh, ShardedVolume, replicate, shard
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 
-__all__ = ["plane_by_plane", "psf_slabs", "sharded_fit_psf", "sharded_fit_psf_joint", "synthesizes_planes"]
-
-
-def plane_by_plane(model) -> bool:
-    """Whether ``model``'s ``compute_psf`` is ``WideFieldModel``'s, the plane
-    synthesis over every plane (the wide-field and Gibson-Lanni models; the
-    class that defines ``compute_psf`` decides): its PSF can be synthesized
-    cell by cell (:func:`psf_slabs`)."""
-    return type(model).compute_psf is WideFieldModel.compute_psf
+__all__ = ["psf_slabs", "sharded_fit_psf", "sharded_fit_psf_joint", "synthesizes_planes"]
 
 
 def synthesizes_planes(model, grid) -> bool:
     """Whether a sharded fit on ``grid`` synthesizes ``model``'s PSF cell by
-    cell (:func:`psf_slabs`): a :func:`plane_by_plane` model on its own
-    grid. On a padded grid the fits synthesize the PSF whole (the module
-    docstring says why)."""
-    return plane_by_plane(model) and tuple(model.shape) == tuple(grid)
+    cell (:func:`psf_slabs`): on the model's own grid. On a padded grid the
+    fits synthesize the PSF whole (the module docstring says why)."""
+    return tuple(model.shape) == tuple(grid)
 
 
 def _fft_planes(n: int, size: int) -> torch.Tensor:
@@ -82,39 +71,74 @@ def _fft_planes(n: int, size: int) -> torch.Tensor:
     return pad_fft_kernel(torch.arange(1, n + 1, dtype=torch.float64), (size,)).long() - 1
 
 
-def _padded_planes(model, inputs, src: torch.Tensor, grid, field: dict) -> torch.Tensor:
+def _placed(planes: torch.Tensor, src: torch.Tensor, grid) -> torch.Tensor:
     """The planes of the PSF zero-padded in FFT layout to ``grid`` whose
-    model planes are ``src`` (:func:`_fft_planes`; -1 a zero plane): the
-    model planes synthesized, each zero-padded in (y, x), and put in place."""
+    model planes are ``src`` (:func:`_fft_planes`; -1 a zero plane), from
+    ``planes``, the model planes of ``src`` that are not -1 in order: each
+    zero-padded in (y, x) and put in place."""
     held = src >= 0
-    take = src[held] if bool(held.any()) else src.new_zeros(1)  # a slab of zero planes: shape only
-    planes = pad_fft_kernel(model.psf_planes(inputs, take, **field), tuple(grid[1:]))
+    planes = pad_fft_kernel(planes, tuple(grid[1:]))
     at = torch.where(held, torch.cumsum(held, 0) - 1, planes.shape[-3]).to(planes.device)
     return torch.cat([planes, torch.zeros_like(planes[..., :1, :, :])], -3).index_select(-3, at)
 
 
+def _cell_total(mesh: Mesh, op: str, parts: dict, counted, cells) -> dict:
+    """The reduction ``op`` ("sum" or "max") of every cell's tensor over
+    ``counted``, ``parts`` holding this rank's of ``cells``, as a copy on
+    each of this rank's cells (``mesh.replicate``): the same number on every
+    cell and rank, differentiable, its gradient every cell's copy's, added
+    in the order of ``cells`` (kind "values"). A sum takes each cell's sum
+    in float64, adds them in the order of ``counted`` (``Mesh.add``) and
+    rounds once to the parts' dtype. A maximum is exact, and its gradient
+    goes in equal shares to every element that reaches it, over all the
+    cells, as ``torch.amax``'s over one tensor does. A part of a cell not
+    counted takes no part and gets a zero gradient."""
+    dtype = next(iter(parts.values())).dtype
+    if op == "sum":
+        total = mesh.add({c: p.sum(dtype=torch.float64) for c, p in parts.items()}, counted, torch.float64).to(dtype)
+    else:
+        peak = mesh.max({c: p.detach().amax() for c, p in parts.items()}, counted, dtype)
+        hits = {c: (p.detach() == peak.to(p.device)).to(dtype) for c, p in parts.items()}
+        count = mesh.add({c: h.sum() for c, h in hits.items()}, counted, dtype)
+        held = mesh.add({c: (p * hits[c]).sum() for c, p in parts.items()}, counted, dtype)
+        total = peak + (held - held.detach()) / count
+    return {c: t for c, (t,) in replicate((total,), mesh, cells, "values").items()}
+
+
 def psf_slabs(model, params, mesh: Mesh, field_of=None, grid=None) -> list[ShardedVolume]:
     """The PSF of ``params`` as unbatched z-sharded volumes, each cell's slab
-    synthesized on its own device (``model.psf_planes``) from its copy of
+    synthesized on its own device (``model.plane_steps``) from its copy of
     ``model.plane_inputs(params)``: one volume, or K where ``field_of``, a
     function of a cell's copy, gives keywords of ``model.planes_field`` that
-    make K PSFs (Gibson-Lanni ``depths``). ``grid``: a grid larger than the
-    model's, on which the PSF is zero-padded in FFT layout (default the
-    model's). Differentiable; every rank of a mesh over processes must reach
-    the backward."""
+    make K PSFs (Gibson-Lanni ``depths``). A reduction that the planes wait
+    on, and a unit-sum model's sum, is taken over row 0's cells
+    (:func:`_cell_total`). ``grid``: a grid larger than the model's, on
+    which the PSF is zero-padded in FFT layout (default the model's).
+    Differentiable; every rank of a mesh over processes must reach the
+    backward."""
     grid = tuple(model.shape) if grid is None else tuple(grid)
     nz, z_size = grid[0], mesh.shape[Z_AXIS]
     if nz % z_size:
         raise ValueError(f"the PSF's {nz} planes do not divide over {z_size} mesh entries")
     step, cells = nz // z_size, mesh.volume_cells(False)
     src = None if grid == tuple(model.shape) else _fft_planes(model.shape[0], nz)
-    tiles = {}
+    slab = [slice(z * step, (z + 1) * step) for z in range(z_size)]
+    # The cells whose planes a reduction counts: row 0's (the other rows hold replicas), with model planes.
+    counted = [(0, z) for z in range(z_size) if src is None or bool((src[slab[z]] >= 0).any())]
+    steps = {}
     for (b, z), inputs in replicate(model.plane_inputs(params), mesh, cells).items():
         kw = {} if field_of is None else field_of(inputs)
         if src is None:
-            tiles[(b, z)] = model.psf_planes(inputs, slice(z * step, (z + 1) * step), **kw)
-        else:
-            tiles[(b, z)] = _padded_planes(model, inputs, src[z * step:(z + 1) * step], grid, kw)
+            planes = slab[z]
+        else:  # a slab of zero planes synthesizes plane 0 for its shape only, counted in no reduction
+            planes = src[slab[z]][src[slab[z]] >= 0] if (0, z) in counted else src.new_zeros(1)
+        steps[(b, z)] = model.plane_steps(inputs, planes, **kw)
+    tiles = run_steps(steps, lambda op, parts: _cell_total(mesh, op, parts, counted, cells))
+    if isinstance(model, UnitSumModel):
+        total = _cell_total(mesh, "sum", tiles, counted, cells)
+        tiles = {c: t / total[c] for c, t in tiles.items()}
+    if src is not None:
+        tiles = {(b, z): _placed(t, src[slab[z]], grid) for (b, z), t in tiles.items()}
     lead = next(iter(tiles.values())).shape[:-3]
     if not lead:
         return [ShardedVolume(mesh, grid, tiles, False)]
@@ -124,10 +148,9 @@ def psf_slabs(model, params, mesh: Mesh, field_of=None, grid=None) -> list[Shard
 def sharded_fit_cost(model, data, obj, weights, mesh: Mesh):
     """``cost(params) = 0.5 * sum w * (obj (*) psf(params) - data)^2`` on the
     mesh (``psf_fit.py:41-67``). ``data`` and ``obj`` share one (possibly
-    padded) grid, tensors or sharded volumes. Where the model
-    :func:`synthesizes_planes` on that grid, each cell synthesizes its slab
-    (:func:`psf_slabs`); otherwise the PSF is synthesized whole, zero-padded
-    in FFT layout to the grid when the model's grid is smaller, and cut."""
+    padded) grid, tensors or sharded volumes. On the model's grid each cell
+    synthesizes its slab (:func:`psf_slabs`); on a larger one the PSF is
+    synthesized whole, zero-padded in FFT layout to it, and cut."""
     vol_shape = tuple(data.shape[-3:])
     batched = data.ndim == 4
     data = shard(data, mesh, batched)

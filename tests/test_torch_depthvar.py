@@ -537,3 +537,34 @@ def test_blind_deconvolve_depthvar_matches_jax(name, dv_runs):
             k: v for k, v in FIT_OPTICS.items() if k not in ("ns", "depth")})), device="cpu")
         with pytest.raises(ValueError, match="DEPTH family"):
             tdepthvar.blind_deconvolve_depthvar(torch.tensor(data), wmodel, 3)
+
+
+def test_blind_deconvolve_depthvar_phase_anchor_matches_jax():
+    """``phase_anchor``: the calibration prior pulls the phase toward an
+    anchor other than ``params0``'s phase, 2 rounds on SHAPE against the JAX
+    loop given the same anchor (params, every round's f and the object to
+    1e-5); the anchor moves the result away from the default's."""
+    from microtipi_tpu.jobs.blind import BlindDeconvConfig as JaxBlindConfig
+    from microtipi_tpu.jobs.depthvar import blind_deconvolve_depthvar as jax_blind_depthvar
+    from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
+
+    cfg, _, model, _ = _gl()
+    _, _, data = _scenes(1, seed=5)
+    anchor = [0.3, -0.2, 0.0, 0.1]
+    fields = dict(loops=2, families=(DEFOCUS, PHASE), psf_max_iter=(3, 3), phase_prior_weight=0.1)
+    dcfg = dict(mu=1e-3, epsilon=1.0, max_iter=4, grtol=0.0)
+    want = jax_blind_depthvar(jnp.asarray(data[0]), cfg, ANCHORS, phase_anchor=jnp.asarray(anchor),
+                              config=JaxBlindConfig(deconv=JaxDeconvConfig(**dcfg), **fields))
+    tcfg = BlindDeconvConfig(deconv=DeconvolutionConfig(**dcfg), **fields)
+    got = tdepthvar.blind_deconvolve_depthvar(torch.tensor(data[0]), model, ANCHORS, phase_anchor=torch.tensor(anchor),
+                                              config=tcfg)
+    for k in ("defocus", "phase", "depth"):
+        assert _rel(getattr(got.params, k), getattr(want.params, k)) < X_REL, k
+    wd, wf = np.asarray(want.deconv_f), np.asarray(want.fit_f)
+    assert np.max(np.abs(got.deconv_f - wd) / wd) < X_REL
+    ok = ~np.isnan(wf)
+    np.testing.assert_array_equal(np.isnan(got.fit_f), ~ok)
+    assert np.max(np.abs(got.fit_f[ok] - wf[ok]) / wf[ok]) < X_REL
+    assert _rel(got.obj, want.obj) < X_REL
+    default = tdepthvar.blind_deconvolve_depthvar(torch.tensor(data[0]), model, ANCHORS, config=tcfg)
+    assert _rel(default.params.phase, got.params.phase) > 1e3 * X_REL

@@ -15,9 +15,11 @@ moves' tags must agree across ranks that see different moves; the ADMM
 ring's wrap crosses ranks) and three of the options (a rank whose cell reads
 nothing from the others must still reach the exchange's backward). Both
 spawns also run one PSF fit evaluation (cost and gradient) of one volume on
-(1, 4) and on (2, 2), and one of the depth-varying fit, and count the bytes
-each rank sent: each cell synthesizes its own planes of the PSF, so only the
-pupil's gradient crosses ranks, never a PSF slab. One spawn
+(1, 4) and on (2, 2), of the wide-field model, a confocal and a light-sheet
+one, and one of the depth-varying fit, and count the bytes each rank sent:
+each cell synthesizes its own planes of the PSF (a unit-sum family's over
+the cells' one sum), so only the pupils' gradient crosses ranks, never a PSF
+slab; and one round of a confocal blind loop, its fit included. One spawn
 of each serves the module, and the parent computes its references while
 they run, then joins the ranks with a deadline and kills them past it.
 
@@ -132,6 +134,7 @@ def runs(tmp_path_factory):
                **worker.run_solvers(worker.one_process_mesh), "reductions": worker.run_reductions(worker.one_process_mesh),
                "slab_entries": worker.run_slab_entries(worker.one_process_mesh),
                "fit_evaluations": worker.run_fit_evaluations(worker.one_process_mesh),
+               "family_rounds": worker.run_family_rounds(worker.one_process_mesh),
                "object_steps": worker.run_object_steps(worker.one_process_mesh)}
         refs = _jax_refs()
     finally:
@@ -374,3 +377,37 @@ def test_the_object_step_synthesizes_its_cells_planes_and_moves_no_psf_byte(case
         assert got["calls"] == 2 * own + ["all"], got["calls"]
         for key in ("obj", "deconv_f"):
             assert torch.equal(_bits(got[key]), _bits(want[key])), key
+
+
+@pytest.mark.parametrize("world", ["two", "four"])
+@pytest.mark.parametrize("case", [f"{f}_fit_{m}" for f in worker.FAMILIES for m in ("1x4", "2x2")])
+def test_a_unit_sum_family_fit_evaluation_sends_its_pupils_gradient_and_no_psf_slab(case, world, runs):
+    """One fit evaluation of a confocal and of a light-sheet model on 2 and 4
+    ranks: each cell synthesizes its own planes, divided by the sum of every
+    cell's (a value a cell gathered), so no PSF slab crosses ranks (0 bytes of
+    kind "cells"); each cell's gradient of the model's plane inputs (both
+    pupils' for the confocal model) goes to every other rank once (kind
+    "pupil"); every rank gets the one-process mesh's cost and gradient bit
+    for bit."""
+    ranks, want = runs[world], runs["one"]["fit_evaluations"][case]
+    for r in ranks:
+        got = r["fit_evaluations"][case]
+        assert got["sent"].get("cells", 0) == 0, got["sent"]
+        assert got["sent"]["pupil"] == got["cells"] * (len(ranks) - 1) * got["pupil_values"] * 8, got["sent"]
+        assert torch.equal(_bits(got["f"]), _bits(want["f"])) and torch.equal(_bits(got["grads"]), _bits(want["grads"]))
+
+
+@pytest.mark.parametrize("world", ["two", "four"])
+def test_a_confocal_blind_round_moves_no_psf_slab(world, runs):
+    """One round of a confocal stack's sharded blind loop (the Wiener start,
+    the object step and the joint fit on each cell's planes over the cells'
+    one sum) on 2 and 4 ranks: no PSF byte of kind "cells"; the object, its
+    cost, the fit's cost and the parameters bit for bit the one-process
+    mesh's, the object step's cost below the start's data term."""
+    want = runs["one"]["family_rounds"]["confocal_blind_1x4"]
+    for r in runs[world]:
+        got = r["family_rounds"]["confocal_blind_1x4"]
+        assert got["sent"].get("cells", 0) == 0 and got["sent"]["pupil"] > 0, got["sent"]
+        for key in ("obj", "deconv_f", "fit_f", "phase", "defocus"):
+            assert torch.equal(_bits(got[key]), _bits(want[key])), key
+    assert np.isfinite(want["deconv_f"]).all() and np.isfinite(want["fit_f"]).all()

@@ -19,7 +19,9 @@ from microtipi_tpu_torch.jobs.blind import BlindDeconvConfig
 from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
 from microtipi_tpu_torch.jobs.depthvar import depth_anchor_psfs
 from microtipi_tpu_torch.jobs.psf_fit import PsfFitConfig
+from microtipi_tpu_torch.models.confocal import ConfocalConfig, ConfocalModel
 from microtipi_tpu_torch.models.gibson_lanni import GibsonLanniConfig, GibsonLanniModel
+from microtipi_tpu_torch.models.lightsheet import LightSheetConfig, LightSheetModel
 from microtipi_tpu_torch.models.microscope import DEFOCUS, DEPTH, PHASE
 from microtipi_tpu_torch.models.widefield import WideFieldConfig, WideFieldModel
 from microtipi_tpu_torch.ops.convolution import convolve, convolve_spectrum
@@ -97,6 +99,25 @@ def depthvar_scene():
         obj = torch.as_tensor((rng.random(SHAPE) > 0.97) * rng.random(SHAPE) * 100.0)
         data = DepthVaryingConvCost.build(psfs, obj, None, SHAPE, ANCHORS).model(obj)
     return model, psfs, obj, data + 0.01 * torch.as_tensor(rng.standard_normal(SHAPE))
+
+
+def family_scene(family: str):
+    """(model, params, obj, data) of a unit-sum family at SHAPE: a confocal
+    model with a pinhole, or a light sheet; the data blurred by its PSF at
+    an aberration, with 1% noise; the params another aberration."""
+    if family == "confocal":
+        model = ConfocalModel(ConfocalConfig(shape=SHAPE, dtype=torch.float64, n_phase=3, wavelength_exc=488e-9,
+                                             pinhole=150e-9, **KW), device="cpu")
+    else:
+        model = LightSheetModel(LightSheetConfig(shape=SHAPE, dtype=torch.float64, n_phase=3, sheet_na=0.15,
+                                                 wavelength_exc=488e-9, **KW), device="cpu")
+    true = model.init_params()._replace(phase=torch.tensor([0.4, -0.2, 0.1], dtype=torch.float64))
+    _, _, obj, _ = depthvar_scene()
+    rng = np.random.default_rng(1)
+    with torch.no_grad():
+        data = convolve(obj, convolve_spectrum(model.compute_psf(true)), SHAPE)
+    data = data + 0.01 * float(data.max()) * torch.as_tensor(rng.standard_normal(SHAPE))
+    return model, true._replace(phase=torch.tensor([0.3, -0.1, 0.05], dtype=torch.float64)), obj, data
 
 
 def _deconv(res) -> dict:
@@ -265,20 +286,27 @@ def run_reductions(mesh_of) -> dict:
 def run_fit_evaluations(mesh_of) -> dict:
     """One PSF fit evaluation, cost and gradient, on the meshes ``mesh_of(batch,
     z)`` makes: ``sharded_fit_cost`` of one volume on (1, 4) and on (2, 2)
-    (a replica a row), and the depth-varying fit's cost on (1, 4); each with
-    the bytes this rank sent by kind and its number of cells."""
+    (a replica a row), the depth-varying fit's cost on (1, 4), and a confocal
+    and a light-sheet fit's cost (:func:`family_scene`) on both; each with
+    the bytes this rank sent by kind, its number of cells and the number of
+    values in the model's plane inputs."""
     from microtipi_tpu_torch.parallel import collectives
     from microtipi_tpu_torch.parallel.psf_fit import sharded_fit_cost
 
     model, _, data, _ = scene()
     gl, _, obj, ddata = depthvar_scene()
     p = model.init_params()._replace(phase=torch.tensor([0.3, -0.1, 0.05], dtype=torch.float64))
-    costs = {"fit_1x4": (p, lambda: sharded_fit_cost(model, data, obj, None, mesh_of(1, 4)), (1, 4)),
-             "fit_2x2": (p, lambda: sharded_fit_cost(model, data, obj, None, mesh_of(2, 2)), (2, 2)),
-             "depthvar_fit_1x4": (gl.init_params(), lambda: sdv.sharded_depthvar_fit_cost(
+    costs = {"fit_1x4": (model, p, lambda: sharded_fit_cost(model, data, obj, None, mesh_of(1, 4)), (1, 4)),
+             "fit_2x2": (model, p, lambda: sharded_fit_cost(model, data, obj, None, mesh_of(2, 2)), (2, 2)),
+             "depthvar_fit_1x4": (gl, gl.init_params(), lambda: sdv.sharded_depthvar_fit_cost(
                  gl, ddata, obj, None, mesh_of(1, 4), ANCHORS), (1, 4))}
+    for family in FAMILIES:
+        fm, fp, fobj, fdata = family_scene(family)
+        for b, z in ((1, 4), (2, 2)):
+            costs[f"{family}_fit_{b}x{z}"] = (fm, fp, lambda fm=fm, fobj=fobj, fdata=fdata, b=b, z=z: sharded_fit_cost(
+                fm, fdata, fobj, None, mesh_of(b, z)), (b, z))
     out = {}
-    for name, (params, make, shape) in costs.items():
+    for name, (m, params, make, shape) in costs.items():
         cost = make()
         leaves = [t.detach().clone().requires_grad_(True) for t in params]
         collectives.sent.clear()
@@ -286,8 +314,29 @@ def run_fit_evaluations(mesh_of) -> dict:
         grads = torch.autograd.grad(f, leaves, allow_unused=True, materialize_grads=True)
         mesh = mesh_of(*shape)
         out[name] = {"f": f.detach(), "grads": torch.cat([g.reshape(-1) for g in grads]),
-                     "sent": dict(collectives.sent), "cells": len(mesh.local(mesh.cells()))}
+                     "sent": dict(collectives.sent), "cells": len(mesh.local(mesh.cells())),
+                     "pupil_values": sum(t.numel() for t in m.plane_inputs(params))}
     return out
+
+
+#: The unit-sum families of the fit evaluations and the blind round (:func:`family_scene`).
+FAMILIES = ("confocal", "lightsheet")
+
+
+def run_family_rounds(mesh_of) -> dict:
+    """One round of the sharded blind loop of :func:`family_scene`'s confocal
+    stack on (1, 4): the Wiener start, the object step and the joint fit,
+    each on each cell's planes over the cells' one sum; with the bytes this
+    rank sent by kind."""
+    from microtipi_tpu_torch.parallel import collectives
+
+    model, _, _, data = family_scene("confocal")
+    cfg = BlindDeconvConfig(loops=1, skip_last_fit=False, families=(DEFOCUS, PHASE), psf_max_iter=(3, 3),
+                            joint_fit=True, init="wiener", deconv=DeconvolutionConfig(max_iter=4, **CFG))
+    collectives.sent.clear()
+    res = sharded_blind_deconvolve(data, model, mesh_of(1, 4), config=cfg)
+    sent = dict(collectives.sent)
+    return {"confocal_blind_1x4": {**_blind(res), "sent": sent}}
 
 
 #: The object-step cases: one round (the Wiener start and the object step, no fit) of each sharded blind loop.
@@ -356,8 +405,9 @@ def child(rank: int, world: int, init: str, out: str, case: str) -> None:
     :func:`run_options`, :func:`run_solvers`, :func:`run_reductions` and
     :func:`run_slab_entries` and :func:`run_fit_evaluations` on meshes over
     the ranks and saves ``rank<r>.pt`` in ``out``; "few" runs :data:`FEW` of
-    the cases and solvers, :data:`FEW_OPTIONS` of the options and the fit
-    evaluations ("jobs" also :func:`run_object_steps`); "fail"
+    the cases and solvers, :data:`FEW_OPTIONS` of the options, the fit
+    evaluations and :func:`run_family_rounds` ("jobs" also
+    :func:`run_object_steps`); "fail"
     makes rank 1 raise before its first collective. A failure leaves its
     traceback in ``rank<r>.err`` and exits non-zero."""
     torch.set_num_threads(1)
@@ -377,7 +427,7 @@ def child(rank: int, world: int, init: str, out: str, case: str) -> None:
             else:
                 got = {**run_cases(mesh_of), **run_options(mesh_of), **run_solvers(mesh_of)}
                 got.update(reductions=run_reductions(mesh_of), slab_entries=run_slab_entries(mesh_of))
-            got.update(fit_evaluations=run_fit_evaluations(mesh_of))
+            got.update(fit_evaluations=run_fit_evaluations(mesh_of), family_rounds=run_family_rounds(mesh_of))
             if case != "few":
                 got.update(object_steps=run_object_steps(mesh_of))
             torch.save(got, pathlib.Path(out) / f"rank{rank}.pt")
