@@ -42,7 +42,8 @@ stateful reference-parity one, ``api.WideFieldModel`` /
 ``io`` reads and writes TIFF/OME-TIFF, zarr/OME-NGFF, HDF5 and plates as
 NumPy on the host (the TIFF reader is built from ``native/stackio.cpp`` at
 first use), ``utils.checkpoint`` saves and loads a blind run's state, and
-``utils.profiling`` traces with ``torch.profiler``.
+``utils.profiling`` traces with ``torch.profiler`` (``trace``) and names the
+program's ranges in such a trace (``span``).
 
 Left out as TPU-only: ``ops/exactfft.py`` and every ``exact_fft`` /
 ``auto_exact_fft`` / ``fft_pair`` switch, ``mem_dtype`` /

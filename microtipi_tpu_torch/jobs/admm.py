@@ -77,6 +77,7 @@ from microtipi_tpu_torch.ops.kernels.admm_split import (
     split_magnitude,
 )
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
+from microtipi_tpu_torch.utils.profiling import span
 
 __all__ = ["admm_deconvolve", "admm_deconvolve_multichannel", "admm_deconvolve_timeseries",
            "admm_deconvolve_timeseries_multichannel", "fista_deconvolve"]
@@ -157,6 +158,17 @@ def _scale_spectrum_(z_hat: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
     return z_hat
 
 
+def _objective_value(cost, config: DeconvolutionConfig):
+    """``objective_value(cost, config)``, each value in an ``admm.objective`` span."""
+    value = objective_value(cost, config)
+
+    def objective(x):
+        with span("admm.objective"):
+            return value(x)
+
+    return objective
+
+
 def admm_deconvolve(
     data: torch.Tensor,
     psf: torch.Tensor,
@@ -203,195 +215,205 @@ def admm_deconvolve(
     ``x0`` are batched too, ``psf`` is shared or one per lane, and every field
     of the result has a leading batch axis). Runs on the device of its
     tensors; on a CUDA card in float32, through the CUDA kernels.
+
+    While a ``torch.profiler`` session records, the call is an ``admm.solve``
+    span holding ``admm.setup``, an ``admm.objective`` a value and, on the
+    data-split paths, two ``admm.data_split`` an iteration
+    (``utils/profiling.span``).
     """
-    _check_config(config, "admm")
-    abstol, reltol, check_every, use_tol = _admm_tolerances(config)
-    if data.ndim not in (3, 4):
-        raise ValueError(f"admm_deconvolve takes a 3D volume or a 4D batch, got shape {tuple(data.shape)}")
-    batched = data.ndim == 4
-    if not batched:
-        data, weights, x0 = (None if t is None else t[None] for t in (data, weights, x0))
-    if over_relax is None:
-        # Over-relaxation theory assumes a fixed rho; with residual balancing
-        # live the combination measured slightly worse, so the default backs off.
-        over_relax = 1.0 if adaptive_rho else 1.8
-    al = float(over_relax)
-    if weights is not None:
-        # Zero weight excludes the voxel whatever its value: 0 * NaN would
-        # poison the split (as in WeightedConvolutionCost.build).
-        data = torch.where(weights > 0, data, torch.zeros_like(data))
-    nb, shape, dtype, dev = data.shape[0], tuple(data.shape[1:]), data.dtype, data.device
-    mu, eps, bg, scales = float(config.mu), float(config.epsilon), float(config.background), config.scales
-    poisson = config.data_term == "poisson"
-    data_split = poisson or weights is not None
-    r1 = float(rho1) if rho1 is not None else max(mu / max(eps, 1e-30), 1e-6)
-    r2 = float(rho2) if rho2 is not None else r1
-    n = int(config.max_iter)
+    with span("admm.solve"):
+        with span("admm.setup"):
+            _check_config(config, "admm")
+            abstol, reltol, check_every, use_tol = _admm_tolerances(config)
+            if data.ndim not in (3, 4):
+                raise ValueError(f"admm_deconvolve takes a 3D volume or a 4D batch, got shape {tuple(data.shape)}")
+            batched = data.ndim == 4
+            if not batched:
+                data, weights, x0 = (None if t is None else t[None] for t in (data, weights, x0))
+            if over_relax is None:
+                # Over-relaxation theory assumes a fixed rho; with residual balancing
+                # live the combination measured slightly worse, so the default backs off.
+                over_relax = 1.0 if adaptive_rho else 1.8
+            al = float(over_relax)
+            if weights is not None:
+                # Zero weight excludes the voxel whatever its value: 0 * NaN would
+                # poison the split (as in WeightedConvolutionCost.build).
+                data = torch.where(weights > 0, data, torch.zeros_like(data))
+            nb, shape, dtype, dev = data.shape[0], tuple(data.shape[1:]), data.dtype, data.device
+            mu, eps, bg, scales = float(config.mu), float(config.epsilon), float(config.background), config.scales
+            poisson = config.data_term == "poisson"
+            data_split = poisson or weights is not None
+            r1 = float(rho1) if rho1 is not None else max(mu / max(eps, 1e-30), 1e-6)
+            r2 = float(rho2) if rho2 is not None else r1
+            n = int(config.max_iter)
 
-    cost = _data_cost(psf, data, weights, config, accurate=True)  # float32 tracking needs the residual form
-    objective = objective_value(cost, config)
-    h_hat = conv._rfftn(pad_fft_kernel(psf, shape))
-    s2 = _grad_sq_spectrum(shape, scales, dtype, dev)
+            cost = _data_cost(psf, data, weights, config, accurate=True)  # float32 tracking needs the residual form
+            objective = _objective_value(cost, config)
+            h_hat = conv._rfftn(pad_fft_kernel(psf, shape))
+            s2 = _grad_sq_spectrum(shape, scales, dtype, dev)
 
-    x = x0 if x0 is not None else (torch.clamp_min(data, 0.0) if config.positivity else data)
-    x = x.to(dtype).contiguous()
-    hist = torch.full((nb, n + 1), float("nan"), dtype=dtype, device=dev)
-    hist[:, 0] = objective(x)
+            x = x0 if x0 is not None else (torch.clamp_min(data, 0.0) if config.positivity else data)
+            x = x.to(dtype).contiguous()
+            hist = torch.full((nb, n + 1), float("nan"), dtype=dtype, device=dev)
+            hist[:, 0] = objective(x)
 
-    # Per-lane state: every tensor has the live lanes on its leading axis, so
-    # taking a converged lane out is one index along it.
-    st = {
-        "lane": torch.arange(nb, device=dev),
-        "x": x, "z1": _circ_diffs(x, scales), "z2": x.clone(), "u2": torch.zeros_like(x),
-        "rho1": torch.full((nb,), r1, dtype=dtype, device=dev),
-        "rho2": torch.full((nb,), r2, dtype=dtype, device=dev),
-    }
-    st["u1"] = torch.zeros_like(st["z1"])
-    kernel_spectra = {"h_hat": h_hat, "h2": conv._abs2(h_hat)}
-    if h_hat.ndim == 4:  # one PSF a lane: the spectra are per-lane state too
-        st.update(kernel_spectra)
-    if data_split:
-        if rho0 is not None:
-            r0 = torch.full((nb,), float(rho0), dtype=dtype, device=dev)
-        elif poisson:  # Poisson curvature at the data scale: d/m^2 ~ 1/mean(m)
-            r0 = 1.0 / torch.clamp_min(data.mean(dim=(1, 2, 3)) + bg, 1e-12)
-        else:
-            r0 = weights.mean(dim=(1, 2, 3))
-        st.update(r0=r0, data=data, z0=conv._irfftn(h_hat * conv._rfftn(x), shape), u0=torch.zeros_like(x))
-        if not poisson:
-            st.update(weights=weights, wd=weights * data)
-    else:
-        st["htd_hat"] = torch.conj(h_hat) * conv._rfftn(data)
-
-    def spectrum(name):
-        return st.get(name, kernel_spectra[name])
-
-    def refresh_rho():
-        """What depends on the rhos: the x-update's denominator and the prox
-        threshold. Once for fixed rhos, every iteration under adaptive_rho."""
-        h2 = spectrum("h2")
-        den = _per_lane(st["rho1"]) * s2 + _per_lane(st["rho2"])
-        st["inv_den"] = 1.0 / (den + (_per_lane(st["r0"]) * h2 if data_split else h2))
-        st["lam"] = mu / st["rho1"]
-
-    def data_prox(v):
-        """argmin_z g(z) + rho0/2 (z - v)^2 pointwise for the data term."""
-        rr0 = _per_lane(st["r0"])
-        if poisson:  # rho z^2 + z (1 + rho (b - v)) + (b - d - rho v b) = 0, the + root
-            b_coef = 1.0 + rr0 * (bg - v)
-            c_coef = bg - st["data"] - rr0 * v * bg
-            disc = torch.clamp_min(b_coef * b_coef - 4.0 * rr0 * c_coef, 0.0)
-            return (-b_coef + torch.sqrt(disc)) / (2.0 * rr0)
-        return (st["wd"] + rr0 * v) / (st["weights"] + rr0)
-
-    def step():
-        """One ADMM iteration on the live lanes; returns ``hx`` (data-split
-        paths, for the Boyd test)."""
-        hh = spectrum("h_hat")
-        rhs = admm_rhs(st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"], scales)
-        x_hat = conv._rfftn(rhs)
-        if data_split:
-            x_hat += _scale_spectrum_(torch.conj(hh) * conv._rfftn(st["z0"] - st["u0"]), _per_lane(st["r0"]))
-        else:
-            x_hat += st["htd_hat"]
-        _scale_spectrum_(x_hat, st["inv_den"])
-        st["x"] = conv._irfftn(x_hat, shape).contiguous()
-        hx = None
-        if data_split:
-            hx = conv._irfftn(hh * x_hat, shape)
-            hxr = hx if al == 1.0 else al * hx + (1.0 - al) * st["z0"]
-            z0 = data_prox(hxr + st["u0"])
-            st["u0"] = st["u0"] + hxr - z0
-            st["z0"] = z0
-        admm_split_update(st["x"], st["z1"], st["u1"], st["z2"], st["u2"], st["lam"], eps, al,
-                          config.positivity, scales)
-        return hx
-
-    def balance_rho(z1_old, z2_old):
-        """Per-split residual balancing (Boyd 2011 section 3.4.1), scaled-dual
-        form: growing rho shrinks u by the same factor. rho0 stays fixed (its
-        dual residual would cost an extra FFT pair)."""
-        dx = _circ_diffs(st["x"], scales)
-        for rho, u, rp, sd in (
-            ("rho1", "u1", _stack_norm([dx - st["z1"]]),
-             _stack_norm([_circ_diffs_adjoint(st["z1"] - z1_old, scales)])),
-            ("rho2", "u2", _stack_norm([st["x"] - st["z2"]]), _stack_norm([st["z2"] - z2_old])),
-        ):
-            sd = st[rho] * sd
-            fac = torch.where(rp > 10.0 * sd, 2.0, torch.where(sd > 10.0 * rp, 0.5, 1.0)).to(dtype)
-            st[rho] = st[rho] * fac
-            st[u] /= fac.reshape((-1,) + (1,) * (st[u].ndim - 1))
-        refresh_rho()
-
-    def converged(z_old, hx) -> torch.Tensor:
-        """The Boyd test on the live lanes. The splits are z0 = Hx (data
-        paths), z1 = Dx, z2 = x, so the norms are elementwise except the two
-        H^T applications of the dual residual on the data-split paths."""
-        dx = _circ_diffs(st["x"], scales)
-        r_terms, z_terms = [dx - st["z1"], st["x"] - st["z2"]], [st["z1"], st["z2"]]
-        if data_split:
-            r_terms.append(hx - st["z0"])
-            z_terms.append(st["z0"])
-        rr1, rr2 = _per_lane(st["rho1"]), _per_lane(st["rho2"])
-
-        def conv_t(v):
-            return conv._irfftn(torch.conj(spectrum("h_hat")) * conv._rfftn(v), shape)
-
-        def dual_fn():
-            s_vec = rr1 * _circ_diffs_adjoint(st["z1"] - z_old["z1"], scales) + rr2 * (st["z2"] - z_old["z2"])
-            aty = rr1 * _circ_diffs_adjoint(st["u1"], scales) + rr2 * st["u2"]
+            # Per-lane state: every tensor has the live lanes on its leading axis, so
+            # taking a converged lane out is one index along it.
+            st = {
+                "lane": torch.arange(nb, device=dev),
+                "x": x, "z1": _circ_diffs(x, scales), "z2": x.clone(), "u2": torch.zeros_like(x),
+                "rho1": torch.full((nb,), r1, dtype=dtype, device=dev),
+                "rho2": torch.full((nb,), r2, dtype=dtype, device=dev),
+            }
+            st["u1"] = torch.zeros_like(st["z1"])
+            kernel_spectra = {"h_hat": h_hat, "h2": conv._abs2(h_hat)}
+            if h_hat.ndim == 4:  # one PSF a lane: the spectra are per-lane state too
+                st.update(kernel_spectra)
             if data_split:
+                if rho0 is not None:
+                    r0 = torch.full((nb,), float(rho0), dtype=dtype, device=dev)
+                elif poisson:  # Poisson curvature at the data scale: d/m^2 ~ 1/mean(m)
+                    r0 = 1.0 / torch.clamp_min(data.mean(dim=(1, 2, 3)) + bg, 1e-12)
+                else:
+                    r0 = weights.mean(dim=(1, 2, 3))
+                st.update(r0=r0, data=data, z0=conv._irfftn(h_hat * conv._rfftn(x), shape), u0=torch.zeros_like(x))
+                if not poisson:
+                    st.update(weights=weights, wd=weights * data)
+            else:
+                st["htd_hat"] = torch.conj(h_hat) * conv._rfftn(data)
+
+            def spectrum(name):
+                return st.get(name, kernel_spectra[name])
+
+            def refresh_rho():
+                """What depends on the rhos: the x-update's denominator and the prox
+                threshold. Once for fixed rhos, every iteration under adaptive_rho."""
+                h2 = spectrum("h2")
+                den = _per_lane(st["rho1"]) * s2 + _per_lane(st["rho2"])
+                st["inv_den"] = 1.0 / (den + (_per_lane(st["r0"]) * h2 if data_split else h2))
+                st["lam"] = mu / st["rho1"]
+
+            def data_prox(v):
+                """argmin_z g(z) + rho0/2 (z - v)^2 pointwise for the data term."""
                 rr0 = _per_lane(st["r0"])
-                s_vec = s_vec + rr0 * conv_t(st["z0"] - z_old["z0"])
-                aty = aty + rr0 * conv_t(st["u0"])
-            return s_vec, aty
+                if poisson:  # rho z^2 + z (1 + rho (b - v)) + (b - d - rho v b) = 0, the + root
+                    b_coef = 1.0 + rr0 * (bg - v)
+                    c_coef = bg - st["data"] - rr0 * v * bg
+                    disc = torch.clamp_min(b_coef * b_coef - 4.0 * rr0 * c_coef, 0.0)
+                    return (-b_coef + torch.sqrt(disc)) / (2.0 * rr0)
+                return (st["wd"] + rr0 * v) / (st["weights"] + rr0)
 
-        n_el = float(np.prod(shape))
-        return _boyd_criterion(r_terms, z_terms, dual_fn, n_el * (4.0 + data_split), n_el, abstol, reltol)
+            def step():
+                """One ADMM iteration on the live lanes; returns ``hx`` (data-split
+                paths, for the Boyd test)."""
+                hh = spectrum("h_hat")
+                rhs = admm_rhs(st["z1"], st["u1"], st["z2"], st["u2"], st["rho1"], st["rho2"], scales)
+                x_hat = conv._rfftn(rhs)
+                if data_split:
+                    with span("admm.data_split"):
+                        x_hat += _scale_spectrum_(torch.conj(hh) * conv._rfftn(st["z0"] - st["u0"]),
+                                                  _per_lane(st["r0"]))
+                else:
+                    x_hat += st["htd_hat"]
+                _scale_spectrum_(x_hat, st["inv_den"])
+                st["x"] = conv._irfftn(x_hat, shape).contiguous()
+                hx = None
+                if data_split:
+                    with span("admm.data_split"):
+                        hx = conv._irfftn(hh * x_hat, shape)
+                        hxr = hx if al == 1.0 else al * hx + (1.0 - al) * st["z0"]
+                        z0 = data_prox(hxr + st["u0"])
+                        st["u0"] = st["u0"] + hxr - z0
+                        st["z0"] = z0
+                admm_split_update(st["x"], st["z1"], st["u1"], st["z2"], st["u2"], st["lam"], eps, al,
+                                  config.positivity, scales)
+                return hx
 
-    refresh_rho()
-    out = torch.empty_like(x)
-    iterations = np.full((nb,), n, np.int64)
-    status = np.full((nb,), 1 if use_tol else 0, np.int64)
-    splits = ("z0", "z1", "z2") if data_split else ("z1", "z2")
+            def balance_rho(z1_old, z2_old):
+                """Per-split residual balancing (Boyd 2011 section 3.4.1), scaled-dual
+                form: growing rho shrinks u by the same factor. rho0 stays fixed (its
+                dual residual would cost an extra FFT pair)."""
+                dx = _circ_diffs(st["x"], scales)
+                for rho, u, rp, sd in (
+                    ("rho1", "u1", _stack_norm([dx - st["z1"]]),
+                     _stack_norm([_circ_diffs_adjoint(st["z1"] - z1_old, scales)])),
+                    ("rho2", "u2", _stack_norm([st["x"] - st["z2"]]), _stack_norm([st["z2"] - z2_old])),
+                ):
+                    sd = st[rho] * sd
+                    fac = torch.where(rp > 10.0 * sd, 2.0, torch.where(sd > 10.0 * rp, 0.5, 1.0)).to(dtype)
+                    st[rho] = st[rho] * fac
+                    st[u] /= fac.reshape((-1,) + (1,) * (st[u].ndim - 1))
+                refresh_rho()
 
-    def result() -> torch.Tensor:
-        """The live lanes' answer: z2 is feasible (>= 0) by construction."""
-        return st["z2"] if config.positivity else st["x"]
+            def converged(z_old, hx) -> torch.Tensor:
+                """The Boyd test on the live lanes. The splits are z0 = Hx (data
+                paths), z1 = Dx, z2 = x, so the norms are elementwise except the two
+                H^T applications of the dual residual on the data-split paths."""
+                dx = _circ_diffs(st["x"], scales)
+                r_terms, z_terms = [dx - st["z1"], st["x"] - st["z2"]], [st["z1"], st["z2"]]
+                if data_split:
+                    r_terms.append(hx - st["z0"])
+                    z_terms.append(st["z0"])
+                rr1, rr2 = _per_lane(st["rho1"]), _per_lane(st["rho2"])
 
-    for i in range(1, n + 1):
-        check = use_tol and i % check_every == 0
-        z_old = {k: st[k].clone() for k in splits} if check else None
-        if adaptive_rho:
-            z1_old, z2_old = (z_old["z1"], z_old["z2"]) if check else (st["z1"].clone(), st["z2"].clone())
-        hx = step()
-        if adaptive_rho:
-            balance_rho(z1_old, z2_old)
-        if track_objective:
-            hist[st["lane"], i] = objective(st["z2"])
-        if not check:
-            continue
-        done = converged(z_old, hx)
-        stop = st["lane"][done].tolist()  # the check's host sync
-        if not stop:
-            continue
-        out[stop] = result()[done]
-        iterations[stop] = i
-        status[stop] = 0
-        keep = (~done).nonzero().squeeze(1)
-        st = {k: v[keep] for k, v in st.items()}
-        if keep.numel() == 0:
-            break
-        objective = objective_value(select_lanes(cost, st["lane"]), config)
-    out[st["lane"]] = result()
+                def conv_t(v):
+                    return conv._irfftn(torch.conj(spectrum("h_hat")) * conv._rfftn(v), shape)
 
-    f = objective_value(cost, config)(out).cpu().numpy()
-    f_history = hist.cpu().numpy()
-    if not batched:
-        return DeconvolutionResult(out[0], f[0], int(iterations[0]), int(iterations[0]), int(status[0]),
-                                   f_history[0], np.full_like(f_history[0], np.nan))
-    return DeconvolutionResult(out, f, iterations, iterations.copy(), status, f_history,
-                               np.full_like(f_history, np.nan))
+                def dual_fn():
+                    s_vec = rr1 * _circ_diffs_adjoint(st["z1"] - z_old["z1"], scales) + rr2 * (st["z2"] - z_old["z2"])
+                    aty = rr1 * _circ_diffs_adjoint(st["u1"], scales) + rr2 * st["u2"]
+                    if data_split:
+                        rr0 = _per_lane(st["r0"])
+                        s_vec = s_vec + rr0 * conv_t(st["z0"] - z_old["z0"])
+                        aty = aty + rr0 * conv_t(st["u0"])
+                    return s_vec, aty
+
+                n_el = float(np.prod(shape))
+                return _boyd_criterion(r_terms, z_terms, dual_fn, n_el * (4.0 + data_split), n_el, abstol, reltol)
+
+            refresh_rho()
+            out = torch.empty_like(x)
+            iterations = np.full((nb,), n, np.int64)
+            status = np.full((nb,), 1 if use_tol else 0, np.int64)
+            splits = ("z0", "z1", "z2") if data_split else ("z1", "z2")
+
+            def result() -> torch.Tensor:
+                """The live lanes' answer: z2 is feasible (>= 0) by construction."""
+                return st["z2"] if config.positivity else st["x"]
+
+        for i in range(1, n + 1):
+            check = use_tol and i % check_every == 0
+            z_old = {k: st[k].clone() for k in splits} if check else None
+            if adaptive_rho:
+                z1_old, z2_old = (z_old["z1"], z_old["z2"]) if check else (st["z1"].clone(), st["z2"].clone())
+            hx = step()
+            if adaptive_rho:
+                balance_rho(z1_old, z2_old)
+            if track_objective:
+                hist[st["lane"], i] = objective(st["z2"])
+            if not check:
+                continue
+            done = converged(z_old, hx)
+            stop = st["lane"][done].tolist()  # the check's host sync
+            if not stop:
+                continue
+            out[stop] = result()[done]
+            iterations[stop] = i
+            status[stop] = 0
+            keep = (~done).nonzero().squeeze(1)
+            st = {k: v[keep] for k, v in st.items()}
+            if keep.numel() == 0:
+                break
+            objective = _objective_value(select_lanes(cost, st["lane"]), config)
+        out[st["lane"]] = result()
+
+        f = _objective_value(cost, config)(out).cpu().numpy()
+        f_history = hist.cpu().numpy()
+        if not batched:
+            return DeconvolutionResult(out[0], f[0], int(iterations[0]), int(iterations[0]), int(status[0]),
+                                       f_history[0], np.full_like(f_history[0], np.nan))
+        return DeconvolutionResult(out, f, iterations, iterations.copy(), status, f_history,
+                                   np.full_like(f_history, np.nan))
 
 
 def fista_deconvolve(

@@ -28,6 +28,9 @@ changes. The JAX package gets the batch from ``jax.vmap``.
 The TPU-only exact matmul-DFT switch (``exact``/``auto_exact_fft``,
 ``ops/exactfft.py``) is not ported: cuFFT is float32-exact (measured by
 ``chip_smoke.py`` phase 5).
+
+``fft_calls`` counts the transforms the module's helpers take, one a call; a
+run sets it to 0 and reads it to count a solve's FFTs.
 """
 
 from __future__ import annotations
@@ -56,11 +59,20 @@ def _vdims(t: torch.Tensor) -> tuple[int, ...]:
     return tuple(range(-min(t.ndim, 3), 0))
 
 
+#: Transforms taken by :func:`_rfftn` and :func:`_irfftn` since the last reset (``fft_calls = 0``): one a
+#: call, whatever its batch; autograd's transforms in a backward pass are not counted.
+fft_calls = 0
+
+
 def _rfftn(x: torch.Tensor) -> torch.Tensor:
+    global fft_calls
+    fft_calls += 1
     return torch.fft.rfftn(x, dim=_vdims(x))
 
 
 def _irfftn(x_hat: torch.Tensor, shape) -> torch.Tensor:
+    global fft_calls
+    fft_calls += 1
     shape = tuple(shape)
     return torch.fft.irfftn(x_hat, s=shape, dim=tuple(range(-len(shape), 0)))
 
