@@ -63,11 +63,14 @@ raises and the script exits non-zero:
    (``cuobjdump``); then both kernels' ``kernel_ms``, ``call_ms`` and plain
    times at 256^3, 4x64x256x256 and the tiled run's 4x256^3 (its ragged
    3x256^3 batch is compared too, and phase 22's 8, 3, 2 and 1 lanes of
-   64x512x512);
+   64x512x512); then the two data-split kernels (``csrc/data_split.cu``) at
+   the benchmark's 104x712x672 grid, one lane and three, bit for bit against
+   their plain versions, and their times;
 10. ``admm_deconvolve`` at full width on the bench scene (256^3, 20
     iterations): untracked (the ``admm_value`` lane of ``bench.py``), tracked
     (``f_history`` must fall and end below phase 3's VMLMB objective),
-    weighted by ``InverseVarianceWeights.from_data`` (the data split), and
+    weighted by ``InverseVarianceWeights.from_data`` (the data split, each of
+    its kernels once an iteration), and
     stopped by the Boyd residual test; then two 200-iteration float32 runs
     that must agree bit for bit;
 11. ``blind_deconvolve`` with the ADMM engine, the recommended recipe (the
@@ -295,6 +298,15 @@ ADMM_ULPS = 4  # float32 ulp of the largest value: the Newton prox against the f
 # gradient (vmag = sqrt(tiny), 1.1e-19); the SASS instructions it counts.
 SOLVE_ITERATIONS, SOLVE_ALPHAS, TINY_VMAG = (1, 10, 20), (1.8, 1.0), 1e-18
 SASS_OPS = ("MUFU.RCP", "MUFU.RSQ", "FCHK", "CALL.REL")
+# The data-split kernels (csrc/data_split.cu) at the benchmark's C. elegans grid (benchmark/configs), one lane and
+# three. Bytes an element, each input read once and each output written once: the spectrum step 11 floats a
+# frequency (5.5 complex spectra); the prox 4 bytes a volume by (data term, alpha): weighted over-relaxed reads hx,
+# z0, u0, wd, w and writes z0, u0, t. Operations an element (18 for the spectrum step; the prox 11 weighted, 24
+# Poisson, over-relaxed) take under a twentieth of the bytes' time, so the bound is the bytes'.
+DATA_SPLIT_GRID, DATA_SPLIT_LANES = (104, 712, 672), (1, 3)
+SPECTRUM_BYTES, SPECTRUM_OPS = 44, 18
+PROX_VOLUMES = {("weighted", 1.8): 8, ("weighted", 1.0): 7, ("poisson", 1.8): 7, ("poisson", 1.0): 6}
+PROX_OPS = {"weighted": 11, "poisson": 24}
 
 
 def tv_bound(x: torch.Tensor) -> tuple[float, str]:
@@ -327,7 +339,7 @@ def phase0_card() -> str:
 def phase1_build() -> None:
     from microtipi_tpu_torch._build import build_report, load_library
 
-    names = ("hyperbolic_tv", "admm_split")
+    names = ("hyperbolic_tv", "admm_split", "data_split")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source, side by side
         for built in [pool.submit(load_library, name) for name in names]:
@@ -1229,6 +1241,92 @@ def phase9_times(card: str, worst: dict, solve: dict) -> tuple[dict, dict]:
                                                            "tiled_batch": (tiled, rhs[tiled])})
 
 
+def phase9_data_split(card: str) -> tuple[dict, dict]:
+    """Both data-split kernels against their plain versions at the benchmark's
+    grid (DATA_SPLIT_GRID) over DATA_SPLIT_LANES lanes, bit for bit, and their
+    times: the spectrum step with one h for every lane (one lane) or one a
+    lane (three), the prox by data term and over-relaxation. Returns their
+    entries of the kernels line."""
+    from microtipi_tpu_torch.ops.kernels import data_split as ds
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    spectrum, prox = {}, {}
+
+    def timed(prepare, call, plain, n_elem: int, bytes_per_elem: float, ops: int, what: str) -> dict:
+        t = {"kernel_ms": raw_ms(prepare), "call_ms": _median_ms(call), "plain_ms": _median_ms(plain, n=5, warmup=1)}
+        t_bytes, t_ops = n_elem * bytes_per_elem / HBM_BYTES_PER_S, n_elem * ops / F32_OPS_PER_S
+        t["bound_ms"], t["bound_by"] = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+        t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+        moved = n_elem * bytes_per_elem
+        log(9, f"[{card}] {what}: kernel_ms {t['kernel_ms']:.4f} (50 raw launches, "
+               f"{moved / (t['kernel_ms'] * 1e-3) / 1e9:.1f} GB/s), call_ms {t['call_ms']:.4f} (wrapper call, median "
+               f"of 20), plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+               f"{moved / 2**20:.0f} MiB at {HBM_BYTES_PER_S / 1e12} TB/s), {t['bound_share']:.1%} of it")
+        return t
+
+    def same(st: dict, pl: dict, what: str) -> None:
+        torch.cuda.synchronize()
+        bad = [k for k in st if not torch.equal(st[k], pl[k])]
+        if bad:
+            raise AssertionError(f"{what}: the kernel differs from its plain version in {bad}")
+
+    for nb in DATA_SPLIT_LANES:
+        vol = (nb, *DATA_SPLIT_GRID)
+        spec = (nb, *DATA_SPLIT_GRID[:-1], DATA_SPLIT_GRID[-1] // 2 + 1)
+        st = {"x_hat": torch.randn(spec, dtype=torch.complex64, generator=gen, device="cuda"),
+              "sx": torch.randn(spec, dtype=torch.complex64, generator=gen, device="cuda"),
+              "h": 0.5 * torch.randn(spec[1:] if nb == 1 else spec, dtype=torch.complex64, generator=gen,
+                                     device="cuda"),
+              "r0": 0.2 + torch.rand(nb, generator=gen, device="cuda"),
+              "inv_den": 0.5 * torch.rand(spec, generator=gen, device="cuda")}
+        pl = {k: v.clone() for k, v in st.items()}
+        ds.unaligned_launches = 0
+        ds.data_split_spectrum(**st)
+        ds.data_split_spectrum_plain(**pl)
+        what = f"data_split_spectrum at {spec}, h {'shared' if nb == 1 else 'one a lane'}"
+        same(st, pl, what)
+        del pl
+        spectrum[nb] = timed(ds.prepare_spectrum(**st), lambda: ds.data_split_spectrum(**st),
+                             lambda: ds.data_split_spectrum_plain(**st), int(np.prod(spec)), SPECTRUM_BYTES,
+                             SPECTRUM_OPS, what + " (== plain bit for bit)")
+        del st
+
+        def uniform(lo, hi):
+            return lo + (hi - lo) * torch.rand(vol, generator=gen, device="cuda")
+
+        st = {"hx": uniform(-1.0, 6.0), "z0": uniform(-1.0, 6.0), "u0": uniform(-0.5, 0.5),
+              "t": torch.zeros(vol, device="cuda"), "r0": 0.2 + torch.rand(nb, generator=gen, device="cuda")}
+        data = torch.poisson(torch.full(vol, 4.0, device="cuda"), generator=gen)
+        weights = uniform(0.0, 3.0)
+        terms = {"weighted": {"wd": weights * data, "weights": weights}, "poisson": {"data": data, "background": 1.5}}
+        for (term, alpha), volumes in PROX_VOLUMES.items():
+            if nb > 1 and alpha == 1.0:
+                continue
+            pl = {k: v.clone() for k, v in st.items()}
+            ds.data_split_prox(**st, alpha=alpha, **terms[term])
+            ds.data_split_prox_plain(**pl, alpha=alpha, **terms[term])
+            what = f"data_split_prox at {vol}, {term}, alpha {alpha}"
+            same(st, pl, what)
+            del pl
+            prox[(nb, term, alpha)] = timed(
+                ds.prepare_prox(**st, alpha=alpha, **terms[term]),
+                lambda: ds.data_split_prox(**st, alpha=alpha, **terms[term]),
+                lambda: ds.data_split_prox_plain(**st, alpha=alpha, **terms[term]), int(np.prod(vol)), 4 * volumes,
+                PROX_OPS[term], what + f" (== plain bit for bit, {volumes} volumes)")
+        if ds.unaligned_launches:
+            raise AssertionError(f"the data-split kernels took their 4-byte instantiation at {vol}")
+        del st, data, weights, terms
+
+    def entry(main, others: dict) -> dict:
+        return {"max_abs_err": 0.0, "ms": main["call_ms"], **main, "library_ms": None, **others}
+
+    return (entry(spectrum[1], {"batched_h_a_lane": {"shape": [3, *DATA_SPLIT_GRID], **spectrum[3]}}),
+            entry(prox[(1, "weighted", 1.8)], {
+                **{f"{term}_alpha_{alpha:g}": t for (nb, term, alpha), t in prox.items() if nb == 1},
+                **{f"batched_{term}_alpha_{alpha:g}": {"shape": [nb, *DATA_SPLIT_GRID], **t}
+                   for (nb, term, alpha), t in prox.items() if nb > 1}}))
+
+
 def admm_times_line(shape, volumes: int, t: dict) -> str:
     moved = volumes * int(np.prod(shape)) * 4
     return (f"kernel_ms {t['kernel_ms']:.4f} (50 raw launches, {moved / (t['kernel_ms'] * 1e-3) / 1e9:.1f} GB/s), "
@@ -1243,15 +1341,19 @@ class AdmmCounts:
 
     def __enter__(self):
         from microtipi_tpu_torch.ops.kernels import admm_split as ak
+        from microtipi_tpu_torch.ops.kernels import data_split as ds
         from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
 
-        self.ak, self.hv = ak, hv
+        self.ak, self.ds, self.hv = ak, ds, hv
         ak.split_launches = ak.rhs_launches = ak.split_unaligned_launches = 0
+        ds.spectrum_launches = ds.prox_launches = ds.unaligned_launches = 0
         hv.launches = hv.batched_launches = hv.unaligned_launches = 0
         return self
 
     def __exit__(self, *exc):
         self.split, self.rhs = self.ak.split_launches, self.ak.rhs_launches
+        self.spectrum, self.prox, self.data_split_unaligned = (self.ds.spectrum_launches, self.ds.prox_launches,
+                                                               self.ds.unaligned_launches)
         self.tv_single, self.tv_batched = self.hv.launches, self.hv.batched_launches
         self.tv = self.tv_single + self.tv_batched
         self.unaligned = self.hv.unaligned_launches + self.ak.split_unaligned_launches
@@ -1285,9 +1387,10 @@ def _timed(fn, runs: int = 3):
     return float(np.median(walls)), res
 
 
-def phase10_admm(card: str, f_vmlmb: float) -> tuple[int, int]:
+def phase10_admm(card: str, f_vmlmb: float) -> tuple[int, int, int]:
     """``admm_deconvolve`` on phase 3's scene and config (``bench.py:150-153``).
-    Returns the two ADMM kernels' launches on these paths."""
+    Returns the two ADMM kernels' launches on these paths and each data-split
+    kernel's (the weighted solve's)."""
     from microtipi_tpu_torch.jobs.admm import admm_deconvolve
     from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
     from microtipi_tpu_torch.weights.updaters import InverseVarianceWeights
@@ -1330,10 +1433,14 @@ def phase10_admm(card: str, f_vmlmb: float) -> tuple[int, int]:
     _check_object("weighted admm_deconvolve", res.x)
     if not np.isfinite(res.f):
         raise AssertionError(f"weighted admm_deconvolve: f={res.f}")
+    if (c.spectrum, c.prox, c.data_split_unaligned) != (4 * 20, 4 * 20, 0):
+        raise AssertionError(f"weighted admm_deconvolve: data_split_spectrum {c.spectrum} and data_split_prox "
+                             f"{c.prox} launches (expected 80 each), {c.data_split_unaligned} unaligned")
+    data_split_launches = c.prox
     log(10, f"[{card}] admm_deconvolve weighted by InverseVarianceWeights.from_data (the data split, 4 FFTs an "
-            f"iteration, its prox and dual update PyTorch operators): f {float(res.f):.6g}, {rate(wall, 20)}, "
-            f"{c.check('weighted', 4 * 20, 4 * 2)} (4 runs), peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            f"iteration, and its two kernels): f {float(res.f):.6g}, {rate(wall, 20)}, "
+            f"{c.check('weighted', 4 * 20, 4 * 2)}, data_split_spectrum {c.spectrum}, data_split_prox {c.prox} "
+            f"launches (4 runs), peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     budget = 600
     bcfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=budget, admm_reltol=1e-3, admm_abstol=1e-6)
@@ -1367,7 +1474,7 @@ def phase10_admm(card: str, f_vmlmb: float) -> tuple[int, int]:
             f"{float(torch.linalg.norm(one.x - two.x) / torch.linalg.norm(one.x)):.3g} relative L2")
     log(10, f"two float32 runs of 200 tracked iterations at {SHAPE}: f_history, f ({float(one.f):.6g}) and x equal bit "
             f"for bit; {c.check('determinism', 400, 404)}")
-    return int(launched[0]), int(launched[1])
+    return int(launched[0]), int(launched[1]), data_split_launches
 
 
 def blind_admm_config():
@@ -5792,7 +5899,9 @@ def main() -> int:
     setup = time.perf_counter() - t0
     batched_launches = phase7_batched(card) + phase8_tiled(card, psf, volume, setup)
     split_kern, rhs_kern = phase9_admm_kernels(card)
-    admm_launches = np.sum([phase10_admm(card, f_vmlmb), phase11_blind_admm(card),
+    spectrum_kern, prox_kern = phase9_data_split(card)
+    *engine_launches, data_split_launches = phase10_admm(card, f_vmlmb)
+    admm_launches = np.sum([engine_launches, phase11_blind_admm(card),
                             phase12_batched_tiled_admm(card, psf, volume)], axis=0)
     if admm_launches.min() == 0:
         raise AssertionError(f"the ADMM paths never launched a kernel: {admm_launches.tolist()}")
@@ -5871,6 +5980,11 @@ def main() -> int:
          "replaces": f"microtipi_tpu/jobs/admm.py:330-331, the joint engines' :723, :1059 and :1348, and "
                      f"microtipi_tpu/jobs/superres.py:331-332 ({fused_by_xla})",
          "launches": sum(rhs_paths.values()), "launches_by_path": rhs_paths, **rhs_kern},
+        *({"name": name, "route": "cuda", "source": "microtipi_tpu_torch/csrc/data_split.cu",
+           "replaces": f"microtipi_tpu/jobs/admm.py:{lines} ({fused_by_xla})", "launches": data_split_launches,
+           "launches_by_path": {"weighted 3D engine (phase 10)": data_split_launches}, **kern}
+          for name, lines, kern in (("data_split_spectrum", "333-335 and 346", spectrum_kern),
+                                    ("data_split_prox", "316-325 and 347-349", prox_kern))),
         {"name": "hyperbolic_tv_slab", "route": "cuda", "source": source,
          "replaces": "microtipi_tpu/ops/pallas/hyperbolic_tv.py:80, :111 and :203 on a z-sharded mesh, with the "
                      "halo exchanges GSPMD inserts around them (microtipi_tpu/parallel/deconv.py:9-14)",

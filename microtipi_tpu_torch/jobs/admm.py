@@ -26,12 +26,15 @@ CUDA kernels of ``ops/kernels/admm_split.py``: ``admm_rhs`` and
 ``admm_split_update``, one launch each an iteration, with the FFT pair and a
 few spectrum operations between them (the JAX module's ``_circ_diffs``,
 ``_circ_diffs_adjoint`` and ``_hyperbolic_prox`` live there too, as the
-kernels' plain building blocks). The weighted/Poisson data split (its
-pointwise prox and dual update between the FFTs) and the residual norms of
-``adaptive_rho`` and of the Boyd test stay PyTorch operators. The loop fetches
-no scalar to the host: ``f_history`` is collected on the device and copied once
-at the end, and a Boyd check costs one host sync (two when the primal test
-passes), every ``admm_check_every`` iterations.
+kernels' plain building blocks). The weighted/Poisson data split is two more
+kernels, ``ops/kernels/data_split.py``, one launch each an iteration: its
+term of the x-update's spectrum with the denominator and ``H x``'s spectrum
+(``data_split_spectrum``), and its pointwise prox and dual update
+(``data_split_prox``). The residual norms of ``adaptive_rho`` and of the Boyd
+test stay PyTorch operators. The loop fetches no scalar to the host:
+``f_history`` is collected on the device and copied once at the end, and a
+Boyd check costs one host sync (two when the primal test passes), every
+``admm_check_every`` iterations.
 
 The engine is written once, over a batch: a 4D input (B, Nz, Ny, Nx) is B
 lanes with their own ``rho``s, norms, ``f`` and stopping (FFTs over the last
@@ -76,6 +79,7 @@ from microtipi_tpu_torch.ops.kernels.admm_split import (
     split_apply,
     split_magnitude,
 )
+from microtipi_tpu_torch.ops.kernels.data_split import data_split_prox, data_split_spectrum
 from microtipi_tpu_torch.utils.arrays import pad_fft_kernel
 from microtipi_tpu_torch.utils.profiling import span
 
@@ -193,7 +197,8 @@ def admm_deconvolve(
     pair. Per-voxel weights or the Poisson term add a data split ``z0 = Hx``
     whose prox is pointwise (weighted Gaussian: ``(w d + rho0 v)/(w + rho0)``;
     Poisson, m = z0 + b: the positive root of ``rho0 z^2 + z (1 + rho0 (b - v))
-    + (b - d - rho0 v b) = 0``); the x-update then takes 4 FFTs.
+    + (b - d - rho0 v b) = 0``); the x-update then takes 4 FFTs, with the
+    pointwise work on either side of them in the two data-split kernels.
 
     ``over_relax``: Boyd 2011 section 3.4.3, each split's ``Ax`` replaced by
     ``alpha Ax + (1-alpha) z_old`` in the prox argument and the dual update.
@@ -218,7 +223,9 @@ def admm_deconvolve(
 
     While a ``torch.profiler`` session records, the call is an ``admm.solve``
     span holding ``admm.setup``, an ``admm.objective`` a value and, on the
-    data-split paths, two ``admm.data_split`` an iteration
+    data-split paths, two ``admm.data_split`` an iteration: the transform of
+    ``z0 - u0`` and the spectrum kernel (the x-update's denominator
+    included), then ``H x``'s inverse transform and the prox kernel
     (``utils/profiling.span``).
     """
     with span("admm.solve"):
@@ -276,9 +283,13 @@ def admm_deconvolve(
                     r0 = 1.0 / torch.clamp_min(data.mean(dim=(1, 2, 3)) + bg, 1e-12)
                 else:
                     r0 = weights.mean(dim=(1, 2, 3))
-                st.update(r0=r0, data=data, z0=conv._irfftn(h_hat * conv._rfftn(x), shape), u0=torch.zeros_like(x))
+                if h_hat.ndim == 3:  # cuFFT lays one volume's spectrum out x-major; the spectrum kernel reads it in order
+                    kernel_spectra["h_hat"] = h_hat.contiguous()
+                z0 = conv._irfftn(h_hat * conv._rfftn(x), shape)
+                # t = z0 - u0, the next iteration's transform input: the prox kernel writes it.
+                st.update(r0=r0, data=data.contiguous(), z0=z0, u0=torch.zeros_like(x), t=z0.clone())
                 if not poisson:
-                    st.update(weights=weights, wd=weights * data)
+                    st.update(weights=weights.contiguous(), wd=weights * data)
             else:
                 st["htd_hat"] = torch.conj(h_hat) * conv._rfftn(data)
 
@@ -293,16 +304,6 @@ def admm_deconvolve(
                 st["inv_den"] = 1.0 / (den + (_per_lane(st["r0"]) * h2 if data_split else h2))
                 st["lam"] = mu / st["rho1"]
 
-            def data_prox(v):
-                """argmin_z g(z) + rho0/2 (z - v)^2 pointwise for the data term."""
-                rr0 = _per_lane(st["r0"])
-                if poisson:  # rho z^2 + z (1 + rho (b - v)) + (b - d - rho v b) = 0, the + root
-                    b_coef = 1.0 + rr0 * (bg - v)
-                    c_coef = bg - st["data"] - rr0 * v * bg
-                    disc = torch.clamp_min(b_coef * b_coef - 4.0 * rr0 * c_coef, 0.0)
-                    return (-b_coef + torch.sqrt(disc)) / (2.0 * rr0)
-                return (st["wd"] + rr0 * v) / (st["weights"] + rr0)
-
             def step():
                 """One ADMM iteration on the live lanes; returns ``hx`` (data-split
                 paths, for the Boyd test)."""
@@ -311,20 +312,19 @@ def admm_deconvolve(
                 x_hat = conv._rfftn(rhs)
                 if data_split:
                     with span("admm.data_split"):
-                        x_hat += _scale_spectrum_(torch.conj(hh) * conv._rfftn(st["z0"] - st["u0"]),
-                                                  _per_lane(st["r0"]))
+                        hx_hat = conv._rfftn(st["t"])
+                        data_split_spectrum(x_hat, hx_hat, hh, st["r0"], st["inv_den"])
                 else:
                     x_hat += st["htd_hat"]
-                _scale_spectrum_(x_hat, st["inv_den"])
+                    _scale_spectrum_(x_hat, st["inv_den"])
                 st["x"] = conv._irfftn(x_hat, shape).contiguous()
                 hx = None
                 if data_split:
                     with span("admm.data_split"):
-                        hx = conv._irfftn(hh * x_hat, shape)
-                        hxr = hx if al == 1.0 else al * hx + (1.0 - al) * st["z0"]
-                        z0 = data_prox(hxr + st["u0"])
-                        st["u0"] = st["u0"] + hxr - z0
-                        st["z0"] = z0
+                        hx = conv._irfftn(hx_hat, shape)
+                        terms = (dict(data=st["data"], background=bg) if poisson
+                                 else dict(wd=st["wd"], weights=st["weights"]))
+                        data_split_prox(hx, st["z0"], st["u0"], st["t"], st["r0"], al, **terms)
                 admm_split_update(st["x"], st["z1"], st["u1"], st["z2"], st["u2"], st["lam"], eps, al,
                                   config.positivity, scales)
                 return hx

@@ -21,7 +21,8 @@ __all__ = ["SPAN_NAMES", "span", "trace"]
 #: Every span the program opens, as a reader of a trace finds it (``jobs/admm.admm_deconvolve``):
 #: ``admm.solve`` a call, the parent of the rest; ``admm.setup`` from entry to the loop; ``admm.objective``
 #: each objective value; ``admm.data_split`` each of an iteration's two data-split halves (weighted or
-#: Poisson only: the data term of the x-update's spectrum, then ``H x``, the prox and the dual update).
+#: Poisson only: the data term of the x-update's spectrum with its denominator, then ``H x``, the prox and the
+#: dual update).
 SPAN_NAMES = ("admm.solve", "admm.setup", "admm.objective", "admm.data_split")
 
 _OFF = contextlib.nullcontext()

@@ -3,7 +3,9 @@ against the JAX package on the CPU (float64, 1e-10): the circular differences
 and their adjoint, the Newton hyperbolic prox, the gradient spectrum, and the
 split update and right-hand side against a transcription of ``step_core``
 (``jobs/admm.py:327-368``) built from the JAX module's own pieces, with its
-stored mask volumes. Inputs come from numpy with a seed and feed both."""
+stored mask volumes. Inputs come from numpy with a seed and feed both. The
+data split's plain versions (``ops/kernels/data_split.py``) against the
+engine's PyTorch expressions they stand for, in float32."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 from microtipi_tpu.jobs import admm as jadmm
 from microtipi_tpu_torch.jobs import admm as tadmm
 from microtipi_tpu_torch.ops.kernels import admm_split as ak
+from microtipi_tpu_torch.ops.kernels import data_split as ds
 
 RTOL = 1e-10
 SHAPES = [(6, 12, 12), (5, 7, 9)]
@@ -205,3 +208,72 @@ def test_reciprocals_round_to_the_tensor_type():
         want = (torch.roll(x, -1, dims=a + 1) - x).numpy() * np.float32(r32[a])
         np.testing.assert_array_equal(d[:, a].numpy(), want)
 
+
+
+def _split_volumes(nb, shape=(6, 10, 8), seed=9):
+    """float32 hx, z0, u0, t, weights, data (Poisson counts) and r0 (B,) of a batch."""
+    rng = np.random.default_rng(seed)
+
+    def vol(lo, hi):
+        return torch.tensor(rng.uniform(lo, hi, (nb, *shape)).astype(np.float32))
+
+    return dict(hx=vol(-1.0, 6.0), z0=vol(-1.0, 6.0), u0=vol(-0.5, 0.5), t=torch.zeros((nb, *shape)),
+                weights=vol(0.0, 3.0), data=torch.tensor(rng.poisson(4.0, (nb, *shape)).astype(np.float32)),
+                r0=torch.tensor(rng.uniform(0.2, 2.0, nb).astype(np.float32)))
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("alpha", [1.0, 1.8])
+@pytest.mark.parametrize("term", ["weighted", "poisson"])
+def test_data_split_prox_plain_is_the_engine_expressions_bitwise(term, alpha, nb):
+    """The plain prox, through its wrapper on CPU tensors, against the lines
+    ``jobs/admm.admm_deconvolve`` ran before the kernel (relaxation, the data
+    term's prox, the dual update), bit for bit, and ``t = z0 - u0``; no
+    launch is counted."""
+    st = _split_volumes(nb)
+    bg, al, data, w = 1.5, alpha, st["data"], st["weights"]
+    wd = w * data
+    rr0 = st["r0"].reshape(-1, 1, 1, 1)
+    hxr = st["hx"] if al == 1.0 else al * st["hx"] + (1.0 - al) * st["z0"]
+    v = hxr + st["u0"]
+    if term == "poisson":
+        b_coef = 1.0 + rr0 * (bg - v)
+        c_coef = bg - data - rr0 * v * bg
+        disc = torch.clamp_min(b_coef * b_coef - 4.0 * rr0 * c_coef, 0.0)
+        z0 = (-b_coef + torch.sqrt(disc)) / (2.0 * rr0)
+        terms = dict(data=data, background=bg)
+    else:
+        z0 = (wd + rr0 * v) / (w + rr0)
+        terms = dict(wd=wd, weights=w)
+    u0 = st["u0"] + hxr - z0
+    hx = st["hx"].clone()
+    ds.prox_launches = 0
+    ds.data_split_prox(st["hx"], st["z0"], st["u0"], st["t"], st["r0"], alpha, **terms)
+    assert ds.prox_launches == 0
+    assert torch.equal(st["z0"], z0) and torch.equal(st["u0"], u0) and torch.equal(st["hx"], hx)
+    assert torch.equal(st["t"], z0 - u0)
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("shared", [True, False])
+def test_data_split_spectrum_plain_is_the_complex_expression(shared, nb):
+    """The plain spectrum step, through its wrapper on CPU tensors, against
+    the engine's complex expression ``x_hat = (x_hat + conj(h) X r0) *
+    inv_den``, ``X = h x_hat`` (complex64, to 1e-6 of the largest value),
+    with one h for every lane or one a lane; no launch is counted."""
+    rng = np.random.default_rng(10)
+    spec = (nb, 6, 10, 5)
+
+    def cplx(shape):
+        return torch.tensor((rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64))
+
+    x_hat, sx, h = cplx(spec), cplx(spec), cplx(spec[1:] if shared else spec)
+    inv_den = torch.tensor(rng.uniform(0.1, 2.0, spec).astype(np.float32))
+    r0 = torch.tensor(rng.uniform(0.2, 2.0, nb).astype(np.float32))
+    want_x = (x_hat + torch.conj(h) * sx * r0.reshape(-1, 1, 1, 1)) * inv_den
+    want_sx = h * want_x
+    ds.spectrum_launches = 0
+    ds.data_split_spectrum(x_hat, sx, h, r0, inv_den)
+    assert ds.spectrum_launches == 0
+    for got, want in ((x_hat, want_x), (sx, want_sx)):
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from microtipi_tpu_torch.ops.kernels import admm_split as ak
+from microtipi_tpu_torch.ops.kernels import data_split as ds
 from microtipi_tpu_torch.ops.kernels import hyperbolic_tv as hv
 
 # float32 against float32 in another summation order (tests/test_pallas_tv.py:25-26).
@@ -828,3 +829,143 @@ def test_admm_slab_launches_match_plain_and_the_volume(shape, cuts, alpha, cuda_
     for i, k in enumerate(("z1", "u1", "z2", "u2")):
         assert torch.equal(torch.cat([p[i] for p in parts], 2 if i < 2 else 1), whole[k]), k
     assert torch.equal(torch.cat(rhs, 1), whole_rhs)
+
+
+# Volumes whose lanes' voxel and frequency counts are multiples of 4 (the 16-byte instantiation) or odd (the 4-byte one).
+SPLIT_SHAPES = [(20, 33, 48), (19, 33, 45)]
+
+
+def _spectrum_inputs(nb, vol, shared, device, seed=13):
+    """x_hat, X, h (one for every lane or one a lane), r0, inv_den of the data split's spectrum step."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    spec = (nb, *vol[:-1], vol[-1] // 2 + 1)
+
+    def cplx(shape):
+        return torch.randn(shape, dtype=torch.complex64, generator=gen, device=device)
+
+    return dict(x_hat=cplx(spec), sx=cplx(spec), h=cplx(spec[1:] if shared else spec),
+                r0=0.2 + torch.rand(nb, generator=gen, device=device),
+                inv_den=0.05 + torch.rand(spec, generator=gen, device=device))
+
+
+def _prox_inputs(nb, vol, term, device, seed=14):
+    """hx, z0, u0, t, r0 and the data term's volumes (wd and weights, or Poisson counts) of the prox."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (nb, *vol)
+
+    def vol_of(lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+    st = dict(hx=vol_of(-1.0, 6.0), z0=vol_of(-1.0, 6.0), u0=vol_of(-0.5, 0.5), t=torch.zeros(shape, device=device),
+              r0=0.2 + torch.rand(nb, generator=gen, device=device))
+    data = torch.poisson(torch.full(shape, 4.0, device=device), generator=gen)
+    if term == "poisson":
+        return st, dict(data=data, background=1.5)
+    w = vol_of(0.0, 3.0)
+    return st, dict(wd=w * data, weights=w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vol", SPLIT_SHAPES)
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("nb", [1, 3])
+def test_data_split_spectrum_matches_plain(vol, shared, nb, cuda_device):
+    """The spectrum kernel against its plain version, bit for bit, with one h
+    for every lane or one a lane; an odd frequency count takes the 4-byte
+    instantiation."""
+    st = _spectrum_inputs(nb, vol, shared, cuda_device)
+    pl = {k: v.clone() for k, v in st.items()}
+    ds.spectrum_launches = ds.unaligned_launches = 0
+    ds.data_split_spectrum(st["x_hat"], st["sx"], st["h"], st["r0"], st["inv_den"])
+    ds.data_split_spectrum_plain(pl["x_hat"], pl["sx"], pl["h"], pl["r0"], pl["inv_den"])
+    torch.cuda.synchronize()
+    assert (ds.spectrum_launches, ds.unaligned_launches) == (1, int(vol[-1] % 4 != 0))
+    for k in st:
+        assert torch.equal(st[k], pl[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vol", SPLIT_SHAPES)
+@pytest.mark.parametrize("term", ["weighted", "poisson"])
+@pytest.mark.parametrize("alpha", [1.0, 1.8])
+@pytest.mark.parametrize("nb", [1, 3])
+def test_data_split_prox_matches_plain(vol, term, alpha, nb, cuda_device):
+    """The prox kernel against its plain version, bit for bit: z0, u0 and t
+    written, the rest read only; an odd voxel count takes the 4-byte
+    instantiation."""
+    st, terms = _prox_inputs(nb, vol, term, cuda_device)
+    pl = {k: v.clone() for k, v in st.items()}
+    ds.prox_launches = ds.unaligned_launches = 0
+    ds.data_split_prox(st["hx"], st["z0"], st["u0"], st["t"], st["r0"], alpha, **terms)
+    ds.data_split_prox_plain(pl["hx"], pl["z0"], pl["u0"], pl["t"], pl["r0"], alpha, **terms)
+    torch.cuda.synchronize()
+    assert (ds.prox_launches, ds.unaligned_launches) == (1, int(vol[-1] % 4 != 0))
+    for k in st:
+        assert torch.equal(st[k], pl[k]), k
+
+
+@pytest.mark.cuda
+def test_data_split_kernels_on_unaligned_views_match_plain(cuda_device):
+    """Views 4 bytes off 16-byte alignment (counts multiples of 4) take the
+    4-byte instantiation of the prox and equal the plain version."""
+    st, terms = _prox_inputs(2, (20, 33, 48), "weighted", cuda_device, seed=15)
+    off = {k: _offset_copy(v) if v.ndim > 1 else v for k, v in st.items()}
+    assert off["hx"].data_ptr() % 16 != 0
+    ds.unaligned_launches = 0
+    ds.data_split_prox(off["hx"], off["z0"], off["u0"], off["t"], off["r0"], 1.8, **terms)
+    ds.data_split_prox_plain(st["hx"], st["z0"], st["u0"], st["t"], st["r0"], 1.8, **terms)
+    torch.cuda.synchronize()
+    assert ds.unaligned_launches == 1
+    assert all(torch.equal(off[k], st[k]) for k in ("z0", "u0", "t"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("term", ["weighted", "poisson", "uniform"])
+def test_admm_engine_launches_the_data_split_kernels_once_an_iteration(term, cuda_device):
+    """A 20-iteration weighted solve and a Poisson solve launch each data-split
+    kernel 20 times, in their 16-byte instantiations; a uniform solve
+    launches neither."""
+    from microtipi_tpu_torch.jobs.admm import admm_deconvolve
+    from microtipi_tpu_torch.jobs.deconv import DeconvolutionConfig
+
+    rng = np.random.default_rng(16)
+    data = torch.as_tensor(rng.poisson(5.0, (16, 32, 32)).astype(np.float32), device=cuda_device)
+    psf = torch.zeros((16, 32, 32), device=cuda_device)
+    psf[:2, :2, :2] = 0.125
+    weights = torch.as_tensor(rng.uniform(0.5, 2.0, data.shape).astype(np.float32), device=cuda_device)
+    cfg = DeconvolutionConfig(mu=0.01, epsilon=1.0, max_iter=20, data_term="poisson" if term == "poisson" else
+                              "gaussian", background=1.0)
+    ds.spectrum_launches = ds.prox_launches = ds.unaligned_launches = 0
+    res = admm_deconvolve(data, psf, weights=weights if term == "weighted" else None, config=cfg,
+                          track_objective=False)
+    n = 0 if term == "uniform" else 20
+    assert (ds.spectrum_launches, ds.prox_launches, ds.unaligned_launches) == (n, n, 0)
+    assert bool(torch.isfinite(res.x).all())
+
+
+@pytest.mark.cuda
+def test_data_split_kernels_reject_what_they_do_not_take(cuda_device):
+    sp = _spectrum_inputs(2, (8, 8, 8), False, cuda_device)
+    args = [sp[k] for k in ("x_hat", "sx", "h", "r0", "inv_den")]
+    with pytest.raises(TypeError):
+        ds.data_split_spectrum(sp["x_hat"].to(torch.complex128), *args[1:])
+    with pytest.raises(ValueError, match="expected shape"):
+        ds.data_split_spectrum(*args[:2], sp["h"][:1], *args[3:])
+    with pytest.raises(ValueError, match="one device"):
+        ds.data_split_spectrum(*args[:3], sp["r0"].cpu(), args[4])
+    with pytest.raises(ValueError, match="contiguous"):
+        ds.data_split_spectrum(*args[:4], sp["inv_den"].transpose(2, 3).contiguous().transpose(2, 3))
+    st, terms = _prox_inputs(2, (8, 8, 8), "weighted", cuda_device)
+    args = [st[k] for k in ("hx", "z0", "u0", "t", "r0")]
+    with pytest.raises(TypeError):
+        ds.data_split_prox(st["hx"].double(), *args[1:], 1.8, **terms)
+    with pytest.raises(ValueError, match="expected shape"):
+        ds.data_split_prox(*args[:3], st["t"][:, 1:].contiguous(), args[4], 1.8, **terms)
+    with pytest.raises(ValueError, match="one device"):
+        ds.data_split_prox(*args[:4], st["r0"].cpu(), 1.8, **terms)
+    with pytest.raises(ValueError, match="contiguous"):
+        ds.data_split_prox(st["hx"].transpose(2, 3).contiguous().transpose(2, 3), *args[1:], 1.8, **terms)
+    with pytest.raises(ValueError, match="batch"):
+        ds.data_split_prox(st["hx"][0], *args[1:], 1.8, **terms)
+    with pytest.raises(ValueError, match="Poisson"):
+        ds.data_split_prox(*args, 1.8, data=terms["wd"], **terms)
